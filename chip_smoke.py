@@ -5,13 +5,25 @@ Needs one CUDA device; imports neither JAX nor ``srt_tpu``. Phases, each
 of which raises on failure:
 
 1. the device: its name and power limit from ``nvidia-smi``;
-2. build: ``nvcc`` compiles ``srt_tpu_torch/csrc/*.cu`` for ``sm_90a``;
-3. the bounce kernel against its plain PyTorch version on the card: one
-   step of a mid-flight 65,536-lane ball_scenes wavefront lane by lane,
-   a 64x64, 4 spp, depth 8 image, and the time per bounce of each;
-4. the main path: ``render_regen`` on ball_scenes at 512x512, 16 spp,
-   depth 50, a 65,536-lane wavefront and seed 0, through the kernel, once
-   to warm up and five times timed.
+2. build: ``nvcc`` compiles each ``srt_tpu_torch/csrc/*.cu`` for
+   ``sm_90a``, all at once, and links one library;
+3. the regeneration kernel (B1) against its plain PyTorch version on the
+   card: one step of a mid-flight 65,536-lane ball_scenes wavefront lane
+   by lane, a 64x64, 4 spp, depth 8 image, and the time per bounce of each;
+4. the render path: ``render_regen`` on ball_scenes at 512x512, 16 spp,
+   depth 50, a 65,536-lane wavefront and seed 0, through B1, once to warm
+   up and five times timed;
+5. the train kernels against their plain versions on the card, on a
+   16,384-lane ball_scenes state (``render_pixels``' camera rays, three
+   plain bounces, a seeded half of the lanes dead): one launch of the
+   forward kernel (B2) against the plain step, one launch of the backward
+   kernel (B5) against ``torch.autograd`` of the plain step, and the time
+   per bounce of each;
+6. the train path: ``make_train_step`` on ball_scenes at 256x256, 4 spp,
+   depth 50, a 16,384-lane wavefront, depth budget 4.0, drain 12,
+   parameters ``{"tex_color"}``, Adam at 1e-2, a constant 0.3 target: one
+   step to warm up, then three timed steps with seeds 1-3, 76 bounces
+   each, every bounce one B2 and one B5 launch.
 
 Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -29,6 +41,29 @@ LANES = 1 << 16
 MAIN = dict(width=512, height=512, spp=16, max_depth=50, seed=0,
             rr_start=1 << 30, wavefront=LANES)
 MAIN_REPS = 5       # one render takes tens of ms; its rate varies by run
+TRAIN = dict(width=256, height=256, spp=4, max_depth=50)
+TRAIN_ENGINE = dict(wavefront=1 << 14, depth_budget=4.0, drain=12)
+TRAIN_LANES = 1 << 14
+TRAIN_STEPS = 3
+TRAIN_TARGET = 0.3
+TRAIN_LR = 1e-2
+
+# H100 SXM peaks at 700 W (NVIDIA's data sheet): float32 outside the
+# tensor cores, and HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# Operations per lane, counted from srt_tpu_torch/csrc/bounce_core.cuh
+# (arithmetic and transcendental operations alike count one): one sphere
+# test of closest_hit, one rect test, and shade<float> on a lane
+# (Beckmann VNDF with about four Newton rounds, light sample, pdfs)
+OPS_SPHERE = 21
+OPS_RECT = 10
+OPS_SHADE = 600
+# shade<Dual<7>>: each float operation becomes a value and 7 tangents,
+# 15 operations on average (a product takes 1 + 3*7, a sum 1 + 7); the
+# backward kernel runs two such passes
+OPS_DUAL = 15
+BWD_PASSES = 2
 
 
 def log(*a):
@@ -39,57 +74,45 @@ def clone(st: dict) -> dict:
     return {k: v.clone() for k, v in st.items()}
 
 
-def time_bounces(step, inp, st0, spec, reps: int) -> float:
-    """Milliseconds per bounce over ``reps`` steps from a copy of ``st0``."""
+def bound(n_bytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory
+    rate or operations over the float32 rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_ms(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` over ``reps`` calls (CUDA events),
+    after one warm-up call."""
     import torch
-    st = clone(st0)
-    step(inp, st, spec)                    # warm
+    fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
-        step(inp, st, spec)
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--ppm", default=None,
-                    help="also write the main-path image (sqrt gamma) here")
-    args = ap.parse_args()
+def time_bounces(step, inp, st0, spec, reps: int) -> float:
+    """Milliseconds per bounce over ``reps`` steps from a copy of ``st0``."""
+    st = clone(st0)
+    return time_ms(lambda: step(inp, st, spec), reps)
 
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+def phase_regen_kernel(scene, cam, dev) -> dict:
+    """Phase 3: kernel B1 against its plain version."""
     import numpy as np
+    import torch
 
-    from srt_tpu_torch import RenderConfig, get_scene, render_regen
+    from srt_tpu_torch import RenderConfig, render_regen
     from srt_tpu_torch.core.sobol import sobol_points
     from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import build
     from srt_tpu_torch.scene.ir import SceneFlags
     from srt_tpu_torch.utils import contract
 
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
-        f"{torch.__version__} cuda {torch.version.cuda}")
-
-    # --- 2. build -------------------------------------------------------
-    t0 = time.time()
-    build.load_library()
-    log(f"[build] {time.time() - t0:.1f}s {build.library_path()}")
-    for line in build.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-
-    # --- 3. kernel against plain ------------------------------------------
-    scene, cam, _ = get_scene("ball_scenes", device=dev)
     flags = SceneFlags.of(scene)
     spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
                         rr_start=1 << 30, pdf_floor=1e-9, seed=0)
@@ -118,7 +141,6 @@ def main() -> None:
         raise AssertionError(f"fin mismatch {fin_mismatch}")
     m = contract.check_bounce(contract.wavefront_arrays(st_p),
                               contract.wavefront_arrays(st_k))
-    max_abs_err = m["radiance"]["max"]
     log(f"[bounce] {LANES} lanes, {dead0:.3f} dead before the step: ints "
         f"exact, fin mismatch {fin_mismatch}, {json.dumps(m)}")
 
@@ -128,7 +150,7 @@ def main() -> None:
     plain_ms.append(time_bounces(kb.regen_bounce_reference, inp, mid,
                                  spec, 10))
     log(f"[bounce] ms per bounce at {LANES} lanes: kernel {kern_ms}, "
-        f"plain {plain_ms} ({smi})")
+        f"plain {plain_ms}")
 
     small = RenderConfig(width=64, height=64, spp=4, max_depth=8,
                          wavefront=LANES)
@@ -138,7 +160,32 @@ def main() -> None:
     mi = contract.check_image(img_k, img_p)
     log(f"[image] 64x64x4 depth 8 kernel vs plain: {json.dumps(mi)}")
 
-    # --- 4. main path -----------------------------------------------------
+    # what the timed step needs: every lane reads 68 B and writes 12 B
+    # (depth, alive, finished); a live lane writes 48 B of state, a
+    # regenerated one 12 B more; live lanes sweep and shade
+    remaining = spec.total_work - int(mid["cursor"][0])
+    n_live = min(LANES, int((mid["alive"] != 0).sum())
+                 + min(remaining, int((mid["alive"] == 0).sum())))
+    n_new = n_live - int((mid["alive"] != 0).sum())
+    ms_bound, by = bound(LANES * (68 + 12) + n_live * 48 + n_new * 12,
+                         n_live * (scene.n_spheres * OPS_SPHERE
+                                   + scene.n_rects * OPS_RECT + OPS_SHADE))
+    return {"name": "regen_bounce", "route": "cuda",
+            "source": "srt_tpu_torch/csrc/regen_bounce.cu",
+            "replaces": "srt_tpu/pallas/bounce.py:1067",
+            "max_abs_err": m["radiance"]["max"], "ms": min(kern_ms),
+            "plain_ms": min(plain_ms), "bound_ms": ms_bound,
+            "bound_by": by, "library_ms": None}
+
+
+def phase_render(scene, cam, ppm) -> int:
+    """Phase 4: the render path through B1; returns its launches."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import RenderConfig, render_regen
+    from srt_tpu_torch.kernels import bounce as kb
+
     cfg = RenderConfig(**MAIN)
     t0 = time.time()
     render_regen(scene, cam, cfg)
@@ -163,17 +210,246 @@ def main() -> None:
     log(f"[main] ball_scenes 512x512x16 depth 50, {MAIN_REPS} renders: "
         f"median {rates[len(rates) // 2]:.1f} primary rays/s (all {rates}), "
         f"first render {warmup_s:.3f}s, mean {mean:.5f}, nan_pixels "
-        f"{nan_pixels}, {json.dumps(met.to_dict())} ({smi})")
-    if args.ppm:
+        f"{nan_pixels}, {json.dumps(met.to_dict())}")
+    if ppm:
         from srt_tpu_torch.io.image import write_ppm
-        write_ppm(args.ppm, np.sqrt(np.clip(img, 0.0, 1.0)))
+        write_ppm(ppm, np.sqrt(np.clip(img, 0.0, 1.0)))
+    return launches
 
-    print(json.dumps({"kernels": [{
-        "name": "regen_bounce", "route": "cuda",
-        "source": "srt_tpu_torch/csrc/regen_bounce.cu",
-        "replaces": "srt_tpu/pallas/bounce.py:1067",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": min(kern_ms), "plain_ms": min(plain_ms)}]}), flush=True)
+
+def train_state(scene, cam, flags, tables, spec, dev) -> dict:
+    """A mid-flight 16,384-lane wavefront of the train engine: lanes start
+    from ``render_pixels``' camera rays (256x256, 4 spp, seed 0, taken in
+    a seeded order), take three plain bounces, and a lane that ends is
+    refilled from the ray queue, as the engine does; then a seeded half of
+    the lanes is marked dead."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.diff.inverse import camera_rays
+    from srt_tpu_torch.kernels import bounce as kb
+
+    w, spp = TRAIN["width"], TRAIN["spp"]
+    rays, salt = camera_rays(cam, torch.arange(w * w, device=dev), spp,
+                             width=w, height=w, seed=0)
+    r = np.random.default_rng(1)
+    queue = torch.from_numpy(r.permutation(w * w * spp)).to(dev)
+    n = TRAIN_LANES
+    st = dict(o=torch.zeros((n, 3), device=dev),
+              d=torch.zeros((n, 3), device=dev),
+              time=torch.zeros((n,), device=dev),
+              beta=torch.zeros((n, 3), device=dev),
+              radiance=torch.zeros((n, 3), device=dev),
+              alive=torch.zeros((n,), dtype=torch.bool, device=dev),
+              salt=torch.zeros((n,), dtype=torch.int32, device=dev),
+              depth=torch.zeros((n,), dtype=torch.int32, device=dev))
+    cursor = 0
+    for i in range(4):
+        lanes = torch.nonzero(~st["alive"])[:, 0]
+        src = queue[cursor:cursor + lanes.shape[0]]
+        cursor += lanes.shape[0]
+        for k, v in (("o", rays[0]), ("d", rays[1]), ("time", rays[2]),
+                     ("salt", salt)):
+            st[k][lanes] = v[src]
+        st["beta"][lanes] = 1.0
+        st["radiance"][lanes] = 0.0
+        st["depth"][lanes] = 0
+        st["alive"][lanes] = True
+        if i < 3:
+            with torch.no_grad():
+                st = kb.bounce_step_ref(scene, flags, tables["mat"], st,
+                                        spec)
+            st["alive"] = st["alive"] & (st["depth"] < spec.max_depth)
+    st["alive"] = st["alive"] & torch.from_numpy(r.random(n) >= 0.5).to(dev)
+    return {k: v.contiguous() for k, v in st.items()}
+
+
+def phase_train_kernels(scene, cam, dev) -> list:
+    """Phase 5: kernels B2 and B5 against their plain versions."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.utils import contract
+
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    st = train_state(scene, cam, flags, tables, spec, dev)
+    n = TRAIN_LANES
+    n_live = int(st["alive"].sum())
+
+    # B2: one launch against the plain step
+    out_k = kb.bounce_fwd(scene, flags, tables, st, spec)
+    out_p = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k["depth"], out_p["depth"]):
+        raise AssertionError("B2 depth differs")
+
+    def arrays(o):
+        return {"alive": o["alive"].cpu().numpy(),
+                **{k: o[k].cpu().numpy() for k in ("d", "beta", "radiance")}}
+    m2 = contract.check_bounce(arrays(out_p), arrays(out_k))
+    err2 = max(m2[k]["max"] for k in ("d", "beta", "radiance"))
+    log(f"[train-fwd] {n} lanes, {n_live} live: depth exact, "
+        f"{json.dumps(m2)}")
+
+    # B5: one launch against torch.autograd of the plain step. The
+    # cotangent of o, d and beta is zero where the step ends the path, as
+    # in the engine: a finished lane's o, d, beta are never read again
+    # (the kernels leave them as they were, the plain step overwrites beta)
+    r = np.random.default_rng(2)
+    keep = out_p["alive"][:, None].float()
+    ct = {k: torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32))
+          .to(dev) for k in kbb.ROWS}
+    for k in ("o", "d", "beta"):
+        ct[k] = ct[k] * keep
+    g_k, dmat_k = kbb.bounce_bwd(scene, flags, tables, st, ct, spec)
+    g_p, dmat_p = kbb.bounce_bwd_reference(scene, flags, tables["mat"], st,
+                                           ct, spec)
+    torch.cuda.synchronize()
+    m5 = contract.check_grads({k: g_p[k].cpu().numpy() for k in kbb.ROWS},
+                              {k: g_k[k].cpu().numpy() for k in kbb.ROWS})
+    a, b = dmat_p.cpu().numpy(), dmat_k.cpu().numpy()
+    scale = float(np.abs(a).max())
+    mat_rel = float(np.abs(a - b).max() / max(scale, 1e-30))
+    if not np.isfinite(b).all() or not np.allclose(
+            b, a, rtol=contract.GRAD_RTOL, atol=1e-4 * scale):
+        raise AssertionError(f"B5 material sums differ: max rel {mat_rel}")
+    log(f"[train-bwd] {n} lanes: d_state {json.dumps(m5)}, (M,14) sums max "
+        f"|d| / max|ref| {mat_rel:.3e}")
+
+    # kernel times: the bare launch on arguments built once, so the
+    # wrapper's checks and allocations stay out of the timed loop
+    from srt_tpu_torch.kernels.build import launch
+    reps_k, reps_p = 200, 5
+    fargs, _ = kb.fwd_args(scene, tables, st, spec)
+    bargs, _ = kbb.bwd_args(scene, tables, st, ct, spec)
+    fwd_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), reps_k)
+              for _ in range(2)]
+    fwd_plain = time_ms(lambda: kb.bounce_step_ref(
+        scene, flags, tables["mat"], st, spec), reps_p)
+    bwd_ms = [time_ms(lambda: launch("srt_bounce_bwd", bargs, dev), reps_k)
+              for _ in range(2)]
+    bwd_plain = time_ms(lambda: kbb.bounce_bwd_reference(
+        scene, flags, tables["mat"], st, ct, spec), reps_p)
+    log(f"[train-kernels] ms per launch at {n} lanes: B2 {fwd_ms} (plain "
+        f"step {fwd_plain}), B5 {bwd_ms} (plain autograd {bwd_plain})")
+
+    sweep = scene.n_spheres * OPS_SPHERE + scene.n_rects * OPS_RECT
+    fwd_bound = bound(n * (57 + 53), n_live * (sweep + OPS_SHADE))
+    bwd_bound = bound(n * (105 + 92), n_live * (
+        sweep + BWD_PASSES * OPS_DUAL * OPS_SHADE))
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "bounce", "source": "srt_tpu_torch/csrc/bounce.cu",
+         "replaces": "srt_tpu/pallas/bounce.py:1067", "max_abs_err": err2,
+         "ms": min(fwd_ms), "plain_ms": fwd_plain, "bound_ms": fwd_bound[0],
+         "bound_by": fwd_bound[1], **common},
+        {"name": "bounce_bwd", "source": "srt_tpu_torch/csrc/bounce_bwd.cu",
+         "replaces": "srt_tpu/pallas/bounce_bwd.py:76",
+         "max_abs_err": m5["max_abs"], "ms": min(bwd_ms),
+         "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
+         "bound_by": bwd_bound[1], **common}]
+
+
+def phase_train(scene, cam, dev) -> tuple[int, int]:
+    """Phase 6: the train path; returns the B2 and B5 launches of the
+    timed steps."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import make_train_step
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.render.regen_scan import steps_for
+
+    w, spp = TRAIN["width"], TRAIN["spp"]
+    rays = w * w * spp
+    step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
+                           width=w, height=w, spp=spp,
+                           max_depth=TRAIN["max_depth"], lr=TRAIN_LR,
+                           engine_kw=TRAIN_ENGINE, device=dev)
+    target = torch.full((w, w, 3), TRAIN_TARGET, device=dev)
+    t0 = time.time()
+    loss0 = float(step(target, 0))
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = 0
+    walls, losses = [], []
+    for seed in range(1, TRAIN_STEPS + 1):
+        t0 = time.time()
+        loss = step(target, seed)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        losses.append(float(loss))
+    fwd, bwd = kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD
+    n_steps = steps_for(rays, TRAIN_ENGINE["wavefront"],
+                        TRAIN_ENGINE["depth_budget"], TRAIN["max_depth"],
+                        drain=TRAIN_ENGINE["drain"])
+    if not fwd == bwd == n_steps * TRAIN_STEPS:
+        raise AssertionError(f"{fwd} forward and {bwd} backward launches "
+                             f"for {TRAIN_STEPS} steps of {n_steps} bounces")
+    if not all(np.isfinite([loss0] + losses)):
+        raise AssertionError(f"losses {loss0} {losses}")
+    grad = step.params["tex_color"].grad.cpu().numpy()
+    const = sorted(set(scene.mat_tex.tolist())
+                   & set(np.flatnonzero(scene.tex_type.cpu().numpy() == 0)
+                         .tolist()))
+    if not np.isfinite(grad).all() or not (np.abs(grad[const]).sum(-1)
+                                           > 0).all():
+        raise AssertionError(f"tex_color gradient {grad} (rows {const})")
+    med = sorted(walls)[len(walls) // 2]
+    log(f"[train] ball_scenes {w}x{w}x{spp} depth {TRAIN['max_depth']}, "
+        f"{n_steps} bounces a step: median {rays / med:.1f} train-step "
+        f"rays/s (step walls {walls} s), warm-up step {warmup_s:.3f} s, "
+        f"losses {[loss0] + losses}, {fwd} B2 and {bwd} B5 launches, "
+        f"tex_color gradient finite, nonzero on rows {const}")
+    return fwd, bwd
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ppm", default=None,
+                    help="also write the main-path image (sqrt gamma) here")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+    from srt_tpu_torch import get_scene
+    from srt_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+
+    # --- 2. build -------------------------------------------------------
+    t0 = time.time()
+    build.load_library()
+    log(f"[build] {time.time() - t0:.1f}s {build.library_path()}")
+    for line in build.ptxas_report().splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+
+    scene, cam, _ = get_scene("ball_scenes", device=dev)
+    b1 = phase_regen_kernel(scene, cam, dev)                  # 3
+    b1["launches"] = phase_render(scene, cam, args.ppm)       # 4
+    b2, b5 = phase_train_kernels(scene, cam, dev)             # 5
+    b2["launches"], b5["launches"] = phase_train(scene, cam, dev)   # 6
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
+                                  for kern in (b1, b2, b5)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,18 @@
 """srt_tpu_torch — the path tracer ported to PyTorch and CUDA.
 
 The JAX package ``srt_tpu`` is the reference; this package imports neither
-it nor JAX. The first slice covers the regeneration engine on the scenes
-its coverage gate admits (``scene.ir.require_covered``), with the bounce
-as one hand-written CUDA kernel per launch (``csrc/regen_bounce.cu``).
+it nor JAX. It covers the scenes its coverage gate admits
+(``scene.ir.require_covered``) with two engines: the regeneration render
+engine, one hand-written CUDA kernel launch per bounce
+(``csrc/regen_bounce.cu``), and the inverse-rendering train step
+(``diff.make_train_step``), whose bounce is a CUDA forward kernel
+(``csrc/bounce.cu``) and a CUDA backward kernel (``csrc/bounce_bwd.cu``).
+Entry points put their tensors on the card unless the caller passes
+``device="cpu"``.
 """
+from srt_tpu_torch.diff import make_train_step
 from srt_tpu_torch.render.api import RenderConfig
 from srt_tpu_torch.render.regen import render_regen
 from srt_tpu_torch.scene.library import get_scene
 
-__all__ = ["RenderConfig", "get_scene", "render_regen"]
+__all__ = ["RenderConfig", "get_scene", "make_train_step", "render_regen"]

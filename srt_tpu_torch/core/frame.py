@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from srt_tpu_torch.core.gradsafe import grad_safe_sqrt, gsdiv
+
 
 def cos2_theta(w):
     return w[..., 2] * w[..., 2]
@@ -15,7 +17,7 @@ def sin2_theta(w):
 
 
 def sin_theta(w):
-    return torch.sqrt(sin2_theta(w))
+    return grad_safe_sqrt(1.0 - cos2_theta(w))
 
 
 def tan_theta(w):
@@ -26,19 +28,19 @@ def tan_theta(w):
 
 
 def tan2_theta(w):
-    return sin2_theta(w) / torch.clamp(cos2_theta(w), min=1e-20)
+    return gsdiv(sin2_theta(w), torch.clamp(cos2_theta(w), min=1e-20))
 
 
 def cos_phi(w):
     st = sin_theta(w)
     return torch.where(st == 0.0, 1.0, torch.clamp(
-        w[..., 0] / torch.clamp(st, min=1e-20), -1.0, 1.0))
+        gsdiv(w[..., 0], torch.clamp(st, min=1e-20)), -1.0, 1.0))
 
 
 def sin_phi(w):
     st = sin_theta(w)
     return torch.where(st == 0.0, 0.0, torch.clamp(
-        w[..., 1] / torch.clamp(st, min=1e-20), -1.0, 1.0))
+        gsdiv(w[..., 1], torch.clamp(st, min=1e-20)), -1.0, 1.0))
 
 
 def same_hemisphere(w, wp):

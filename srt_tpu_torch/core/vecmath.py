@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from srt_tpu_torch.core.gradsafe import grad_safe_sqrt, gsrecip
+
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
@@ -23,8 +25,9 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
-    """Unit vector: times the reciprocal of the clamped length."""
-    inv = 1.0 / torch.clamp(torch.sqrt(dot(a, a)), min=eps)
+    """Unit vector: times the reciprocal of the clamped length (NaN-free
+    gradient at the zero vector)."""
+    inv = gsrecip(torch.clamp(grad_safe_sqrt(dot(a, a)), min=eps))
     return a * inv[..., None]
 
 

@@ -1,0 +1,870 @@
+// The bounce of one lane, shared by the three bounce kernels:
+// regen_bounce.cu (B1, regeneration + bounce), bounce.cu (B2, one bounce
+// of an explicit state) and bounce_bwd.cu (B5, the bounce's VJP).
+//
+// The closest-hit sweep runs in float. Everything after it, the shading
+// (shade<T>), is written once over a scalar type T:
+//   * T = float for the forward kernels;
+//   * T = Dual<K>, a value with K forward-mode tangents, for the backward
+//     kernel, which replays the same code to take the Jacobian columns it
+//     needs. The value part of every Dual operation is the float
+//     operation, so the replay takes every branch the forward took.
+// The tangent rules are those of the JAX package's backward kernel
+// (srt_tpu/pallas/bounce.py:111-154) and of the plain PyTorch version
+// (srt_tpu_torch/core/gradsafe.py): a sqrt tangent of 0 where x <= 0, and
+// every division's denominator coefficient clamped to +-3e37. min/max
+// pass the first argument's tangent on a tie, as torch.clamp does.
+//
+// The arithmetic follows the plain PyTorch version
+// (srt_tpu_torch/render/integrator.py:bounce_step) operation by operation,
+// in the same order; build with --fmad=false and without --use_fast_math
+// so the two differ only by libm ulps.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace srt {
+
+constexpr float kBig = 3.0e38f;
+constexpr float kTPosMax = 1.0e7f;
+constexpr float kTMin = 1e-3f;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kHalfPi = 1.57079632679489661923f;
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kInvPi = 0.318309886183790671538f;
+constexpr float kSqrtPiInv = 0.5641895835477563f;
+constexpr float kCoefMax = 3e37f;
+constexpr int kOrenNayar = 1, kBeckmann = 2, kDiffuseLight = 5;
+constexpr int kTexImage = 3;
+
+// ---- scalar types: float, and Dual<K> ------------------------------------
+template <int K>
+struct Dual {
+  float v;
+  float t[K];
+  __device__ __forceinline__ Dual() {}
+  __device__ __forceinline__ Dual(float x) : v(x) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) t[i] = 0.0f;
+  }
+};
+
+__device__ __forceinline__ float val(float x) { return x; }
+template <int K>
+__device__ __forceinline__ float val(const Dual<K>& x) { return x.v; }
+
+__device__ __forceinline__ float clamp_coef(float c) {
+  return fminf(fmaxf(c, -kCoefMax), kCoefMax);
+}
+
+template <int K>
+__device__ __forceinline__ Dual<K> operator-(const Dual<K>& a) {
+  Dual<K> r;
+  r.v = -a.v;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = -a.t[i];
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator+(const Dual<K>& a,
+                                             const Dual<K>& b) {
+  Dual<K> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = a.t[i] + b.t[i];
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator+(const Dual<K>& a, float b) {
+  Dual<K> r = a;
+  r.v = a.v + b;
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator+(float a, const Dual<K>& b) {
+  Dual<K> r = b;
+  r.v = a + b.v;
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator-(const Dual<K>& a,
+                                             const Dual<K>& b) {
+  Dual<K> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = a.t[i] - b.t[i];
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator-(const Dual<K>& a, float b) {
+  Dual<K> r = a;
+  r.v = a.v - b;
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator-(float a, const Dual<K>& b) {
+  Dual<K> r;
+  r.v = a - b.v;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = -b.t[i];
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator*(const Dual<K>& a,
+                                             const Dual<K>& b) {
+  Dual<K> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = a.t[i] * b.v + b.t[i] * a.v;
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator*(const Dual<K>& a, float b) {
+  Dual<K> r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = a.t[i] * b;
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator*(float a, const Dual<K>& b) {
+  Dual<K> r;
+  r.v = a * b.v;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = a * b.t[i];
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator/(const Dual<K>& a,
+                                             const Dual<K>& b) {
+  Dual<K> r;
+  r.v = a.v / b.v;
+  const float inv = 1.0f / b.v;
+  const float coef = clamp_coef(-(a.v * inv) * inv);
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = a.t[i] * inv + b.t[i] * coef;
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator/(const Dual<K>& a, float b) {
+  Dual<K> r;
+  r.v = a.v / b;
+  const float inv = 1.0f / b;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = a.t[i] * inv;
+  return r;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> operator/(float a, const Dual<K>& b) {
+  Dual<K> r;
+  r.v = a / b.v;
+  const float inv = 1.0f / b.v;
+  const float coef = clamp_coef(-(a * inv) * inv);
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = b.t[i] * coef;
+  return r;
+}
+
+// a function of the value with derivative ``df`` at it
+template <int K>
+__device__ __forceinline__ Dual<K> chain(const Dual<K>& x, float v,
+                                         float df) {
+  Dual<K> r;
+  r.v = v;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.t[i] = x.t[i] * df;
+  return r;
+}
+
+__device__ __forceinline__ float xsqrt(float x) { return sqrtf(x); }
+template <int K>
+__device__ __forceinline__ Dual<K> xsqrt(const Dual<K>& x) {
+  const float v = sqrtf(x.v);
+  return chain(x, v, x.v > 0.0f ? 0.5f / v : 0.0f);
+}
+__device__ __forceinline__ float xexp(float x) { return expf(x); }
+template <int K>
+__device__ __forceinline__ Dual<K> xexp(const Dual<K>& x) {
+  const float v = expf(x.v);
+  return chain(x, v, v);
+}
+__device__ __forceinline__ float xlog(float x) { return logf(x); }
+template <int K>
+__device__ __forceinline__ Dual<K> xlog(const Dual<K>& x) {
+  return chain(x, logf(x.v), 1.0f / x.v);
+}
+__device__ __forceinline__ float xabs(float x) { return fabsf(x); }
+template <int K>
+__device__ __forceinline__ Dual<K> xabs(const Dual<K>& x) {
+  return chain(x, fabsf(x.v), x.v > 0.0f ? 1.0f : (x.v < 0.0f ? -1.0f : 0.0f));
+}
+__device__ __forceinline__ float xmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ float xmin(float a, float b) { return fminf(a, b); }
+template <int K>
+__device__ __forceinline__ Dual<K> xmax(const Dual<K>& a, float b) {
+  const float v = fmaxf(a.v, b);
+  if (v == a.v) return a;
+  return Dual<K>(v);
+}
+template <int K>
+__device__ __forceinline__ Dual<K> xmin(const Dual<K>& a, float b) {
+  const float v = fminf(a.v, b);
+  if (v == a.v) return a;
+  return Dual<K>(v);
+}
+template <int K>
+__device__ __forceinline__ Dual<K> xmax(const Dual<K>& a, const Dual<K>& b) {
+  const float v = fmaxf(a.v, b.v);
+  return v == a.v ? a : b;
+}
+template <class T>
+__device__ __forceinline__ T xclamp(const T& x, float lo, float hi) {
+  return xmin(xmax(x, lo), hi);
+}
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ float signf(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// ---- 3-vectors -------------------------------------------------------------
+template <class T>
+struct V3T {
+  T x, y, z;
+};
+using V3 = V3T<float>;
+
+template <class T>
+__device__ __forceinline__ V3T<T> v3(T x, T y, T z) {
+  V3T<T> r;
+  r.x = x;
+  r.y = y;
+  r.z = z;
+  return r;
+}
+template <class T>
+__device__ __forceinline__ V3T<T> lift3(V3 a) {
+  return v3<T>(T(a.x), T(a.y), T(a.z));
+}
+template <class T>
+__device__ __forceinline__ V3 val3(const V3T<T>& a) {
+  return v3(val(a.x), val(a.y), val(a.z));
+}
+template <class T>
+__device__ __forceinline__ V3T<T> add(const V3T<T>& a, const V3T<T>& b) {
+  return v3<T>(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+template <class T>
+__device__ __forceinline__ V3T<T> sub(const V3T<T>& a, const V3T<T>& b) {
+  return v3<T>(a.x - b.x, a.y - b.y, a.z - b.z);
+}
+template <class T, class S>
+__device__ __forceinline__ V3T<T> scale(const V3T<T>& a, const S& s) {
+  return v3<T>(a.x * s, a.y * s, a.z * s);
+}
+template <class T, class S>
+__device__ __forceinline__ V3T<T> divide(const V3T<T>& a, const S& s) {
+  return v3<T>(a.x / s, a.y / s, a.z / s);
+}
+template <class T>
+__device__ __forceinline__ V3T<T> neg(const V3T<T>& a) {
+  return v3<T>(-a.x, -a.y, -a.z);
+}
+template <class T>
+__device__ __forceinline__ T dot(const V3T<T>& a, const V3T<T>& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+template <class T>
+__device__ __forceinline__ V3T<T> cross(const V3T<T>& a, const V3T<T>& b) {
+  return v3<T>(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+               a.x * b.y - a.y * b.x);
+}
+template <class T>
+__device__ __forceinline__ V3T<T> normalize(const V3T<T>& a) {
+  T inv = 1.0f / xmax(xsqrt(dot(a, a)), 1e-20f);
+  return scale(a, inv);
+}
+template <class T>
+__device__ __forceinline__ V3T<T> safe_normalize(const V3T<T>& a) {
+  T l2 = dot(a, a);
+  bool ok = val(l2) > 1e-12f;
+  return divide(ok ? a : v3<T>(T(0.0f), T(0.0f), T(1.0f)),
+                xsqrt(ok ? l2 : T(1.0f)));
+}
+template <class T>
+__device__ __forceinline__ T comp(const V3T<T>& a, int axis) {
+  return axis == 0 ? a.x : (axis == 1 ? a.y : a.z);
+}
+template <class T>
+__device__ __forceinline__ void set_comp(V3T<T>& a, int axis, T v) {
+  if (axis == 0) a.x = v;
+  else if (axis == 1) a.y = v;
+  else a.z = v;
+}
+// (n, 3) rows
+__device__ __forceinline__ V3 load_row3(const float* p, int i) {
+  return v3(p[3 * i], p[3 * i + 1], p[3 * i + 2]);
+}
+__device__ __forceinline__ void store_row3(float* p, int i, V3 a) {
+  p[3 * i] = a.x;
+  p[3 * i + 1] = a.y;
+  p[3 * i + 2] = a.z;
+}
+
+// ---- counter RNG (srt_tpu_torch/core/rng.py) ---------------------------
+__device__ __forceinline__ uint32_t mix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+__device__ __forceinline__ uint32_t hash_combine(uint32_t a, uint32_t b) {
+  return mix(mix(a) + (b ^ 0x9E3779B9u));
+}
+__device__ __forceinline__ float uniform(uint32_t salt, uint32_t dim) {
+  uint32_t bits = hash_combine(salt, 0xB5297A4Du + 0x68E31DA4u * dim);
+  return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+// ---- special-function fits (core/approx.py) ----------------------------
+template <class T>
+__device__ T erf_as(const T& x) {
+  float s = signf(val(x));
+  T ax = xabs(x);
+  T t = 1.0f / (1.0f + 0.3275911f * ax);
+  T y = 1.0f - (((((1.061405429f * t - 1.453152027f) * t) + 1.421413741f)
+                 * t - 0.284496736f) * t + 0.254829592f)
+               * t * xexp(-ax * ax);
+  return s * y;
+}
+
+template <class T>
+__device__ T erfinv_giles(T x) {
+  x = xclamp(x, -0.99999f, 0.99999f);
+  T w = -xlog(xmax((1.0f - x) * (1.0f + x), 1e-30f));
+  T wc = w - 2.5f;
+  T p = T(2.81022636e-08f);
+  p = 3.43273939e-07f + p * wc;
+  p = -3.5233877e-06f + p * wc;
+  p = -4.39150654e-06f + p * wc;
+  p = 0.00021858087f + p * wc;
+  p = -0.00125372503f + p * wc;
+  p = -0.00417768164f + p * wc;
+  p = 0.246640727f + p * wc;
+  p = 1.50140941f + p * wc;
+  T wt = xsqrt(xmax(w, 1e-30f)) - 3.0f;
+  T q = T(-0.000200214257f);
+  q = 0.000100950558f + q * wt;
+  q = 0.00134934322f + q * wt;
+  q = -0.00367342844f + q * wt;
+  q = 0.00573950773f + q * wt;
+  q = -0.0076224613f + q * wt;
+  q = 0.00943887047f + q * wt;
+  q = 1.00167406f + q * wt;
+  q = 2.83297682f + q * wt;
+  return (val(w) < 5.0f ? p : q) * x;
+}
+
+template <class T>
+__device__ T acos_as(const T& x) {
+  T ax = xclamp(xabs(x), 0.0f, 1.0f);
+  T p = xsqrt(1.0f - ax)
+        * (1.5707288f + ax * (-0.2121144f
+                              + ax * (0.0742610f - 0.0187293f * ax)));
+  return val(x) >= 0.0f ? p : kPi - p;
+}
+
+// ---- shading-frame trig (core/frame.py) ---------------------------------
+template <class T>
+__device__ __forceinline__ T sin2_theta(const V3T<T>& w) {
+  return xmax(1.0f - w.z * w.z, 0.0f);
+}
+template <class T>
+__device__ __forceinline__ T sin_theta(const V3T<T>& w) {
+  return xsqrt(sin2_theta(w));
+}
+template <class T>
+__device__ __forceinline__ T tan_theta(const V3T<T>& w) {
+  const T c = w.z;
+  const float cv = val(c);
+  T safe = fabsf(cv) < 1e-8f ? T(signf(cv) * 1e-8f + 1e-20f) : c;
+  return sin_theta(w) / safe;
+}
+template <class T>
+__device__ __forceinline__ T tan2_theta(const V3T<T>& w) {
+  return sin2_theta(w) / xmax(w.z * w.z, 1e-20f);
+}
+template <class T>
+__device__ __forceinline__ T cos_phi(const V3T<T>& w) {
+  T st = sin_theta(w);
+  return val(st) == 0.0f ? T(1.0f)
+                         : xclamp(w.x / xmax(st, 1e-20f), -1.0f, 1.0f);
+}
+template <class T>
+__device__ __forceinline__ T sin_phi(const V3T<T>& w) {
+  T st = sin_theta(w);
+  return val(st) == 0.0f ? T(0.0f)
+                         : xclamp(w.y / xmax(st, 1e-20f), -1.0f, 1.0f);
+}
+
+// ---- Beckmann microfacet (materials/microfacet.py) ----------------------
+template <class T>
+__device__ T beckmann_d(const V3T<T>& wh, const T& ax, const T& ay) {
+  T tan2 = xmin(tan2_theta(wh), 1e8f);
+  T cos2 = wh.z * wh.z;
+  T cos4 = cos2 * cos2;
+  T cp = cos_phi(wh), sp = sin_phi(wh);
+  T e = xexp(-tan2 * (cp * cp / (ax * ax) + sp * sp / (ay * ay)));
+  T dd = e / (kPi * ax * ay * xmax(cos4, 1e-16f));
+  return val(tan2) < 1e8f ? dd : T(0.0f);
+}
+
+template <class T>
+__device__ T beckmann_lambda(const V3T<T>& w, const T& ax, const T& ay) {
+  T abs_tan = xmin(xabs(tan_theta(w)), 1e8f);
+  T cp = cos_phi(w), sp = sin_phi(w);
+  T alpha = xsqrt(cp * cp * ax * ax + sp * sp * ay * ay);
+  T a = 1.0f / xmax(alpha * abs_tan, 1e-16f);
+  T as = xclamp(a, 1e-4f, 1.6f);
+  T lam = (1.0f - 1.259f * as + 0.396f * as * as)
+          / (3.535f * as + 2.181f * as * as);
+  return val(a) > 1.6f ? T(0.0f) : lam;
+}
+
+// BeckmannSample11 (microfacet_distribution.h:34-107): a lane stops once
+// |value| < 1e-5, as the reference breaks out of its loop. The tangents
+// are those of the unrolled iteration, as jax.vjp takes them.
+template <class T>
+__device__ void beckmann_sample11(const T& cos_theta_i, float u1, float u2,
+                                  T& slope_x, T& slope_y) {
+  if (val(cos_theta_i) > 0.9999f) {
+    float r = sqrtf(-log1pf(-fminf(u1, 0.9999999f)));
+    float phi = kTwoPi * u2;
+    slope_x = T(r * cosf(phi));
+    slope_y = T(r * sinf(phi));
+    return;
+  }
+  T cos_t = xclamp(cos_theta_i, -1.0f, 1.0f);
+  T sin_t = xsqrt(xmax(1.0f - cos_t * cos_t, 0.0f));
+  T tan_t = sin_t / xmax(cos_t, 1e-20f);
+  T cot_t = 1.0f / xmax(tan_t, 1e-20f);
+  T a = T(-1.0f);
+  T c = erf_as(cos_t);
+  float sample_x = fmaxf(u1, 1e-6f);
+  T theta_i = acos_as(xclamp(cos_t, -0.999999f, 0.999999f));
+  T fit = 1.0f + theta_i * (-0.876f + theta_i * (0.4265f - 0.0594f
+                                                 * theta_i));
+  T b = c - (1.0f + c) * xexp(fit * logf(fmaxf(1.0f - sample_x, 1e-30f)));
+  T normalization = 1.0f / (1.0f + c + kSqrtPiInv * tan_t
+                            * xexp(-cot_t * cot_t));
+  for (int it = 0; it < 9; ++it) {
+    if (!(val(b) >= val(a) && val(b) <= val(c))) b = 0.5f * (a + c);
+    T inv_erf = erfinv_giles(b);
+    T value = normalization
+              * (1.0f + b + kSqrtPiInv * tan_t
+                 * xexp(-inv_erf * inv_erf)) - sample_x;
+    if (fabsf(val(value)) < 1e-5f) break;
+    T derivative = normalization * (1.0f - inv_erf * tan_t);
+    if (val(value) > 0.0f) c = b;
+    else a = b;
+    const float dv = val(derivative);
+    T den = fabsf(dv) < 1e-20f ? T(signf(dv) * 1e-20f + 1e-30f) : derivative;
+    b = b - value / den;
+  }
+  slope_x = erfinv_giles(b);
+  slope_y = erfinv_giles(T(2.0f * fmaxf(u2, 1e-6f) - 1.0f));
+}
+
+template <class T>
+__device__ V3T<T> sample_wh_visible(const V3T<T>& wo, const T& ax,
+                                    const T& ay, float u1, float u2) {
+  bool flip = val(wo.z) < 0.0f;
+  V3T<T> wi = flip ? neg(wo) : wo;
+  V3T<T> st = v3<T>(ax * wi.x, ay * wi.y, wi.z);
+  // divide, not multiply by the reciprocal: one ulp here flips the
+  // cosThetaI > 0.9999 normal-incidence branch
+  st = divide(st, xmax(xsqrt(dot(st, st)), 1e-20f));
+  T sx, sy;
+  beckmann_sample11(st.z, u1, u2, sx, sy);
+  T cp = cos_phi(st), sp = sin_phi(st);
+  T tmp = cp * sx - sp * sy;
+  sy = sp * sx + cp * sy;
+  sx = ax * tmp;
+  sy = ay * sy;
+  V3T<T> wh = v3<T>(-sx, -sy, T(1.0f));
+  wh = divide(wh, xmax(xsqrt(dot(wh, wh)), 1e-20f));
+  return flip ? neg(wh) : wh;
+}
+
+template <class T>
+__device__ T oren_nayar_term(const V3T<T>& wi, const V3T<T>& wo, const T& a,
+                             const T& b) {
+  T sin_ti = sin_theta(wi), sin_to = sin_theta(wo);
+  T d_cos = cos_phi(wi) * cos_phi(wo) + sin_phi(wi) * sin_phi(wo);
+  T max_cos = (val(sin_ti) > 1e-4f && val(sin_to) > 1e-4f)
+                  ? xmax(d_cos, 0.0f) : T(0.0f);
+  T abs_ci = xabs(wi.z), abs_co = xabs(wo.z);
+  bool i_bigger = val(abs_ci) > val(abs_co);
+  T sin_alpha = i_bigger ? sin_to : sin_ti;
+  T tan_beta = i_bigger ? sin_ti / xmax(abs_ci, 1e-8f)
+                        : sin_to / xmax(abs_co, 1e-8f);
+  T cos_i = xmax(wi.z, 0.0f);
+  return cos_i * (a + b * max_cos * sin_alpha * tan_beta) * kInvPi;
+}
+
+// ---- the scene a bounce reads -----------------------------------------
+// Tables entries-major (kernels/bounce.py:build_tables): spheres (S, 12),
+// rects (R, 10), materials (M, 14), rect lights (L, 8) -- staged in
+// shared memory by each kernel -- and the image tables in global memory.
+struct SceneView {
+  const float* sph;
+  const float* rect;
+  const float* mat;
+  const float* light;
+  const int* tex_img;    // (n_tex, 3) atlas offset, nx, ny
+  const int* atlas_u32;  // packed rgb8
+  int n_sph, n_rect, n_mat, n_light, n_atlas;
+  int max_depth, rr_start;
+  float pdf_floor;
+};
+
+// Stage the scene tables in shared memory (``smem`` holds
+// smem_floats(...) floats); the caller synchronises the block after.
+__device__ __forceinline__ void stage_tables(SceneView& s, float* smem,
+                                             const float* sph,
+                                             const float* rect,
+                                             const float* mat,
+                                             const float* light) {
+  float* s_sph = smem;
+  float* s_rect = s_sph + 12 * s.n_sph;
+  float* s_mat = s_rect + 10 * s.n_rect;
+  float* s_light = s_mat + 14 * s.n_mat;
+  for (int k = threadIdx.x; k < 12 * s.n_sph; k += blockDim.x)
+    s_sph[k] = sph[k];
+  for (int k = threadIdx.x; k < 10 * s.n_rect; k += blockDim.x)
+    s_rect[k] = rect[k];
+  for (int k = threadIdx.x; k < 14 * s.n_mat; k += blockDim.x)
+    s_mat[k] = mat[k];
+  for (int k = threadIdx.x; k < 8 * s.n_light; k += blockDim.x)
+    s_light[k] = light[k];
+  s.sph = s_sph;
+  s.rect = s_rect;
+  s.mat = s_mat;
+  s.light = s_light;
+}
+
+// The SceneView of a kernel's argument struct, its tables staged in
+// ``smem``; the caller synchronises the block before reading them.
+template <class Args>
+__device__ __forceinline__ SceneView scene_view(const Args& a, float* smem) {
+  SceneView s;
+  s.tex_img = a.tex_img;
+  s.atlas_u32 = a.atlas_u32;
+  s.n_sph = a.n_sph;
+  s.n_rect = a.n_rect;
+  s.n_mat = a.n_mat;
+  s.n_light = a.n_light;
+  s.n_atlas = a.n_atlas;
+  s.max_depth = a.max_depth;
+  s.rr_start = a.rr_start;
+  s.pdf_floor = a.pdf_floor;
+  stage_tables(s, smem, a.sph, a.rect, a.mat, a.light);
+  return s;
+}
+
+inline size_t smem_bytes(int n_sph, int n_rect, int n_mat, int n_light) {
+  return sizeof(float) * (size_t)(12 * n_sph + 10 * n_rect + 14 * n_mat
+                                  + 8 * n_light);
+}
+
+// ---- textures (materials/textures.py, render/intersect.py:sphere_uv) ---
+__device__ inline void sphere_uv(V3 unit, float& u, float& v) {
+  float x = unit.x, y = unit.y, z = unit.z;
+  bool off_axis = x * x + z * z > 1e-12f;
+  float phi = atan2f(off_axis ? z : 0.0f, off_axis ? x : 1.0f);
+  y = clampf(y, -1.0f, 1.0f);
+  bool inner = fabsf(y) < 0.999999f;
+  float theta = inner ? asinf(y) : signf(y) * kHalfPi;
+  u = 1.0f - (phi + kPi) / kTwoPi;
+  v = (theta + kHalfPi) / kPi;
+}
+
+__device__ inline V3 image_value(const SceneView& s, int tex, float u,
+                                 float v) {
+  int off = s.tex_img[3 * tex], nx = s.tex_img[3 * tex + 1];
+  int ny = s.tex_img[3 * tex + 2];
+  int i = min(max((int)(u * (float)nx), 0), nx - 1);
+  int j = min(max((int)((1.0f - v) * (float)ny - 0.001f), 0), ny - 1);
+  if (s.n_atlas == 0) return v3(1.0f, 1.0f, 1.0f);
+  int base3 = min(max(off / 3 + i + nx * j, 0), s.n_atlas - 1);
+  int bits = s.atlas_u32[base3];
+  return v3((float)((bits >> 16) & 255) / 255.0f,
+            (float)((bits >> 8) & 255) / 255.0f,
+            (float)(bits & 255) / 255.0f);
+}
+
+// ---- closest hit (float) ---------------------------------------------------
+struct Winner {
+  float t;        // kBig on a miss
+  float u, v;     // rect uv (spheres: from the unit vector, in shade)
+  int sph, rect;  // the winner's index, -1 for the other kind
+  int m;          // material id, 0 on a miss
+  bool hit;
+};
+
+// Spheres, then rects; strict < keeps the lowest index.
+__device__ inline Winner closest_hit(const SceneView& s, V3 o, V3 d) {
+  Winner W;
+  float t_best = kBig;
+  int w_sph = -1, w_rect = -1;
+  float w_u = 0.0f, w_v = 0.0f;
+  for (int k = 0; k < s.n_sph; ++k) {
+    const float* r = s.sph + 12 * k;
+    V3 oc = sub(o, v3(r[0], r[1], r[2]));
+    float b = dot(oc, d);
+    float c = dot(oc, oc) - r[8] * r[8];
+    float disc = b * b - c;
+    float sq = disc > 0.0f ? sqrtf(disc) : 0.0f;
+    float t0 = -b - sq, t1 = -b + sq;
+    float t;
+    if (r[11] > 0.0f) {   // env dome: always hit at the far root
+      t = t1 > kTMin ? t1 : kBig;
+    } else if (disc > 0.0f && t0 > kTMin && t0 < kBig) {
+      t = t0;
+    } else if (disc > 0.0f && t1 > kTMin && t1 < kBig) {
+      t = t1;
+    } else {
+      t = kBig;
+    }
+    if (t < t_best) {
+      t_best = t;
+      w_sph = k;
+    }
+  }
+  for (int k = 0; k < s.n_rect; ++k) {
+    const float* r = s.rect + 10 * k;
+    int na = (int)r[0], ua = (int)r[1], va = (int)r[2];
+    float d_n = comp(d, na);
+    float t = (r[3] - comp(o, na)) / (fabsf(d_n) < 1e-20f ? 1e-20f : d_n);
+    float pu = comp(o, ua) + t * comp(d, ua);
+    float pv = comp(o, va) + t * comp(d, va);
+    bool valid = pu >= r[4] && pu <= r[5] && pv >= r[6] && pv <= r[7]
+                 && t > kTMin && t < kBig;
+    if (valid && t < t_best) {
+      t_best = t;
+      w_rect = k;
+      w_u = (pu - r[4]) / (r[5] - r[4]);
+      w_v = (pv - r[6]) / (r[7] - r[6]);
+    }
+  }
+  W.t = t_best;
+  W.u = w_u;
+  W.v = w_v;
+  W.sph = w_sph;
+  W.rect = w_rect;
+  W.hit = t_best < kBig;
+  W.m = !W.hit ? 0 : (w_rect >= 0 ? (int)s.rect[10 * w_rect + 8]
+                                   : (int)s.sph[12 * w_sph + 9]);
+  return W;
+}
+
+// The winner's t: the sweep's value in the forward; in the backward the
+// same formulas recomputed from (o, d), the same value bit for bit, with
+// tangents (bounce_bwd.py:155-177).
+__device__ __forceinline__ float hit_t(const SceneView&, const Winner& W,
+                                       const V3&, const V3&) {
+  return W.t;
+}
+template <int K>
+__device__ Dual<K> hit_t(const SceneView& s, const Winner& W,
+                         const V3T<Dual<K>>& o, const V3T<Dual<K>>& d) {
+  using D = Dual<K>;
+  if (W.rect >= 0) {
+    const float* r = s.rect + 10 * W.rect;
+    const int na = (int)r[0];
+    D d_n = comp(d, na);
+    return (r[3] - comp(o, na)) / (fabsf(d_n.v) < 1e-20f ? D(1e-20f) : d_n);
+  }
+  const float* r = s.sph + 12 * W.sph;
+  V3T<D> oc = sub(o, lift3<D>(v3(r[0], r[1], r[2])));
+  D b = dot(oc, d);
+  D c = dot(oc, oc) - r[8] * r[8];
+  D disc = b * b - c;
+  D sq = disc.v > 0.0f ? xsqrt(disc) : D(0.0f);
+  D t0 = -b - sq, t1 = -b + sq;
+  if (r[11] > 0.0f) return t1;           // env dome: the far root
+  return (disc.v > 0.0f && t0.v > kTMin && t0.v < kBig) ? t0 : t1;
+}
+
+// ---- the shading of one live lane ---------------------------------------
+template <class T>
+struct LaneT {
+  V3T<T> o, d, beta, rad;
+};
+
+// Everything after the closest hit: emission (the env dome's image
+// texture looked up here, where the JAX package defers it to an XLA
+// epilogue), then the diffuse branch -- Beckmann VNDF or cosine-lobe
+// BSDF sample mixed 50/50 with a rect-light sample, the mixture pdf, the
+// BSDF weight, roulette. ``salt`` is the bounce's salt (the lane's salt
+// combined with its depth); ``mp0, mp1`` are the material's parameters 0
+// and 1 and ``mc`` its constant colour. Returns alive-after-bounce (before
+// the depth cap) and updates L. Emitter and miss lanes keep o, d, beta.
+template <class T>
+__device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
+                                      uint32_t salt, int depth, const T& mp0,
+                                      const T& mp1, const V3T<T>& mc,
+                                      LaneT<T>& L) {
+  const V3T<T> o = L.o, d = L.d;
+  const bool hit = W.hit;
+  V3T<T> p = o;
+  V3T<T> normal = v3<T>(T(0.0f), T(0.0f), T(1.0f));
+  V3T<T> unit = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  if (hit) {
+    p = add(o, scale(d, xmin(hit_t(s, W, o, d), kTPosMax)));
+    V3T<T> n_st;
+    if (W.rect >= 0) {
+      const float* r = s.rect + 10 * W.rect;
+      n_st = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+      set_comp(n_st, (int)r[0], T(r[9]));
+    } else {
+      const float* r = s.sph + 12 * W.sph;
+      unit = divide(sub(p, lift3<T>(v3(r[0], r[1], r[2]))), r[8]);
+      n_st = scale(unit, r[10]);
+    }
+    if (val(dot(n_st, n_st)) > 1e-12f) normal = n_st;
+  }
+  const float* mt = s.mat + 14 * W.m;
+  const int m_type = (int)mt[0];
+
+  // emission: one-sided, where the stored normal faces the ray
+  if (hit && m_type == kDiffuseLight) {
+    if (val(dot(normal, d)) < 0.0f) {
+      V3T<T> e = mc;
+      if ((int)mt[5] == kTexImage) {
+        float u = W.u, v = W.v;
+        if (W.rect < 0) sphere_uv(val3(unit), u, v);
+        e = lift3<T>(image_value(s, (int)mt[13], u, v));
+      }
+      L.rad = add(L.rad, v3<T>(L.beta.x * e.x, L.beta.y * e.y,
+                               L.beta.z * e.z));
+    }
+    return false;   // emitters do not scatter
+  }
+  if (!hit) return false;
+
+  // face-forward shading basis (onb.h about the viewer-side normal)
+  const V3T<T> nw = normalize(val(dot(normal, d)) > 0.0f ? neg(normal)
+                                                          : normal);
+  const V3T<T> helper = lift3<T>(fabsf(val(nw.x)) > 0.9f
+                                     ? v3(0.0f, 1.0f, 0.0f)
+                                     : v3(1.0f, 0.0f, 0.0f));
+  const V3T<T> bv = normalize(cross(nw, helper));
+  const V3T<T> bu = cross(nw, bv);
+  const V3T<T> md = neg(d);
+  const V3T<T> wo = v3<T>(dot(md, bu), dot(md, bv), dot(md, nw));
+  const bool is_beck = m_type == kBeckmann;
+  const T ax = val(mp0) > 1e-4f ? mp0 : T(1e-4f);
+  const T ay = val(mp1) > 1e-4f ? mp1 : T(1e-4f);
+
+  // BSDF sample: Beckmann VNDF or the cosine lobe
+  const float u1 = uniform(salt, 14), u2 = uniform(salt, 15);
+  V3T<T> wi;
+  if (is_beck) {
+    V3T<T> wh = sample_wh_visible(wo, ax, ay, u1, u2);
+    T k2 = 2.0f * dot(wo, wh);
+    V3T<T> bw = v3<T>(-wo.x + k2 * wh.x, -wo.y + k2 * wh.y,
+                      -wo.z + k2 * wh.z);
+    wi = normalize(add(add(scale(bu, bw.x), scale(bv, bw.y)),
+                       scale(nw, bw.z)));
+  } else {
+    float phi = kTwoPi * u1;
+    float sq = sqrtf(u2);
+    V3 cd = v3(cosf(phi) * sq, sinf(phi) * sq, sqrtf(fmaxf(1.0f - u2, 0.0f)));
+    wi = normalize(add(add(scale(bu, cd.x), scale(bv, cd.y)),
+                       scale(nw, cd.z)));
+  }
+  // light sample: a uniform point on the picked rect light
+  if (s.n_light > 0) {
+    int pick = min((int)(uniform(salt, 13) * (float)s.n_light),
+                   s.n_light - 1);
+    const float* l = s.light + 8 * pick;
+    V3 point;
+    set_comp(point, (int)l[0], l[3]);
+    set_comp(point, (int)l[1], l[4] + u1 * (l[5] - l[4]));
+    set_comp(point, (int)l[2], l[6] + u2 * (l[7] - l[6]));
+    if (uniform(salt, 12) < 0.5f) wi = normalize(sub(lift3<T>(point), p));
+  }
+
+  // BSDF pdf and weight at wi (shared half vector)
+  const V3T<T> wil = v3<T>(dot(wi, bu), dot(wi, bv), dot(wi, nw));
+  const T cos_i = xmax(wil.z, 0.0f);
+  T bpdf = cos_i * kInvPi;
+  T wgt = cos_i * kInvPi;
+  if (m_type == kOrenNayar) wgt = oren_nayar_term(wil, wo, mp0, mp1);
+  if (is_beck) {
+    bool same = val(wo.z) * val(wil.z) > 0.0f;
+    V3T<T> wh = safe_normalize(add(wil, wo));
+    T dd = beckmann_d(wh, ax, ay);
+    T lam_o = beckmann_lambda(wo, ax, ay);
+    T lam_i = beckmann_lambda(wil, ax, ay);
+    T g1 = 1.0f / (1.0f + lam_o);
+    T vndf = dd * g1 * xabs(dot(wo, wh)) / xmax(xabs(wo.z), 1e-8f);
+    bpdf = same ? vndf / xmax(4.0f * xabs(dot(wo, wh)), 1e-8f) : T(0.0f);
+    T g = 1.0f / (1.0f + lam_o + lam_i);
+    wgt = same ? dd * g / xmax(4.0f * xabs(wo.z), 1e-8f) : T(0.0f);
+  }
+  T pdf = bpdf;
+  if (s.n_light > 0) {
+    T lpdf = T(0.0f);
+    for (int k = 0; k < s.n_light; ++k) {
+      const float* l = s.light + 8 * k;
+      int na = (int)l[0], ua = (int)l[1], va = (int)l[2];
+      T d_n = comp(wi, na);
+      T t = (l[3] - comp(p, na))
+            / (fabsf(val(d_n)) < 1e-12f ? T(1e-12f) : d_n);
+      T hu = comp(p, ua) + t * comp(wi, ua);
+      T hv = comp(p, va) + t * comp(wi, va);
+      bool inside = val(t) > 1e-3f && val(hu) >= l[4] && val(hu) <= l[5]
+                    && val(hv) >= l[6] && val(hv) <= l[7];
+      float area = (l[5] - l[4]) * (l[7] - l[6]);
+      T pl = t * t / xmax(xabs(d_n) * area, 1e-12f);
+      lpdf = lpdf + (inside ? pl : T(0.0f));
+    }
+    pdf = 0.5f * (lpdf / (float)s.n_light) + 0.5f * bpdf;
+  }
+
+  // throughput update (albedo is the material's constant texture)
+  const bool ok = val(pdf) > s.pdf_floor;
+  const T den = xmax(pdf, s.pdf_floor);
+  V3T<T> nb = v3<T>(L.beta.x * (ok ? mc.x * wgt / den : T(0.0f)),
+                    L.beta.y * (ok ? mc.y * wgt / den : T(0.0f)),
+                    L.beta.z * (ok ? mc.z * wgt / den : T(0.0f)));
+  T beta_max = xmax(xmax(nb.x, nb.y), nb.z);
+  bool alive = val(beta_max) > 0.0f;
+  if (s.rr_start < s.max_depth && depth >= s.rr_start) {
+    T q = xclamp(beta_max, 0.05f, 1.0f);
+    alive = alive && uniform(salt, 16) < val(q);
+    if (alive) nb = divide(nb, q);
+  }
+  L.o = p;
+  L.d = wi;
+  L.beta = nb;
+  return alive;
+}
+
+// The forward bounce of one live lane (B1, B2): returns alive-after-bounce
+// (before the depth cap) and updates L.
+__device__ __forceinline__ bool bounce(const SceneView& s, uint32_t salt,
+                                       int depth, LaneT<float>& L) {
+  const Winner W = closest_hit(s, L.o, L.d);
+  const float* mt = s.mat + 14 * W.m;
+  return shade<float>(s, W, hash_combine(salt, (uint32_t)depth), depth,
+                      mt[1], mt[2], v3(mt[6], mt[7], mt[8]), L);
+}
+
+}  // namespace srt

@@ -11,7 +11,8 @@
 //   4. the diffuse branch: Beckmann VNDF or cosine-lobe BSDF sample mixed
 //      50/50 with a rect-light sample, the mixture pdf, the BSDF weight,
 //      roulette and the depth cap.
-// The arithmetic follows the plain PyTorch version
+// Steps 2-4 are bounce_core.cuh's bounce(), shared with bounce.cu and
+// bounce_bwd.cu. The arithmetic follows the plain PyTorch version
 // (srt_tpu_torch/kernels/bounce.py:regen_bounce_reference) operation by
 // operation, in the same order, so the two differ only by libm ulps.
 // Build without --use_fast_math and with --fmad=false for that reason.
@@ -29,6 +30,8 @@
 // the shading work.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bounce_core.cuh"
 
 extern "C" {
 
@@ -65,73 +68,11 @@ struct RegenArgs {
 
 namespace {
 
+using namespace srt;
+
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
-constexpr float kBig = 3.0e38f;
-constexpr float kTPosMax = 1.0e7f;
-constexpr float kTMin = 1e-3f;
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kHalfPi = 1.57079632679489661923f;
-constexpr float kTwoPi = 6.28318530717958647692f;
-constexpr float kInvPi = 0.318309886183790671538f;
-constexpr float kSqrtPiInv = 0.5641895835477563f;
-constexpr int kOrenNayar = 1, kBeckmann = 2, kDiffuseLight = 5;
-constexpr int kTexImage = 3;
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) {
-  V3 r;
-  r.x = x;
-  r.y = y;
-  r.z = z;
-  return r;
-}
-__device__ __forceinline__ V3 add(V3 a, V3 b) {
-  return v3(a.x + b.x, a.y + b.y, a.z + b.z);
-}
-__device__ __forceinline__ V3 sub(V3 a, V3 b) {
-  return v3(a.x - b.x, a.y - b.y, a.z - b.z);
-}
-__device__ __forceinline__ V3 scale(V3 a, float s) {
-  return v3(a.x * s, a.y * s, a.z * s);
-}
-__device__ __forceinline__ V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-            a.x * b.y - a.y * b.x);
-}
-__device__ __forceinline__ V3 normalize(V3 a) {
-  float inv = 1.0f / fmaxf(sqrtf(dot(a, a)), 1e-20f);
-  return scale(a, inv);
-}
-__device__ __forceinline__ V3 divide(V3 a, float s) {
-  return v3(a.x / s, a.y / s, a.z / s);
-}
-__device__ __forceinline__ V3 safe_normalize(V3 a) {
-  float l2 = dot(a, a);
-  bool ok = l2 > 1e-12f;
-  return divide(ok ? a : v3(0.0f, 0.0f, 1.0f), sqrtf(ok ? l2 : 1.0f));
-}
-__device__ __forceinline__ float comp(V3 a, int axis) {
-  return axis == 0 ? a.x : (axis == 1 ? a.y : a.z);
-}
-__device__ __forceinline__ void set_comp(V3& a, int axis, float v) {
-  if (axis == 0) a.x = v;
-  else if (axis == 1) a.y = v;
-  else a.z = v;
-}
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
-}
-__device__ __forceinline__ float signf(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
 __device__ __forceinline__ V3 load3(const float* p, int n, int i) {
   return v3(p[i], p[n + i], p[2 * n + i]);
 }
@@ -141,216 +82,6 @@ __device__ __forceinline__ void store3(float* p, int n, int i, V3 a) {
   p[2 * n + i] = a.z;
 }
 
-// ---- counter RNG (srt_tpu_torch/core/rng.py) ---------------------------
-__device__ __forceinline__ uint32_t mix(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-__device__ __forceinline__ uint32_t hash_combine(uint32_t a, uint32_t b) {
-  return mix(mix(a) + (b ^ 0x9E3779B9u));
-}
-__device__ __forceinline__ float uniform(uint32_t salt, uint32_t dim) {
-  uint32_t bits = hash_combine(salt, 0xB5297A4Du + 0x68E31DA4u * dim);
-  return (float)(bits >> 8) * (1.0f / 16777216.0f);
-}
-
-// ---- special-function fits (core/approx.py) ----------------------------
-__device__ float erf_as(float x) {
-  float s = signf(x);
-  float ax = fabsf(x);
-  float t = 1.0f / (1.0f + 0.3275911f * ax);
-  float y = 1.0f - (((((1.061405429f * t - 1.453152027f) * t) + 1.421413741f)
-                     * t - 0.284496736f) * t + 0.254829592f)
-                   * t * expf(-ax * ax);
-  return s * y;
-}
-
-__device__ float erfinv_giles(float x) {
-  x = clampf(x, -0.99999f, 0.99999f);
-  float w = -logf(fmaxf((1.0f - x) * (1.0f + x), 1e-30f));
-  float p, wc = w - 2.5f;
-  p = 2.81022636e-08f;
-  p = 3.43273939e-07f + p * wc;
-  p = -3.5233877e-06f + p * wc;
-  p = -4.39150654e-06f + p * wc;
-  p = 0.00021858087f + p * wc;
-  p = -0.00125372503f + p * wc;
-  p = -0.00417768164f + p * wc;
-  p = 0.246640727f + p * wc;
-  p = 1.50140941f + p * wc;
-  float q, wt = sqrtf(fmaxf(w, 1e-30f)) - 3.0f;
-  q = -0.000200214257f;
-  q = 0.000100950558f + q * wt;
-  q = 0.00134934322f + q * wt;
-  q = -0.00367342844f + q * wt;
-  q = 0.00573950773f + q * wt;
-  q = -0.0076224613f + q * wt;
-  q = 0.00943887047f + q * wt;
-  q = 1.00167406f + q * wt;
-  q = 2.83297682f + q * wt;
-  return (w < 5.0f ? p : q) * x;
-}
-
-__device__ float acos_as(float x) {
-  float ax = clampf(fabsf(x), 0.0f, 1.0f);
-  float p = sqrtf(1.0f - ax)
-            * (1.5707288f + ax * (-0.2121144f
-                                  + ax * (0.0742610f - 0.0187293f * ax)));
-  return x >= 0.0f ? p : kPi - p;
-}
-
-// ---- shading-frame trig (core/frame.py) ---------------------------------
-__device__ __forceinline__ float sin2_theta(V3 w) {
-  return fmaxf(1.0f - w.z * w.z, 0.0f);
-}
-__device__ __forceinline__ float sin_theta(V3 w) {
-  return sqrtf(sin2_theta(w));
-}
-__device__ __forceinline__ float tan_theta(V3 w) {
-  float c = w.z;
-  float safe = fabsf(c) < 1e-8f ? signf(c) * 1e-8f + 1e-20f : c;
-  return sin_theta(w) / safe;
-}
-__device__ __forceinline__ float tan2_theta(V3 w) {
-  return sin2_theta(w) / fmaxf(w.z * w.z, 1e-20f);
-}
-__device__ __forceinline__ float cos_phi(V3 w) {
-  float st = sin_theta(w);
-  return st == 0.0f ? 1.0f : clampf(w.x / fmaxf(st, 1e-20f), -1.0f, 1.0f);
-}
-__device__ __forceinline__ float sin_phi(V3 w) {
-  float st = sin_theta(w);
-  return st == 0.0f ? 0.0f : clampf(w.y / fmaxf(st, 1e-20f), -1.0f, 1.0f);
-}
-
-// ---- Beckmann microfacet (materials/microfacet.py) ----------------------
-__device__ float beckmann_d(V3 wh, float ax, float ay) {
-  float tan2 = fminf(tan2_theta(wh), 1e8f);
-  float cos2 = wh.z * wh.z;
-  float cos4 = cos2 * cos2;
-  float cp = cos_phi(wh), sp = sin_phi(wh);
-  float e = expf(-tan2 * (cp * cp / (ax * ax) + sp * sp / (ay * ay)));
-  float dd = e / (kPi * ax * ay * fmaxf(cos4, 1e-16f));
-  return tan2 < 1e8f ? dd : 0.0f;
-}
-
-__device__ float beckmann_lambda(V3 w, float ax, float ay) {
-  float abs_tan = fminf(fabsf(tan_theta(w)), 1e8f);
-  float cp = cos_phi(w), sp = sin_phi(w);
-  float alpha = sqrtf(cp * cp * ax * ax + sp * sp * ay * ay);
-  float a = 1.0f / fmaxf(alpha * abs_tan, 1e-16f);
-  float as = clampf(a, 1e-4f, 1.6f);
-  float lam = (1.0f - 1.259f * as + 0.396f * as * as)
-              / (3.535f * as + 2.181f * as * as);
-  return a > 1.6f ? 0.0f : lam;
-}
-
-// BeckmannSample11 (microfacet_distribution.h:34-107): a lane stops once
-// |value| < 1e-5, as the reference breaks out of its loop.
-__device__ void beckmann_sample11(float cos_theta_i, float u1, float u2,
-                                  float& slope_x, float& slope_y) {
-  if (cos_theta_i > 0.9999f) {
-    float r = sqrtf(-log1pf(-fminf(u1, 0.9999999f)));
-    float phi = kTwoPi * u2;
-    slope_x = r * cosf(phi);
-    slope_y = r * sinf(phi);
-    return;
-  }
-  float cos_t = clampf(cos_theta_i, -1.0f, 1.0f);
-  float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-  float tan_t = sin_t / fmaxf(cos_t, 1e-20f);
-  float cot_t = 1.0f / fmaxf(tan_t, 1e-20f);
-  float a = -1.0f;
-  float c = erf_as(cos_t);
-  float sample_x = fmaxf(u1, 1e-6f);
-  float theta_i = acos_as(clampf(cos_t, -0.999999f, 0.999999f));
-  float fit = 1.0f + theta_i * (-0.876f + theta_i * (0.4265f - 0.0594f
-                                                      * theta_i));
-  float b = c - (1.0f + c) * expf(fit * logf(fmaxf(1.0f - sample_x,
-                                                   1e-30f)));
-  float normalization = 1.0f / (1.0f + c + kSqrtPiInv * tan_t
-                                * expf(-cot_t * cot_t));
-  for (int it = 0; it < 9; ++it) {
-    if (!(b >= a && b <= c)) b = 0.5f * (a + c);
-    float inv_erf = erfinv_giles(b);
-    float value = normalization
-                  * (1.0f + b + kSqrtPiInv * tan_t
-                     * expf(-inv_erf * inv_erf)) - sample_x;
-    if (fabsf(value) < 1e-5f) break;
-    float derivative = normalization * (1.0f - inv_erf * tan_t);
-    if (value > 0.0f) c = b;
-    else a = b;
-    float den = fabsf(derivative) < 1e-20f
-                ? signf(derivative) * 1e-20f + 1e-30f : derivative;
-    b = b - value / den;
-  }
-  slope_x = erfinv_giles(b);
-  slope_y = erfinv_giles(2.0f * fmaxf(u2, 1e-6f) - 1.0f);
-}
-
-__device__ V3 sample_wh_visible(V3 wo, float ax, float ay, float u1,
-                                float u2) {
-  bool flip = wo.z < 0.0f;
-  V3 wi = flip ? neg(wo) : wo;
-  V3 st = v3(ax * wi.x, ay * wi.y, wi.z);
-  // divide, not multiply by the reciprocal: one ulp here flips the
-  // cosThetaI > 0.9999 normal-incidence branch
-  st = divide(st, fmaxf(sqrtf(dot(st, st)), 1e-20f));
-  float sx, sy;
-  beckmann_sample11(st.z, u1, u2, sx, sy);
-  float cp = cos_phi(st), sp = sin_phi(st);
-  float tmp = cp * sx - sp * sy;
-  sy = sp * sx + cp * sy;
-  sx = ax * tmp;
-  sy = ay * sy;
-  V3 wh = v3(-sx, -sy, 1.0f);
-  wh = divide(wh, fmaxf(sqrtf(dot(wh, wh)), 1e-20f));
-  return flip ? neg(wh) : wh;
-}
-
-__device__ float oren_nayar_term(V3 wi, V3 wo, float a, float b) {
-  float sin_ti = sin_theta(wi), sin_to = sin_theta(wo);
-  float d_cos = cos_phi(wi) * cos_phi(wo) + sin_phi(wi) * sin_phi(wo);
-  float max_cos = (sin_ti > 1e-4f && sin_to > 1e-4f) ? fmaxf(d_cos, 0.0f)
-                                                     : 0.0f;
-  float abs_ci = fabsf(wi.z), abs_co = fabsf(wo.z);
-  bool i_bigger = abs_ci > abs_co;
-  float sin_alpha = i_bigger ? sin_to : sin_ti;
-  float tan_beta = i_bigger ? sin_ti / fmaxf(abs_ci, 1e-8f)
-                            : sin_to / fmaxf(abs_co, 1e-8f);
-  float cos_i = fmaxf(wi.z, 0.0f);
-  return cos_i * (a + b * max_cos * sin_alpha * tan_beta) * kInvPi;
-}
-
-// ---- textures (materials/textures.py, render/intersect.py:sphere_uv) ---
-__device__ void sphere_uv(V3 unit, float& u, float& v) {
-  float x = unit.x, y = unit.y, z = unit.z;
-  bool off_axis = x * x + z * z > 1e-12f;
-  float phi = atan2f(off_axis ? z : 0.0f, off_axis ? x : 1.0f);
-  y = clampf(y, -1.0f, 1.0f);
-  bool inner = fabsf(y) < 0.999999f;
-  float theta = inner ? asinf(y) : signf(y) * kHalfPi;
-  u = 1.0f - (phi + kPi) / kTwoPi;
-  v = (theta + kHalfPi) / kPi;
-}
-
-__device__ V3 image_value(const RegenArgs& a, int tex, float u, float v) {
-  int off = a.tex_img[3 * tex], nx = a.tex_img[3 * tex + 1];
-  int ny = a.tex_img[3 * tex + 2];
-  int i = min(max((int)(u * (float)nx), 0), nx - 1);
-  int j = min(max((int)((1.0f - v) * (float)ny - 0.001f), 0), ny - 1);
-  if (a.n_atlas == 0) return v3(1.0f, 1.0f, 1.0f);
-  int base3 = min(max(off / 3 + i + nx * j, 0), a.n_atlas - 1);
-  int bits = a.atlas_u32[base3];
-  return v3((float)((bits >> 16) & 255) / 255.0f,
-            (float)((bits >> 8) & 255) / 255.0f,
-            (float)(bits & 255) / 255.0f);
-}
-
 // ---- block-wide helpers --------------------------------------------------
 __device__ __forceinline__ int warp_sum(int v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -358,216 +89,16 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// ---- the bounce of one live lane ----------------------------------------
-struct Lane {
-  V3 o, d, beta, rad;
-  float time;
-  uint32_t salt;
-  int depth;
-};
-
-// Returns alive-after-bounce (before the depth cap); updates L in place.
-__device__ bool bounce(const RegenArgs& a, const float* s_sph,
-                       const float* s_rect, const float* s_mat,
-                       const float* s_light, Lane& L) {
-  const uint32_t salt = hash_combine(L.salt, (uint32_t)L.depth);
-  const V3 o = L.o, d = L.d;
-
-  // closest hit: spheres, then rects; strict < keeps the lowest index
-  float t_best = kBig;
-  int w_sph = -1, w_rect = -1;
-  float w_u = 0.0f, w_v = 0.0f;
-  for (int s = 0; s < a.n_sph; ++s) {
-    const float* r = s_sph + 12 * s;
-    V3 oc = sub(o, v3(r[0], r[1], r[2]));
-    float b = dot(oc, d);
-    float c = dot(oc, oc) - r[8] * r[8];
-    float disc = b * b - c;
-    float sq = disc > 0.0f ? sqrtf(disc) : 0.0f;
-    float t0 = -b - sq, t1 = -b + sq;
-    float t;
-    if (r[11] > 0.0f) {   // env dome: always hit at the far root
-      t = t1 > kTMin ? t1 : kBig;
-    } else if (disc > 0.0f && t0 > kTMin && t0 < kBig) {
-      t = t0;
-    } else if (disc > 0.0f && t1 > kTMin && t1 < kBig) {
-      t = t1;
-    } else {
-      t = kBig;
-    }
-    if (t < t_best) {
-      t_best = t;
-      w_sph = s;
-    }
-  }
-  for (int k = 0; k < a.n_rect; ++k) {
-    const float* r = s_rect + 10 * k;
-    int na = (int)r[0], ua = (int)r[1], va = (int)r[2];
-    float d_n = comp(d, na);
-    float t = (r[3] - comp(o, na)) / (fabsf(d_n) < 1e-20f ? 1e-20f : d_n);
-    float pu = comp(o, ua) + t * comp(d, ua);
-    float pv = comp(o, va) + t * comp(d, va);
-    bool valid = pu >= r[4] && pu <= r[5] && pv >= r[6] && pv <= r[7]
-                 && t > kTMin && t < kBig;
-    if (valid && t < t_best) {
-      t_best = t;
-      w_rect = k;
-      w_u = (pu - r[4]) / (r[5] - r[4]);
-      w_v = (pv - r[6]) / (r[7] - r[6]);
-    }
-  }
-
-  const bool hit = t_best < kBig;
-  V3 p = o, normal = v3(0.0f, 0.0f, 1.0f), unit = v3(0.0f, 0.0f, 0.0f);
-  int m = 0;
-  if (hit) {
-    p = add(o, scale(d, fminf(t_best, kTPosMax)));
-    V3 n_st;
-    if (w_rect >= 0) {
-      const float* r = s_rect + 10 * w_rect;
-      n_st = v3(0.0f, 0.0f, 0.0f);
-      set_comp(n_st, (int)r[0], r[9]);
-      m = (int)r[8];
-    } else {
-      const float* r = s_sph + 12 * w_sph;
-      unit = divide(sub(p, v3(r[0], r[1], r[2])), r[8]);
-      n_st = scale(unit, r[10]);
-      m = (int)r[9];
-    }
-    if (dot(n_st, n_st) > 1e-12f) normal = n_st;
-  }
-  const float* mt = s_mat + 14 * m;
-  const int m_type = (int)mt[0];
-
-  // emission: one-sided, where the stored normal faces the ray
-  if (hit && m_type == kDiffuseLight) {
-    if (dot(normal, d) < 0.0f) {
-      V3 e = v3(mt[6], mt[7], mt[8]);
-      if ((int)mt[5] == kTexImage) {
-        float u = w_u, v = w_v;
-        if (w_rect < 0) sphere_uv(unit, u, v);
-        e = image_value(a, (int)mt[13], u, v);
-      }
-      L.rad = add(L.rad, v3(L.beta.x * e.x, L.beta.y * e.y,
-                            L.beta.z * e.z));
-    }
-    return false;   // emitters do not scatter
-  }
-  if (!hit) return false;
-
-  // face-forward shading basis (onb.h about the viewer-side normal)
-  const V3 nw = normalize(dot(normal, d) > 0.0f ? neg(normal) : normal);
-  const V3 helper = fabsf(nw.x) > 0.9f ? v3(0.0f, 1.0f, 0.0f)
-                                       : v3(1.0f, 0.0f, 0.0f);
-  const V3 bv = normalize(cross(nw, helper));
-  const V3 bu = cross(nw, bv);
-  const V3 md = neg(d);
-  const V3 wo = v3(dot(md, bu), dot(md, bv), dot(md, nw));
-  const bool is_beck = m_type == kBeckmann;
-  const float ax = mt[1] > 1e-4f ? mt[1] : 1e-4f;
-  const float ay = mt[2] > 1e-4f ? mt[2] : 1e-4f;
-
-  // BSDF sample: Beckmann VNDF or the cosine lobe
-  const float u1 = uniform(salt, 14), u2 = uniform(salt, 15);
-  V3 wi;
-  if (is_beck) {
-    V3 wh = sample_wh_visible(wo, ax, ay, u1, u2);
-    float k2 = 2.0f * dot(wo, wh);
-    V3 bw = v3(-wo.x + k2 * wh.x, -wo.y + k2 * wh.y, -wo.z + k2 * wh.z);
-    wi = normalize(add(add(scale(bu, bw.x), scale(bv, bw.y)),
-                       scale(nw, bw.z)));
-  } else {
-    float phi = kTwoPi * u1;
-    float sq = sqrtf(u2);
-    V3 cd = v3(cosf(phi) * sq, sinf(phi) * sq, sqrtf(fmaxf(1.0f - u2, 0.0f)));
-    wi = normalize(add(add(scale(bu, cd.x), scale(bv, cd.y)),
-                       scale(nw, cd.z)));
-  }
-  // light sample: a uniform point on the picked rect light
-  if (a.n_light > 0) {
-    int pick = min((int)(uniform(salt, 13) * (float)a.n_light),
-                   a.n_light - 1);
-    const float* l = s_light + 8 * pick;
-    V3 point;
-    set_comp(point, (int)l[0], l[3]);
-    set_comp(point, (int)l[1], l[4] + u1 * (l[5] - l[4]));
-    set_comp(point, (int)l[2], l[6] + u2 * (l[7] - l[6]));
-    if (uniform(salt, 12) < 0.5f) wi = normalize(sub(point, p));
-  }
-
-  // BSDF pdf and weight at wi (shared half vector)
-  const V3 wil = v3(dot(wi, bu), dot(wi, bv), dot(wi, nw));
-  const float cos_i = fmaxf(wil.z, 0.0f);
-  float bpdf = cos_i * kInvPi;
-  float wgt = cos_i * kInvPi;
-  if (m_type == kOrenNayar) wgt = oren_nayar_term(wil, wo, mt[1], mt[2]);
-  if (is_beck) {
-    bool same = wo.z * wil.z > 0.0f;
-    V3 wh = safe_normalize(add(wil, wo));
-    float dd = beckmann_d(wh, ax, ay);
-    float lam_o = beckmann_lambda(wo, ax, ay);
-    float lam_i = beckmann_lambda(wil, ax, ay);
-    float g1 = 1.0f / (1.0f + lam_o);
-    float vndf = dd * g1 * fabsf(dot(wo, wh)) / fmaxf(fabsf(wo.z), 1e-8f);
-    bpdf = same ? vndf / fmaxf(4.0f * fabsf(dot(wo, wh)), 1e-8f) : 0.0f;
-    float g = 1.0f / (1.0f + lam_o + lam_i);
-    wgt = same ? dd * g / fmaxf(4.0f * fabsf(wo.z), 1e-8f) : 0.0f;
-  }
-  float pdf = bpdf;
-  if (a.n_light > 0) {
-    float lpdf = 0.0f;
-    for (int k = 0; k < a.n_light; ++k) {
-      const float* l = s_light + 8 * k;
-      int na = (int)l[0], ua = (int)l[1], va = (int)l[2];
-      float d_n = comp(wi, na);
-      float t = (l[3] - comp(p, na)) / (fabsf(d_n) < 1e-12f ? 1e-12f : d_n);
-      float hu = comp(p, ua) + t * comp(wi, ua);
-      float hv = comp(p, va) + t * comp(wi, va);
-      bool inside = t > 1e-3f && hu >= l[4] && hu <= l[5] && hv >= l[6]
-                    && hv <= l[7];
-      float area = (l[5] - l[4]) * (l[7] - l[6]);
-      float pl = t * t / fmaxf(fabsf(d_n) * area, 1e-12f);
-      lpdf = lpdf + (inside ? pl : 0.0f);
-    }
-    pdf = 0.5f * (lpdf / (float)a.n_light) + 0.5f * bpdf;
-  }
-
-  // throughput update (albedo is the material's constant texture)
-  const bool ok = pdf > a.pdf_floor;
-  const float den = fmaxf(pdf, a.pdf_floor);
-  V3 nb = v3(L.beta.x * (ok ? mt[6] * wgt / den : 0.0f),
-             L.beta.y * (ok ? mt[7] * wgt / den : 0.0f),
-             L.beta.z * (ok ? mt[8] * wgt / den : 0.0f));
-  float beta_max = fmaxf(fmaxf(nb.x, nb.y), nb.z);
-  bool alive = beta_max > 0.0f;
-  if (a.rr_start < a.max_depth && L.depth >= a.rr_start) {
-    float q = clampf(beta_max, 0.05f, 1.0f);
-    alive = alive && uniform(salt, 16) < q;
-    if (alive) nb = divide(nb, q);
-  }
-  L.o = p;
-  L.d = wi;
-  L.beta = nb;
-  return alive;
-}
-
 __global__ void __launch_bounds__(kBlock)
 regen_bounce_kernel(const RegenArgs a) {
   extern __shared__ float smem[];
-  float* s_sph = smem;
-  float* s_rect = s_sph + 12 * a.n_sph;
-  float* s_mat = s_rect + 10 * a.n_rect;
-  float* s_light = s_mat + 14 * a.n_mat;
   __shared__ int s_part[2][kWarps];
   __shared__ int s_warp_dead[kWarps];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int i = blockIdx.x * kBlock + tid;
   const bool valid = i < a.n;
-  for (int k = tid; k < 12 * a.n_sph; k += kBlock) s_sph[k] = a.sph[k];
-  for (int k = tid; k < 10 * a.n_rect; k += kBlock) s_rect[k] = a.rect[k];
-  for (int k = tid; k < 14 * a.n_mat; k += kBlock) s_mat[k] = a.mat[k];
-  for (int k = tid; k < 8 * a.n_light; k += kBlock) s_light[k] = a.light[k];
+  const SceneView sv = scene_view(a, smem);
 
   // work-queue rank of each dead lane: dead lanes of earlier blocks (as
   // the previous launch left them), then the in-block exclusive scan
@@ -601,8 +132,10 @@ regen_bounce_kernel(const RegenArgs a) {
 
   bool alive_fin = false;
   if (valid) {
-    Lane L;
-    L.depth = a.depth[i];
+    LaneT<float> L;
+    int depth = a.depth[i];
+    float time = 0.0f;
+    uint32_t salt = 0u;
     int pix = a.pix[i];
     const int wid = cursor + rank;
     const bool take = need && wid < a.total_work;
@@ -615,10 +148,10 @@ regen_bounce_kernel(const RegenArgs a) {
       float s = (col + a.jitter[2 * sampn]) / (float)a.width;
       float t = ((float)a.height - 1.0f - row + a.jitter[2 * sampn + 1])
                 / (float)a.height;
-      uint32_t salt = hash_combine((uint32_t)pixn,
-                                   hash_combine((uint32_t)sampn, a.seed));
-      float r = cam[18] * sqrtf(uniform(salt, 32));
-      float phi = kTwoPi * uniform(salt, 33);
+      uint32_t salt_new = hash_combine((uint32_t)pixn,
+                                       hash_combine((uint32_t)sampn, a.seed));
+      float r = cam[18] * sqrtf(uniform(salt_new, 32));
+      float phi = kTwoPi * uniform(salt_new, 33);
       float rc = r * cosf(phi), rs = r * sinf(phi);
       V3 off = v3(cam[12] * rc + cam[15] * rs, cam[13] * rc + cam[16] * rs,
                   cam[14] * rc + cam[17] * rs);
@@ -628,11 +161,11 @@ regen_bounce_kernel(const RegenArgs a) {
           cam[3] + s * cam[6] + t * cam[9] - cam[0] - off.x,
           cam[4] + s * cam[7] + t * cam[10] - cam[1] - off.y,
           cam[5] + s * cam[8] + t * cam[11] - cam[2] - off.z));
-      L.time = cam[19] + uniform(salt, 34) * (cam[20] - cam[19]);
+      time = cam[19] + uniform(salt_new, 34) * (cam[20] - cam[19]);
       L.beta = v3(1.0f, 1.0f, 1.0f);
       L.rad = v3(0.0f, 0.0f, 0.0f);
-      L.salt = salt;
-      L.depth = 0;
+      salt = salt_new;
+      depth = 0;
       pix = pixn;
       live = true;
     } else if (live) {
@@ -640,23 +173,23 @@ regen_bounce_kernel(const RegenArgs a) {
       L.d = load3(a.d, a.n, i);
       L.beta = load3(a.beta, a.n, i);
       L.rad = load3(a.rad, a.n, i);
-      L.time = a.time[i];
-      L.salt = (uint32_t)a.salt[i];
+      time = a.time[i];
+      salt = (uint32_t)a.salt[i];
     }
     if (live) {
-      bool alive_next = bounce(a, s_sph, s_rect, s_mat, s_light, L);
-      alive_fin = alive_next && L.depth + 1 < a.max_depth;
+      bool alive_next = bounce(sv, salt, depth, L);
+      alive_fin = alive_next && depth + 1 < a.max_depth;
       store3(a.o, a.n, i, L.o);
       store3(a.d, a.n, i, L.d);
       store3(a.beta, a.n, i, L.beta);
       store3(a.rad, a.n, i, L.rad);
       if (take) {
-        a.time[i] = L.time;
-        a.salt[i] = (int)L.salt;
+        a.time[i] = time;
+        a.salt[i] = (int)salt;
         a.pix[i] = pix;
       }
     }
-    a.depth[i] = L.depth + 1;
+    a.depth[i] = depth + 1;
     a.alive[i] = alive_fin ? 1 : 0;
     a.fin[i] = (live && !alive_fin) ? 1 : 0;
   }
@@ -678,8 +211,7 @@ regen_bounce_kernel(const RegenArgs a) {
 extern "C" int srt_regen_bounce(const RegenArgs* args, void* stream) {
   const RegenArgs& a = *args;
   if (a.n <= 0) return (int)cudaSuccess;
-  size_t smem = sizeof(float) * (size_t)(12 * a.n_sph + 10 * a.n_rect
-                                         + 14 * a.n_mat + 8 * a.n_light);
+  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light);
   cudaError_t err = cudaFuncSetAttribute(
       regen_bounce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -1,0 +1,189 @@
+"""Differentiable rendering and inverse-rendering optimisation
+(counterpart of ``srt_tpu/diff/inverse.py``).
+
+Gradients of an image loss with respect to scene parameters -- material
+parameters (Beckmann roughness, Oren-Nayar A/B) and texture colours
+(albedo, emission) -- straight through the wavefront estimator: the
+regeneration engine :mod:`srt_tpu_torch.render.regen_scan`, whose bounce
+is kernel B2 forward and kernel B5 backward on the card. Random decisions
+are pure functions of ``(seed, pixel, sample, bounce, dimension)``; the
+gradient follows the JAX package's backward kernel, through the sampled
+direction and the pdfs (ROADMAP C2). Geometry stays frozen: a geometric
+field, or the image atlas, among the parameters raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from srt_tpu_torch.core import rng
+from srt_tpu_torch.kernels.bounce import (DIM_LENS, DIM_TIME, StepSpec,
+                                          build_tables)
+from srt_tpu_torch.kernels.bounce_bwd import require_bwd_kernel
+from srt_tpu_torch.render.camera import Camera
+from srt_tpu_torch.render.regen_scan import steps_for, trace_queue
+from srt_tpu_torch.scene.ir import SceneFlags, TorchScene
+
+DIM_PIX_X = 30                   # pixel-jitter sampler dimensions
+DIM_PIX_Y = 31
+
+#: Scene fields whose cotangents exist only on the geometric paths
+#: (``inverse.py:58-64``); the port's backward leaves them frozen.
+GEOM_FIELDS = frozenset({
+    "sph_center0", "sph_center1", "sph_times", "sph_radius",
+    "rect_bounds", "rect_k",
+    "tri_p0", "tri_p1", "tri_p2", "tri_uv", "tri_n",
+    "med_center", "med_radius", "med_half", "med_density",
+    "bvh_lo", "bvh_hi",
+})
+
+
+def splice(scene: TorchScene, params: dict) -> TorchScene:
+    """Replace scene fields by name from a parameter dict (e.g.
+    ``{"tex_color": ..., "mat_params": ...}``). Geometric fields and the
+    image atlas raise ``NotImplementedError``: their gradients need the
+    hybrid linearised backward (ROADMAP A13)."""
+    frozen = sorted(set(params) & (GEOM_FIELDS | {"atlas"}))
+    if frozen:
+        raise NotImplementedError(
+            f"srt_tpu_torch does not optimise {frozen} yet: geometry and "
+            "image-atlas gradients need the hybrid linearised backward "
+            "(ROADMAP A13)")
+    unknown = sorted(set(params) - {f.name for f in
+                                    dataclasses.fields(TorchScene)})
+    if unknown:
+        raise KeyError(f"not scene fields: {unknown}")
+    return dataclasses.replace(scene, **params)
+
+
+def scene_to(scene: TorchScene, device) -> TorchScene:
+    return dataclasses.replace(scene, **{
+        f.name: getattr(scene, f.name).to(device)
+        for f in dataclasses.fields(TorchScene)
+        if getattr(scene, f.name) is not None})
+
+
+def camera_to(camera: Camera, device) -> Camera:
+    return Camera(*(t.to(device) for t in camera))
+
+
+def render_pixels(scene: TorchScene, camera: Camera, pixel_ids, *,
+                  width: int, height: int, spp: int, max_depth: int, seed,
+                  engine: str = "regen", wavefront: int = 1 << 13,
+                  depth_budget: float = 4.0, drain: int | None = 12,
+                  flags: SceneFlags | None = None) -> torch.Tensor:
+    """Mean radiance per pixel (P, 3), differentiable in the scene's
+    material parameters and texture colours. Pixel jitter, lens and time
+    samples come from the counter RNG (dimensions 30-34), as
+    ``inverse.py:97-111`` draws them. Runs on the scene's device."""
+    if engine != "regen":
+        raise NotImplementedError(
+            f"engine {engine!r}: the port has the regeneration engine; the "
+            "lockstep scan engine is ROADMAP A6")
+    flags = flags if flags is not None else SceneFlags.of(scene)
+    require_bwd_kernel(scene, flags)
+    pixel_ids = torch.as_tensor(pixel_ids, device=scene.device).long()
+    p = pixel_ids.shape[0]
+    rays, salt = camera_rays(camera, pixel_ids, spp, width=width,
+                             height=height, seed=seed)
+    steps = steps_for(p * spp, wavefront, depth_budget, max_depth,
+                      drain=drain)
+    spec = StepSpec(max_depth=max_depth)
+    radiance, _ = trace_queue(scene, flags, build_tables(scene, flags), rays,
+                              salt, n_steps=steps, wavefront=wavefront,
+                              spec=spec)
+    return radiance.reshape(p, spp, 3).mean(1)
+
+
+def camera_rays(camera: Camera, pixel_ids: torch.Tensor, spp: int, *,
+                width: int, height: int, seed):
+    """The primary rays of :func:`render_pixels`, pixel-major with ``spp``
+    samples each: ``((origin, direction, time), salt (P*spp,) int32)``."""
+    pix = pixel_ids.long().repeat_interleave(spp)
+    samp = torch.arange(spp, device=pix.device).repeat(pixel_ids.shape[0])
+    salt = rng.create_salt(int(seed), pix, samp)
+    col = (pix % width).to(torch.float32)
+    row = (pix // width).to(torch.float32)
+    s = (col + rng.uniform(salt, DIM_PIX_X)) / width
+    t = ((height - 1.0 - row) + rng.uniform(salt, DIM_PIX_Y)) / height
+    rays = camera.rays(s, t, rng.uniform(salt, DIM_LENS),
+                       rng.uniform(salt, DIM_LENS + 1),
+                       rng.uniform(salt, DIM_TIME))
+    return rays, salt.to(torch.int32)      # int32 keeps the bit pattern
+
+
+def image_loss(params: dict, scene: TorchScene, camera: Camera, target,
+               pixel_ids, *, width: int, height: int, spp: int,
+               max_depth: int, seed, engine: str = "regen",
+               engine_kw: dict | None = None,
+               flags: SceneFlags | None = None) -> torch.Tensor:
+    """L2 loss between the rendered pixels and ``target`` (P, 3)."""
+    img = render_pixels(splice(scene, params), camera, pixel_ids,
+                        width=width, height=height, spp=spp,
+                        max_depth=max_depth, seed=seed, engine=engine,
+                        flags=flags, **(engine_kw or {}))
+    return torch.mean((img - target) ** 2)
+
+
+def adam(params, lr: float = 1e-2) -> torch.optim.Adam:
+    """``torch.optim.Adam`` with ``optax.adam``'s defaults (b1 0.9, b2
+    0.999, eps 1e-8 added to the bias-corrected ``sqrt(v)``): the same
+    update up to rounding."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+class TrainStep:
+    """One Adam step of an image loss per call: ``step(target, seed) ->
+    loss``. ``params`` holds the optimised tensors (leaves on the step's
+    device); ``optimizer`` their ``torch.optim.Adam``; ``loss_fn(params,
+    target (P, 3), seed)`` the differentiable loss."""
+
+    def __init__(self, scene: TorchScene, camera: Camera, params: dict,
+                 loss_fn: Callable, lr: float, device):
+        self.scene, self.camera = scene, camera
+        self.params = {k: torch.as_tensor(v, dtype=torch.float32)
+                       .to(device).clone().requires_grad_()
+                       for k, v in params.items()}
+        self.optimizer = adam(list(self.params.values()), lr)
+        self.loss_fn = loss_fn
+        self.device = device
+
+    def target(self, target) -> torch.Tensor:
+        """``target`` as the (P, 3) float32 tensor the loss compares."""
+        return torch.as_tensor(target, dtype=torch.float32,
+                               device=self.device).reshape(-1, 3)
+
+    def __call__(self, target, seed) -> torch.Tensor:
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss_fn(self.params, self.target(target), seed)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+
+def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
+                    width: int, height: int, spp: int, max_depth: int,
+                    lr: float = 1e-2, engine: str = "regen",
+                    engine_kw: dict | None = None, mesh=None,
+                    device="cuda") -> TrainStep:
+    """An Adam step ``(target, seed) -> loss`` of :func:`image_loss` over
+    every pixel (counterpart of ``inverse.py:160-186``; ``optax.adam``
+    becomes :func:`adam`). The scene, camera and parameters move to
+    ``device``; the step updates ``TrainStep.params`` in place. The
+    sharded ``mesh`` branch is ROADMAP A11."""
+    if mesh is not None:
+        raise NotImplementedError("the sharded train step is ROADMAP A11")
+    splice(scene, params)               # refuse geometric parameters early
+    scene, camera = scene_to(scene, device), camera_to(camera, device)
+    flags = SceneFlags.of(scene)
+    pixel_ids = torch.arange(width * height, device=scene.device)
+
+    def loss_fn(p, target, seed):
+        return image_loss(p, scene, camera, target, pixel_ids, width=width,
+                          height=height, spp=spp, max_depth=max_depth,
+                          seed=seed, engine=engine, engine_kw=engine_kw,
+                          flags=flags)
+
+    return TrainStep(scene, camera, params, loss_fn, lr, scene.device)

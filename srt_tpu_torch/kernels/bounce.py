@@ -1,9 +1,10 @@
-"""One bounce of the regeneration engine's wavefront: regenerate dead
-lanes from the work queue, then trace and shade every live lane.
+"""One bounce of a wavefront, in the two forms the engines launch.
 
-Replaces ``srt_tpu/pallas/bounce.py:_kernel`` in its ``regen=True`` mode
-(launched by ``fused_regen_bounce``, ``bounce.py:1621-1724``). Two
-versions of the same step live here:
+**The regeneration bounce** (kernel B1): regenerate dead lanes from the
+work queue, then trace and shade every live lane. Replaces
+``srt_tpu/pallas/bounce.py:_kernel`` in its ``regen=True`` mode (launched
+by ``fused_regen_bounce``, ``bounce.py:1621-1724``). Two versions of the
+same step live here:
 
 * :func:`regen_bounce_reference`, the plain PyTorch version, written with
   the port's modules (``torch.cumsum`` work-queue ranks, the camera,
@@ -27,6 +28,14 @@ simple design takes that as it is: one thread per lane, no splitting of
 the shading core, emitter and dead lanes skip the shading work.
 
 The wavefront is updated in place so one copy of it lives on the device.
+
+**The per-bounce step** (kernel B2), the forward of the train step:
+one bounce of an explicit state, out of place, no regeneration and no
+depth cap. Replaces ``_kernel`` in its per-bounce mode (launched by
+``fused_bounce``, ``bounce.py:1425-1552``) without the external
+triangle-hit planes and the parity plane. :func:`bounce_step_ref` is its
+plain version and :func:`bounce_fwd` the wrapper; ``csrc/bounce.cu`` runs
+the same ``bounce()`` of ``csrc/bounce_core.cuh`` as B1.
 """
 from __future__ import annotations
 
@@ -36,12 +45,15 @@ import dataclasses
 import torch
 
 from srt_tpu_torch.core import rng
+from srt_tpu_torch.kernels.build import launch
 from srt_tpu_torch.render.integrator import bounce_step
 from srt_tpu_torch.render.intersect import RECT_NAXIS, RECT_UAXIS, RECT_VAXIS
 from srt_tpu_torch.scene.ir import SceneFlags, TorchScene
 
 #: Kernel launches made by :func:`regen_bounce` (the CUDA path only).
 LAUNCHES = 0
+#: Kernel launches made by :func:`bounce_fwd` (the CUDA path only).
+LAUNCHES_FWD = 0
 
 BLOCK = 256                      # threads (lanes) per CUDA block
 DIM_LENS = 32                    # camera sampler dimensions (api.py)
@@ -235,8 +247,6 @@ def _check_state(st: dict, n: int, device) -> None:
 def _launch(inp: RegenInputs, st: dict, spec: RegenSpec) -> None:
     """Launch ``csrc/regen_bounce.cu`` on the current stream."""
     global LAUNCHES
-    from srt_tpu_torch.kernels.build import load_library
-
     n = st["alive"].shape[0]
     dev = st["alive"].device
     _check_state(st, n, dev)
@@ -266,13 +276,7 @@ def _launch(inp: RegenInputs, st: dict, spec: RegenSpec) -> None:
         total_work=spec.total_work, max_depth=spec.max_depth,
         rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
         seed=spec.seed & rng.MASK32)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.srt_regen_bounce(ctypes.addressof(args), stream)
-    if err:
-        raise RuntimeError(f"regen_bounce kernel launch failed: "
-                           f"{lib.srt_cuda_error_string(err).decode()}")
+    launch("srt_regen_bounce", args, dev)
     LAUNCHES += 1
     st["dead"], st["dead_next"] = st["dead_next"], st["dead"]
     st["cursor"], st["cursor_next"] = st["cursor_next"], st["cursor"]
@@ -287,3 +291,136 @@ def regen_bounce(inp: RegenInputs, st: dict, spec: RegenSpec) -> None:
         _launch(inp, st, spec)
     else:
         raise ValueError(f"no regen_bounce for {st['alive'].device}")
+
+
+# --- the per-bounce step (B2) -------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StepSpec:
+    """Static parameters of one bounce."""
+    max_depth: int
+    rr_start: int = 1 << 30
+    pdf_floor: float = 1e-9
+
+
+#: columns of the (M, 14) material table that the backward differentiates
+#: (parameters 0-3, colour, second colour), in the backward kernel's order
+MAT_GRAD_COLS = (1, 2, 3, 4, 6, 7, 8, 9, 10, 11)
+
+
+def material_view(scene: TorchScene, mat: torch.Tensor) -> TorchScene:
+    """``scene`` with its material fields read from the kernel's (M, 14)
+    table ``mat``, one texture per material. The values are the scene's,
+    bit for bit; autograd of a bounce on this view gives ``mat``'s
+    cotangent, which :func:`build_tables` carries back to ``mat_params``,
+    ``tex_color`` and ``tex_color2``."""
+    tex = scene.mat_tex.long()
+    return dataclasses.replace(
+        scene, mat_params=mat[:, 1:5],
+        mat_tex=torch.arange(mat.shape[0], dtype=scene.mat_tex.dtype,
+                             device=mat.device),
+        tex_type=scene.tex_type[tex], tex_color=mat[:, 6:9],
+        tex_color2=mat[:, 9:12], tex_img=scene.tex_img[tex])
+
+
+def bounce_step_ref(scene: TorchScene, flags: SceneFlags,
+                    mat: torch.Tensor, state: dict, spec: StepSpec) -> dict:
+    """The plain version of B2: ``render.integrator.bounce_step`` on the
+    material view of ``mat`` (the image emission of the environment dome is
+    evaluated inside its emission term, as the kernel does). ``state``:
+    ``o d beta radiance`` (N, 3) float32, ``time`` (N,), ``salt`` (N,)
+    int32 bit patterns, ``depth`` (N,) int32, ``alive`` (N,) bool. Returns
+    the next state with ``depth + 1`` and ``alive`` not yet capped by
+    depth."""
+    return bounce_step(material_view(scene, mat), state, spec.max_depth,
+                       spec.rr_start, flags, spec.pdf_floor)
+
+
+_ROWS = ("o", "d", "beta", "radiance")
+_TABLES = ("sph", "rect", "mat", "light", "tex_img", "atlas_u32")
+
+
+class _BounceArgs(ctypes.Structure):
+    """``BounceArgs`` of ``csrc/bounce.cu``, field for field."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "o", "d", "beta", "rad", "salt", "depth", "alive", "o_out", "d_out",
+        "beta_out", "rad_out", "depth_out", "alive_out", *_TABLES)]
+        + [(name, ctypes.c_int) for name in (
+            "n", "n_sph", "n_rect", "n_mat", "n_light", "n_atlas",
+            "max_depth", "rr_start")]
+        + [("pdf_floor", ctypes.c_float)])
+
+
+def check_state(state: dict, tables: dict, device) -> int:
+    """Raise unless ``state`` and ``tables`` are what the train kernels
+    read on ``device``; returns the lane count."""
+    n = state["alive"].shape[0]
+    want = {**{k: (torch.float32, (n, 3)) for k in _ROWS},
+            "salt": (_I32, (n,)), "depth": (_I32, (n,)),
+            "alive": (torch.bool, (n,))}
+    for k, (dtype, shape) in want.items():
+        t = state[k]
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(f"state {k!r}: want contiguous {dtype} {shape} "
+                             f"on {device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    for k in _TABLES:
+        if tables[k].device != device or not tables[k].is_contiguous():
+            raise ValueError(f"table {k!r} must be contiguous on {device}")
+    if tables["mat"].dtype != torch.float32:
+        raise ValueError("table 'mat' must be float32")
+    return n
+
+
+def table_args(scene: TorchScene, tables: dict) -> dict:
+    """The table pointers and counts of a train kernel's arguments."""
+    return dict(**{k: tables[k].data_ptr() for k in _TABLES},
+                n_sph=tables["sph"].shape[0], n_rect=tables["rect"].shape[0],
+                n_mat=tables["mat"].shape[0],
+                n_light=tables["light"].shape[0],
+                n_atlas=(tables["atlas_u32"].shape[0]
+                         if scene.atlas_u32 is not None else 0))
+
+
+def fwd_args(scene: TorchScene, tables: dict, state: dict,
+             spec: StepSpec) -> tuple[_BounceArgs, dict]:
+    """The checked arguments of one ``csrc/bounce.cu`` launch and the
+    output tensors it writes."""
+    dev = state["alive"].device
+    n = check_state(state, tables, dev)
+    out = {k: torch.empty_like(state[k]) for k in _ROWS + ("depth", "alive")}
+    args = _BounceArgs(
+        **{k: state[k].data_ptr() for k in ("o", "d", "beta", "salt", "depth",
+                                            "alive")},
+        rad=state["radiance"].data_ptr(),
+        **{f"{k}_out": out[k].data_ptr() for k in ("o", "d", "beta", "depth",
+                                                   "alive")},
+        rad_out=out["radiance"].data_ptr(), **table_args(scene, tables),
+        n=n, max_depth=spec.max_depth,
+        rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor)
+    return args, out
+
+
+def _launch_fwd(scene: TorchScene, tables: dict, state: dict,
+                spec: StepSpec) -> dict:
+    global LAUNCHES_FWD
+    args, out = fwd_args(scene, tables, state, spec)
+    launch("srt_bounce", args, state["alive"].device)
+    LAUNCHES_FWD += 1
+    return dict(out, time=state["time"], salt=state["salt"])
+
+
+def bounce_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
+               state: dict, spec: StepSpec) -> dict:
+    """One bounce of ``state`` (see :func:`bounce_step_ref`), out of
+    place: the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors. No autograd: :class:`kernels.bounce_vjp.BounceCore` wraps
+    this."""
+    dev = state["alive"].device
+    if dev.type == "cpu":
+        with torch.no_grad():
+            return bounce_step_ref(scene, flags, tables["mat"], state, spec)
+    if dev.type == "cuda":
+        return _launch_fwd(scene, tables, state, spec)
+    raise ValueError(f"no bounce kernel for {dev}")

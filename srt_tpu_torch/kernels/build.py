@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``srt_tpu_torch/csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, under
+``nvcc`` compiles each ``srt_tpu_torch/csrc/*.cu`` for ``sm_90a`` into an
+object, all sources at once in parallel, and links them into one shared
+library with a plain C interface, at first use, under
 ``build/srt_tpu_torch/`` in the repository (a directory git ignores). The
-file name carries a hash of the sources and flags, so an edit rebuilds.
-The library is loaded with ``ctypes``; every pointer and the stream are
-``c_void_p``.
+file name carries a hash of the sources, the headers (``csrc/*.cuh``) and
+the flags, so an edit to any of them rebuilds. The library is loaded with
+``ctypes``; every pointer and the stream are ``c_void_p``.
 
 Flags: no ``--use_fast_math`` (approximate ``expf``/``sqrtf``/division
 would flip near-tie branches against the plain PyTorch version), and
@@ -22,12 +23,19 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
+HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "srt_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+
+#: C entry points, each ``int f(const Args*, cudaStream_t)`` returning the
+#: launch's cudaError_t
+ENTRY_POINTS = ("srt_regen_bounce", "srt_bounce", "srt_bounce_bwd")
 
 _LIB = None
 
@@ -47,7 +55,8 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
+        h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libsrt_tpu_torch_{h.hexdigest()[:16]}.so")
@@ -65,24 +74,40 @@ def ptxas_report() -> str:
 
 def build() -> str:
     """Compile the sources if this hash has no library yet; returns its
-    path. Raises with nvcc's output if the build fails."""
+    path. Raises with nvcc's output if a compile or the link fails."""
     path = library_path()
-    if not os.path.isfile(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                   *SOURCES], capture_output=True, text=True)
+    if os.path.isfile(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        nvcc = _nvcc()
+        objs = [os.path.join(work, os.path.basename(s)[:-3] + ".o")
+                for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        report, failed = [], []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            report.append(f"== {os.path.basename(src)}\n{out}")
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            with open(_report_path(), "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            os.replace(tmp, path)      # atomic: concurrent builders agree
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n"
+                               + "\n".join(report))
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n"
+                               f"{link.stderr}")
+        with open(_report_path(), "w") as f:
+            f.write("\n".join(report))
+        os.replace(tmp, path)      # atomic: concurrent builders agree
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return path
 
 
@@ -91,9 +116,23 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(build())
-        lib.srt_regen_bounce.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.srt_regen_bounce.restype = ctypes.c_int
+        for name in ENTRY_POINTS:
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.srt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.srt_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def launch(name: str, args: ctypes.Structure, device) -> None:
+    """Call entry point ``name`` with ``args`` on ``device``'s current
+    stream; raises if the launch is refused."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(ctypes.addressof(args), stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.srt_cuda_error_string(err).decode()}")

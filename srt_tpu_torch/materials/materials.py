@@ -16,6 +16,7 @@ import math
 import torch
 
 from srt_tpu_torch.core import frame
+from srt_tpu_torch.core.gradsafe import gsdiv
 from srt_tpu_torch.core.vecmath import (dot, normalize, onb_from_w,
                                         safe_normalize, to_local, to_world,
                                         where3)
@@ -66,8 +67,8 @@ def _oren_nayar_term(wi, wo, a, b):
     i_bigger = abs_ci > abs_co
     sin_alpha = torch.where(i_bigger, sin_to, sin_ti)
     tan_beta = torch.where(i_bigger,
-                           sin_ti / torch.clamp(abs_ci, min=1e-8),
-                           sin_to / torch.clamp(abs_co, min=1e-8))
+                           gsdiv(sin_ti, torch.clamp(abs_ci, min=1e-8)),
+                           gsdiv(sin_to, torch.clamp(abs_co, min=1e-8)))
     cos_i = torch.clamp(wi[:, 2], min=0.0)
     return cos_i * (a + b * max_cos * sin_alpha * tan_beta) * _INV_PI
 
@@ -99,8 +100,8 @@ def bsdf_pdf(scene: TorchScene, mat, basis, wo, wi_world,
         return pdf
     wh = safe_normalize(wi + wo)
     ax, ay = _alphas(scene, mat)
-    beck = pdf_wh_visible(wo, wh, ax, ay) \
-        / torch.clamp(4.0 * torch.abs(dot(wo, wh)), min=1e-8)
+    beck = gsdiv(pdf_wh_visible(wo, wh, ax, ay),
+                 torch.clamp(4.0 * torch.abs(dot(wo, wh)), min=1e-8))
     beck = torch.where(frame.same_hemisphere(wo, wi), beck, 0.0)
     return torch.where(scene.mat_type[mat] == _BECK, beck, pdf)
 
@@ -119,8 +120,8 @@ def bsdf_weight(scene: TorchScene, mat, uv, basis, wo, wi_world,
     if _BECK in flags.mat_kinds:
         wh = safe_normalize(wi + wo)
         ax, ay = _alphas(scene, mat)
-        w_beck = (beckmann_d(wh, ax, ay) * g(wo, wi, ax, ay)
-                  / torch.clamp(4.0 * torch.abs(wo[:, 2]), min=1e-8))
+        w_beck = gsdiv(beckmann_d(wh, ax, ay) * g(wo, wi, ax, ay),
+                       torch.clamp(4.0 * torch.abs(wo[:, 2]), min=1e-8))
         w_beck = torch.where(frame.same_hemisphere(wo, wi), w_beck, 0.0)
         w = torch.where(t == _BECK, w_beck, w)
     return alb * w[:, None]

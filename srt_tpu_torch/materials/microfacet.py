@@ -10,6 +10,7 @@ import torch
 
 from srt_tpu_torch.core import frame
 from srt_tpu_torch.core.approx import acos_as, erf_as, erfinv_giles
+from srt_tpu_torch.core.gradsafe import grad_safe_sqrt, gsdiv, gsrecip
 
 _SQRT_PI_INV = 0.5641895835477563
 
@@ -22,7 +23,7 @@ def beckmann_d(wh, alphax, alphay):
     cp, sp = frame.cos_phi(wh), frame.sin_phi(wh)
     e = torch.exp(-tan2 * (cp * cp / (alphax * alphax)
                            + sp * sp / (alphay * alphay)))
-    d = e / (math.pi * alphax * alphay * torch.clamp(cos4, min=1e-16))
+    d = gsdiv(e, math.pi * alphax * alphay * torch.clamp(cos4, min=1e-16))
     return torch.where(tan2 < 1e8, d, 0.0)
 
 
@@ -31,7 +32,7 @@ def beckmann_lambda(w, alphax, alphay):
     abs_tan = torch.clamp(torch.abs(frame.tan_theta(w)), max=1e8)
     cp, sp = frame.cos_phi(w), frame.sin_phi(w)
     alpha = torch.sqrt(cp * cp * alphax * alphax + sp * sp * alphay * alphay)
-    a = 1.0 / torch.clamp(alpha * abs_tan, min=1e-16)
+    a = gsrecip(torch.clamp(alpha * abs_tan, min=1e-16))
     a_safe = torch.clamp(a, 1e-4, 1.6)
     lam = ((1.0 - 1.259 * a_safe + 0.396 * a_safe * a_safe)
            / (3.535 * a_safe + 2.181 * a_safe * a_safe))
@@ -58,9 +59,9 @@ def _beckmann_sample11(cos_theta_i, u1, u2):
     sy_normal = r * torch.sin(phi)
 
     cos_t = torch.clamp(cos_theta_i, -1.0, 1.0)
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-    tan_t = sin_t / torch.clamp(cos_t, min=1e-20)
-    cot_t = 1.0 / torch.clamp(tan_t, min=1e-20)
+    sin_t = grad_safe_sqrt(1.0 - cos_t * cos_t)
+    tan_t = gsdiv(sin_t, torch.clamp(cos_t, min=1e-20))
+    cot_t = gsrecip(torch.clamp(tan_t, min=1e-20))
 
     a = torch.full_like(u1, -1.0)
     c = erf_as(cos_t)
@@ -84,9 +85,9 @@ def _beckmann_sample11(cos_theta_i, u1, u2):
         upd = ~done & (torch.abs(value) >= 1e-5)
         c = torch.where(upd & (value > 0.0), b, c)
         a = torch.where(upd & (value <= 0.0), b, a)
-        step = value / torch.where(torch.abs(derivative) < 1e-20,
-                                   torch.sign(derivative) * 1e-20 + 1e-30,
-                                   derivative)
+        step = gsdiv(value, torch.where(torch.abs(derivative) < 1e-20,
+                                        torch.sign(derivative) * 1e-20
+                                        + 1e-30, derivative))
         b = torch.where(upd, b - step, b)
         done = done | (torch.abs(value) < 1e-5)
     slope_x = erfinv_giles(b)
@@ -106,9 +107,9 @@ def sample_wh_visible(wo, alphax, alphay, u1, u2):
                      -1)
     # divide, not multiply by the reciprocal: one ulp here flips the
     # cosThetaI > 0.9999 normal-incidence branch
-    st = st / torch.clamp(torch.sqrt(
+    st = gsdiv(st, torch.clamp(torch.sqrt(
         st[..., 0] * st[..., 0] + st[..., 1] * st[..., 1]
-        + st[..., 2] * st[..., 2]), min=1e-20)[..., None]
+        + st[..., 2] * st[..., 2]), min=1e-20)[..., None])
     sx, sy = _beckmann_sample11(st[..., 2], u1, u2)
     cp, sp = frame.cos_phi(st), frame.sin_phi(st)
     tmp = cp * sx - sp * sy
@@ -116,9 +117,9 @@ def sample_wh_visible(wo, alphax, alphay, u1, u2):
     sx = alphax * tmp
     sy = alphay * sy
     wh = torch.stack([-sx, -sy, torch.ones_like(sx)], -1)
-    wh = wh / torch.clamp(torch.sqrt(
+    wh = gsdiv(wh, torch.clamp(torch.sqrt(
         wh[..., 0] * wh[..., 0] + wh[..., 1] * wh[..., 1]
-        + wh[..., 2] * wh[..., 2]), min=1e-20)[..., None]
+        + wh[..., 2] * wh[..., 2]), min=1e-20)[..., None])
     return torch.where(flip[..., None], -wh, wh)
 
 
@@ -126,6 +127,6 @@ def pdf_wh_visible(wo, wh, alphax, alphay):
     """VNDF density D(wh) G1(wo) |wo.wh| / |cos(wo)|."""
     wo_wh = wo[..., 0] * wh[..., 0] + wo[..., 1] * wh[..., 1] \
         + wo[..., 2] * wh[..., 2]
-    return (beckmann_d(wh, alphax, alphay) * g1(wo, alphax, alphay)
-            * torch.abs(wo_wh)
-            / torch.clamp(torch.abs(wo[..., 2]), min=1e-8))
+    return gsdiv(beckmann_d(wh, alphax, alphay) * g1(wo, alphax, alphay)
+                 * torch.abs(wo_wh),
+                 torch.clamp(torch.abs(wo[..., 2]), min=1e-8))

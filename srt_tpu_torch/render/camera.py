@@ -26,7 +26,7 @@ class Camera(NamedTuple):
     @staticmethod
     def look_at(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov=40.0,
                 aspect=1.0, aperture=0.0, focus_dist=10.0,
-                time0=0.0, time1=1.0, device="cpu") -> "Camera":
+                time0=0.0, time1=1.0, device="cuda") -> "Camera":
         def t(x):
             return torch.as_tensor(x, dtype=_F32, device=device)
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from srt_tpu_torch.core import rng
+from srt_tpu_torch.core.gradsafe import gsdiv
 from srt_tpu_torch.core.vecmath import dot, to_local, where3
 from srt_tpu_torch.materials import materials as mats
 from srt_tpu_torch.render import lights
@@ -67,7 +68,8 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
     weight = mats.bsdf_weight(scene, hit.mat, hit.uv, basis, wo, wi, flags)
     # below-floor pdfs contribute zero (the reference retries instead)
     diff_beta = torch.where((pdf > pdf_floor)[:, None],
-                            weight / torch.clamp(pdf, min=pdf_floor)[:, None],
+                            gsdiv(weight,
+                                  torch.clamp(pdf, min=pdf_floor)[:, None]),
                             0.0)
 
     new_beta = beta * diff_beta

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from srt_tpu_torch.core.gradsafe import gsdiv
 from srt_tpu_torch.core.vecmath import safe_sqrt
 from srt_tpu_torch.scene.ir import TorchScene
 
@@ -112,7 +113,8 @@ def _rect_chunk(scene: TorchScene, o, d, t_min, c0, c1) -> Hit:
     ua = torch.tensor(RECT_UAXIS, device=dev)[axis]
     va = torch.tensor(RECT_VAXIS, device=dev)[axis]
     o_n, d_n = o[:, na], d[:, na]                        # (N, C)
-    t = (kplane[None] - o_n) / torch.where(torch.abs(d_n) < 1e-20, 1e-20, d_n)
+    t = gsdiv(kplane[None] - o_n,
+              torch.where(torch.abs(d_n) < 1e-20, 1e-20, d_n))
     pu = o[:, ua] + t * d[:, ua]
     pv = o[:, va] + t * d[:, va]
     inside = ((pu >= bounds[None, :, 0]) & (pu <= bounds[None, :, 1])

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from srt_tpu_torch.core.gradsafe import gsdiv
 from srt_tpu_torch.core.vecmath import normalize
 from srt_tpu_torch.render.intersect import RECT_NAXIS, RECT_UAXIS, RECT_VAXIS
 from srt_tpu_torch.scene.ir import TorchScene
@@ -43,12 +44,13 @@ def lights_pdf(scene: TorchScene, p, wi):
     for li in range(scene.n_lights):
         na, ua, va, k, b = _rect(scene, li)
         d_n = wi[:, na]
-        t = (k - p[:, na]) / torch.where(torch.abs(d_n) < 1e-12, 1e-12, d_n)
+        t = gsdiv(k - p[:, na],
+                  torch.where(torch.abs(d_n) < 1e-12, 1e-12, d_n))
         hu = p[:, ua] + t * wi[:, ua]
         hv = p[:, va] + t * wi[:, va]
         inside = ((t > 1e-3) & (hu >= b[0]) & (hu <= b[1])
                   & (hv >= b[2]) & (hv <= b[3]))
         area = (b[1] - b[0]) * (b[3] - b[2])
-        pdf = t * t / torch.clamp(torch.abs(d_n) * area, min=1e-12)
+        pdf = gsdiv(t * t, torch.clamp(torch.abs(d_n) * area, min=1e-12))
         acc = acc + torch.where(inside, pdf, 0.0)
     return acc / scene.n_lights

@@ -105,7 +105,7 @@ class SceneBuilder:
         self._lights.append((LightKind.RECT, rect_id))
 
     # ---------------------------------------------------------------- build
-    def build(self, device="cpu") -> TorchScene:
+    def build(self, device="cuda") -> TorchScene:
         f32, i32 = np.float32, np.int32
         if not self._tex_type:
             self.constant((0.0, 0.0, 0.0))

@@ -18,9 +18,10 @@ def _register(fn):
     return fn
 
 
-def get_scene(name: str, aspect: float = 1.0, device="cpu", **kw):
-    """Build a scene by name (alias ``balls``). Scenes of the JAX library
-    that the port does not hold yet raise ``NotImplementedError``."""
+def get_scene(name: str, aspect: float = 1.0, device="cuda", **kw):
+    """Build a scene by name (alias ``balls``) on ``device`` (the card
+    unless the caller asks for another). Scenes of the JAX library that
+    the port does not hold yet raise ``NotImplementedError``."""
     key = {"balls": "ball_scenes"}.get(name, name)
     if key not in SCENES:
         raise NotImplementedError(
@@ -40,7 +41,7 @@ def _env_dome(b: SceneBuilder, lookfrom, image_rel: str, info: dict,
 
 
 @_register
-def ball_scenes(aspect: float = 1.0, device="cpu", **_kw):
+def ball_scenes(aspect: float = 1.0, device="cuda", **_kw):
     """Reference scene 2, the default (``Raytracing_n.cpp:379-425``):
     11x11 spheres sweeping anisotropic Beckmann roughness."""
     lookfrom = (300.0, 600.0, -100.0)

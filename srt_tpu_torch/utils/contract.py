@@ -56,6 +56,46 @@ def check_bounce(a: dict, b: dict) -> dict:
     return m
 
 
+#: per-bounce gradients: an entry is off when |Δ| exceeds GRAD_RTOL of
+#: the reference entry plus GRAD_ATOL of the reference's largest entry
+#: (GRAD_RTOL is the JAX package's kernel-backward bound,
+#: tests/test_diff.py:334-335); at most GRAD_FRAC of the lanes may hold an
+#: entry that is off
+GRAD_RTOL = 2e-3
+GRAD_ATOL = 1e-5
+GRAD_FRAC = 1e-2
+
+
+def grad_agreement(ref: dict, got: dict) -> dict:
+    """Measured agreement of per-lane gradients (numpy, (N, k) or (N,)
+    each): the share of lanes with an entry beyond the bound, the largest
+    |Δ| and the largest |Δ| relative to the reference's largest entry."""
+    bad = None
+    worst, scale = 0.0, 0.0
+    for key in ref:
+        a = np.asarray(ref[key], np.float64).reshape(len(ref[key]), -1)
+        b = np.asarray(got[key], np.float64).reshape(len(ref[key]), -1)
+        scale = max(scale, float(np.abs(a).max(initial=0.0)))
+        worst = max(worst, float(np.abs(a - b).max(initial=0.0)))
+        off = (np.abs(a - b) > GRAD_RTOL * np.abs(a)
+               + GRAD_ATOL * np.abs(a).max(initial=0.0)).any(-1)
+        bad = off if bad is None else bad | off
+    return {"frac_bad": float(bad.mean()), "max_abs": worst,
+            "max_rel": worst / max(scale, 1e-30),
+            "finite": bool(all(np.isfinite(np.asarray(got[k])).all()
+                               for k in got))}
+
+
+def check_grads(ref: dict, got: dict, frac: float = GRAD_FRAC) -> dict:
+    """Raise ``AssertionError`` unless ``got`` is finite and agrees with
+    ``ref`` lane by lane within the gradient bound on all but ``frac`` of
+    the lanes; returns the measured agreement."""
+    m = grad_agreement(ref, got)
+    if not m["finite"] or m["frac_bad"] > frac:
+        raise AssertionError(f"gradients beyond the contract: {m}")
+    return m
+
+
 def image_agreement(a: np.ndarray, b: np.ndarray) -> dict:
     """|Δmean|, median per-pixel |Δ| and the share of pixels beyond 1e-2."""
     diff = np.abs(np.asarray(a, np.float64)

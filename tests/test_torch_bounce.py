@@ -68,9 +68,9 @@ def _scenes(name: str):
         cam_j = JaxCamera.look_at(**LIT_ROOM_CAMERA)
     arrays = {k: (None if v is None else np.asarray(v))
               for k, v in scene_j._asdict().items()}
-    scene = convert.scene_from_arrays(arrays)
+    scene = convert.scene_from_arrays(arrays, device="cpu")
     cam = convert.camera_from_arrays(
-        {k: np.asarray(v) for k, v in cam_j._asdict().items()})
+        {k: np.asarray(v) for k, v in cam_j._asdict().items()}, device="cpu")
     return scene_j, cam_j, JaxSceneFlags.of(scene_j), scene, cam, \
         SceneFlags.of(scene)
 

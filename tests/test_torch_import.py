@@ -1,5 +1,6 @@
-"""srt_tpu_torch stands alone: importing it and rendering on the CPU pulls
-in neither JAX nor the JAX package, nor anything the GPU machine lacks."""
+"""srt_tpu_torch stands alone: importing it, rendering and taking a train
+step on the CPU pull in neither JAX nor the JAX package, nor anything the
+GPU machine lacks."""
 from __future__ import annotations
 
 import json
@@ -10,14 +11,22 @@ import sys
 _SCRIPT = """
 import json, sys, warnings
 warnings.simplefilter("ignore")
+import torch
 import srt_tpu_torch
-from srt_tpu_torch import RenderConfig, get_scene, render_regen
+from srt_tpu_torch import (RenderConfig, get_scene, make_train_step,
+                           render_regen)
 import srt_tpu_torch.kernels.build, srt_tpu_torch.convert
-scene, cam, _ = get_scene("ball_scenes")
+import srt_tpu_torch.diff, srt_tpu_torch.render.regen_scan
+import srt_tpu_torch.trainbench
+scene, cam, _ = get_scene("ball_scenes", device="cpu")
 img = render_regen(scene, cam, RenderConfig(width=8, height=8, spp=1,
                                             max_depth=3))
+step = make_train_step(scene, cam, {"tex_color": scene.tex_color}, width=4,
+                       height=4, spp=1, max_depth=2, device="cpu")
+loss = step(torch.full((4, 4, 3), 0.3), 0)
 print(json.dumps({"shape": list(img.shape),
-                  "finite": bool(img.isfinite().all()),
+                  "finite": bool(img.isfinite().all()
+                                 and loss.isfinite()),
                   "modules": sorted(m.split(".")[0] for m in sys.modules)}))
 """
 

@@ -1,13 +1,16 @@
-"""The CUDA bounce kernel (srt_tpu_torch/csrc/regen_bounce.cu).
+"""The CUDA bounce kernels (srt_tpu_torch/csrc/): the regeneration bounce
+(``regen_bounce.cu``), the per-bounce step of the train forward
+(``bounce.cu``) and its VJP, the train backward (``bounce_bwd.cu``).
 
-On a machine with an NVIDIA GPU the ``cuda``-marked test builds the
-kernel and holds one launch against the plain version lane by lane; here,
-without a card, it skips. The CPU tests check that the wrapper takes the
-plain version for CPU tensors without launching anything, and what the
-build is asked to do.
+On a machine with an NVIDIA GPU the ``cuda``-marked tests build the
+kernels and hold one launch of each against its plain version lane by
+lane; here, without a card, they skip. The CPU tests check that the
+wrappers take the plain versions for CPU tensors without launching
+anything, and what the build is asked to do.
 """
 from __future__ import annotations
 
+import shutil
 import warnings
 
 import numpy as np
@@ -17,7 +20,9 @@ from _torch_scenes import LIT_ROOM_CAMERA, lit_room
 
 from srt_tpu_torch import get_scene
 from srt_tpu_torch.core.sobol import sobol_points
+from srt_tpu_torch.diff.inverse import camera_rays
 from srt_tpu_torch.kernels import bounce as kb
+from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import build
 from srt_tpu_torch.render.camera import Camera
 from srt_tpu_torch.scene.build import SceneBuilder
@@ -34,14 +39,18 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _inputs(device, n=4096, cursor=2048, name="ball_scenes"):
+def _scene(name, device):
     if name == "ball_scenes":
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             scene, cam, _ = get_scene(name, device=device)
-    else:
-        scene = lit_room(SceneBuilder()).build(device)
-        cam = Camera.look_at(**LIT_ROOM_CAMERA, device=device)
+        return scene, cam
+    return (lit_room(SceneBuilder()).build(device),
+            Camera.look_at(**LIT_ROOM_CAMERA, device=device))
+
+
+def _inputs(device, n=4096, cursor=2048, name="ball_scenes"):
+    scene, cam = _scene(name, device)
     spec = kb.RegenSpec(width=64, height=64, spp=4, max_depth=8,
                         rr_start=2, pdf_floor=1e-9, seed=1)
     inp = kb.RegenInputs(scene, SceneFlags.of(scene), cam,
@@ -68,11 +77,80 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
                                     int((ref["alive"][256:] == 0).sum())]
 
 
+def _train_inputs(device, n, name="ball_scenes"):
+    """A mid-flight state of the train engine: ``render_pixels``' camera
+    rays (64x64, 4 spp) in a seeded order, two plain bounces with the
+    depth cap, a seeded half of the lanes dead; and a seeded cotangent,
+    zero on o, d, beta where the step ends the path (the engine never
+    reads them again, and the kernels leave them as they were)."""
+    scene, cam = _scene(name, device)
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=50)
+    r = np.random.default_rng(5)
+    pix = torch.from_numpy(r.integers(0, 64 * 64, n)).to(device)
+    (o, d, t), salt = camera_rays(cam, pix, 1, width=64, height=64, seed=3)
+    st = dict(o=o, d=d, time=t, beta=torch.ones_like(o),
+              radiance=torch.zeros_like(o), salt=salt,
+              alive=torch.ones(n, dtype=torch.bool, device=device),
+              depth=torch.zeros(n, dtype=torch.int32, device=device))
+    with torch.no_grad():
+        for _ in range(2):
+            st = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
+    half = torch.from_numpy(r.random(n) < 0.5).to(device)
+    st = {k: v.contiguous() for k, v in st.items()}
+    st["alive"] = (st["alive"] & (st["depth"] < spec.max_depth) & ~half)
+    with torch.no_grad():
+        ends = ~kb.bounce_step_ref(scene, flags, tables["mat"], st,
+                                   spec)["alive"]
+    ct = {k: torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32))
+          .to(device) for k in kbb.ROWS}
+    for k in ("o", "d", "beta"):
+        ct[k][ends] = 0.0
+    return scene, flags, tables, st, spec, ct
+
+
 def test_build_targets_sm90a_without_fast_math():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
-    assert any(s.endswith("regen_bounce.cu") for s in build.SOURCES)
+    for src in ("regen_bounce.cu", "bounce.cu", "bounce_bwd.cu"):
+        assert any(s.endswith("/" + src) for s in build.SOURCES), src
+    assert any(s.endswith("/bounce_core.cuh") for s in build.HEADERS)
     assert build.library_path().startswith(build.BUILD_DIR)
+
+
+def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
+    """An edit to the header the three kernels include names a new
+    library, so a stale build is never loaded."""
+    header = tmp_path / "bounce_core.cuh"
+    shutil.copy(next(h for h in build.HEADERS
+                     if h.endswith("bounce_core.cuh")), header)
+    monkeypatch.setattr(build, "HEADERS", [str(header)])
+    before = build.library_path()
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build.library_path() != before
+
+
+def test_train_wrappers_take_the_plain_version(monkeypatch):
+    """On CPU tensors the forward and backward wrappers are the plain step
+    and ``torch.autograd`` of it, and launch nothing."""
+    monkeypatch.setattr(kb, "LAUNCHES_FWD", 0)
+    monkeypatch.setattr(kbb, "LAUNCHES_BWD", 0)
+    scene, flags, tables, st, spec, ct = _train_inputs("cpu", 300,
+                                                       "lit_room")
+    out = kb.bounce_fwd(scene, flags, tables, st, spec)
+    with torch.no_grad():
+        ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
+    for k in ("o", "d", "beta", "radiance", "depth", "alive"):
+        assert torch.equal(out[k], ref[k]), k
+    g, d_mat = kbb.bounce_bwd(scene, flags, tables, st, ct, spec)
+    g_ref, d_mat_ref = kbb.bounce_bwd_reference(scene, flags, tables["mat"],
+                                                st, ct, spec)
+    for k in kbb.ROWS:
+        assert torch.equal(g[k], g_ref[k]), k
+    assert torch.equal(d_mat, d_mat_ref)
+    assert d_mat.shape == (scene.mat_type.shape[0], 14)
+    assert kb.LAUNCHES_FWD == 0 and kbb.LAUNCHES_BWD == 0
 
 
 @pytest.mark.cuda
@@ -93,3 +171,40 @@ def test_kernel_matches_plain_on_gpu(name, cuda_device):
         assert torch.equal(st_k[k], st[k]), k
     contract.check_bounce(contract.wavefront_arrays(st),
                           contract.wavefront_arrays(st_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ball_scenes", "lit_room"])
+def test_train_kernels_match_plain_on_gpu(name, cuda_device):
+    """One launch of the train forward (B2) against the plain step, and of
+    the train backward (B5) against ``torch.autograd`` of it, on 20,000
+    mid-flight lanes (a partial last block): depth exact, the state under
+    the per-bounce contract, the state cotangents under the gradient
+    contract, and the (M, 14) segment sums within GRAD_RTOL plus 1e-4 of
+    their largest entry (``index_add_`` on CUDA floats is atomic, so the
+    sums' last bits change from run to run)."""
+    scene, flags, tables, st, spec, ct = _train_inputs(cuda_device, 20000,
+                                                       name)
+    fwd, bwd = kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD
+    out = kb.bounce_fwd(scene, flags, tables, st, spec)
+    ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES_FWD == fwd + 1
+    assert torch.equal(out["depth"], ref["depth"])
+
+    def arrays(s):
+        return {k: s[k].cpu().numpy() for k in ("alive", "d", "beta",
+                                                "radiance")}
+    contract.check_bounce(arrays(ref), arrays(out))
+
+    g, d_mat = kbb.bounce_bwd(scene, flags, tables, st, ct, spec)
+    g_ref, d_mat_ref = kbb.bounce_bwd_reference(scene, flags, tables["mat"],
+                                                st, ct, spec)
+    torch.cuda.synchronize()
+    assert kbb.LAUNCHES_BWD == bwd + 1
+    contract.check_grads({k: g_ref[k].cpu().numpy() for k in kbb.ROWS},
+                         {k: g[k].cpu().numpy() for k in kbb.ROWS})
+    a, b = d_mat_ref.cpu().numpy(), d_mat.cpu().numpy()
+    assert np.abs(a).max() > 0.0
+    np.testing.assert_allclose(b, a, rtol=contract.GRAD_RTOL,
+                               atol=1e-4 * np.abs(a).max())

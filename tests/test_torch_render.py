@@ -43,9 +43,9 @@ def test_ball_scenes_image_matches_jax(flush_denormals, monkeypatch):
         scene_j, cam_j, _ = ball_scenes(aspect=1.0)
     scene = convert.scene_from_arrays(
         {k: (None if v is None else np.asarray(v))
-         for k, v in scene_j._asdict().items()})
+         for k, v in scene_j._asdict().items()}, device="cpu")
     cam = convert.camera_from_arrays(
-        {k: np.asarray(v) for k, v in cam_j._asdict().items()})
+        {k: np.asarray(v) for k, v in cam_j._asdict().items()}, device="cpu")
     cfg = dict(width=32, height=32, spp=4, max_depth=6)
     img_j, m_j = jax_render_regen(scene_j, cam_j, JaxRenderConfig(**cfg),
                                   metrics=True)

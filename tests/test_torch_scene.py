@@ -36,21 +36,21 @@ def jax_balls():
 def _both(name: str, jax_balls):
     """(port scene, JAX scene) built by each package's own builder."""
     if name == "ball_scenes":
-        return get_scene("ball_scenes")[0], jax_balls[0]
-    return (lit_room(SceneBuilder()).build(),
+        return get_scene("ball_scenes", device="cpu")[0], jax_balls[0]
+    return (lit_room(SceneBuilder()).build("cpu"),
             lit_room(JaxSceneBuilder()).build())
 
 
 @pytest.mark.parametrize("name", ["ball_scenes", "lit_room"])
 def test_scene_tables_bit_equal(name, jax_balls):
     got, scene_j = _both(name, jax_balls)
-    want = convert.scene_from_arrays(_arrays(scene_j))
+    want = convert.scene_from_arrays(_arrays(scene_j), device="cpu")
     for f in dataclasses.fields(TorchScene):
         a, b = getattr(got, f.name), getattr(want, f.name)
         assert a.dtype == b.dtype and a.shape == b.shape, f.name
         assert torch.equal(a, b), f.name
     if name == "ball_scenes":
-        assert get_scene(name)[2] == jax_balls[2]
+        assert get_scene(name, device="cpu")[2] == jax_balls[2]
 
 
 @pytest.mark.parametrize("name,lights", [("ball_scenes", (0,)),
@@ -65,9 +65,10 @@ def test_scene_flags_equal(name, lights, jax_balls):
 
 def test_camera_matches(jax_balls):
     _, cam_j, _ = jax_balls
-    _, cam, _ = get_scene("ball_scenes")
+    _, cam, _ = get_scene("ball_scenes", device="cpu")
     rec_j = convert.camera_from_arrays(
-        {k: np.asarray(v) for k, v in cam_j._asdict().items()}).record()
+        {k: np.asarray(v) for k, v in cam_j._asdict().items()},
+        device="cpu").record()
     np.testing.assert_allclose(cam.record().numpy(), rec_j.numpy(),
                                rtol=1e-6, atol=1e-6)
     r = np.random.default_rng(0)
@@ -92,17 +93,17 @@ def test_camera_matches(jax_balls):
                                        ("random_scene", "A7")])
 def test_uncovered_scenes_raise(name, item):
     scene_j, cam_j, _ = jlib.get_scene(name, aspect=1.0)
-    scene = convert.scene_from_arrays(_arrays(scene_j))
+    scene = convert.scene_from_arrays(_arrays(scene_j), device="cpu")
     cam = convert.camera_from_arrays(
-        {k: np.asarray(v) for k, v in cam_j._asdict().items()})
+        {k: np.asarray(v) for k, v in cam_j._asdict().items()}, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         render_regen(scene, cam, RenderConfig(width=4, height=4, spp=1))
     with pytest.raises(NotImplementedError):
-        get_scene(name)
+        get_scene(name, device="cpu")
 
 
 def test_media_and_parity_raise():
-    scene, cam, _ = get_scene("ball_scenes")
+    scene, cam, _ = get_scene("ball_scenes", device="cpu")
     media = dataclasses.replace(scene,
                                 med_kind=torch.zeros(1, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="media"):
