@@ -23,7 +23,18 @@ of which raises on failure:
    depth 50, a 16,384-lane wavefront, depth budget 4.0, drain 12,
    parameters ``{"tex_color"}``, Adam at 1e-2, a constant 0.3 target: one
    step to warm up, then three timed steps with seeds 1-3, 76 bounces
-   each, every bounce one B2 and one B5 launch.
+   each, every bounce one B2 and one B5 launch;
+7. the triangle BVH kernel (B3) against its plain version on two inputs:
+   a mid-flight 65,536-lane cornell_boxes wavefront, and the 4,800
+   triangles of ``final``'s ground field (its 400 boxes and their seeded
+   heights) under ``final``'s camera rays: hit and index equality, |dt|
+   within 2e-5 and |du|, |dv| within 1e-4 on the hits, the time per
+   launch and the bound;
+8. B2's external-hit mode against its plain version on input (a);
+9. the triangle render path: ``render_regen`` on cornell_boxes at 512x512,
+   16 spp, depth 50, a 65,536-lane wavefront and seed 0, first kernels
+   against plain versions on a 64x64, 4 spp, depth 8 image, then once to
+   warm up and three times timed, every bounce one B3 and one B2 launch.
 
 Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -59,6 +70,18 @@ PEAK_BYTES = 3.35e12
 OPS_SPHERE = 21
 OPS_RECT = 10
 OPS_SHADE = 600
+# The triangle walk (csrc/tri_bvh.cuh), counted the same way: the three
+# guarded reciprocals of a ray, one node's slab test, one Möller–Trumbore
+# test, and B2's assembly of a triangle hit (interpolation, normalise)
+OPS_RAY = 12
+OPS_SLAB = 25
+OPS_TRI = 61
+OPS_TRI_HIT = 40
+TRI_MAIN_REPS = 3
+# B3 against the plain walk on the rays both call a hit: JAX's own bounds
+# between its XLA walk and its Pallas kernel (tests/test_pallas.py)
+TRI_T_ATOL = 2e-5
+TRI_UV_ATOL = 1e-4
 # shade<Dual<7>>: each float operation becomes a value and 7 tangents,
 # 15 operations on average (a product takes 1 + 3*7, a sum 1 + 7); the
 # backward kernel runs two such passes
@@ -155,8 +178,7 @@ def phase_regen_kernel(scene, cam, dev) -> dict:
     small = RenderConfig(width=64, height=64, spp=4, max_depth=8,
                          wavefront=LANES)
     img_k = render_regen(scene, cam, small).cpu().numpy()
-    img_p = render_regen(scene, cam, small,
-                         bounce=kb.regen_bounce_reference).cpu().numpy()
+    img_p = render_regen(scene, cam, small, plain=True).cpu().numpy()
     mi = contract.check_image(img_k, img_p)
     log(f"[image] 64x64x4 depth 8 kernel vs plain: {json.dumps(mi)}")
 
@@ -410,6 +432,228 @@ def phase_train(scene, cam, dev) -> tuple[int, int]:
     return fwd, bwd
 
 
+def tri_wavefront(scene, cam, dev) -> tuple:
+    """A mid-flight 65,536-lane wavefront of the triangle render path (the
+    work cursor at mid-image, three plain bounces, a lane that ends taking
+    the next work item), then a seeded half of the lanes marked dead.
+    Returns the bounce's state (B2's layout) and the render's inputs."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.core.sobol import sobol_points
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    flags = SceneFlags.of(scene)
+    spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
+                        rr_start=1 << 30, pdf_floor=1e-9, seed=0)
+    step = kb.StepSpec(max_depth=50)
+    inp = kb.RegenInputs(scene, flags, cam, torch.from_numpy(
+        sobol_points(16, 2).astype(np.float32)))
+    n = LANES
+    st = dict(o=torch.zeros((n, 3), device=dev),
+              d=torch.zeros((n, 3), device=dev),
+              time=torch.zeros((n,), device=dev),
+              beta=torch.zeros((n, 3), device=dev),
+              radiance=torch.zeros((n, 3), device=dev),
+              salt=torch.zeros((n,), dtype=torch.int32, device=dev),
+              depth=torch.zeros((n,), dtype=torch.int32, device=dev),
+              alive=torch.zeros((n,), dtype=torch.bool, device=dev),
+              pix=torch.zeros((n,), dtype=torch.int64, device=dev))
+    cursor = torch.full((), spec.total_work // 2, dtype=torch.int64,
+                        device=dev)
+    for i in range(4):
+        state, take, pix = kb.regenerate(inp, spec, st, cursor)
+        cursor = cursor + take.sum()
+        state["salt"] = state["salt"].to(torch.int32)
+        if i == 3:
+            break
+        tri = ki.intersect_tris_reference(scene, state["o"], state["d"])
+        nxt = kb.bounce_step_ref(scene, flags, inp.tables["mat"], state,
+                                 step, tri)
+        st = dict(nxt, alive=nxt["alive"] & (nxt["depth"] < 50), pix=pix)
+    half = torch.from_numpy(np.random.default_rng(3).random(n) < 0.5)
+    state["alive"] = state["alive"] & ~half.to(dev)
+    return {k: v.contiguous() for k, v in state.items()}, inp, step
+
+
+def ground_field(dev) -> tuple:
+    """``final``'s ground (``srt_tpu/scene/library.py:418-430``): 20x20
+    boxes of 100 x 100, heights from ``np.random.default_rng(1)``, as
+    4,800 BVH triangles; and 65,536 rays of ``final``'s camera (``:460``)
+    through seeded film points."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.core import rng
+    from srt_tpu_torch.render.camera import Camera
+    from srt_tpu_torch.scene.build import SceneBuilder
+
+    draws = np.random.default_rng(1)
+    b = SceneBuilder()
+    b.lambertian(b.constant((0.73, 0.73, 0.73)))
+    ground = b.lambertian(b.constant((0.48, 0.83, 0.53)))
+    for i in range(20):
+        for j in range(20):
+            x0, z0 = -1000.0 + i * 100.0, -1000.0 + j * 100.0
+            y1 = 100.0 * (draws.random() + 0.01)
+            b.box((x0, 0.0, z0), (x0 + 100.0, y1, z0 + 100.0), ground,
+                  as_tris=True)
+    scene = b.build(dev)
+    cam = Camera.look_at((478, 278, -600), (278, 278, 0), vfov=40.0,
+                         aspect=1.0, aperture=0.0, focus_dist=10.0,
+                         device=dev)
+    r = np.random.default_rng(5)
+    s, t = (torch.from_numpy(r.random(LANES).astype(np.float32)).to(dev)
+            for _ in range(2))
+    salt = rng.create_salt(0, torch.arange(LANES, device=dev),
+                           torch.zeros(LANES, dtype=torch.int64, device=dev))
+    o, d, _ = cam.rays(s, t, rng.uniform(salt, 32), rng.uniform(salt, 33),
+                       rng.uniform(salt, 34))
+    return scene, o.contiguous(), d.contiguous()
+
+
+def check_tri_kernel(label: str, scene, o, d) -> dict:
+    """Phase 7 on one input: B3 against the plain walk; times and bound."""
+    import torch
+
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.kernels.build import launch
+
+    tables = ki.pack_tables(scene)
+    t, u, v, idx = ki.intersect_tris(scene, tables, o, d)
+    pt, pu, pv, pidx, visits, tests = ki.intersect_tris_reference(
+        scene, o, d, stats=True)
+    torch.cuda.synchronize()
+    hit = pt < 3e38
+    if not torch.equal(t < 3e38, hit):
+        raise AssertionError(f"B3 {label}: hit mask differs on "
+                             f"{int(((t < 3e38) != hit).sum())} rays")
+    if not torch.equal(idx.long()[hit], pidx[hit]):
+        raise AssertionError(f"B3 {label}: triangle index differs on "
+                             f"{int((idx.long() != pidx)[hit].sum())} rays")
+    if not bool(hit.any()):
+        raise AssertionError(f"B3 {label}: no ray hits a triangle")
+    err = {k: float((a - b)[hit].abs().max())
+           for k, a, b in (("t", t, pt), ("u", u, pu), ("v", v, pv))}
+    if err["t"] > TRI_T_ATOL or max(err["u"], err["v"]) > TRI_UV_ATOL:
+        raise AssertionError(f"B3 {label}: hits beyond |dt| <= {TRI_T_ATOL}, "
+                             f"|du|, |dv| <= {TRI_UV_ATOL}: {err}")
+    args, _ = ki.kernel_args(tables, o, d)
+    kern_ms = [time_ms(lambda: launch("srt_intersect_tris", args, o.device),
+                       200) for _ in range(2)]
+    plain_ms = time_ms(lambda: ki.intersect_tris_reference(scene, o, d), 3)
+    n = o.shape[0]
+    n_bytes = n * (24 + 16) + 4 * (tables["nodes"].numel()
+                                   + tables["tris"].numel())
+    ops = (n * OPS_RAY + int(visits.sum()) * OPS_SLAB
+           + int(tests.sum()) * OPS_TRI)
+    ms_bound, by = bound(n_bytes, ops)
+    log(f"[tris-{label}] {n} rays, {scene.n_tris} triangles, "
+        f"{scene.n_bvh_nodes} nodes: hits {int(hit.sum())} and indices "
+        f"equal, max |dt| {err['t']:.3e} |du| {err['u']:.3e} |dv| "
+        f"{err['v']:.3e}; per ray {float(visits.float().mean()):.2f} node "
+        f"visits, {float(tests.float().mean()):.2f} triangle tests; ms per "
+        f"launch {kern_ms}, plain {plain_ms:.3f}, bound {ms_bound:.6f} "
+        f"({by})")
+    return {"max_abs_err": max(err.values()), "ms": min(kern_ms),
+            "plain_ms": plain_ms, "bound_ms": ms_bound, "bound_by": by}
+
+
+def phase_tri_kernels(scene, cam, dev) -> tuple[dict, dict]:
+    """Phases 7 and 8: B3 on both inputs, B2's external-hit mode on (a)."""
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.kernels.build import launch
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.utils import contract
+
+    st, inp, step = tri_wavefront(scene, cam, dev)
+    b3 = check_tri_kernel("cornell", scene, st["o"], st["d"])
+    check_tri_kernel("final-ground", *ground_field(dev))
+
+    flags, tables = SceneFlags.of(scene), inp.tables
+    tri = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"], st["d"])
+    out_k = kb.bounce_fwd(scene, flags, tables, st, step, tri)
+    out_p = kb.bounce_step_ref(scene, flags, tables["mat"], st, step, tri)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k["depth"], out_p["depth"]):
+        raise AssertionError("B2 external-hit depth differs")
+    keys = ("alive", "d", "beta", "radiance")
+    m = contract.check_bounce({k: out_p[k].cpu().numpy() for k in keys},
+                              {k: out_k[k].cpu().numpy() for k in keys})
+    n_live = int(st["alive"].sum())
+    n_tri = int((st["alive"] & (tri[0] < 3e38)).sum())
+    fargs, _ = kb.fwd_args(scene, tables, st, step, tri)
+    kern_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), 200)
+               for _ in range(2)]
+    plain_ms = time_ms(lambda: kb.bounce_step_ref(
+        scene, flags, tables["mat"], st, step, tri), 5)
+    ms_bound, by = bound(LANES * (73 + 53), n_live * (
+        scene.n_rects * OPS_RECT + OPS_SHADE) + n_tri * OPS_TRI_HIT)
+    log(f"[bounce-ext] {LANES} lanes, {n_live} live, {n_tri} on a "
+        f"triangle: depth exact, {json.dumps(m)}; ms per launch {kern_ms}, "
+        f"plain {plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
+    b3.update(name="intersect_tris", route="cuda",
+              source="srt_tpu_torch/csrc/intersect_tris.cu",
+              replaces="srt_tpu/pallas/intersect.py:148", library_ms=None)
+    return b3, {"max_abs_err": max(m[k]["max"] for k in keys[1:]),
+                "ms": min(kern_ms)}
+
+
+def phase_tri_render(scene, cam) -> tuple[int, int]:
+    """Phase 9: the triangle render path; returns the B3 and B2 launches
+    of the timed renders."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import RenderConfig, render_regen
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.utils import contract
+
+    small = RenderConfig(width=64, height=64, spp=4, max_depth=8,
+                         wavefront=LANES)
+    img_k = render_regen(scene, cam, small).cpu().numpy()
+    img_p = render_regen(scene, cam, small, plain=True).cpu().numpy()
+    mi = contract.check_image(img_k, img_p)
+    log(f"[tri-image] cornell_boxes 64x64x4 depth 8 kernels vs plain: "
+        f"{json.dumps(mi)}")
+
+    cfg = RenderConfig(**MAIN)
+    t0 = time.time()
+    render_regen(scene, cam, cfg)
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    ki.LAUNCHES = kb.LAUNCHES_FWD = kb.LAUNCHES = 0
+    runs = []
+    for _ in range(TRI_MAIN_REPS):
+        img, met = render_regen(scene, cam, cfg, metrics=True)
+        runs.append((img.cpu().numpy(), met))
+    b3, b2, b1 = ki.LAUNCHES, kb.LAUNCHES_FWD, kb.LAUNCHES
+    bounces = sum(m.bounces for _, m in runs)
+    if not b3 == b2 == bounces or bounces == 0 or b1:
+        raise AssertionError(f"{b3} B3 and {b2} B2 launches ({b1} B1) for "
+                             f"{bounces} bounces")
+    for img, met in runs:
+        nan_pixels = int(np.isnan(img).sum())
+        mean = float(img.mean())
+        if not np.isfinite(img).all() or nan_pixels or not 0.05 < mean < 0.5:
+            raise AssertionError(f"cornell_boxes image: mean {mean}, "
+                                 f"nan {nan_pixels}")
+    rates = sorted(m.primary_rays_per_sec for _, m in runs)
+    log(f"[tri-main] cornell_boxes {MAIN['width']}x{MAIN['height']}x"
+        f"{MAIN['spp']} depth {MAIN['max_depth']}, {TRI_MAIN_REPS} "
+        f"renders: median {rates[len(rates) // 2]:.1f} primary rays/s (all "
+        f"{rates}), first render {warmup_s:.3f}s, mean {mean:.5f}, "
+        f"nan_pixels {nan_pixels}, {b3} B3 and {b2} B2 launches for "
+        f"{bounces} bounces, {json.dumps(met.to_dict())}")
+    return b3, b2
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ppm", default=None,
@@ -444,12 +688,22 @@ def main() -> None:
     b1 = phase_regen_kernel(scene, cam, dev)                  # 3
     b1["launches"] = phase_render(scene, cam, args.ppm)       # 4
     b2, b5 = phase_train_kernels(scene, cam, dev)             # 5
-    b2["launches"], b5["launches"] = phase_train(scene, cam, dev)   # 6
+    b2_train, b5["launches"] = phase_train(scene, cam, dev)   # 6
+    tri_scene, tri_cam, _ = get_scene("cornell_boxes", device=dev)
+    b3, b2_ext = phase_tri_kernels(tri_scene, tri_cam, dev)   # 7, 8
+    b3["launches"], b2_render = phase_tri_render(tri_scene, tri_cam)   # 9
+    b2["launches"] = b2_train + b2_render
+    b2["max_abs_err"] = max(b2["max_abs_err"], b2_ext["max_abs_err"])
+    log(f"[kernels] B2 launches: {b2_train} on the train path, {b2_render} "
+        f"in external-hit mode on the triangle render path; B2 ms per "
+        f"launch {b2['ms']} (train state, 16,384 lanes), "
+        f"{b2_ext['ms']} (external-hit, 65,536 lanes)")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in (b1, b2, b5)]}), flush=True)
+                                  for kern in (b1, b2, b3, b5)]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,13 @@
 The counterpart of the repository's ``bench.py``, with the same keys plus
 ``"backend": "torch-cuda"``: primary rays per second on the reference's
 default workload, ``ball_scenes`` at 512x512, 16 spp, depth 50, no
-roulette, through the regeneration engine and its CUDA bounce kernel.
+roulette, through the regeneration engine and its CUDA kernels
+(``--scene cornell_boxes`` takes the triangle path).
 ``vs_baseline`` divides by the reference C++ renderer's rate recorded in
 ``BASELINE_MEASURED.json`` (measured on another machine's CPU).
 
-Usage: ``python -m srt_tpu_torch.bench [--width 512] [--spp 16]``.
+Usage: ``python -m srt_tpu_torch.bench [--scene NAME] [--width 512]
+[--spp 16] [--profile DIR]``.
 Diagnostics go to stderr; stdout carries exactly one JSON line.
 """
 from __future__ import annotations
@@ -37,26 +39,32 @@ def baseline_rays_per_sec() -> float:
 
 def profile_one(out_dir: str, scene, camera, config) -> None:
     """One render under torch.profiler: a chrome trace in ``out_dir``, and
-    device time by kernel and the device's busy share of the wall on
-    stderr."""
+    on stderr the device's kernel time by kernel, its sum (device busy),
+    kernel launches per bounce, and the busy share of the wall. Only the
+    profiler's device rows are summed: a CPU operator's row repeats the
+    time of the kernels it launched."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render_regen(scene, camera, config)
+        _, met = render_regen(scene, camera, config, metrics=True)
         torch.cuda.synchronize()
     wall = time.time() - t0
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
-    rows = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
-            for e in prof.key_averages()]
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
     busy_us = sum(r[0] for r in rows)
-    log(f"[profile] wall {wall:.4f}s (profiler on), device busy "
-        f"{busy_us / 1e6:.4f}s = {busy_us / 1e6 / wall:.3f} of the wall")
+    launches = sum(r[1] for r in rows)
+    log(f"[profile] {met.bounces} bounces; device busy {busy_us / 1e6:.4f}s "
+        f"in {launches} kernel launches ({launches / met.bounces:.1f} a "
+        f"bounce); wall {wall:.4f}s with the profiler on, busy share of it "
+        f"{busy_us / 1e6 / wall:.3f}")
     for us, count, key in sorted(rows, reverse=True)[:12]:
-        if us:
-            log(f"[profile] {us / 1e3:10.3f} ms {count:6d} calls "
-                f"{us / count:9.2f} us/call  {key[:90]}")
+        log(f"[profile] {us / 1e3:10.3f} ms {count:6d} calls "
+            f"{us / count:9.2f} us/call  {key[:90]}")
 
 
 def main() -> None:
@@ -99,10 +107,12 @@ def main() -> None:
     log(f"{reps} rep(s), {total:.3f}s total, mean={img.mean():.4f}, "
         f"nan={nan}")
 
+    rays_per_sec = args.width * height * args.spp * reps / total
     if args.profile:
+        log(f"[profile] wall per render with the profiler off: "
+            f"{total / reps:.4f}s")
         profile_one(args.profile, scene, camera, config)
 
-    rays_per_sec = args.width * height * args.spp * reps / total
     ref = baseline_rays_per_sec()
     print(json.dumps({
         "metric": "primary_rays_per_sec",

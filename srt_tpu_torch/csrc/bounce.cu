@@ -1,22 +1,33 @@
 // One bounce of an explicit wavefront state, one thread per lane: the
-// forward of the train step.
+// forward of the train step, and the bounce of the regeneration engine on
+// triangle scenes.
 //
 // Replaces srt_tpu/pallas/bounce.py:_kernel in its per-bounce mode
-// (regen=False, launched by fused_bounce), without the external
-// triangle-hit planes (has_ext) and the parity stale plane, which come
-// with the triangle and parity slices. For every lane: closest hit,
+// (regen=False, launched by fused_bounce), without the parity stale
+// plane, which comes with the parity slice. For every lane: closest hit,
 // emission (the env dome's image texture looked up here), the diffuse
 // branch and roulette -- bounce_core.cuh's bounce(), the same code as the
 // regeneration kernel's. No regeneration, no ranks, no depth cap: the
 // caller applies the cap (srt_tpu/render/regen_scan.py:126). Out of place,
 // because autograd keeps the inputs for the backward kernel.
 //
+// External-hit mode (n_tris > 0, the template's kExt; bounce.py's
+// has_ext): the triangle BVH kernel (intersect_tris.cu) has left each
+// lane's closest triangle as (t, u, v, idx). This kernel assembles the
+// hit from the triangle tables -- barycentrics (1-u-v, u, v), the
+// normalised interpolated normal, the interpolated uv, tri_mat[idx], the
+// math of srt_tpu/render/intersect.py:396-403 -- where the JAX package
+// gathers in XLA between the two launches, and lets it compete after the
+// spheres and rects. Without triangles the kernel is the triangle-free
+// instantiation.
+//
 // State is (n, 3) rows for o, d, beta, radiance; salt (int32 bit
 // patterns), depth int32, alive bool. A dead lane passes through with
 // depth + 1. Time is not read: moving spheres are outside the slice.
 //
 // Bound: as the regeneration kernel, the shading chain (registers and
-// divergence), not bytes: a lane reads 57 B and writes 53 B.
+// divergence), not bytes: a lane reads 57 B (73 B with a triangle hit)
+// and writes 53 B.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +57,14 @@ struct BounceArgs {
   const int* atlas_u32;
   int n, n_sph, n_rect, n_mat, n_light, n_atlas, max_depth, rr_start;
   float pdf_floor;
+  const float* tri_t;           // (n,) closest triangle: t, kBig on a miss
+  const float* tri_u;           // (n,)
+  const float* tri_v;           // (n,)
+  const int* tri_idx;           // (n,)
+  const float* tri_n;           // (n_tris, 9) per-vertex shading normals
+  const float* tri_uv;          // (n_tris, 6) per-vertex uv
+  const int* tri_mat;           // (n_tris,)
+  int n_tris;                   // 0: no external hit
 };
 
 }  // extern "C"
@@ -56,6 +75,32 @@ using namespace srt;
 
 constexpr int kBlock = 256;
 
+// Lane i's closest triangle as an external hit (intersect.py:396-403)
+__device__ __forceinline__ ExtHit triangle_hit(const BounceArgs& a, int i) {
+  ExtHit e;
+  e.t = a.tri_t[i];
+  e.u = e.v = 0.0f;
+  e.n = v3(0.0f, 0.0f, 0.0f);
+  e.m = 0;
+  e.idx = -1;
+  if (e.t < kBig) {
+    const float u = a.tri_u[i], v = a.tri_v[i];
+    const float w = 1.0f - u - v;
+    const int k = a.tri_idx[i];
+    const float* nn = a.tri_n + 9 * k;
+    const float* uu = a.tri_uv + 6 * k;
+    e.n = normalize(v3(nn[0] * w + nn[3] * u + nn[6] * v,
+                       nn[1] * w + nn[4] * u + nn[7] * v,
+                       nn[2] * w + nn[5] * u + nn[8] * v));
+    e.u = uu[0] * w + uu[2] * u + uu[4] * v;
+    e.v = uu[1] * w + uu[3] * u + uu[5] * v;
+    e.m = a.tri_mat[k];
+    e.idx = k;
+  }
+  return e;
+}
+
+template <bool kExt>
 __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   extern __shared__ float smem[];
   const SceneView sv = scene_view(a, smem);
@@ -69,7 +114,14 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   L.rad = load_row3(a.rad, i);
   const int depth = a.depth[i];
   bool alive = false;
-  if (a.alive[i]) alive = bounce(sv, (uint32_t)a.salt[i], depth, L);
+  if (a.alive[i]) {
+    if constexpr (kExt) {
+      const ExtHit e = triangle_hit(a, i);
+      alive = bounce<true>(sv, (uint32_t)a.salt[i], depth, L, &e);
+    } else {
+      alive = bounce(sv, (uint32_t)a.salt[i], depth, L);
+    }
+  }
   store_row3(a.o_out, i, L.o);
   store_row3(a.d_out, i, L.d);
   store_row3(a.beta_out, i, L.beta);
@@ -78,16 +130,23 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   a.alive_out[i] = alive ? 1 : 0;
 }
 
+template <bool kExt>
+int launch_bounce(const BounceArgs& a, cudaStream_t stream) {
+  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light);
+  cudaError_t err = cudaFuncSetAttribute(
+      bounce_kernel<kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = (a.n + kBlock - 1) / kBlock;
+  bounce_kernel<kExt><<<blocks, kBlock, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int srt_bounce(const BounceArgs* args, void* stream) {
   const BounceArgs& a = *args;
   if (a.n <= 0) return (int)cudaSuccess;
-  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light);
-  cudaError_t err = cudaFuncSetAttribute(
-      bounce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = (a.n + kBlock - 1) / kBlock;
-  bounce_kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return a.n_tris > 0 ? launch_bounce<true>(a, (cudaStream_t)stream)
+                      : launch_bounce<false>(a, (cudaStream_t)stream);
 }

@@ -1,6 +1,7 @@
 // The bounce of one lane, shared by the three bounce kernels:
 // regen_bounce.cu (B1, regeneration + bounce), bounce.cu (B2, one bounce
-// of an explicit state) and bounce_bwd.cu (B5, the bounce's VJP).
+// of an explicit state, optionally with an external triangle hit) and
+// bounce_bwd.cu (B5, the bounce's VJP).
 //
 // The closest-hit sweep runs in float. Everything after it, the shading
 // (shade<T>), is written once over a scalar type T:
@@ -610,8 +611,10 @@ __device__ inline V3 image_value(const SceneView& s, int tex, float u,
 // ---- closest hit (float) ---------------------------------------------------
 struct Winner {
   float t;        // kBig on a miss
-  float u, v;     // rect uv (spheres: from the unit vector, in shade)
-  int sph, rect;  // the winner's index, -1 for the other kind
+  float u, v;     // rect or triangle uv (spheres: from the unit vector)
+  int sph, rect;  // the winner's index, -1 for the other kinds
+  int tri;        // the external (triangle) winner's index, -1 otherwise
+  V3 n;           // the triangle winner's shading normal
   int m;          // material id, 0 on a miss
   bool hit;
 };
@@ -666,10 +669,38 @@ __device__ inline Winner closest_hit(const SceneView& s, V3 o, V3 d) {
   W.v = w_v;
   W.sph = w_sph;
   W.rect = w_rect;
+  W.tri = -1;
+  W.n = v3(0.0f, 0.0f, 0.0f);
   W.hit = t_best < kBig;
   W.m = !W.hit ? 0 : (w_rect >= 0 ? (int)s.rect[10 * w_rect + 8]
                                    : (int)s.sph[12 * w_sph + 9]);
   return W;
+}
+
+// An external closest hit (a triangle found by the BVH walk, tri_bvh.cuh,
+// assembled by the caller): t (kBig on a miss), uv, the normalised
+// interpolated shading normal, the material and the triangle's index.
+struct ExtHit {
+  float t, u, v;
+  V3 n;
+  int m, idx;
+};
+
+// The external hit competes after spheres and rects and wins only when
+// strictly nearer (srt_tpu/pallas/bounce.py:1256-1266); its lane is then
+// shaded like a rect lane with the given normal and uv.
+__device__ __forceinline__ void take_external(Winner& W, const ExtHit& e) {
+  if (e.t < W.t) {
+    W.t = e.t;
+    W.u = e.u;
+    W.v = e.v;
+    W.n = e.n;
+    W.m = e.m;
+    W.tri = e.idx;
+    W.sph = -1;
+    W.rect = -1;
+    W.hit = true;
+  }
 }
 
 // The winner's t: the sweep's value in the forward; in the backward the
@@ -714,7 +745,8 @@ struct LaneT {
 // combined with its depth); ``mp0, mp1`` are the material's parameters 0
 // and 1 and ``mc`` its constant colour. Returns alive-after-bounce (before
 // the depth cap) and updates L. Emitter and miss lanes keep o, d, beta.
-template <class T>
+// kExt: the winner may be an external (triangle) hit.
+template <class T, bool kExt = false>
 __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
                                       uint32_t salt, int depth, const T& mp0,
                                       const T& mp1, const V3T<T>& mc,
@@ -731,6 +763,8 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
       const float* r = s.rect + 10 * W.rect;
       n_st = v3<T>(T(0.0f), T(0.0f), T(0.0f));
       set_comp(n_st, (int)r[0], T(r[9]));
+    } else if (kExt && W.tri >= 0) {
+      n_st = lift3<T>(W.n);
     } else {
       const float* r = s.sph + 12 * W.sph;
       unit = divide(sub(p, lift3<T>(v3(r[0], r[1], r[2]))), r[8]);
@@ -747,7 +781,8 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
       V3T<T> e = mc;
       if ((int)mt[5] == kTexImage) {
         float u = W.u, v = W.v;
-        if (W.rect < 0) sphere_uv(val3(unit), u, v);
+        if (W.rect < 0 && !(kExt && W.tri >= 0))
+          sphere_uv(val3(unit), u, v);
         e = lift3<T>(image_value(s, (int)mt[13], u, v));
       }
       L.rad = add(L.rad, v3<T>(L.beta.x * e.x, L.beta.y * e.y,
@@ -858,13 +893,18 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
 }
 
 // The forward bounce of one live lane (B1, B2): returns alive-after-bounce
-// (before the depth cap) and updates L.
+// (before the depth cap) and updates L. With kExt (B2's external-hit
+// mode) the external hit ``e`` takes part in the closest hit; without it
+// the code is the triangle-free bounce, as B1 compiles it.
+template <bool kExt = false>
 __device__ __forceinline__ bool bounce(const SceneView& s, uint32_t salt,
-                                       int depth, LaneT<float>& L) {
-  const Winner W = closest_hit(s, L.o, L.d);
+                                       int depth, LaneT<float>& L,
+                                       const ExtHit* e = nullptr) {
+  Winner W = closest_hit(s, L.o, L.d);
+  if constexpr (kExt) take_external(W, *e);
   const float* mt = s.mat + 14 * W.m;
-  return shade<float>(s, W, hash_combine(salt, (uint32_t)depth), depth,
-                      mt[1], mt[2], v3(mt[6], mt[7], mt[8]), L);
+  return shade<float, kExt>(s, W, hash_combine(salt, (uint32_t)depth),
+                            depth, mt[1], mt[2], v3(mt[6], mt[7], mt[8]), L);
 }
 
 }  // namespace srt

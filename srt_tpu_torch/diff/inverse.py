@@ -178,6 +178,7 @@ def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
     splice(scene, params)               # refuse geometric parameters early
     scene, camera = scene_to(scene, device), camera_to(camera, device)
     flags = SceneFlags.of(scene)
+    require_bwd_kernel(scene, flags)    # and scenes B5 cannot differentiate
     pixel_ids = torch.arange(width * height, device=scene.device)
 
     def loss_fn(p, target, seed):

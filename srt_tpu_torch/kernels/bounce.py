@@ -29,13 +29,16 @@ the shading core, emitter and dead lanes skip the shading work.
 
 The wavefront is updated in place so one copy of it lives on the device.
 
-**The per-bounce step** (kernel B2), the forward of the train step:
-one bounce of an explicit state, out of place, no regeneration and no
-depth cap. Replaces ``_kernel`` in its per-bounce mode (launched by
-``fused_bounce``, ``bounce.py:1425-1552``) without the external
-triangle-hit planes and the parity plane. :func:`bounce_step_ref` is its
-plain version and :func:`bounce_fwd` the wrapper; ``csrc/bounce.cu`` runs
-the same ``bounce()`` of ``csrc/bounce_core.cuh`` as B1.
+**The per-bounce step** (kernel B2), the forward of the train step and
+the bounce of the regeneration engine on triangle scenes: one bounce of an
+explicit state, out of place, no regeneration and no depth cap. Replaces
+``_kernel`` in its per-bounce mode (launched by ``fused_bounce``,
+``bounce.py:1425-1552``) without the parity plane. On a triangle scene it
+takes each lane's closest triangle ``(t, u, v, idx)`` from kernel B3
+(``kernels/intersect.py``) and assembles the hit itself (the external-hit
+mode, ``has_ext``). :func:`bounce_step_ref` is its plain version and
+:func:`bounce_fwd` the wrapper; ``csrc/bounce.cu`` runs the same
+``bounce()`` of ``csrc/bounce_core.cuh`` as B1.
 """
 from __future__ import annotations
 
@@ -79,10 +82,12 @@ class RegenSpec:
 
 
 def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
-    """Scene records the kernel reads (``bounce.py:_build_tables``),
+    """Scene records the kernels read (``bounce.py:_build_tables``),
     entries-major so one record is contiguous: spheres (S, 12), rects
-    (R, 10), materials (M, 14), rect lights (L, 8), all float32. Lights
-    are rects: the coverage gate refuses sphere lights."""
+    (R, 10), materials (M, 14), rect lights (L, 8), all float32 (lights
+    are rects: the coverage gate refuses sphere lights); and for B2's
+    external hit the triangles' normals (T, 9), uv (T, 6) and materials
+    (T,) int32."""
     f = _F32
     dev = scene.device
     S, R = scene.n_spheres, scene.n_rects
@@ -112,11 +117,15 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
     light = rect_geo[scene.light_index.long().clamp(0, max(R - 1, 0))]
     atlas = (scene.atlas_u32 if scene.atlas_u32 is not None
              else torch.zeros((1,), dtype=_I32, device=dev))
+    T = scene.n_tris
     return dict(sph=sph.reshape(S, 12).contiguous(),
                 rect=rect.reshape(R, 10).contiguous(),
                 mat=mat.contiguous(), light=light.reshape(-1, 8).contiguous(),
                 tex_img=scene.tex_img.to(_I32).contiguous(),
-                atlas_u32=atlas.to(_I32).contiguous())
+                atlas_u32=atlas.to(_I32).contiguous(),
+                tri_n=scene.tri_n.reshape(T, 9).contiguous(),
+                tri_uv=scene.tri_uv.reshape(T, 6).contiguous(),
+                tri_mat=scene.tri_mat.to(_I32).contiguous())
 
 
 class RegenInputs:
@@ -153,14 +162,19 @@ def new_wavefront(n: int, device) -> dict:
                 cursor_next=torch.zeros((1,), dtype=_I32, device=device))
 
 
-def regen_bounce_reference(inp: RegenInputs, st: dict,
-                           spec: RegenSpec) -> None:
-    """The plain PyTorch version of one launch; updates ``st`` in place."""
-    n = st["alive"].shape[0]
-    alive = st["alive"] != 0
+def regenerate(inp: RegenInputs, spec: RegenSpec, st: dict,
+               cursor: torch.Tensor) -> tuple[dict, torch.Tensor,
+                                               torch.Tensor]:
+    """Dead lanes take the next ``(pixel, sample)`` work items from the
+    queue at ``cursor`` (row-major ``cumsum`` ranks, sample-minor) and
+    become fresh camera rays (``regen.py:183-209``). ``st``: ``o d beta
+    radiance`` (N, 3), ``time``, ``salt`` (32-bit words, any int dtype),
+    ``depth``, ``alive`` (bool), ``pix``. Returns the bounce's input state
+    (``salt`` as int64 words), the mask of lanes that took work, and each
+    lane's pixel (int64)."""
+    alive = st["alive"]
     need = ~alive
-    # row-major rank of each dead lane, continuing the work cursor
-    wid = st["cursor"].long() + torch.cumsum(need.long(), 0) - 1
+    wid = cursor.long() + torch.cumsum(need.long(), 0) - 1
     take = need & (wid < spec.total_work)
     pixn = wid // spec.spp
     sampn = wid % spec.spp
@@ -173,23 +187,28 @@ def regen_bounce_reference(inp: RegenInputs, st: dict,
     o_new, d_new, time_new = inp.camera.rays(
         s, t, rng.uniform(salt_new, DIM_LENS),
         rng.uniform(salt_new, DIM_LENS + 1), rng.uniform(salt_new, DIM_TIME))
-
     t3 = take[:, None]
     state = dict(
-        o=torch.where(t3, o_new, st["o"].T), d=torch.where(t3, d_new,
-                                                           st["d"].T),
+        o=torch.where(t3, o_new, st["o"]), d=torch.where(t3, d_new, st["d"]),
         time=torch.where(take, time_new, st["time"]),
-        beta=torch.where(t3, 1.0, st["beta"].T),
-        radiance=torch.where(t3, 0.0, st["radiance"].T),
+        beta=torch.where(t3, 1.0, st["beta"]),
+        radiance=torch.where(t3, 0.0, st["radiance"]),
         alive=alive | take,
         salt=torch.where(take, salt_new, rng.as_word(st["salt"])),
         depth=torch.where(take, 0, st["depth"]))
-    pix = torch.where(take, pixn, st["pix"].long())
+    return state, take, torch.where(take, pixn, st["pix"].long())
+
+
+def regen_bounce_reference(inp: RegenInputs, st: dict,
+                           spec: RegenSpec) -> None:
+    """The plain PyTorch version of one launch; updates ``st`` in place."""
+    rows = {k: st[k].T for k in ("o", "d", "beta", "radiance")}
+    state, take, pix = regenerate(
+        inp, spec, dict(st, **rows, alive=st["alive"] != 0), st["cursor"])
     nxt = bounce_step(inp.scene, state, spec.max_depth, spec.rr_start,
                       inp.flags, spec.pdf_floor)
     # the depth cap folds into alive (bounce.py:1314-1318)
     alive_fin = nxt["alive"] & (nxt["depth"] < spec.max_depth)
-
     for k in ("o", "d", "beta", "radiance"):
         st[k].copy_(nxt[k].T)
     st["time"].copy_(state["time"])
@@ -324,16 +343,19 @@ def material_view(scene: TorchScene, mat: torch.Tensor) -> TorchScene:
 
 
 def bounce_step_ref(scene: TorchScene, flags: SceneFlags,
-                    mat: torch.Tensor, state: dict, spec: StepSpec) -> dict:
+                    mat: torch.Tensor, state: dict, spec: StepSpec,
+                    tri=None) -> dict:
     """The plain version of B2: ``render.integrator.bounce_step`` on the
     material view of ``mat`` (the image emission of the environment dome is
     evaluated inside its emission term, as the kernel does). ``state``:
     ``o d beta radiance`` (N, 3) float32, ``time`` (N,), ``salt`` (N,)
-    int32 bit patterns, ``depth`` (N,) int32, ``alive`` (N,) bool. Returns
+    int32 bit patterns, ``depth`` (N,) int32, ``alive`` (N,) bool. ``tri``:
+    on a triangle scene, each lane's closest triangle ``(t, u, v, idx)``
+    as kernel B3 gives it (the plain walk computes it when None). Returns
     the next state with ``depth + 1`` and ``alive`` not yet capped by
     depth."""
     return bounce_step(material_view(scene, mat), state, spec.max_depth,
-                       spec.rr_start, flags, spec.pdf_floor)
+                       spec.rr_start, flags, spec.pdf_floor, tri)
 
 
 _ROWS = ("o", "d", "beta", "radiance")
@@ -348,7 +370,11 @@ class _BounceArgs(ctypes.Structure):
         + [(name, ctypes.c_int) for name in (
             "n", "n_sph", "n_rect", "n_mat", "n_light", "n_atlas",
             "max_depth", "rr_start")]
-        + [("pdf_floor", ctypes.c_float)])
+        + [("pdf_floor", ctypes.c_float)]
+        + [(name, ctypes.c_void_p) for name in (
+            "tri_t", "tri_u", "tri_v", "tri_idx", "tri_n", "tri_uv",
+            "tri_mat")]
+        + [("n_tris", ctypes.c_int)])
 
 
 def check_state(state: dict, tables: dict, device) -> int:
@@ -383,12 +409,41 @@ def table_args(scene: TorchScene, tables: dict) -> dict:
                          if scene.atlas_u32 is not None else 0))
 
 
+def _tri_args(scene: TorchScene, tables: dict, tri, n: int, dev) -> dict:
+    """The external-hit fields of B2's arguments: none on a scene without
+    triangles, else B3's ``(t, u, v, idx)`` and the triangle tables."""
+    if not scene.n_tris:
+        return {}
+    if tri is None:
+        raise ValueError("a triangle scene's bounce takes the triangles' "
+                         "closest hit (kernels.intersect.intersect_tris)")
+    for k, x, dtype in zip("tuv", tri[:3], (torch.float32,) * 3):
+        if (x.dtype != dtype or tuple(x.shape) != (n,) or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(f"triangle hit {k!r}: want contiguous {dtype} "
+                             f"({n},) on {dev}")
+    idx = tri[3]
+    if (idx.dtype != _I32 or tuple(idx.shape) != (n,) or idx.device != dev
+            or not idx.is_contiguous()):
+        raise ValueError(f"triangle hit 'idx': want contiguous int32 ({n},) "
+                         f"on {dev}")
+    for k in ("tri_n", "tri_uv", "tri_mat"):
+        if tables[k].device != dev or not tables[k].is_contiguous():
+            raise ValueError(f"table {k!r} must be contiguous on {dev}")
+    return dict(tri_t=tri[0].data_ptr(), tri_u=tri[1].data_ptr(),
+                tri_v=tri[2].data_ptr(), tri_idx=idx.data_ptr(),
+                **{k: tables[k].data_ptr() for k in ("tri_n", "tri_uv",
+                                                     "tri_mat")},
+                n_tris=scene.n_tris)
+
+
 def fwd_args(scene: TorchScene, tables: dict, state: dict,
-             spec: StepSpec) -> tuple[_BounceArgs, dict]:
+             spec: StepSpec, tri=None) -> tuple[_BounceArgs, dict]:
     """The checked arguments of one ``csrc/bounce.cu`` launch and the
-    output tensors it writes."""
+    output tensors it writes; ``tri`` as in :func:`bounce_fwd`."""
     dev = state["alive"].device
     n = check_state(state, tables, dev)
+    ext = _tri_args(scene, tables, tri, n, dev)
     out = {k: torch.empty_like(state[k]) for k in _ROWS + ("depth", "alive")}
     args = _BounceArgs(
         **{k: state[k].data_ptr() for k in ("o", "d", "beta", "salt", "depth",
@@ -398,29 +453,33 @@ def fwd_args(scene: TorchScene, tables: dict, state: dict,
                                                    "alive")},
         rad_out=out["radiance"].data_ptr(), **table_args(scene, tables),
         n=n, max_depth=spec.max_depth,
-        rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor)
+        rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
+        **ext)
     return args, out
 
 
 def _launch_fwd(scene: TorchScene, tables: dict, state: dict,
-                spec: StepSpec) -> dict:
+                spec: StepSpec, tri) -> dict:
     global LAUNCHES_FWD
-    args, out = fwd_args(scene, tables, state, spec)
+    args, out = fwd_args(scene, tables, state, spec, tri)
     launch("srt_bounce", args, state["alive"].device)
     LAUNCHES_FWD += 1
     return dict(out, time=state["time"], salt=state["salt"])
 
 
 def bounce_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
-               state: dict, spec: StepSpec) -> dict:
+               state: dict, spec: StepSpec, tri=None) -> dict:
     """One bounce of ``state`` (see :func:`bounce_step_ref`), out of
     place: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors. No autograd: :class:`kernels.bounce_vjp.BounceCore` wraps
-    this."""
+    tensors. On a triangle scene ``tri`` is each lane's closest triangle
+    ``(t, u, v, idx)`` from :func:`kernels.intersect.intersect_tris`, which
+    the kernel requires. No autograd: :class:`kernels.bounce_vjp.BounceCore`
+    wraps this."""
     dev = state["alive"].device
     if dev.type == "cpu":
         with torch.no_grad():
-            return bounce_step_ref(scene, flags, tables["mat"], state, spec)
+            return bounce_step_ref(scene, flags, tables["mat"], state, spec,
+                                   tri)
     if dev.type == "cuda":
-        return _launch_fwd(scene, tables, state, spec)
+        return _launch_fwd(scene, tables, state, spec, tri)
     raise ValueError(f"no bounce kernel for {dev}")

@@ -42,9 +42,15 @@ def require_bwd_kernel(scene: TorchScene, flags: SceneFlags) -> None:
     """Raise unless the backward gives this scene's exact gradient under
     frozen geometry: the counterpart of ``bwd_kernel_available``
     (``bounce_bwd.py:58-73``) as an explicit check that reads no
-    environment variable. What the JAX gate excludes -- the parity
-    estimator, moving spheres, triangles -- the coverage gate refuses;
-    geometric parameters are refused by ``diff.inverse.splice``."""
+    environment variable. Triangles are refused here: the kernel has no
+    external-hit input, so it would differentiate a triangle lane as if
+    the triangle were not there. The parity estimator and moving spheres
+    the coverage gate refuses; geometric parameters
+    ``diff.inverse.splice``."""
+    if scene.n_tris:
+        raise NotImplementedError(
+            "srt_tpu_torch cannot differentiate triangle scenes yet: the "
+            "backward kernel has no external-hit mode (ROADMAP A13)")
     require_covered(scene, flags)
 
 

@@ -2,7 +2,8 @@
 ``srt_tpu/render/integrator.py:167-368``; reference recursive estimator
 ``Raytracing_n.cpp:55-106``).
 
-Covers the slice: no media, no specular materials, no parity mode. The
+Covers the port's slices: no media, no specular materials, no parity
+mode. The
 diffuse branch is the reference's 50/50 mixture of light sampling and
 BSDF sampling with its closed-form mixture pdf; Russian roulette is ours
 and off when ``rr_start >= max_depth``.
@@ -28,17 +29,18 @@ DIM_RR = 16           # russian roulette
 
 def bounce_step(scene: TorchScene, state: dict, max_depth: int,
                 rr_start: int, flags: SceneFlags,
-                pdf_floor: float = 1e-9) -> dict:
+                pdf_floor: float = 1e-9, tri=None) -> dict:
     """``state`` keys: ``o d (N,3) f32, time (N,) f32, beta radiance (N,3)
     f32, alive (N,) bool, salt (N,) 32-bit words (any int dtype), depth
-    (N,) int32``. Returns the next state (``alive`` does not yet fold in
-    the depth cap; the caller does)."""
+    (N,) int32``. ``tri``: the triangles' closest hit ``(t, u, v, tri)``
+    if the caller has it (see ``intersect_scene``). Returns the next state
+    (``alive`` does not yet fold in the depth cap; the caller does)."""
     depth = state["depth"]
     salt = rng.hash_combine(rng.as_word(state["salt"]), rng.as_word(depth))
     o, d = state["o"], state["d"]
     alive, beta = state["alive"], state["beta"]
 
-    hit = intersect_scene(scene, o, d, 1e-3)
+    hit = intersect_scene(scene, o, d, 1e-3, tri, flags.bvh_leaf)
     # sanitize miss lanes: zero normal -> +z, far position -> origin
     up = torch.zeros_like(hit.normal)
     up[:, 2] = 1.0

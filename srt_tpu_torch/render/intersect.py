@@ -1,10 +1,16 @@
-"""Closest-hit intersection over spheres and rects (counterpart of
-``srt_tpu/render/intersect.py:39-346``).
+"""Closest-hit intersection over spheres, rects and triangles
+(counterpart of ``srt_tpu/render/intersect.py:39-565``).
 
-A dense sweep over primitive chunks: the JAX package's default for
-sphere scenes (its sphere BVH is opt-in and off the main path). Ties keep
-the lowest index. Moving spheres are outside the slice, so centers are
-``sph_center0``.
+Spheres and rects: a dense sweep over primitive chunks, the JAX package's
+default for sphere scenes (its sphere BVH is opt-in and off the main
+path). Ties keep the lowest index. Moving spheres are outside the port's
+coverage, so centers are ``sph_center0``.
+
+Triangles: :func:`intersect_tris` is the plain version of kernel B3, the
+per-ray stackless skip-link walk over the scene's BVH with
+Möller–Trumbore tests (``intersect.py:347-498``), every ray's cursor
+advanced in lockstep until all have left the tree. A triangle wins only
+when strictly nearer than the spheres' and rects' best hit.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ from typing import NamedTuple
 import torch
 
 from srt_tpu_torch.core.gradsafe import gsdiv
-from srt_tpu_torch.core.vecmath import safe_sqrt
+from srt_tpu_torch.core.vecmath import cross, dot, normalize, safe_sqrt
 from srt_tpu_torch.scene.ir import TorchScene
 
 BIG = 3.0e38
@@ -135,9 +141,100 @@ def _rect_chunk(scene: TorchScene, o, d, t_min, c0, c1) -> Hit:
                mat=scene.rect_mat[c0:c1][k].long())
 
 
+def _tri_intersect(p0, p1, p2, o, d, t_min, t_max):
+    """Möller–Trumbore of ray ``i`` against triangle ``i`` (math and guards
+    of ``intersect.py:347-369``): returns ``(t, u, v, valid)``."""
+    e1 = p1 - p0
+    e2 = p2 - p0
+    pvec = cross(d, e2)
+    det = dot(e1, pvec)
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    tvec = o - p0
+    u = dot(tvec, pvec) * inv_det
+    qvec = cross(tvec, e1)
+    v = dot(d, qvec) * inv_det
+    t = dot(e2, qvec) * inv_det
+    valid = ((torch.abs(det) > 1e-10) & (u >= 0.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t > t_min) & (t < t_max))
+    return t, u, v, valid
+
+
+def intersect_tris(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
+                   t_min: float = 1e-3, leaf_size: int = 4,
+                   stats: bool = False):
+    """Closest triangle per ray over the skip-link BVH: ``(t, u, v, tri)``
+    with ``t = BIG``, ``u = v = 0`` and ``tri = 0`` on a miss. A box test
+    descends to node ``i+1`` on an inner node it hits and jumps to
+    ``skip[i]`` otherwise; ``t_best`` prunes the box test; a strict ``<``
+    keeps the first triangle in walk order. ``leaf_size`` is the widest
+    leaf (``SceneFlags.bvh_leaf``; the builder's default is 4). With
+    ``stats`` it also returns each ray's node visits and triangle tests
+    (int64)."""
+    n, dev = o.shape[0], o.device
+    t_best = torch.full((n,), BIG, device=dev)
+    u_best = torch.zeros((n,), device=dev)
+    v_best = torch.zeros((n,), device=dev)
+    i_best = torch.zeros((n,), dtype=torch.int64, device=dev)
+    visits = torch.zeros((n,), dtype=torch.int64, device=dev)
+    tests = torch.zeros((n,), dtype=torch.int64, device=dev)
+    n_nodes, n_tris = scene.n_bvh_nodes, scene.n_tris
+    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+    cursor = torch.zeros((n,), dtype=torch.int64, device=dev)
+    while n_nodes:
+        active = cursor < n_nodes
+        if not bool(active.any()):
+            break
+        cur = torch.clamp(cursor, max=n_nodes - 1)
+        tt0 = (scene.bvh_lo[cur] - o) * inv_d
+        tt1 = (scene.bvh_hi[cur] - o) * inv_d
+        tn = torch.minimum(tt0, tt1).amax(-1)
+        tf = torch.maximum(tt0, tt1).amin(-1)
+        box_hit = (tf >= torch.clamp(tn, min=t_min)) & (tn < t_best)
+        first = scene.bvh_first[cur].long()
+        count = scene.bvh_count[cur].long()
+        is_leaf = first >= 0
+        for j in range(leaf_size):
+            tri = torch.clamp(first + j, 0, n_tris - 1)
+            lane = active & is_leaf & box_hit & (j < count)
+            t, u, v, valid = _tri_intersect(
+                scene.tri_p0[tri], scene.tri_p1[tri], scene.tri_p2[tri], o,
+                d, t_min, t_best)
+            better = lane & valid & (t < t_best)
+            t_best = torch.where(better, t, t_best)
+            u_best = torch.where(better, u, u_best)
+            v_best = torch.where(better, v, v_best)
+            i_best = torch.where(better, tri, i_best)
+            tests += lane
+        visits += active
+        descend = active & box_hit & ~is_leaf
+        cursor = torch.where(active, torch.where(
+            descend, cursor + 1, scene.bvh_skip[cur].long()), cursor)
+    out = (t_best, u_best, v_best, i_best)
+    return out + (visits, tests) if stats else out
+
+
+def tri_hit(scene: TorchScene, o: torch.Tensor, d: torch.Tensor, t, u, v,
+            tri) -> Hit:
+    """The hit record of a closest triangle ``(t, u, v, tri)``
+    (``intersect.py:396-403``): barycentric uv, the normalised
+    interpolated shading normal, the triangle's material."""
+    hit = t < BIG
+    w = (1.0 - u - v)[:, None]
+    u, v, tri = u[:, None], v[:, None], tri.long()
+    uvs, ns = scene.tri_uv[tri], scene.tri_n[tri]
+    return Hit(t=torch.where(hit, t, BIG), hit=hit, p=_ray_at(o, d, t),
+               normal=normalize(ns[:, 0] * w + ns[:, 1] * u + ns[:, 2] * v),
+               uv=uvs[:, 0] * w + uvs[:, 1] * u + uvs[:, 2] * v,
+               mat=scene.tri_mat[tri].long())
+
+
 def intersect_scene(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
-                    t_min: float = 1e-3) -> Hit:
-    """Closest hit over every sphere, then every rect (spheres win ties)."""
+                    t_min: float = 1e-3, tri=None,
+                    leaf_size: int = 4) -> Hit:
+    """Closest hit over every sphere, then every rect, then the triangles
+    (an earlier family wins ties). ``tri`` is the triangles' closest hit
+    ``(t, u, v, tri)`` when the caller has it (kernel B3's output);
+    otherwise :func:`intersect_tris` computes it with ``leaf_size``."""
     best = Hit.none(o.shape[0], o.device)
     for c0 in range(0, scene.n_spheres, PRIM_CHUNK):
         c1 = min(c0 + PRIM_CHUNK, scene.n_spheres)
@@ -145,4 +242,8 @@ def intersect_scene(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
     for c0 in range(0, scene.n_rects, PRIM_CHUNK):
         c1 = min(c0 + PRIM_CHUNK, scene.n_rects)
         best = best.closer_of(_rect_chunk(scene, o, d, t_min, c0, c1))
+    if scene.n_tris:
+        if tri is None:
+            tri = intersect_tris(scene, o, d, t_min, leaf_size)
+        best = best.closer_of(tri_hit(scene, o, d, *tri))
     return best

@@ -1,9 +1,10 @@
 """Host-side scene construction (counterpart of ``srt_tpu/scene/build.py``).
 
-Covers what the port's slice renders: spheres (static and env domes),
-axis-aligned rects, constant and image textures, Oren–Nayar, Beckmann and
-diffuse-light materials, and rect lights. The tables are packed in numpy
-exactly as the JAX builder packs them, then moved to one device.
+Covers what the port's slices render: spheres (static and env domes),
+axis-aligned rects, boxes, triangles with their BVH, constant and image
+textures, Lambertian, Oren–Nayar, Beckmann and diffuse-light materials,
+and rect lights. The tables are packed in numpy exactly as the JAX builder
+packs them, then moved to one device.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from srt_tpu_torch.accel.bvh import build_bvh
 from srt_tpu_torch.scene.ir import (LightKind, MaterialType, TextureType,
                                     TorchScene)
 
@@ -32,6 +34,7 @@ class SceneBuilder:
     _mat_params: list = field(default_factory=list)
     _sph: list = field(default_factory=list)
     _rect: list = field(default_factory=list)
+    _tris: list = field(default_factory=list)   # (p, uv, n, mat) chunks
     _lights: list = field(default_factory=list)
 
     # ------------------------------------------------------------------ tex
@@ -64,6 +67,9 @@ class SceneBuilder:
         self._mat_tex.append(int(tex))
         self._mat_params.append(np.asarray(params, np.float32))
         return len(self._mat_type) - 1
+
+    def lambertian(self, tex: int) -> int:
+        return self._push_mat(MaterialType.LAMBERTIAN, tex)
 
     def oren_nayar(self, tex: int, sigma_deg: float) -> int:
         # A/B precomputation identical to material.h:129-133.
@@ -100,6 +106,44 @@ class SceneBuilder:
     def yz_rect(self, y0, y1, z0, z1, k, mat, flip=False) -> int:
         return self.rect(2, y0, y1, z0, z1, k, mat, flip)
 
+    def box(self, pmin, pmax, mat, as_tris: bool = False) -> None:
+        """Axis-aligned box: six rects (``box.h:5-33``), or with
+        ``as_tris=True`` twelve outward-wound BVH triangles."""
+        x0, y0, z0 = [float(v) for v in pmin]
+        x1, y1, z1 = [float(v) for v in pmax]
+        if as_tris:
+            c = np.array([[x0, y0, z0], [x1, y0, z0], [x0, y1, z0],
+                          [x1, y1, z0], [x0, y0, z1], [x1, y0, z1],
+                          [x0, y1, z1], [x1, y1, z1]], np.float32)
+            # faces -z +z -y +y -x +x
+            quads = np.array([[0, 2, 3, 1], [4, 5, 7, 6], [0, 1, 5, 4],
+                              [2, 6, 7, 3], [0, 4, 6, 2], [1, 3, 7, 5]])
+            f = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+            self.triangles(c[f], mat)
+            return
+        self.xy_rect(x0, x1, y0, y1, z1, mat)
+        self.xy_rect(x0, x1, y0, y1, z0, mat, flip=True)
+        self.xz_rect(x0, x1, z0, z1, y1, mat)
+        self.xz_rect(x0, x1, z0, z1, y0, mat, flip=True)
+        self.yz_rect(y0, y1, z0, z1, x1, mat)
+        self.yz_rect(y0, y1, z0, z1, x0, mat, flip=True)
+
+    def triangles(self, p: np.ndarray, mat: int, uv=None, n=None) -> None:
+        """Add world-space triangles ``p`` (T, 3, 3); without ``n`` every
+        vertex takes the face's geometric normal, without ``uv`` zeros."""
+        p = np.asarray(p, np.float32)
+        t = len(p)
+        if n is None:
+            gn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+            gn = gn / np.maximum(np.linalg.norm(gn, axis=1, keepdims=True),
+                                 1e-20)
+            n = np.repeat(gn[:, None, :], 3, axis=1)
+        if uv is None:
+            uv = np.zeros((t, 3, 2), np.float32)
+        self._tris.append((p, np.asarray(uv, np.float32),
+                           np.asarray(n, np.float32),
+                           np.full(t, int(mat), np.int32)))
+
     def light_rect(self, rect_id: int) -> None:
         """NEE light registration (the reference's hlist)."""
         self._lights.append((LightKind.RECT, rect_id))
@@ -118,6 +162,15 @@ class SceneBuilder:
             return np.zeros((0,) + shape_tail, dtype)
 
         s_c0 = arr([s[0] for s in self._sph], f32, (3,))
+        # triangles in BVH order
+        if self._tris:
+            p, uv, n, tm = (np.concatenate([t[k] for t in self._tris])
+                            for k in range(4))
+        else:
+            p, uv, n = (np.zeros((0, 3, k), f32) for k in (3, 2, 3))
+            tm = np.zeros((0,), i32)
+        bvh, order = build_bvh(p, leaf_size=4)
+        p, uv, n, tm = p[order], uv[order], n[order], tm[order]
         atlas = (np.concatenate(self._atlas) if self._atlas
                  else np.zeros((0,), f32))
         # Packed rgb8 twin: exact iff every value is a u8/255 multiple.
@@ -142,7 +195,9 @@ class SceneBuilder:
             rect_k=arr([r[2] for r in self._rect], f32, ()),
             rect_mat=arr([r[3] for r in self._rect], i32, ()),
             rect_flip=arr([r[4] for r in self._rect], bool, ()),
-            tri_p0=np.zeros((0, 3), f32),
+            tri_p0=p[:, 0], tri_p1=p[:, 1], tri_p2=p[:, 2], tri_uv=uv,
+            tri_n=n, tri_mat=tm, bvh_lo=bvh.lo, bvh_hi=bvh.hi,
+            bvh_skip=bvh.skip, bvh_first=bvh.first, bvh_count=bvh.count,
             med_kind=np.zeros((0,), i32),
             mat_type=arr(self._mat_type, i32, ()),
             mat_tex=arr(self._mat_tex, i32, ()),
@@ -157,7 +212,8 @@ class SceneBuilder:
             light_index=arr([li[1] for li in self._lights], i32, ()),
             atlas_u32=atlas_u32)
         return TorchScene(**{
-            k: None if v is None else torch.from_numpy(v).to(device)
+            k: None if v is None else
+            torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in tables.items()})
 
 

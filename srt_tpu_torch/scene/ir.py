@@ -53,7 +53,19 @@ class TorchScene:
     rect_k: torch.Tensor        # (R,) f32
     rect_mat: torch.Tensor      # (R,) i32
     rect_flip: torch.Tensor     # (R,) bool
-    tri_p0: torch.Tensor        # (T, 3) f32; the gate reads its length
+    tri_p0: torch.Tensor        # (T, 3) f32 triangle vertices, BVH order
+    tri_p1: torch.Tensor        # (T, 3) f32
+    tri_p2: torch.Tensor        # (T, 3) f32
+    tri_uv: torch.Tensor        # (T, 3, 2) f32 per-vertex uv
+    tri_n: torch.Tensor         # (T, 3, 3) f32 per-vertex shading normals
+    tri_mat: torch.Tensor       # (T,) i32
+    # flattened stackless BVH over the triangles (``accel/bvh.py``): on a
+    # box hit descend to node i+1, else jump to bvh_skip[i]
+    bvh_lo: torch.Tensor        # (B, 3) f32
+    bvh_hi: torch.Tensor        # (B, 3) f32
+    bvh_skip: torch.Tensor      # (B,) i32 (B = end of the walk)
+    bvh_first: torch.Tensor     # (B,) i32 first triangle of a leaf, -1 inner
+    bvh_count: torch.Tensor     # (B,) i32 leaf triangle count
     med_kind: torch.Tensor      # (M,) i32; the gate reads its length
     mat_type: torch.Tensor      # (Mt,) i32
     mat_tex: torch.Tensor       # (Mt,) i32
@@ -81,6 +93,10 @@ class TorchScene:
         return self.tri_p0.shape[0]
 
     @property
+    def n_bvh_nodes(self) -> int:
+        return self.bvh_skip.shape[0]
+
+    @property
     def n_media(self) -> int:
         return self.med_kind.shape[0]
 
@@ -99,10 +115,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 class SceneFlags(NamedTuple):
     """Static facts about a scene: which texture/material families and
-    light kinds it uses, whether any sphere moves, and whether the JAX
-    package's fused-bounce kernel would take it."""
+    light kinds it uses, its widest BVH leaf, whether any sphere moves, and
+    whether the JAX package's fused-bounce kernel would take it."""
     tex_kinds: tuple
     mat_kinds: tuple
+    bvh_leaf: int = 4
     fused_bounce: bool = False
     light_kinds: tuple = ()
     moving: bool = False
@@ -119,6 +136,7 @@ class SceneFlags(NamedTuple):
         return SceneFlags(
             tex_kinds=tuple(sorted(set(tt.tolist()))),
             mat_kinds=tuple(sorted(set(mt.tolist()))),
+            bvh_leaf=int(_np(scene.bvh_count).max(initial=0)) or 4,
             fused_bounce=_fused_bounce_eligible(scene, mt, tt),
             light_kinds=tuple(_np(scene.light_kind).tolist()),
             moving=bool((_np(scene.sph_center0)
@@ -153,8 +171,8 @@ def _fused_bounce_eligible(scene: TorchScene, mat_types: np.ndarray,
                          int(TextureType.IMAGE)]).all())
 
 
-_COVERED_MATS = {int(MaterialType.OREN_NAYAR), int(MaterialType.BECKMANN),
-                 int(MaterialType.DIFFUSE_LIGHT)}
+_COVERED_MATS = {int(MaterialType.LAMBERTIAN), int(MaterialType.OREN_NAYAR),
+                 int(MaterialType.BECKMANN), int(MaterialType.DIFFUSE_LIGHT)}
 _COVERED_TEX = {int(TextureType.CONSTANT), int(TextureType.IMAGE)}
 
 
@@ -166,8 +184,6 @@ def require_covered(scene: TorchScene, flags: SceneFlags,
         raise NotImplementedError(
             f"srt_tpu_torch does not cover {what} yet (ROADMAP {item})")
 
-    if scene.n_tris:
-        missing("triangle meshes", "A8")
     if scene.n_media:
         missing("participating media", "A7")
     if flags.moving:

@@ -1,8 +1,9 @@
 """The port's scene library (counterpart of ``srt_tpu/scene/library.py``).
 
-Holds the scenes the port's slice covers: ``ball_scenes``, the
-reference's default (``Raytracing_n.cpp:379-425``, ``sceneid = 2``).
-Every function returns ``(scene, camera, info)``.
+Holds the scenes the port covers: ``ball_scenes``, the reference's
+default (``Raytracing_n.cpp:379-425``, ``sceneid = 2``), and
+``cornell_boxes``, the asset-free triangle scene. Every function returns
+``(scene, camera, info)``.
 """
 from __future__ import annotations
 
@@ -67,3 +68,31 @@ def ball_scenes(aspect: float = 1.0, device="cuda", **_kw):
                          device=device)
     info["lights"] = 1
     return b.build(device), cam, info
+
+
+@_register
+def cornell_boxes(aspect: float = 1.0, device="cuda", **_kw):
+    """The classic Cornell box (green and red walls, two white boxes as 24
+    BVH triangles, a rect light; ``srt_tpu/scene/library.py:234-260``).
+    Asset-free: the *Rest of Your Life* Cornell the reference's
+    ``cornell_box`` evolved from (``Raytracing_n.cpp:258-265``)."""
+    b = SceneBuilder()
+    red = b.lambertian(b.constant((0.65, 0.05, 0.05)))
+    white = b.lambertian(b.constant((0.73, 0.73, 0.73)))
+    green = b.lambertian(b.constant((0.12, 0.45, 0.15)))
+    light = b.diffuse_light(b.constant((15.0, 15.0, 15.0)))
+
+    b.yz_rect(0, 555, 0, 555, 555, green, flip=True)
+    b.yz_rect(0, 555, 0, 555, 0, red)
+    lid = b.xz_rect(213, 343, 227, 332, 554, light, flip=True)
+    b.xz_rect(0, 555, 0, 555, 0, white)
+    b.xz_rect(0, 555, 0, 555, 555, white, flip=True)
+    b.xy_rect(0, 555, 0, 555, 555, white, flip=True)
+    b.box((130, 0, 65), (295, 165, 230), white, as_tris=True)
+    b.box((265, 0, 295), (430, 330, 460), white, as_tris=True)
+    b.light_rect(lid)
+
+    cam = Camera.look_at((278, 278, -800), (278, 278, 0), vfov=40.0,
+                         aspect=aspect, aperture=0.0, focus_dist=10.0,
+                         device=device)
+    return b.build(device), cam, {"lights": 1}

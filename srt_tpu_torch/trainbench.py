@@ -35,7 +35,10 @@ def log(*a):
 def profile_step(out_dir: str, step, target, seed: int) -> dict:
     """One train step under torch.profiler: a chrome trace in ``out_dir``,
     device time by kernel on stderr; returns the wall, the device's busy
-    time and the busy time of each bounce kernel."""
+    time and the busy time of each bounce kernel. Only the profiler's
+    device rows are summed: a CPU operator's row repeats the time of the
+    kernels it launched."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.time()
@@ -46,8 +49,9 @@ def profile_step(out_dir: str, step, target, seed: int) -> dict:
     wall = time.time() - t0
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
-    rows = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
-            for e in prof.key_averages()]
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
     busy_us = sum(r[0] for r in rows)
     log(f"[profile] wall {wall:.4f}s (profiler on), device busy "
         f"{busy_us / 1e6:.4f}s = {busy_us / 1e6 / wall:.3f} of the wall")
@@ -56,7 +60,7 @@ def profile_step(out_dir: str, step, target, seed: int) -> dict:
         if us:
             log(f"[profile] {us / 1e3:10.3f} ms {count:6d} calls "
                 f"{us / count:9.2f} us/call  {key[:90]}")
-        if "::bounce_kernel(" in key or "::bounce_bwd_kernel(" in key:
+        if "::bounce_kernel<" in key or "::bounce_bwd_kernel(" in key:
             kernels[key] = {"us_per_launch": us / max(count, 1),
                             "launches": count}
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,

@@ -1,6 +1,6 @@
-"""srt_tpu_torch stands alone: importing it, rendering and taking a train
-step on the CPU pull in neither JAX nor the JAX package, nor anything the
-GPU machine lacks."""
+"""srt_tpu_torch stands alone: importing it, rendering ball_scenes and
+cornell_boxes and taking a train step on the CPU pull in neither JAX nor
+the JAX package, nor anything the GPU machine lacks."""
 from __future__ import annotations
 
 import json
@@ -21,11 +21,17 @@ import srt_tpu_torch.trainbench
 scene, cam, _ = get_scene("ball_scenes", device="cpu")
 img = render_regen(scene, cam, RenderConfig(width=8, height=8, spp=1,
                                             max_depth=3))
+tri_scene, tri_cam, _ = get_scene("cornell_boxes", device="cpu")
+tri_img = render_regen(tri_scene, tri_cam,
+                       RenderConfig(width=8, height=8, spp=2, max_depth=4))
+import srt_tpu_torch.kernels.intersect, srt_tpu_torch.accel.bvh
 step = make_train_step(scene, cam, {"tex_color": scene.tex_color}, width=4,
                        height=4, spp=1, max_depth=2, device="cpu")
 loss = step(torch.full((4, 4, 3), 0.3), 0)
 print(json.dumps({"shape": list(img.shape),
                   "finite": bool(img.isfinite().all()
+                                 and tri_img.isfinite().all()
+                                 and tri_img.mean() > 0
                                  and loss.isfinite()),
                   "modules": sorted(m.split(".")[0] for m in sys.modules)}))
 """

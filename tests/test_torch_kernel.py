@@ -1,6 +1,8 @@
-"""The CUDA bounce kernels (srt_tpu_torch/csrc/): the regeneration bounce
-(``regen_bounce.cu``), the per-bounce step of the train forward
-(``bounce.cu``) and its VJP, the train backward (``bounce_bwd.cu``).
+"""The CUDA kernels (srt_tpu_torch/csrc/): the regeneration bounce
+(``regen_bounce.cu``), the per-bounce step (``bounce.cu``, the train
+forward, and with a triangle hit the bounce of triangle scenes), its VJP,
+the train backward (``bounce_bwd.cu``), and the triangle BVH walk
+(``intersect_tris.cu``).
 
 On a machine with an NVIDIA GPU the ``cuda``-marked tests build the
 kernels and hold one launch of each against its plain version lane by
@@ -24,6 +26,7 @@ from srt_tpu_torch.diff.inverse import camera_rays
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import build
+from srt_tpu_torch.kernels import intersect as ki
 from srt_tpu_torch.render.camera import Camera
 from srt_tpu_torch.scene.build import SceneBuilder
 from srt_tpu_torch.scene.ir import SceneFlags
@@ -113,9 +116,12 @@ def _train_inputs(device, n, name="ball_scenes"):
 def test_build_targets_sm90a_without_fast_math():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
-    for src in ("regen_bounce.cu", "bounce.cu", "bounce_bwd.cu"):
+    for src in ("regen_bounce.cu", "bounce.cu", "bounce_bwd.cu",
+                "intersect_tris.cu"):
         assert any(s.endswith("/" + src) for s in build.SOURCES), src
-    assert any(s.endswith("/bounce_core.cuh") for s in build.HEADERS)
+    for h in ("bounce_core.cuh", "tri_bvh.cuh"):
+        assert any(s.endswith("/" + h) for s in build.HEADERS), h
+    assert "srt_intersect_tris" in build.ENTRY_POINTS
     assert build.library_path().startswith(build.BUILD_DIR)
 
 
@@ -208,3 +214,78 @@ def test_train_kernels_match_plain_on_gpu(name, cuda_device):
     assert np.abs(a).max() > 0.0
     np.testing.assert_allclose(b, a, rtol=contract.GRAD_RTOL,
                                atol=1e-4 * np.abs(a).max())
+
+
+def _tri_inputs(device, n):
+    """A mid-flight cornell_boxes state on ``device``: camera rays (64x64,
+    1 spp, in a seeded order), two plain bounces with the depth cap, dead
+    lanes refilled with fresh rays, then a seeded half of the lanes dead;
+    and each lane's closest triangle from the plain walk."""
+    scene, cam, _ = get_scene("cornell_boxes", device=device)
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=50)
+    r = np.random.default_rng(6)
+    pix = torch.from_numpy(r.integers(0, 64 * 64, 2 * n)).to(device)
+    (o, d, t), salt = camera_rays(cam, pix, 1, width=64, height=64, seed=4)
+    st = dict(o=o[:n], d=d[:n], time=t[:n], beta=torch.ones_like(o[:n]),
+              radiance=torch.zeros_like(o[:n]), salt=salt[:n],
+              alive=torch.ones(n, dtype=torch.bool, device=device),
+              depth=torch.zeros(n, dtype=torch.int32, device=device))
+    with torch.no_grad():
+        for _ in range(2):
+            st = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
+    dead = ~st["alive"]
+    for k, v in (("o", o[n:]), ("d", d[n:]), ("salt", salt[n:])):
+        st[k] = torch.where(dead[:, None] if v.dim() == 2 else dead, v,
+                            st[k])
+    st["alive"] = torch.from_numpy(r.random(n) < 0.5).to(device)
+    st = {k: v.contiguous() for k, v in st.items()}
+    tri = ki.intersect_tris_reference(scene, st["o"], st["d"])
+    return scene, flags, tables, st, spec, tri
+
+
+def test_triangle_wrappers_check_their_arguments():
+    """On the CPU no kernel runs, but the launch arguments are built and
+    checked: B2 on a triangle scene needs B3's hit, with an int32 index."""
+    scene, flags, tables, st, spec, tri = _tri_inputs("cpu", 300)
+    with pytest.raises(ValueError, match="closest hit"):
+        kb.fwd_args(scene, tables, st, spec)
+    with pytest.raises(ValueError, match="idx"):
+        kb.fwd_args(scene, tables, st, spec, tri)
+    args, _ = kb.fwd_args(scene, tables, st, spec,
+                          (*tri[:3], tri[3].to(torch.int32)))
+    assert args.n_tris == 24 and args.tri_idx
+    args, out = ki.kernel_args(ki.pack_tables(scene), st["o"], st["d"])
+    assert args.n == 300 and args.n_nodes == scene.n_bvh_nodes
+    assert [x.dtype for x in out] == [torch.float32] * 3 + [torch.int32]
+    with pytest.raises(ValueError, match="rays"):
+        ki.kernel_args(ki.pack_tables(scene), st["o"].T, st["d"])
+
+
+@pytest.mark.cuda
+def test_triangle_kernels_match_plain_on_gpu(cuda_device):
+    """One launch of B3 against the plain walk and one of B2 in its
+    external-hit mode against the plain step fed the same hit, on 20,000
+    mid-flight cornell_boxes lanes (a partial last block)."""
+    scene, flags, tables, st, spec, tri = _tri_inputs(cuda_device, 20000)
+    launches = ki.LAUNCHES
+    t, u, v, idx = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"],
+                                     st["d"])
+    torch.cuda.synchronize()
+    assert ki.LAUNCHES == launches + 1
+    hit = tri[0] < 3e38
+    assert torch.equal(t < 3e38, hit) and int(hit.sum()) > 1000
+    assert torch.equal(idx.long()[hit], tri[3][hit])
+    for a, b in ((t, tri[0]), (u, tri[1]), (v, tri[2])):
+        assert float((a - b)[hit].abs().max()) <= 2e-5
+    fwd = kb.LAUNCHES_FWD
+    out = kb.bounce_fwd(scene, flags, tables, st, spec, (t, u, v, idx))
+    ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec,
+                             (t, u, v, idx))
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES_FWD == fwd + 1
+    assert torch.equal(out["depth"], ref["depth"])
+    contract.check_bounce(
+        {k: ref[k].cpu().numpy() for k in ("alive", "d", "beta", "radiance")},
+        {k: out[k].cpu().numpy() for k in ("alive", "d", "beta", "radiance")})

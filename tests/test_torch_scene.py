@@ -87,8 +87,8 @@ def test_camera_matches(jax_balls):
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("name,item", [("cornell_boxes", "A8"),
-                                       ("final", "A8"),
+@pytest.mark.parametrize("name,item", [("two_perlin_spheres", "A7"),
+                                       ("final", "A7"),
                                        ("simple_light", "A7"),
                                        ("random_scene", "A7")])
 def test_uncovered_scenes_raise(name, item):
