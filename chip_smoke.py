@@ -34,7 +34,24 @@ of which raises on failure:
 9. the triangle render path: ``render_regen`` on cornell_boxes at 512x512,
    16 spp, depth 50, a 65,536-lane wavefront and seed 0, first kernels
    against plain versions on a 64x64, 4 spp, depth 8 image, then once to
-   warm up and three times timed, every bounce one B3 and one B2 launch.
+   warm up and three times timed, every bounce one B3 and one B2 launch;
+10. the two-level BVH kernel (B4) against its plain version on
+   ``teapot_scene`` at divs=100 (1,278,400 triangles; the seconds of the
+   host build's tessellation, BVH, clusters and upload as the builder
+   records them), on two inputs: the camera rays of a 65,536-lane
+   wavefront at rows 448-455 (the teapots and the glass sphere) and the
+   same wavefront after three plain bounces: hit and index equality, |dt|
+   within 2e-5 and |du|, |dv| within 1e-4 on the hits, B4 against B3 on
+   the same rays, the time per launch of B4, B3 and the plain walk, and
+   the bound from the records the plain walk read; the kernels line takes
+   B4's numbers from the bounced input;
+11. B2's external-hit mode with the specular branch and the media sweep
+   against its plain version on the post-bounce teapot wavefront;
+12. the teapot render path: ``render_regen`` on teapot_scene at 512x512,
+   16 spp, depth 50, a 65,536-lane wavefront and seed 0, first kernels
+   against plain versions on a 32x32, 4 spp, depth 8 image, then once to
+   warm up and three times timed, every bounce one B4 and one B2 launch
+   and no B3 or B1.
 
 Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -78,6 +95,17 @@ OPS_SLAB = 25
 OPS_TRI = 61
 OPS_TRI_HIT = 40
 TRI_MAIN_REPS = 3
+# B2's media sweep, per medium a lane (take_media: the sphere and slab
+# crossings, the free-flight draw and log), and its specular branch on a
+# specular lane (scatter_specular: reflection, the fuzz ball or Schlick's
+# choice, normalisation, two to four uniforms)
+OPS_MEDIUM = 90
+OPS_SPECULAR = 120
+TEAPOT_DIVS = 100
+TEAPOT_ROW = 448
+# the teapot image's mean at 512x512, 16 spp, depth 50: the plain version
+# on the CPU at 64x64, 4 spp, depth 50 (divs=6) gave 0.584
+TEAPOT_MEAN = (0.45, 0.75)
 # B3 against the plain walk on the rays both call a hit: JAX's own bounds
 # between its XLA walk and its Pallas kernel (tests/test_pallas.py)
 TRI_T_ATOL = 2e-5
@@ -432,17 +460,19 @@ def phase_train(scene, cam, dev) -> tuple[int, int]:
     return fwd, bwd
 
 
-def tri_wavefront(scene, cam, dev) -> tuple:
+def tri_wavefront(scene, cam, dev, row: int = 256) -> tuple:
     """A mid-flight 65,536-lane wavefront of the triangle render path (the
-    work cursor at mid-image, three plain bounces, a lane that ends taking
-    the next work item), then a seeded half of the lanes marked dead.
-    Returns the bounce's state (B2's layout) and the render's inputs."""
+    work cursor at image row ``row``, mid-image by default, three plain
+    bounces, a lane that ends taking the next work item), then a seeded
+    half of the lanes marked dead.
+    Returns the bounce's state (B2's layout), the render's inputs, and the
+    wavefront's first rays (the camera rays, ``o`` and ``d``)."""
     import numpy as np
     import torch
 
     from srt_tpu_torch.core.sobol import sobol_points
     from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.render.intersect import intersect_tris_any
     from srt_tpu_torch.scene.ir import SceneFlags
 
     flags = SceneFlags.of(scene)
@@ -461,21 +491,23 @@ def tri_wavefront(scene, cam, dev) -> tuple:
               depth=torch.zeros((n,), dtype=torch.int32, device=dev),
               alive=torch.zeros((n,), dtype=torch.bool, device=dev),
               pix=torch.zeros((n,), dtype=torch.int64, device=dev))
-    cursor = torch.full((), spec.total_work // 2, dtype=torch.int64,
+    cursor = torch.full((), row * spec.width * spec.spp, dtype=torch.int64,
                         device=dev)
     for i in range(4):
         state, take, pix = kb.regenerate(inp, spec, st, cursor)
         cursor = cursor + take.sum()
         state["salt"] = state["salt"].to(torch.int32)
+        if i == 0:
+            first = {k: state[k].contiguous() for k in ("o", "d")}
         if i == 3:
             break
-        tri = ki.intersect_tris_reference(scene, state["o"], state["d"])
+        tri = intersect_tris_any(scene, state["o"], state["d"])
         nxt = kb.bounce_step_ref(scene, flags, inp.tables["mat"], state,
                                  step, tri)
         st = dict(nxt, alive=nxt["alive"] & (nxt["depth"] < 50), pix=pix)
     half = torch.from_numpy(np.random.default_rng(3).random(n) < 0.5)
     state["alive"] = state["alive"] & ~half.to(dev)
-    return {k: v.contiguous() for k, v in state.items()}, inp, step
+    return {k: v.contiguous() for k, v in state.items()}, inp, step, first
 
 
 def ground_field(dev) -> tuple:
@@ -571,7 +603,7 @@ def phase_tri_kernels(scene, cam, dev) -> tuple[dict, dict]:
     from srt_tpu_torch.scene.ir import SceneFlags
     from srt_tpu_torch.utils import contract
 
-    st, inp, step = tri_wavefront(scene, cam, dev)
+    st, inp, step, _ = tri_wavefront(scene, cam, dev)
     b3 = check_tri_kernel("cornell", scene, st["o"], st["d"])
     check_tri_kernel("final-ground", *ground_field(dev))
 
@@ -654,6 +686,217 @@ def phase_tri_render(scene, cam) -> tuple[int, int]:
     return b3, b2
 
 
+def teapot(dev):
+    """Phase 10's scene: ``teapot_scene`` at divs=100 on the card, after
+    the native builder's compile, with the host build's seconds a step as
+    the builder records them (``info["host_s"]``)."""
+    import warnings
+
+    from srt_tpu_torch import get_scene, native
+
+    native.get_lib()      # any first-use compile stays out of the timing
+    t0 = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scene, cam, info = get_scene("teapot_scene", device=dev,
+                                     divs=TEAPOT_DIVS)
+    log(f"[teapot] {scene.n_tris} triangles, {scene.n_bvh_nodes} BVH nodes, "
+        f"{scene.top_skip.shape[0]} top-tree nodes, {scene.cl_tris.shape[0]} "
+        f"clusters: host build seconds {json.dumps(info['host_s'])}, "
+        f"get_scene {time.time() - t0:.3f}s; skipped {info.get('skipped')}")
+    return scene, cam
+
+
+def check_big_kernel(label: str, scene, big: dict, single: dict, o,
+                     d) -> dict:
+    """Phase 10 on one input: B4 against the plain two-level walk and
+    against B3 (``big`` and ``single`` are their tables); the times of all
+    three and B4's bound."""
+    import torch
+
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.kernels.build import launch
+
+    t, u, v, idx = ki.intersect_tris_big(scene, big, o, d)
+    pt, pu, pv, pidx, top_v, cl_v, tests, seen = \
+        ki.intersect_tris_big_reference(scene, o, d, stats=True)
+    b3 = ki.intersect_tris(scene, single, o, d)
+    torch.cuda.synchronize()
+    hit = pt < 3e38
+    for name, (kt, kidx) in (("B4", (t, idx)), ("B3", (b3[0], b3[3]))):
+        if not torch.equal(kt < 3e38, hit):
+            raise AssertionError(f"{name} {label}: hit mask differs on "
+                                 f"{int(((kt < 3e38) != hit).sum())} rays")
+        if not torch.equal(kidx.long()[hit], pidx[hit]):
+            raise AssertionError(f"{name} {label}: triangle index differs "
+                                 f"on {int((kidx.long() != pidx)[hit].sum())}"
+                                 " rays")
+    if not bool(hit.any()):
+        raise AssertionError(f"B4 {label}: no ray hits a triangle")
+    err = {k: float((a - b)[hit].abs().max())
+           for k, a, b in (("t", t, pt), ("u", u, pu), ("v", v, pv))}
+    if err["t"] > TRI_T_ATOL or max(err["u"], err["v"]) > TRI_UV_ATOL:
+        raise AssertionError(f"B4 {label}: hits beyond |dt| <= {TRI_T_ATOL}, "
+                             f"|du|, |dv| <= {TRI_UV_ATOL}: {err}")
+    vs_b3 = max(float((a - b)[hit].abs().max())
+                for a, b in zip((t, u, v), b3[:3]))
+    args, _ = ki.big_kernel_args(big, o, d)
+    args3, _ = ki.kernel_args(single, o, d)
+    kern_ms, b3_ms = [], []
+    for _ in range(2):
+        kern_ms.append(time_ms(lambda: launch("srt_intersect_big", args,
+                                              o.device), 50))
+        b3_ms.append(time_ms(lambda: launch("srt_intersect_tris", args3,
+                                            o.device), 50))
+    plain_ms = time_ms(lambda: ki.intersect_tris_big_reference(scene, o, d),
+                       2)
+    # bytes: the rays (o, d in; t, u, v, idx out) and each 36-byte record
+    # that some ray read (top-tree nodes, cluster nodes, triangles)
+    n, nc = o.shape[0], scene.cl_tris.shape[0]
+    n_read = [int(m.sum()) for m in seen]
+    entered = int(seen[1].view(nc, -1).any(1).sum())
+    n_bytes = n * (24 + 16) + 36 * sum(n_read)
+    ops = (n * OPS_RAY + int((top_v + cl_v).sum()) * OPS_SLAB
+           + int(tests.sum()) * OPS_TRI)
+    ms_bound, by = bound(n_bytes, ops)
+    log(f"[big-{label}] {n} rays, {scene.n_tris} triangles in {nc} clusters "
+        f"({entered} entered): hits {int(hit.sum())} and indices equal, max "
+        f"|dt| {err['t']:.3e} |du| {err['u']:.3e} |dv| {err['v']:.3e}; B3 on "
+        f"the same rays: hits and indices equal, max |d(t,u,v)| "
+        f"{vs_b3:.3e}; per ray {float(top_v.float().mean()):.2f} top visits, "
+        f"{float(cl_v.float().mean()):.2f} cluster-node visits, "
+        f"{float(tests.float().mean()):.2f} triangle tests (max "
+        f"{int((top_v + cl_v).max())} visits); records read: {n_read[0]} "
+        f"top nodes, {n_read[1]} cluster nodes, {n_read[2]} triangles, "
+        f"{n_bytes} bytes with the rays; ms per launch B4 {kern_ms}, B3 "
+        f"{b3_ms}, plain {plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
+    return {"max_abs_err": max(err.values()), "ms": min(kern_ms),
+            "plain_ms": plain_ms, "bound_ms": ms_bound, "bound_by": by,
+            "b3_ms": min(b3_ms)}
+
+
+def phase_teapot_kernels(scene, cam, dev) -> tuple[dict, dict]:
+    """Phases 10 and 11: B4 on the camera rays and on the wavefront after
+    three plain bounces; B2's external-hit mode with the specular branch
+    and the media sweep against its plain version on the latter. B4's
+    entry in the kernels line is the bounced wavefront's, whose rays are
+    what the render's bounces look like."""
+    import torch
+
+    from srt_tpu_torch.core import rng
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.kernels.build import launch
+    from srt_tpu_torch.materials.materials import is_specular
+    from srt_tpu_torch.render.integrator import apply_media
+    from srt_tpu_torch.render.intersect import intersect_scene
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.utils import contract
+
+    # the record packing every render_regen on the scene does once
+    pack_ms = time_ms(lambda: ki.pack_big_tables(scene), 3)
+    big, single = ki.pack_big_tables(scene), ki.pack_tables(scene)
+    log(f"[teapot] pack_big_tables {pack_ms:.3f} ms a call")
+    # rows 448-455: the teapots' lower edge and the glass sphere's top
+    st, inp, step, first = tri_wavefront(scene, cam, dev, row=TEAPOT_ROW)
+    b4_cam = check_big_kernel("camera", scene, big, single, first["o"],
+                              first["d"])
+    b4 = check_big_kernel("bounced", scene, big, single, st["o"], st["d"])
+    b4["max_abs_err"] = max(b4["max_abs_err"], b4_cam["max_abs_err"])
+
+    flags, tables = SceneFlags.of(scene), inp.tables
+    tri = ki.intersect_tris_big(scene, big, st["o"], st["d"])
+    out_k = kb.bounce_fwd(scene, flags, tables, st, step, tri)
+    out_p = kb.bounce_step_ref(scene, flags, tables["mat"], st, step, tri)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k["depth"], out_p["depth"]):
+        raise AssertionError("B2 teapot depth differs")
+    keys = ("alive", "d", "beta", "radiance")
+    m = contract.check_bounce({k: out_p[k].cpu().numpy() for k in keys},
+                              {k: out_k[k].cpu().numpy() for k in keys})
+    # what the lanes shade this bounce: the hit after the media sweep
+    salt = rng.hash_combine(rng.as_word(st["salt"]), rng.as_word(st["depth"]))
+    hit = apply_media(scene, st["o"], st["d"], salt,
+                      intersect_scene(scene, st["o"], st["d"], tri=tri))
+    live = st["alive"] & hit.hit
+    spec = live & is_specular(scene, hit.mat)
+    medium = live & (hit.mat == int(scene.med_mat[0]))
+    n_live, n_spec = int(st["alive"].sum()), int(spec.sum())
+    n_tri = int((st["alive"] & (tri[0] < 3e38)).sum())
+    if not n_spec or not int(medium.sum()):
+        raise AssertionError(f"teapot wavefront: {n_spec} specular lanes, "
+                             f"{int(medium.sum())} medium events")
+    fargs, _ = kb.fwd_args(scene, tables, st, step, tri)
+    kern_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), 200)
+               for _ in range(2)]
+    plain_ms = time_ms(lambda: kb.bounce_step_ref(
+        scene, flags, tables["mat"], st, step, tri), 5)
+    ms_bound, by = bound(LANES * (73 + 53), n_live * (
+        scene.n_spheres * OPS_SPHERE + scene.n_rects * OPS_RECT
+        + scene.n_media * OPS_MEDIUM) + (n_live - n_spec) * OPS_SHADE
+        + n_spec * OPS_SPECULAR + n_tri * OPS_TRI_HIT)
+    log(f"[bounce-teapot] {LANES} lanes, {n_live} live, {n_tri} on a "
+        f"triangle, {n_spec} specular, {int(medium.sum())} medium events: "
+        f"depth exact, {json.dumps(m)}; ms per launch {kern_ms}, plain "
+        f"{plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
+    b4.update(name="intersect_big", route="cuda",
+              source="srt_tpu_torch/csrc/intersect_big.cu",
+              replaces="srt_tpu/pallas/intersect_big.py:131", library_ms=None)
+    return b4, {"max_abs_err": max(m[k]["max"] for k in keys[1:]),
+                "ms": min(kern_ms)}
+
+
+def phase_teapot_render(scene, cam) -> tuple[int, int]:
+    """Phase 12: the teapot render path; returns the B4 and B2 launches of
+    the timed renders."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import RenderConfig, render_regen
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.utils import contract
+
+    small = RenderConfig(width=32, height=32, spp=4, max_depth=8,
+                         wavefront=LANES)
+    img_k = render_regen(scene, cam, small).cpu().numpy()
+    img_p = render_regen(scene, cam, small, plain=True).cpu().numpy()
+    mi = contract.check_image(img_k, img_p)
+    log(f"[teapot-image] teapot_scene 32x32x4 depth 8 kernels vs plain: "
+        f"{json.dumps(mi)}")
+
+    cfg = RenderConfig(**MAIN)
+    t0 = time.time()
+    render_regen(scene, cam, cfg)
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    ki.LAUNCHES = ki.LAUNCHES_BIG = kb.LAUNCHES_FWD = kb.LAUNCHES = 0
+    runs = []
+    for _ in range(TRI_MAIN_REPS):
+        img, met = render_regen(scene, cam, cfg, metrics=True)
+        runs.append((img.cpu().numpy(), met))
+    b4, b2, b3, b1 = ki.LAUNCHES_BIG, kb.LAUNCHES_FWD, ki.LAUNCHES, kb.LAUNCHES
+    bounces = sum(m.bounces for _, m in runs)
+    if not b4 == b2 == bounces or bounces == 0 or b3 or b1:
+        raise AssertionError(f"{b4} B4 and {b2} B2 launches ({b3} B3, {b1} "
+                             f"B1) for {bounces} bounces")
+    for img, met in runs:
+        nan_pixels = int(np.isnan(img).sum())
+        mean = float(img.mean())
+        if (not np.isfinite(img).all() or nan_pixels
+                or not TEAPOT_MEAN[0] < mean < TEAPOT_MEAN[1]):
+            raise AssertionError(f"teapot_scene image: mean {mean}, nan "
+                                 f"{nan_pixels}")
+    rates = sorted(m.primary_rays_per_sec for _, m in runs)
+    log(f"[teapot-main] teapot_scene {MAIN['width']}x{MAIN['height']}x"
+        f"{MAIN['spp']} depth {MAIN['max_depth']}, {TRI_MAIN_REPS} renders: "
+        f"median {rates[len(rates) // 2]:.1f} primary rays/s (all {rates}), "
+        f"first render {warmup_s:.3f}s, mean {mean:.5f}, nan_pixels "
+        f"{nan_pixels}, {b4} B4 and {b2} B2 launches for {bounces} bounces, "
+        f"{json.dumps(met.to_dict())}")
+    return b4, b2
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ppm", default=None,
@@ -692,17 +935,25 @@ def main() -> None:
     tri_scene, tri_cam, _ = get_scene("cornell_boxes", device=dev)
     b3, b2_ext = phase_tri_kernels(tri_scene, tri_cam, dev)   # 7, 8
     b3["launches"], b2_render = phase_tri_render(tri_scene, tri_cam)   # 9
-    b2["launches"] = b2_train + b2_render
-    b2["max_abs_err"] = max(b2["max_abs_err"], b2_ext["max_abs_err"])
+    del tri_scene
+    pot, pot_cam = teapot(dev)
+    b4, b2_pot = phase_teapot_kernels(pot, pot_cam, dev)      # 10, 11
+    b4["launches"], b2_pot_render = phase_teapot_render(pot, pot_cam)  # 12
+    b2["launches"] = b2_train + b2_render + b2_pot_render
+    b2["max_abs_err"] = max(b2["max_abs_err"], b2_ext["max_abs_err"],
+                            b2_pot["max_abs_err"])
     log(f"[kernels] B2 launches: {b2_train} on the train path, {b2_render} "
-        f"in external-hit mode on the triangle render path; B2 ms per "
-        f"launch {b2['ms']} (train state, 16,384 lanes), "
-        f"{b2_ext['ms']} (external-hit, 65,536 lanes)")
+        f"in external-hit mode on the cornell render path, {b2_pot_render} "
+        f"on the teapot render path; B2 ms per launch {b2['ms']} (train "
+        f"state, 16,384 lanes), {b2_ext['ms']} (cornell external hit, "
+        f"65,536 lanes), {b2_pot['ms']} (teapot: specular and media, 65,536 "
+        f"lanes); B4 {b4['ms']} ms against B3 {b4['b3_ms']} ms on the "
+        f"teapot's wavefront after three bounces")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in (b1, b2, b3, b5)]}),
+                                  for kern in (b1, b2, b3, b4, b5)]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

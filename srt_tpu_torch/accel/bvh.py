@@ -1,17 +1,22 @@
 """Host-side BVH build and its flattened stackless layout (a copy of
-``srt_tpu/accel/bvh.py:35-192``, the numpy builder).
+``srt_tpu/accel/bvh.py:35-192``).
 
 A binned-SAH tree over triangles, flattened in depth-first order with
 *skip links*: on a box hit the walk advances to ``i+1`` (the first child),
 on a miss it jumps to ``skip[i]`` (the node after the subtree). Leaves
 hold a contiguous range of triangles, which the caller reorders by the
-returned ``order``. The JAX package's native C++ builder gives this
-builder's tree bit for bit (``tests/test_native.py``), so the port's
-tables equal the JAX package's; the native builder matters only at mesh
-scale and is not copied yet (ROADMAP A8).
+returned ``order``.
+
+:func:`build_bvh` runs the native C++ builder
+(``srt_tpu_torch/native/bvh_builder.cpp``, compiled at first use; a
+million triangles in about a second). :func:`build_bvh_numpy` is its plain
+version, the same algorithm in numpy: the tests hold the two, and the JAX
+package's builder, equal bit for bit. Nothing falls back to the numpy
+builder, which takes minutes at mesh scale.
 """
 from __future__ import annotations
 
+import ctypes
 import sys
 from typing import NamedTuple
 
@@ -29,18 +34,52 @@ class FlatBVH(NamedTuple):
 _N_BINS = 16
 
 
+def _empty() -> tuple[FlatBVH, np.ndarray]:
+    return FlatBVH(lo=np.zeros((0, 3), np.float32),
+                   hi=np.zeros((0, 3), np.float32),
+                   skip=np.zeros((0,), np.int32),
+                   first=np.zeros((0,), np.int32),
+                   count=np.zeros((0,), np.int32)), np.zeros((0,), np.int64)
+
+
 def build_bvh(tri_verts: np.ndarray,
               leaf_size: int = 4) -> tuple[FlatBVH, np.ndarray]:
-    """Flattened BVH over triangles ``(T, 3, 3)``; returns ``(flat_bvh,
-    order)``, ``order`` the permutation applied to the triangles."""
+    """Flattened BVH over triangles ``(T, 3, 3)`` by the native builder;
+    returns ``(flat_bvh, order)``, ``order`` the permutation applied to
+    the triangles. Raises if the builder does not compile."""
+    from srt_tpu_torch.native import get_lib
     t = len(tri_verts)
     if t == 0:
-        empty = FlatBVH(lo=np.zeros((0, 3), np.float32),
-                        hi=np.zeros((0, 3), np.float32),
-                        skip=np.zeros((0,), np.int32),
-                        first=np.zeros((0,), np.int32),
-                        count=np.zeros((0,), np.int32))
-        return empty, np.zeros((0,), np.int64)
+        return _empty()
+    lib = get_lib()
+    verts = np.ascontiguousarray(tri_verts, np.float32)
+    cap = 2 * t          # <= 2T-1 nodes: a binary tree, >= 1 tri a leaf
+    lo = np.empty((cap, 3), np.float32)
+    hi = np.empty((cap, 3), np.float32)
+    skip, first, count = (np.empty((cap,), np.int32) for _ in range(3))
+    order = np.empty((t,), np.int64)
+
+    def ptr(a, ty):
+        return a.ctypes.data_as(ctypes.POINTER(ty))
+
+    n = lib.srt_build_bvh(
+        ptr(verts, ctypes.c_float), ctypes.c_int64(t), ctypes.c_int(leaf_size),
+        ptr(lo, ctypes.c_float), ptr(hi, ctypes.c_float),
+        ptr(skip, ctypes.c_int32), ptr(first, ctypes.c_int32),
+        ptr(count, ctypes.c_int32), ptr(order, ctypes.c_int64))
+    if n < 0:
+        raise RuntimeError(f"native BVH builder failed on {t} triangles "
+                           f"(leaf size {leaf_size})")
+    return FlatBVH(lo=lo[:n].copy(), hi=hi[:n].copy(), skip=skip[:n].copy(),
+                   first=first[:n].copy(), count=count[:n].copy()), order
+
+
+def build_bvh_numpy(tri_verts: np.ndarray,
+                    leaf_size: int = 4) -> tuple[FlatBVH, np.ndarray]:
+    """The plain version of :func:`build_bvh`: the same tree in numpy."""
+    t = len(tri_verts)
+    if t == 0:
+        return _empty()
 
     lo_t = tri_verts.min(axis=1)          # (T, 3)
     hi_t = tri_verts.max(axis=1)

@@ -4,7 +4,9 @@ The counterpart of the repository's ``bench.py``, with the same keys plus
 ``"backend": "torch-cuda"``: primary rays per second on the reference's
 default workload, ``ball_scenes`` at 512x512, 16 spp, depth 50, no
 roulette, through the regeneration engine and its CUDA kernels
-(``--scene cornell_boxes`` takes the triangle path).
+(``--scene cornell_boxes`` takes the triangle path with the single-level
+walk, ``--scene teapot_scene`` the 1,278,400-triangle teapots through the
+two-level walk).
 ``vs_baseline`` divides by the reference C++ renderer's rate recorded in
 ``BASELINE_MEASURED.json`` (measured on another machine's CPU).
 

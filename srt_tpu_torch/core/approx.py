@@ -53,3 +53,10 @@ def acos_as(x: torch.Tensor) -> torch.Tensor:
                                                           - 0.0187293 * ax)))
     return torch.where(x >= 0.0, p, math.pi - p)
 
+
+
+def cbrt_pos(x: torch.Tensor) -> torch.Tensor:
+    """Cube root of a non-negative argument as ``exp(log(x) / 3)``, the
+    form the JAX kernel uses for the metal fuzz ball
+    (``srt_tpu/pallas/bounce.py:675``), not libm's ``cbrt``."""
+    return torch.exp(torch.log(torch.clamp(x, min=1e-30)) * (1.0 / 3.0))

@@ -18,8 +18,11 @@
 // normalised interpolated normal, the interpolated uv, tri_mat[idx], the
 // math of srt_tpu/render/intersect.py:396-403 -- where the JAX package
 // gathers in XLA between the two launches, and lets it compete after the
-// spheres and rects. Without triangles the kernel is the triangle-free
-// instantiation.
+// spheres and rects. Then the media sweep (sphere and box media, after the
+// triangle hit, as srt_tpu/pallas/bounce.py:1268-1275), and specular
+// lanes (metal, dielectric, isotropic) take the specular branch. Without
+// triangles the kernel is the triangle-free instantiation, which holds
+// neither.
 //
 // State is (n, 3) rows for o, d, beta, radiance; salt (int32 bit
 // patterns), depth int32, alive bool. A dead lane passes through with
@@ -65,6 +68,8 @@ struct BounceArgs {
   const float* tri_uv;          // (n_tris, 6) per-vertex uv
   const int* tri_mat;           // (n_tris,)
   int n_tris;                   // 0: no external hit
+  const float* med;             // (n_med, 10) media (external-hit mode)
+  int n_med;
 };
 
 }  // extern "C"
@@ -117,7 +122,8 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   if (a.alive[i]) {
     if constexpr (kExt) {
       const ExtHit e = triangle_hit(a, i);
-      alive = bounce<true>(sv, (uint32_t)a.salt[i], depth, L, &e);
+      alive = bounce<true>(sv, (uint32_t)a.salt[i], depth, L, &e, a.med,
+                           a.n_med);
     } else {
       alive = bounce(sv, (uint32_t)a.salt[i], depth, L);
     }

@@ -1,7 +1,11 @@
 // The bounce of one lane, shared by the three bounce kernels:
 // regen_bounce.cu (B1, regeneration + bounce), bounce.cu (B2, one bounce
 // of an explicit state, optionally with an external triangle hit) and
-// bounce_bwd.cu (B5, the bounce's VJP).
+// bounce_bwd.cu (B5, the bounce's VJP). B2's external-hit instantiation
+// (kExt) also holds the media sweep and the specular branch (metal,
+// dielectric, isotropic) of srt_tpu/pallas/bounce.py:486-542 and
+// 663-729; the triangle-free instantiations, B1's among them, compile
+// without them.
 //
 // The closest-hit sweep runs in float. Everything after it, the shading
 // (shade<T>), is written once over a scalar type T:
@@ -36,7 +40,8 @@ constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kInvPi = 0.318309886183790671538f;
 constexpr float kSqrtPiInv = 0.5641895835477563f;
 constexpr float kCoefMax = 3e37f;
-constexpr int kOrenNayar = 1, kBeckmann = 2, kDiffuseLight = 5;
+constexpr int kOrenNayar = 1, kBeckmann = 2, kMetal = 3, kDielectric = 4,
+              kDiffuseLight = 5, kIsotropic = 6;
 constexpr int kTexImage = 3;
 
 // ---- scalar types: float, and Dual<K> ------------------------------------
@@ -229,6 +234,10 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 __device__ __forceinline__ float signf(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
+// 1/x with |x| < 1e-20 replaced by +1e-20 (a ray's reciprocal direction)
+__device__ __forceinline__ float safe_inv(float x) {
+  return 1.0f / (fabsf(x) < 1e-20f ? 1e-20f : x);
+}
 
 // ---- 3-vectors -------------------------------------------------------------
 template <class T>
@@ -293,6 +302,14 @@ __device__ __forceinline__ V3T<T> safe_normalize(const V3T<T>& a) {
   bool ok = val(l2) > 1e-12f;
   return divide(ok ? a : v3<T>(T(0.0f), T(0.0f), T(1.0f)),
                 xsqrt(ok ? l2 : T(1.0f)));
+}
+// times the reciprocal length, +z for |a|^2 <= 1e-12 (the JAX kernel's
+// _safe_normalize3)
+__device__ __forceinline__ V3 safe_normalize_rcp(V3 a) {
+  const float l2 = dot(a, a);
+  const bool ok = l2 > 1e-12f;
+  const float inv = 1.0f / sqrtf(ok ? l2 : 1.0f);
+  return scale(ok ? a : v3(0.0f, 0.0f, 1.0f), inv);
 }
 template <class T>
 __device__ __forceinline__ T comp(const V3T<T>& a, int axis) {
@@ -368,6 +385,11 @@ __device__ T erfinv_giles(T x) {
   q = 1.00167406f + q * wt;
   q = 2.83297682f + q * wt;
   return (val(w) < 5.0f ? p : q) * x;
+}
+
+// cube root of x >= 0 as exp(log(x) / 3) (core/approx.py:cbrt_pos)
+__device__ __forceinline__ float cbrt_pos(float x) {
+  return expf(logf(fmaxf(x, 1e-30f)) * (1.0f / 3.0f));
 }
 
 template <class T>
@@ -688,7 +710,9 @@ struct ExtHit {
 
 // The external hit competes after spheres and rects and wins only when
 // strictly nearer (srt_tpu/pallas/bounce.py:1256-1266); its lane is then
-// shaded like a rect lane with the given normal and uv.
+// shaded like a rect lane with the given normal and uv. W.tri >= 0 marks
+// a winner whose normal and uv are given (a triangle, or an in-scatter
+// event of take_media).
 __device__ __forceinline__ void take_external(Winner& W, const ExtHit& e) {
   if (e.t < W.t) {
     W.t = e.t;
@@ -701,6 +725,100 @@ __device__ __forceinline__ void take_external(Winner& W, const ExtHit& e) {
     W.rect = -1;
     W.hit = true;
   }
+}
+
+// Participating media after the surface hit (_media_sweep,
+// srt_tpu/pallas/bounce.py:486-542): for each sphere (kind 0) or box
+// (kind 1) medium, records (n_med, 10) of kind, center xyz, radius, half
+// extents xyz, density, material, an exponential free flight from where
+// the ray enters it; an event nearer than the winner overrides it, shaded
+// as the medium's isotropic material with normal +x and uv 0. ``salt`` is
+// the bounce's salt; medium m draws dimension m.
+__device__ inline void take_media(Winner& W, const float* __restrict__ med,
+                                  int n_med, V3 o, V3 d, uint32_t salt) {
+  const V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
+  for (int m = 0; m < n_med; ++m) {
+    const float* r = med + 10 * m;
+    const V3 oc = sub(o, v3(__ldg(r + 1), __ldg(r + 2), __ldg(r + 3)));
+    const float rad = __ldg(r + 4);
+    const float bq = dot(oc, d);
+    const float cq = dot(oc, oc) - rad * rad;
+    const float disc = bq * bq - cq;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const V3 h = v3(__ldg(r + 5), __ldg(r + 6), __ldg(r + 7));
+    const float t0x = (-h.x - oc.x) * inv.x, t1x = (h.x - oc.x) * inv.x;
+    const float t0y = (-h.y - oc.y) * inv.y, t1y = (h.y - oc.y) * inv.y;
+    const float t0z = (-h.z - oc.z) * inv.z, t1z = (h.z - oc.z) * inv.z;
+    const float b_in = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                             fminf(t0z, t1z));
+    const float b_out = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                              fmaxf(t0z, t1z));
+    const bool is_box = __ldg(r) == 1.0f;
+    const float t_in = is_box ? b_in : -bq - sq;
+    const float t_out = is_box ? b_out : -bq + sq;
+    const bool ok = is_box ? b_out > b_in : disc > 0.0f;
+    const float t_enter = fmaxf(t_in, 0.0f);
+    const float t_exit = fminf(t_out, W.t);
+    const float u = fmaxf(uniform(salt, (uint32_t)m), 1e-12f);
+    const float free_flight = -logf(u) / __ldg(r + 8);
+    const float t_sc = t_enter + free_flight;
+    if (ok && t_exit > t_enter && free_flight < t_exit - t_enter
+        && t_sc < W.t) {
+      W.t = t_sc;
+      W.u = 0.0f;
+      W.v = 0.0f;
+      W.n = v3(1.0f, 0.0f, 0.0f);
+      W.m = (int)__ldg(r + 9);
+      W.tri = m;
+      W.sph = -1;
+      W.rect = -1;
+      W.hit = true;
+    }
+  }
+}
+
+// The specular branch of a lane on a metal, dielectric or isotropic
+// material (srt_tpu/pallas/bounce.py:663-729): the new direction and the
+// attenuation. ``n`` is the stored normal, ``p0`` the material's first
+// parameter (fuzz, refractive index), ``alb`` its colour; uniforms of
+// dimensions 8-11 of the bounce's salt.
+__device__ inline void scatter_specular(int m_type, float p0, V3 alb, V3 n,
+                                        V3 d, uint32_t salt, V3& dir,
+                                        V3& att) {
+  const float ddn = dot(d, n);
+  const V3 refl = sub(d, scale(n, 2.0f * ddn));
+  if (m_type == kDielectric) {
+    const float ref_idx = fmaxf(p0, 1e-2f);
+    const bool going_out = ddn > 0.0f;
+    const V3 out_n = going_out ? neg(n) : n;
+    const float ni = going_out ? ref_idx : 1.0f / ref_idx;
+    const float cosine = going_out ? ddn : -ddn;
+    const float dt = dot(d, out_n);
+    const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
+    const float sq = disc > 0.0f ? sqrtf(disc) : 0.0f;
+    const V3 refr = sub(scale(sub(d, scale(out_n, dt)), ni), scale(out_n, sq));
+    float r0 = (1.0f - ref_idx) / (1.0f + ref_idx);
+    r0 = r0 * r0;
+    const float omc = fmaxf(1.0f - cosine, 0.0f);
+    const float omc2 = omc * omc;
+    const float schlick = r0 + (1.0f - r0) * omc2 * omc2 * omc;
+    const float reflect_prob = disc > 0.0f ? schlick : 1.0f;
+    dir = normalize(uniform(salt, 11) < reflect_prob ? refl : refr);
+    att = v3(1.0f, 1.0f, 1.0f);
+    return;
+  }
+  const float z = 1.0f - 2.0f * uniform(salt, 8);
+  const float phi = kTwoPi * uniform(salt, 9);
+  const float r_xy = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+  if (m_type == kMetal) {
+    const float radius = cbrt_pos(fmaxf(uniform(salt, 10), 1e-12f));
+    const V3 ball = v3(radius * r_xy * cosf(phi), radius * r_xy * sinf(phi),
+                       radius * z);
+    dir = safe_normalize_rcp(add(refl, scale(ball, p0)));
+  } else {   // isotropic: a uniform direction
+    dir = normalize(v3(r_xy * cosf(phi), r_xy * sinf(phi), z));
+  }
+  att = alb;
 }
 
 // The winner's t: the sweep's value in the forward; in the backward the
@@ -745,7 +863,26 @@ struct LaneT {
 // combined with its depth); ``mp0, mp1`` are the material's parameters 0
 // and 1 and ``mc`` its constant colour. Returns alive-after-bounce (before
 // the depth cap) and updates L. Emitter and miss lanes keep o, d, beta.
-// kExt: the winner may be an external (triangle) hit.
+// kExt: the winner may be an external (triangle) hit or a medium event,
+// and specular lanes take the specular branch.
+template <class T>
+__device__ __forceinline__ bool scatter_to(const SceneView& s, uint32_t salt,
+                                           int depth, const V3T<T>& p,
+                                           const V3T<T>& wi, V3T<T> nb,
+                                           LaneT<T>& L) {
+  T beta_max = xmax(xmax(nb.x, nb.y), nb.z);
+  bool alive = val(beta_max) > 0.0f;
+  if (s.rr_start < s.max_depth && depth >= s.rr_start) {
+    T q = xclamp(beta_max, 0.05f, 1.0f);
+    alive = alive && uniform(salt, 16) < val(q);
+    if (alive) nb = divide(nb, q);
+  }
+  L.o = p;
+  L.d = wi;
+  L.beta = nb;
+  return alive;
+}
+
 template <class T, bool kExt = false>
 __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
                                       uint32_t salt, int depth, const T& mp0,
@@ -791,6 +928,15 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
     return false;   // emitters do not scatter
   }
   if (!hit) return false;
+  if constexpr (kExt) {
+    if (m_type == kMetal || m_type == kDielectric || m_type == kIsotropic) {
+      V3 dir, att;
+      scatter_specular(m_type, mp0, mc, normal, d, salt, dir, att);
+      return scatter_to(s, salt, depth, p, dir,
+                        v3(L.beta.x * att.x, L.beta.y * att.y,
+                           L.beta.z * att.z), L);
+    }
+  }
 
   // face-forward shading basis (onb.h about the viewer-side normal)
   const V3T<T> nw = normalize(val(dot(normal, d)) > 0.0f ? neg(normal)
@@ -876,35 +1022,32 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
   // throughput update (albedo is the material's constant texture)
   const bool ok = val(pdf) > s.pdf_floor;
   const T den = xmax(pdf, s.pdf_floor);
-  V3T<T> nb = v3<T>(L.beta.x * (ok ? mc.x * wgt / den : T(0.0f)),
-                    L.beta.y * (ok ? mc.y * wgt / den : T(0.0f)),
-                    L.beta.z * (ok ? mc.z * wgt / den : T(0.0f)));
-  T beta_max = xmax(xmax(nb.x, nb.y), nb.z);
-  bool alive = val(beta_max) > 0.0f;
-  if (s.rr_start < s.max_depth && depth >= s.rr_start) {
-    T q = xclamp(beta_max, 0.05f, 1.0f);
-    alive = alive && uniform(salt, 16) < val(q);
-    if (alive) nb = divide(nb, q);
-  }
-  L.o = p;
-  L.d = wi;
-  L.beta = nb;
-  return alive;
+  const V3T<T> nb = v3<T>(L.beta.x * (ok ? mc.x * wgt / den : T(0.0f)),
+                          L.beta.y * (ok ? mc.y * wgt / den : T(0.0f)),
+                          L.beta.z * (ok ? mc.z * wgt / den : T(0.0f)));
+  return scatter_to(s, salt, depth, p, wi, nb, L);
 }
 
 // The forward bounce of one live lane (B1, B2): returns alive-after-bounce
 // (before the depth cap) and updates L. With kExt (B2's external-hit
-// mode) the external hit ``e`` takes part in the closest hit; without it
-// the code is the triangle-free bounce, as B1 compiles it.
+// mode) the external hit ``e`` takes part in the closest hit, then the
+// media ``med`` (n_med records, see take_media); without it the code is
+// the triangle-free bounce, as B1 compiles it.
 template <bool kExt = false>
 __device__ __forceinline__ bool bounce(const SceneView& s, uint32_t salt,
                                        int depth, LaneT<float>& L,
-                                       const ExtHit* e = nullptr) {
+                                       const ExtHit* e = nullptr,
+                                       const float* med = nullptr,
+                                       int n_med = 0) {
   Winner W = closest_hit(s, L.o, L.d);
-  if constexpr (kExt) take_external(W, *e);
+  const uint32_t bsalt = hash_combine(salt, (uint32_t)depth);
+  if constexpr (kExt) {
+    take_external(W, *e);
+    take_media(W, med, n_med, L.o, L.d, bsalt);
+  }
   const float* mt = s.mat + 14 * W.m;
-  return shade<float, kExt>(s, W, hash_combine(salt, (uint32_t)depth),
-                            depth, mt[1], mt[2], v3(mt[6], mt[7], mt[8]), L);
+  return shade<float, kExt>(s, W, bsalt, depth, mt[1], mt[2],
+                            v3(mt[6], mt[7], mt[8]), L);
 }
 
 }  // namespace srt

@@ -1,6 +1,8 @@
 // Closest hit over the triangle BVH for one ray: the stackless skip-link
 // walk of srt_tpu_torch/render/intersect.py:intersect_tris, as a device
-// function so a bounce kernel can call it in-line.
+// function so a bounce kernel can call it in-line; and its two parts, the
+// slab test of one node and the Moller-Trumbore test of one triangle,
+// which the two-level walk (intersect_big.cu) runs on its own records.
 //
 // Tables (kernels/intersect.py:pack_tables), read through the read-only
 // path:
@@ -29,17 +31,15 @@ struct TriHit {
   int idx;    // 0 on a miss
 };
 
-__device__ __forceinline__ float safe_inv(float x) {
-  return 1.0f / (fabsf(x) < 1e-20f ? 1e-20f : x);
-}
-
 __device__ __forceinline__ V3 ldg3(const float* __restrict__ p) {
   return v3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
 }
 
-// Möller–Trumbore of triangle k (render/intersect.py:_tri_intersect)
+// Möller–Trumbore of triangle k (render/intersect.py:_tri_intersect); a
+// hit records the index base + k
 __device__ __forceinline__ void moller_trumbore(
-    const float* __restrict__ tris, int k, V3 o, V3 d, TriHit& h) {
+    const float* __restrict__ tris, int k, V3 o, V3 d, TriHit& h,
+    int base = 0) {
   const float* p = tris + kTriWords * k;
   const V3 p0 = ldg3(p), p1 = ldg3(p + 3), p2 = ldg3(p + 6);
   const V3 e1 = sub(p1, p0), e2 = sub(p2, p0);
@@ -56,8 +56,23 @@ __device__ __forceinline__ void moller_trumbore(
     h.t = t;
     h.u = u;
     h.v = v;
-    h.idx = k;
+    h.idx = base + k;
   }
+}
+
+// The slab test of node record nd (lo xyz, hi xyz) against the ray with
+// reciprocal direction inv, pruned by the ray's best t
+__device__ __forceinline__ bool slab_test(const float* __restrict__ nd, V3 o,
+                                          V3 inv, float t_best) {
+  const V3 lo = ldg3(nd), hi = ldg3(nd + 3);
+  const float t0x = (lo.x - o.x) * inv.x, t1x = (hi.x - o.x) * inv.x;
+  const float t0y = (lo.y - o.y) * inv.y, t1y = (hi.y - o.y) * inv.y;
+  const float t0z = (lo.z - o.z) * inv.z, t1z = (hi.z - o.z) * inv.z;
+  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                         fminf(t0z, t1z));
+  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fmaxf(t0z, t1z));
+  return tf >= fmaxf(tn, kTMin) && tn < t_best;
 }
 
 __device__ inline TriHit walk_tri_bvh(const float* __restrict__ nodes,
@@ -73,17 +88,9 @@ __device__ inline TriHit walk_tri_bvh(const float* __restrict__ nodes,
   int i = 0;
   while (i < n_nodes) {
     const float* nd = nodes + kNodeWords * i;
-    const V3 lo = ldg3(nd), hi = ldg3(nd + 3);
     const int* ni = reinterpret_cast<const int*>(nd);
     const int skip = __ldg(ni + 6), first = __ldg(ni + 7);
-    const float t0x = (lo.x - o.x) * inv.x, t1x = (hi.x - o.x) * inv.x;
-    const float t0y = (lo.y - o.y) * inv.y, t1y = (hi.y - o.y) * inv.y;
-    const float t0z = (lo.z - o.z) * inv.z, t1z = (hi.z - o.z) * inv.z;
-    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fminf(t0z, t1z));
-    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fmaxf(t0z, t1z));
-    const bool box_hit = tf >= fmaxf(tn, kTMin) && tn < h.t;
+    const bool box_hit = slab_test(nd, o, inv, h.t);
     if (box_hit && first >= 0) {
       const int count = __ldg(ni + 8);
       for (int j = 0; j < count; ++j)

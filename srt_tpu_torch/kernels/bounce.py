@@ -35,9 +35,11 @@ explicit state, out of place, no regeneration and no depth cap. Replaces
 ``_kernel`` in its per-bounce mode (launched by ``fused_bounce``,
 ``bounce.py:1425-1552``) without the parity plane. On a triangle scene it
 takes each lane's closest triangle ``(t, u, v, idx)`` from kernel B3
-(``kernels/intersect.py``) and assembles the hit itself (the external-hit
-mode, ``has_ext``). :func:`bounce_step_ref` is its plain version and
-:func:`bounce_fwd` the wrapper; ``csrc/bounce.cu`` runs the same
+(``kernels/intersect.py``), or from B4 on a mesh beyond the single-level
+budget, and assembles the hit itself (the external-hit mode, ``has_ext``);
+in that mode it also runs the media sweep and the specular branch of
+metal, dielectric and isotropic materials. :func:`bounce_step_ref` is its
+plain version and :func:`bounce_fwd` the wrapper; ``csrc/bounce.cu`` runs the same
 ``bounce()`` of ``csrc/bounce_core.cuh`` as B1.
 """
 from __future__ import annotations
@@ -85,9 +87,10 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
     """Scene records the kernels read (``bounce.py:_build_tables``),
     entries-major so one record is contiguous: spheres (S, 12), rects
     (R, 10), materials (M, 14), rect lights (L, 8), all float32 (lights
-    are rects: the coverage gate refuses sphere lights); and for B2's
+    are rects: the coverage gate refuses sphere lights); for B2's
     external hit the triangles' normals (T, 9), uv (T, 6) and materials
-    (T,) int32."""
+    (T,) int32; and the media (M, 10): kind, center, radius, half extents,
+    density, material (``bounce.py:1402``)."""
     f = _F32
     dev = scene.device
     S, R = scene.n_spheres, scene.n_rects
@@ -118,6 +121,10 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
     atlas = (scene.atlas_u32 if scene.atlas_u32 is not None
              else torch.zeros((1,), dtype=_I32, device=dev))
     T = scene.n_tris
+    med = torch.cat([scene.med_kind[:, None].to(f), scene.med_center,
+                     scene.med_radius[:, None], scene.med_half,
+                     scene.med_density[:, None],
+                     scene.med_mat[:, None].to(f)], 1)
     return dict(sph=sph.reshape(S, 12).contiguous(),
                 rect=rect.reshape(R, 10).contiguous(),
                 mat=mat.contiguous(), light=light.reshape(-1, 8).contiguous(),
@@ -125,7 +132,8 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
                 atlas_u32=atlas.to(_I32).contiguous(),
                 tri_n=scene.tri_n.reshape(T, 9).contiguous(),
                 tri_uv=scene.tri_uv.reshape(T, 6).contiguous(),
-                tri_mat=scene.tri_mat.to(_I32).contiguous())
+                tri_mat=scene.tri_mat.to(_I32).contiguous(),
+                med=med.reshape(-1, 10).contiguous())
 
 
 class RegenInputs:
@@ -374,7 +382,8 @@ class _BounceArgs(ctypes.Structure):
         + [(name, ctypes.c_void_p) for name in (
             "tri_t", "tri_u", "tri_v", "tri_idx", "tri_n", "tri_uv",
             "tri_mat")]
-        + [("n_tris", ctypes.c_int)])
+        + [("n_tris", ctypes.c_int), ("med", ctypes.c_void_p),
+           ("n_med", ctypes.c_int)])
 
 
 def check_state(state: dict, tables: dict, device) -> int:
@@ -411,7 +420,8 @@ def table_args(scene: TorchScene, tables: dict) -> dict:
 
 def _tri_args(scene: TorchScene, tables: dict, tri, n: int, dev) -> dict:
     """The external-hit fields of B2's arguments: none on a scene without
-    triangles, else B3's ``(t, u, v, idx)`` and the triangle tables."""
+    triangles, else B3's or B4's ``(t, u, v, idx)``, the triangle tables
+    and the media."""
     if not scene.n_tris:
         return {}
     if tri is None:
@@ -427,14 +437,14 @@ def _tri_args(scene: TorchScene, tables: dict, tri, n: int, dev) -> dict:
             or not idx.is_contiguous()):
         raise ValueError(f"triangle hit 'idx': want contiguous int32 ({n},) "
                          f"on {dev}")
-    for k in ("tri_n", "tri_uv", "tri_mat"):
+    for k in ("tri_n", "tri_uv", "tri_mat", "med"):
         if tables[k].device != dev or not tables[k].is_contiguous():
             raise ValueError(f"table {k!r} must be contiguous on {dev}")
     return dict(tri_t=tri[0].data_ptr(), tri_u=tri[1].data_ptr(),
                 tri_v=tri[2].data_ptr(), tri_idx=idx.data_ptr(),
                 **{k: tables[k].data_ptr() for k in ("tri_n", "tri_uv",
-                                                     "tri_mat")},
-                n_tris=scene.n_tris)
+                                                     "tri_mat", "med")},
+                n_tris=scene.n_tris, n_med=tables["med"].shape[0])
 
 
 def fwd_args(scene: TorchScene, tables: dict, state: dict,

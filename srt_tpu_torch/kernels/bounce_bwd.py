@@ -30,7 +30,8 @@ from srt_tpu_torch.kernels.bounce import (_TABLES, MAT_GRAD_COLS, StepSpec,
                                           bounce_step_ref, check_state,
                                           table_args)
 from srt_tpu_torch.kernels.build import launch
-from srt_tpu_torch.scene.ir import SceneFlags, TorchScene, require_covered
+from srt_tpu_torch.scene.ir import (SPECULAR_MATS, MaterialType, SceneFlags,
+                                    TorchScene, require_covered)
 
 #: Kernel launches made by :func:`bounce_bwd` (the CUDA path only).
 LAUNCHES_BWD = 0
@@ -44,13 +45,25 @@ def require_bwd_kernel(scene: TorchScene, flags: SceneFlags) -> None:
     (``bounce_bwd.py:58-73``) as an explicit check that reads no
     environment variable. Triangles are refused here: the kernel has no
     external-hit input, so it would differentiate a triangle lane as if
-    the triangle were not there. The parity estimator and moving spheres
+    the triangle were not there; and so are media and the specular
+    materials, whose sweep and branch the backward lacks, whatever the
+    coverage gate admits. The parity estimator and moving spheres
     the coverage gate refuses; geometric parameters
     ``diff.inverse.splice``."""
     if scene.n_tris:
         raise NotImplementedError(
             "srt_tpu_torch cannot differentiate triangle scenes yet: the "
             "backward kernel has no external-hit mode (ROADMAP A13)")
+    if scene.n_media:
+        raise NotImplementedError(
+            "srt_tpu_torch cannot differentiate participating media yet: "
+            "the backward kernel has no media sweep (ROADMAP A13)")
+    specular = sorted(MaterialType(m).name for m in
+                      set(flags.mat_kinds) & SPECULAR_MATS)
+    if specular:
+        raise NotImplementedError(
+            f"srt_tpu_torch cannot differentiate {specular} yet: the "
+            "backward kernel has no specular branch (ROADMAP A13)")
     require_covered(scene, flags)
 
 

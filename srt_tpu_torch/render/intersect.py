@@ -9,8 +9,12 @@ coverage, so centers are ``sph_center0``.
 Triangles: :func:`intersect_tris` is the plain version of kernel B3, the
 per-ray stackless skip-link walk over the scene's BVH with
 Möller–Trumbore tests (``intersect.py:347-498``), every ray's cursor
-advanced in lockstep until all have left the tree. A triangle wins only
-when strictly nearer than the spheres' and rects' best hit.
+advanced in lockstep until all have left the tree.
+:func:`intersect_tris_big` is the plain version of kernel B4, the same
+walk over the two-level BVH (a top tree whose leaves are clusters,
+``accel/cluster.py``). :func:`intersect_tris_any` picks one by the JAX
+package's rule (:func:`two_level`). A triangle wins only when strictly
+nearer than the spheres' and rects' best hit.
 """
 from __future__ import annotations
 
@@ -26,6 +30,11 @@ from srt_tpu_torch.scene.ir import TorchScene
 BIG = 3.0e38
 T_POS_MAX = 1.0e7    # position-eval clamp: o + BIG*d would overflow
 PRIM_CHUNK = 128
+#: mesh bytes (36 a node, 36 a triangle) above which a scene takes the
+#: two-level walk: the JAX package's VMEM budget for its single-level
+#: kernel (``srt_tpu/pallas/intersect.py:48``), kept so that the same
+#: scenes take the same walk in both packages
+SINGLE_LEVEL_BUDGET = 6 * 1024 * 1024
 
 # Per-rect-axis component indices (aarect.h:96-147): plane normal axis,
 # and the two in-plane axes (u, v).
@@ -159,6 +168,20 @@ def _tri_intersect(p0, p1, p2, o, d, t_min, t_max):
     return t, u, v, valid
 
 
+def _safe_inv(d: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+
+
+def _slab(lo, hi, o, inv_d, t_min, t_best):
+    """Each ray's box test against its own node (lo, hi), pruned by its
+    best ``t``."""
+    tt0 = (lo - o) * inv_d
+    tt1 = (hi - o) * inv_d
+    tn = torch.minimum(tt0, tt1).amax(-1)
+    tf = torch.maximum(tt0, tt1).amin(-1)
+    return (tf >= torch.clamp(tn, min=t_min)) & (tn < t_best)
+
+
 def intersect_tris(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
                    t_min: float = 1e-3, leaf_size: int = 4,
                    stats: bool = False):
@@ -178,18 +201,15 @@ def intersect_tris(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
     visits = torch.zeros((n,), dtype=torch.int64, device=dev)
     tests = torch.zeros((n,), dtype=torch.int64, device=dev)
     n_nodes, n_tris = scene.n_bvh_nodes, scene.n_tris
-    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+    inv_d = _safe_inv(d)
     cursor = torch.zeros((n,), dtype=torch.int64, device=dev)
     while n_nodes:
         active = cursor < n_nodes
         if not bool(active.any()):
             break
         cur = torch.clamp(cursor, max=n_nodes - 1)
-        tt0 = (scene.bvh_lo[cur] - o) * inv_d
-        tt1 = (scene.bvh_hi[cur] - o) * inv_d
-        tn = torch.minimum(tt0, tt1).amax(-1)
-        tf = torch.maximum(tt0, tt1).amin(-1)
-        box_hit = (tf >= torch.clamp(tn, min=t_min)) & (tn < t_best)
+        box_hit = _slab(scene.bvh_lo[cur], scene.bvh_hi[cur], o, inv_d,
+                        t_min, t_best)
         first = scene.bvh_first[cur].long()
         count = scene.bvh_count[cur].long()
         is_leaf = first >= 0
@@ -213,6 +233,126 @@ def intersect_tris(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
     return out + (visits, tests) if stats else out
 
 
+def cluster_records(scene: TorchScene) -> dict:
+    """The cluster blocks of the two-level BVH as one record per row:
+    ``lo``, ``hi`` (Nc*node_cap, 3), ``skip``, ``first``, ``count``
+    (Nc*node_cap,) with local ids, triangles ``p`` (Nc*tri_cap, 9) as p0,
+    p1, p2; and the caps."""
+    nc, _, rows_n, lanes = scene.cl_nodes_f.shape
+    node_cap, tri_cap = rows_n * lanes, scene.cl_tris.shape[2] * lanes
+    f = scene.cl_nodes_f.reshape(nc, 6, node_cap).transpose(1, 2)
+    i = scene.cl_nodes_i.reshape(nc, 3, node_cap)
+    p = scene.cl_tris.reshape(nc, 9, tri_cap).transpose(1, 2)
+    return dict(lo=f[..., :3].reshape(-1, 3), hi=f[..., 3:].reshape(-1, 3),
+                skip=i[:, 0].reshape(-1), first=i[:, 1].reshape(-1),
+                count=i[:, 2].reshape(-1), p=p.reshape(-1, 9),
+                node_cap=node_cap, tri_cap=tri_cap)
+
+
+def intersect_tris_big(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
+                       t_min: float = 1e-3, leaf_size: int = 4,
+                       stats: bool = False):
+    """Closest triangle per ray over the two-level BVH, the plain version
+    of kernel B4 (``srt_tpu/pallas/intersect_big.py:_kernel``): ``(t, u,
+    v, tri)`` as :func:`intersect_tris` gives them, ``tri`` the global
+    index ``k + tri_base`` of the cluster's local triangle ``k``. Each ray
+    walks the top tree by its skip links; at a cluster leaf its box test
+    hits, it walks that cluster's local skip-link tree to its end (the
+    padding node after the last real node ends it), then resumes at the
+    leaf's skip. Every ray advances one node a round, in lockstep, until
+    all are done. The same tree in the same order as the single-level
+    walk: the two agree to the bit. With ``stats`` it also returns each
+    ray's top-tree visits, cluster-node visits and triangle tests (int64)
+    and ``seen``, the records any ray read: bool masks over the top tree
+    (Bt,), the cluster nodes (Nc*node_cap,) and the cluster triangles
+    (Nc*tri_cap,), the last two in :func:`cluster_records`' order."""
+    n, dev = o.shape[0], o.device
+    t_best = torch.full((n,), BIG, device=dev)
+    u_best = torch.zeros((n,), device=dev)
+    v_best = torch.zeros((n,), device=dev)
+    i_best = torch.zeros((n,), dtype=torch.int64, device=dev)
+    top_visits, cl_visits, tests = (
+        torch.zeros((n,), dtype=torch.int64, device=dev) for _ in range(3))
+    inv_d = _safe_inv(d)
+    n_top = 0 if scene.top_skip is None else scene.top_skip.shape[0]
+    top = torch.zeros((n,), dtype=torch.int64, device=dev)
+    cl = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    local = torch.zeros((n,), dtype=torch.int64, device=dev)
+    base = torch.zeros((n,), dtype=torch.int64, device=dev)
+    rec = cluster_records(scene) if n_top else None
+    n_nodes, n_cl_tris = ((rec["skip"].shape[0], rec["p"].shape[0])
+                          if n_top else (0, 0))
+    # one slot past each table takes the rays that read nothing there
+    seen = [torch.zeros((k + 1,), dtype=torch.bool, device=dev)
+            for k in (n_top, n_nodes, n_cl_tris)]
+    while n_top:
+        in_cl = cl >= 0
+        in_top = ~in_cl & (top < n_top)
+        if not bool((in_top | in_cl).any()):
+            break
+        # rays in the top tree: one node each
+        tc = torch.clamp(top, max=n_top - 1)
+        box_top = _slab(scene.top_lo[tc], scene.top_hi[tc], o, inv_d, t_min,
+                        t_best)
+        leaf_cl = scene.top_cluster[tc].long()
+        enter = in_top & box_top & (leaf_cl >= 0)
+        # rays inside a cluster: one node each
+        c0 = torch.clamp(cl, min=0)
+        g = c0 * rec["node_cap"] + torch.clamp(local, max=rec["node_cap"] - 1)
+        box_cl = _slab(rec["lo"][g], rec["hi"][g], o, inv_d, t_min, t_best)
+        first, count = rec["first"][g].long(), rec["count"][g].long()
+        leaf = in_cl & box_cl & (first >= 0)
+        for j in range(leaf_size):
+            k = torch.clamp(first + j, 0, rec["tri_cap"] - 1)
+            lane = leaf & (j < count)
+            p = rec["p"][c0 * rec["tri_cap"] + k]
+            t, u, v, valid = _tri_intersect(p[:, 0:3], p[:, 3:6], p[:, 6:9],
+                                            o, d, t_min, t_best)
+            better = lane & valid & (t < t_best)
+            t_best = torch.where(better, t, t_best)
+            u_best = torch.where(better, u, u_best)
+            v_best = torch.where(better, v, v_best)
+            i_best = torch.where(better, k + base, i_best)
+            tests += lane
+            if stats:
+                seen[2][torch.where(lane, c0 * rec["tri_cap"] + k,
+                                    n_cl_tris)] = True
+        top_visits += in_top
+        cl_visits += in_cl
+        if stats:
+            seen[0][torch.where(in_top, tc, n_top)] = True
+            seen[1][torch.where(in_cl, g, n_nodes)] = True
+        # advance: a cluster walk ends past its padded block
+        local = torch.where(box_cl & (first < 0), local + 1,
+                            rec["skip"][g].long())
+        cl = torch.where(in_cl & (local >= rec["node_cap"]), -1, cl)
+        top_next = torch.where(box_top & (leaf_cl < 0), top + 1,
+                               scene.top_skip[tc].long())
+        top = torch.where(in_top, top_next, top)
+        cl = torch.where(enter, leaf_cl, cl)
+        base = torch.where(enter, scene.top_tri_base[tc].long(), base)
+        local = torch.where(enter, 0, local)
+    out = (t_best, u_best, v_best, i_best)
+    seen = tuple(m[:-1] for m in seen)
+    return out + (top_visits, cl_visits, tests, seen) if stats else out
+
+
+def two_level(scene: TorchScene) -> bool:
+    """The JAX package's rule (``srt_tpu/pallas/intersect.py:50-60``): a
+    mesh whose nodes and triangles take more than
+    :data:`SINGLE_LEVEL_BUDGET` bytes at 36 bytes each takes the two-level
+    walk, any other the single-level one."""
+    return (scene.n_tris > 0 and (scene.n_bvh_nodes * 36 + scene.n_tris * 36
+                                  > SINGLE_LEVEL_BUDGET))
+
+
+def intersect_tris_any(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
+                       t_min: float = 1e-3, leaf_size: int = 4):
+    """The plain walk :func:`two_level` picks for ``scene``."""
+    walk = intersect_tris_big if two_level(scene) else intersect_tris
+    return walk(scene, o, d, t_min, leaf_size)
+
+
 def tri_hit(scene: TorchScene, o: torch.Tensor, d: torch.Tensor, t, u, v,
             tri) -> Hit:
     """The hit record of a closest triangle ``(t, u, v, tri)``
@@ -233,8 +373,9 @@ def intersect_scene(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
                     leaf_size: int = 4) -> Hit:
     """Closest hit over every sphere, then every rect, then the triangles
     (an earlier family wins ties). ``tri`` is the triangles' closest hit
-    ``(t, u, v, tri)`` when the caller has it (kernel B3's output);
-    otherwise :func:`intersect_tris` computes it with ``leaf_size``."""
+    ``(t, u, v, tri)`` when the caller has it (kernel B3's or B4's
+    output); otherwise :func:`intersect_tris_any` computes it with
+    ``leaf_size``."""
     best = Hit.none(o.shape[0], o.device)
     for c0 in range(0, scene.n_spheres, PRIM_CHUNK):
         c1 = min(c0 + PRIM_CHUNK, scene.n_spheres)
@@ -244,6 +385,6 @@ def intersect_scene(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
         best = best.closer_of(_rect_chunk(scene, o, d, t_min, c0, c1))
     if scene.n_tris:
         if tri is None:
-            tri = intersect_tris(scene, o, d, t_min, leaf_size)
+            tri = intersect_tris_any(scene, o, d, t_min, leaf_size)
         best = best.closer_of(tri_hit(scene, o, d, *tri))
     return best

@@ -10,9 +10,12 @@ Two loops, chosen by the scene as ``fused_regen_available`` chooses
   from the ``(pixel, sample)`` work queue;
 * with triangles (``regen.py:135-255``), each bounce regenerates the dead
   lanes in torch (:func:`kernels.bounce.regenerate`), finds each lane's
-  closest triangle with kernel B3 (:func:`kernels.intersect.intersect_tris`)
-  and runs the bounce with kernel B2 in its external-hit mode
-  (:func:`kernels.bounce.bounce_fwd`), then applies the depth cap.
+  closest triangle with the walk the JAX package's rule picks once a
+  render (:func:`render.intersect.two_level`: kernel B4, the two-level
+  walk, for a mesh beyond the single-level budget such as
+  ``teapot_scene``'s, else kernel B3) and runs the bounce with kernel B2
+  in its external-hit mode (:func:`kernels.bounce.bounce_fwd`), then
+  applies the depth cap.
 
 The host loop adds the finished lanes' radiance into the image,
 NaN-scrubbed and counted. Every random decision is a pure function of
@@ -34,6 +37,8 @@ from srt_tpu_torch.core import rng
 from srt_tpu_torch.core.sobol import sobol_points
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import intersect as ki
+from srt_tpu_torch.render.intersect import (intersect_tris,
+                                            intersect_tris_big, two_level)
 from srt_tpu_torch.scene.ir import SceneFlags, require_covered
 from srt_tpu_torch.utils.metrics import RenderMetrics
 
@@ -89,25 +94,28 @@ def _regen_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
 
 def _tri_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
               film: _Film, plain: bool) -> int:
-    """The loop for triangle scenes, B3 then B2 per bounce; returns its
-    bounces."""
+    """The loop for triangle scenes, B4 or B3 then B2 per bounce; returns
+    its bounces."""
     scene, flags, tables = inp.scene, inp.flags, inp.tables
     dev = scene.device
     step = kb.StepSpec(max_depth=spec.max_depth, rr_start=spec.rr_start,
                        pdf_floor=spec.pdf_floor)
+    big = two_level(scene)
     if plain:
+        walk = intersect_tris_big if big else intersect_tris
+
         def hits(o, d):
-            return ki.intersect_tris_reference(scene, o, d,
-                                               leaf_size=flags.bvh_leaf)
+            return walk(scene, o, d, leaf_size=flags.bvh_leaf)
 
         def bounce(state, tri):
             return kb.bounce_step_ref(scene, flags, tables["mat"], state,
                                       step, tri)
     else:
-        tri_tables = ki.pack_tables(scene)
+        walk = ki.intersect_tris_big if big else ki.intersect_tris
+        tri_tables = (ki.pack_big_tables if big else ki.pack_tables)(scene)
 
         def hits(o, d):
-            return ki.intersect_tris(scene, tri_tables, o, d)
+            return walk(scene, tri_tables, o, d)
 
         def bounce(state, tri):
             return kb.bounce_fwd(scene, flags, tables, state, step, tri)

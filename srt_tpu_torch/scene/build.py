@@ -1,29 +1,61 @@
 """Host-side scene construction (counterpart of ``srt_tpu/scene/build.py``).
 
 Covers what the port's slices render: spheres (static and env domes),
-axis-aligned rects, boxes, triangles with their BVH, constant and image
-textures, Lambertian, Oren–Nayar, Beckmann and diffuse-light materials,
-and rect lights. The tables are packed in numpy exactly as the JAX builder
-packs them, then moved to one device.
+axis-aligned rects, boxes, triangles and triangle meshes with their BVH
+and its two-level clustering, sphere media, constant and image textures,
+Lambertian, Oren–Nayar, Beckmann, metal, dielectric, isotropic and
+diffuse-light materials, and rect lights. The tables are packed in numpy
+exactly as the JAX builder packs them, then moved to one device.
 """
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from srt_tpu_torch.accel.bvh import build_bvh
+from srt_tpu_torch.accel.cluster import build_clusters
 from srt_tpu_torch.scene.ir import (LightKind, MaterialType, TextureType,
                                     TorchScene)
+
+
+def rotation_y(angle_deg: float) -> np.ndarray:
+    """World-space matrix of the reference's ``rotate_y`` instancing
+    (``hitable.h:109-132``)."""
+    r = math.radians(angle_deg)
+    c, s = math.cos(r), math.sin(r)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], np.float32)
+
+
+def rotation_x(angle_deg: float) -> np.ndarray:
+    """World-space matrix of ``rotate_x`` (``hitable.h:151-203``)."""
+    r = math.radians(angle_deg)
+    c, s = math.cos(r), math.sin(r)
+    return np.array([[1.0, 0.0, 0.0], [0.0, c, s], [0.0, -s, c]], np.float32)
+
+
+def _flat_normals(p: np.ndarray) -> np.ndarray:
+    """Every vertex takes its face's geometric normal: (T, 3, 3)."""
+    gn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    gn = gn / np.maximum(np.linalg.norm(gn, axis=1, keepdims=True), 1e-20)
+    return np.repeat(gn[:, None, :], 3, axis=1)
 
 
 @dataclass
 class SceneBuilder:
     """Accumulates primitives/materials/textures, then :meth:`build`
-    packs them into a :class:`TorchScene`."""
+    packs them into a :class:`TorchScene`. The cluster caps of the
+    two-level BVH are the JAX builder's (``srt_tpu/scene/build.py:47-48``).
+    ``seconds`` holds the last build's host seconds a step: ``bvh``,
+    ``clusters`` and ``upload`` (the tables onto the device).
+    """
 
+    cluster_node_cap: int = 2048
+    cluster_tri_cap: int = 4096
+    seconds: dict = field(default_factory=dict, init=False)
     _tex_type: list = field(default_factory=list)
     _tex_color: list = field(default_factory=list)
     _tex_img: list = field(default_factory=list)
@@ -35,6 +67,7 @@ class SceneBuilder:
     _sph: list = field(default_factory=list)
     _rect: list = field(default_factory=list)
     _tris: list = field(default_factory=list)   # (p, uv, n, mat) chunks
+    _med: list = field(default_factory=list)
     _lights: list = field(default_factory=list)
 
     # ------------------------------------------------------------------ tex
@@ -83,8 +116,21 @@ class SceneBuilder:
         ay = roughness_to_alpha(roughy)
         return self._push_mat(MaterialType.BECKMANN, tex, (ax, ay, 0, 0))
 
+    def metal(self, albedo, fuzz: float = 0.0) -> int:
+        tex = self.constant(albedo)
+        return self._push_mat(MaterialType.METAL, tex,
+                              (min(fuzz, 1.0), 0, 0, 0))
+
+    def dielectric(self, ref_idx: float) -> int:
+        tex = self.constant((1.0, 1.0, 1.0))
+        return self._push_mat(MaterialType.DIELECTRIC, tex,
+                              (ref_idx, 0, 0, 0))
+
     def diffuse_light(self, tex: int) -> int:
         return self._push_mat(MaterialType.DIFFUSE_LIGHT, tex)
+
+    def isotropic(self, tex: int) -> int:
+        return self._push_mat(MaterialType.ISOTROPIC, tex)
 
     # ------------------------------------------------------------------ geo
     def sphere(self, center, radius, mat, flip=False, env=False) -> int:
@@ -134,15 +180,40 @@ class SceneBuilder:
         p = np.asarray(p, np.float32)
         t = len(p)
         if n is None:
-            gn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
-            gn = gn / np.maximum(np.linalg.norm(gn, axis=1, keepdims=True),
-                                 1e-20)
-            n = np.repeat(gn[:, None, :], 3, axis=1)
+            n = _flat_normals(p)
         if uv is None:
             uv = np.zeros((t, 3, 2), np.float32)
         self._tris.append((p, np.asarray(uv, np.float32),
                            np.asarray(n, np.float32),
                            np.full(t, int(mat), np.int32)))
+
+    def trimesh(self, mesh, mat: int, scale=(1.0, 1.0, 1.0),
+                rotate: np.ndarray | None = None,
+                translate=(0.0, 0.0, 0.0), flip_winding: bool = False,
+                flip_uvs: bool = False) -> None:
+        """Add a :class:`~srt_tpu_torch.io.mesh.TriMesh` soup, baking
+        scale, rotate, translate into world space (the reference's
+        ``translate(rotate(bvh_node(model)))``, ``Raytracing_n.cpp:642``);
+        a mesh without normals shades flat."""
+        if isinstance(scale, (int, float)):
+            scale = (scale, scale, scale)
+        m = mesh.transformed(scale=scale, rotate=rotate, translate=translate,
+                             flip_winding=flip_winding, flip_uvs=flip_uvs)
+        p = m.positions
+        n = m.normals if m.normals is not None else _flat_normals(p)
+        uv = (m.uvs if m.uvs is not None
+              else np.zeros((len(p), 3, 2), np.float32))
+        self._tris.append((np.ascontiguousarray(p, np.float32),
+                           np.ascontiguousarray(uv, np.float32),
+                           np.ascontiguousarray(n, np.float32),
+                           np.full(len(p), int(mat), np.int32)))
+
+    def medium_sphere(self, center, radius, density, albedo_tex: int) -> None:
+        """A constant medium bounded by a sphere (``constant_medium.h``),
+        scattering by an isotropic material of ``albedo_tex``."""
+        mat = self.isotropic(albedo_tex)
+        self._med.append((0, np.asarray(center, np.float32), float(radius),
+                          np.zeros(3, np.float32), float(density), mat))
 
     def light_rect(self, rect_id: int) -> None:
         """NEE light registration (the reference's hlist)."""
@@ -169,8 +240,17 @@ class SceneBuilder:
         else:
             p, uv, n = (np.zeros((0, 3, k), f32) for k in (3, 2, 3))
             tm = np.zeros((0,), i32)
+        t0 = time.perf_counter()
         bvh, order = build_bvh(p, leaf_size=4)
+        t1 = time.perf_counter()
         p, uv, n, tm = p[order], uv[order], n[order], tm[order]
+        clusters = {}
+        if len(p):
+            cl = build_clusters(bvh, p[:, 0], p[:, 1], p[:, 2],
+                                node_cap=self.cluster_node_cap,
+                                tri_cap=self.cluster_tri_cap)
+            clusters = cl._asdict()
+        t2 = time.perf_counter()
         atlas = (np.concatenate(self._atlas) if self._atlas
                  else np.zeros((0,), f32))
         # Packed rgb8 twin: exact iff every value is a u8/255 multiple.
@@ -198,7 +278,12 @@ class SceneBuilder:
             tri_p0=p[:, 0], tri_p1=p[:, 1], tri_p2=p[:, 2], tri_uv=uv,
             tri_n=n, tri_mat=tm, bvh_lo=bvh.lo, bvh_hi=bvh.hi,
             bvh_skip=bvh.skip, bvh_first=bvh.first, bvh_count=bvh.count,
-            med_kind=np.zeros((0,), i32),
+            med_kind=arr([m[0] for m in self._med], i32, ()),
+            med_center=arr([m[1] for m in self._med], f32, (3,)),
+            med_radius=arr([m[2] for m in self._med], f32, ()),
+            med_half=arr([m[3] for m in self._med], f32, (3,)),
+            med_density=arr([m[4] for m in self._med], f32, ()),
+            med_mat=arr([m[5] for m in self._med], i32, ()),
             mat_type=arr(self._mat_type, i32, ()),
             mat_tex=arr(self._mat_tex, i32, ()),
             mat_params=arr(self._mat_params, f32, (4,)),
@@ -210,11 +295,17 @@ class SceneBuilder:
             merl=np.zeros((0, 3, 1), f32),
             light_kind=arr([int(li[0]) for li in self._lights], i32, ()),
             light_index=arr([li[1] for li in self._lights], i32, ()),
-            atlas_u32=atlas_u32)
-        return TorchScene(**{
+            atlas_u32=atlas_u32, **clusters)
+        t3 = time.perf_counter()
+        scene = TorchScene(**{
             k: None if v is None else
             torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in tables.items()})
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize(scene.device)
+        self.seconds = dict(bvh=t1 - t0, clusters=t2 - t1,
+                            upload=time.perf_counter() - t3)
+        return scene
 
 
 def roughness_to_alpha(roughness: float) -> float:

@@ -66,7 +66,13 @@ class TorchScene:
     bvh_skip: torch.Tensor      # (B,) i32 (B = end of the walk)
     bvh_first: torch.Tensor     # (B,) i32 first triangle of a leaf, -1 inner
     bvh_count: torch.Tensor     # (B,) i32 leaf triangle count
-    med_kind: torch.Tensor      # (M,) i32; the gate reads its length
+    # participating media (constant_medium.h): 0 sphere, 1 box, 2 mesh
+    med_kind: torch.Tensor      # (M,) i32
+    med_center: torch.Tensor    # (M, 3) f32
+    med_radius: torch.Tensor    # (M,) f32 (spheres)
+    med_half: torch.Tensor      # (M, 3) f32 half extents (boxes)
+    med_density: torch.Tensor   # (M,) f32
+    med_mat: torch.Tensor       # (M,) i32 its isotropic material
     mat_type: torch.Tensor      # (Mt,) i32
     mat_tex: torch.Tensor       # (Mt,) i32
     mat_params: torch.Tensor    # (Mt, 4) f32
@@ -79,6 +85,17 @@ class TorchScene:
     light_kind: torch.Tensor    # (L,) i32
     light_index: torch.Tensor   # (L,) i32
     atlas_u32: torch.Tensor | None = None   # (A/3,) i32 r<<16|g<<8|b
+    # the two-level BVH (``accel/cluster.py``) of a scene with triangles,
+    # None without: a top tree whose leaves are clusters, and the clusters'
+    # node and triangle blocks padded to the builder's caps
+    top_lo: torch.Tensor | None = None        # (Bt, 3) f32
+    top_hi: torch.Tensor | None = None        # (Bt, 3) f32
+    top_skip: torch.Tensor | None = None      # (Bt,) i32
+    top_cluster: torch.Tensor | None = None   # (Bt,) i32, -1 inner
+    top_tri_base: torch.Tensor | None = None  # (Bt,) i32
+    cl_nodes_f: torch.Tensor | None = None    # (Nc, 6, rows, 128) f32
+    cl_nodes_i: torch.Tensor | None = None    # (Nc, 3, rows, 128) i32
+    cl_tris: torch.Tensor | None = None       # (Nc, 9, rows, 128) f32
 
     @property
     def n_spheres(self) -> int:
@@ -173,29 +190,43 @@ def _fused_bounce_eligible(scene: TorchScene, mat_types: np.ndarray,
 
 _COVERED_MATS = {int(MaterialType.LAMBERTIAN), int(MaterialType.OREN_NAYAR),
                  int(MaterialType.BECKMANN), int(MaterialType.DIFFUSE_LIGHT)}
+#: what the bounce covers on scenes with triangles only (B2's external-hit
+#: mode holds the specular branch and the media sweep; B1 does not yet)
+SPECULAR_MATS = {int(MaterialType.METAL), int(MaterialType.DIELECTRIC),
+                 int(MaterialType.ISOTROPIC)}
 _COVERED_TEX = {int(TextureType.CONSTANT), int(TextureType.IMAGE)}
 
 
 def require_covered(scene: TorchScene, flags: SceneFlags,
                     ref_parity: bool = False) -> None:
     """Raise ``NotImplementedError`` for a scene outside the port's slice,
-    naming the ROADMAP item that will port what it needs."""
+    naming the ROADMAP item that will port what it needs. Metal,
+    dielectric, isotropic materials and sphere or box media are covered on
+    scenes with triangles, whose bounce is kernel B2; a triangle-free
+    scene takes kernel B1, which does not hold them yet."""
     def missing(what: str, item: str):
         raise NotImplementedError(
             f"srt_tpu_torch does not cover {what} yet (ROADMAP {item})")
 
-    if scene.n_media:
-        missing("participating media", "A7")
+    covered = set(_COVERED_MATS)
+    if scene.n_tris:
+        covered |= SPECULAR_MATS
+        if bool((scene.med_kind == 2).any()):
+            missing("mesh-bounded participating media", "A7")
+    elif scene.n_media:
+        missing("participating media without triangles (kernel B1)", "A7")
     if flags.moving:
         missing("moving spheres", "A7")
     if ref_parity:
         missing("the reference-parity estimator", "A9")
     if scene.merl.shape[0]:
         missing("MERL measured BRDFs", "A12")
-    if not set(flags.mat_kinds) <= _COVERED_MATS:
+    if not set(flags.mat_kinds) <= covered:
         names = sorted(MaterialType(m).name for m in
-                       set(flags.mat_kinds) - _COVERED_MATS)
-        missing(f"materials {names}", "A7")
+                       set(flags.mat_kinds) - covered)
+        missing(f"materials {names}" + ("" if scene.n_tris else
+                                        " without triangles (kernel B1)"),
+                "A7")
     if not set(flags.tex_kinds) <= _COVERED_TEX:
         missing("checker and noise textures", "A7")
     if flags.fused_deferred_albedo:

@@ -1,15 +1,19 @@
 """The port's scene library (counterpart of ``srt_tpu/scene/library.py``).
 
 Holds the scenes the port covers: ``ball_scenes``, the reference's
-default (``Raytracing_n.cpp:379-425``, ``sceneid = 2``), and
-``cornell_boxes``, the asset-free triangle scene. Every function returns
-``(scene, camera, info)``.
+default (``Raytracing_n.cpp:379-425``, ``sceneid = 2``),
+``cornell_boxes``, the asset-free triangle scene, and ``teapot_scene``,
+the reference's scene 1 (``Raytracing_n.cpp:306-377``). Every function
+returns ``(scene, camera, info)``.
 """
 from __future__ import annotations
 
+import time
+import warnings
+
 from srt_tpu_torch.io.assets import find_asset, load_image_asset
 from srt_tpu_torch.render.camera import Camera
-from srt_tpu_torch.scene.build import SceneBuilder
+from srt_tpu_torch.scene.build import SceneBuilder, rotation_x
 
 SCENES = {}
 
@@ -29,6 +33,17 @@ def get_scene(name: str, aspect: float = 1.0, device="cuda", **kw):
             f"scene {name!r} is not in srt_tpu_torch yet (have "
             f"{sorted(SCENES)}; ROADMAP queue A, items A7-A8)")
     return SCENES[key](aspect=aspect, device=device, **kw)
+
+
+def _mesh_asset(rel: str, info: dict) -> None:
+    """A scanned mesh the reference loads: absent here, it is skipped and
+    named in ``info``, as the JAX library does; present, it needs the
+    mesh loaders, which the port does not hold yet."""
+    if find_asset(rel) is None:
+        info.setdefault("skipped", []).append(rel)
+        return
+    raise NotImplementedError(
+        f"srt_tpu_torch cannot load mesh assets ({rel}) yet (ROADMAP A8)")
 
 
 def _env_dome(b: SceneBuilder, lookfrom, image_rel: str, info: dict,
@@ -96,3 +111,56 @@ def cornell_boxes(aspect: float = 1.0, device="cuda", **_kw):
                          aspect=aspect, aperture=0.0, focus_dist=10.0,
                          device=device)
     return b.build(device), cam, {"lights": 1}
+
+
+@_register
+def teapot_scene(aspect: float = 1.0, divs: int = 100, device="cuda",
+                 **_kw):
+    """Reference scene 1 (``Raytracing_n.cpp:306-377``), line for line as
+    ``srt_tpu/scene/library.py:296-349``: a mirror teapot and a gold
+    Beckmann teapot (``divs`` sets the tessellation, ``teapot.h:77``; 100
+    gives 640k triangles a teapot), a glass sphere holding a blue isotropic
+    medium, a Lambertian floor, a rect light and the environment dome. The
+    bunny and the dragon are absent assets, skipped and named in
+    ``info["skipped"]``. ``info["host_s"]`` holds the host build's seconds
+    a step: the tessellation, then ``SceneBuilder.seconds``."""
+    from srt_tpu_torch.scene.teapot import create_teapot
+
+    lookfrom = (100.0, 800.0, -400.0)
+    b = SceneBuilder()
+    info: dict = {}
+
+    light = b.diffuse_light(b.constant((40.0, 40.0, 40.0)))
+    lam_brown = b.lambertian(b.constant((0.426, 0.3, 0.254)))
+    b.oren_nayar(b.constant((1.0, 1.0, 1.0)), 10.0)     # the bunny's
+    beck_gold = b.beckmann(b.constant((0.945, 0.75, 0.336)), 0.01, 0.05)
+    b.beckmann(b.constant((0.8, 0.85, 0.88)), 0.1, 0.1)  # the dragon's
+    mirror = b.metal((0.9, 0.9, 0.9), 0.0)
+
+    lid = b.xz_rect(3, 153, 217, 343, 800, light, flip=True)     # :336
+    b.xz_rect(0, 555, 0, 555, 0, lam_brown)                      # :338
+    _env_dome(b, lookfrom, "environment_map/sky_2.png", info)
+
+    t0 = time.perf_counter()
+    pot = create_teapot(scale=40.0, divs=divs)                   # :348-354
+    tessellation = time.perf_counter() - t0
+    b.trimesh(pot, mirror, rotate=rotation_x(90.0), translate=(200, 0, 250))
+    b.trimesh(pot, beck_gold, rotate=rotation_x(90.0), translate=(360, 0, 150))
+    _mesh_asset("models/bunny.ply", info)                        # :356-357
+
+    b.sphere((280, 30, 70), 30.0, b.dielectric(1.5))              # :360
+    b.medium_sphere((280, 30, 70), 30.0, 0.2,
+                    b.constant((0.2, 0.4, 0.9)))                  # :362
+    _mesh_asset("models/dragon.ply", info)                       # :364-366
+    if "models/dragon.ply" in info["skipped"]:
+        warnings.warn("dragon.ply is absent; teapot_scene renders without "
+                      "it")
+    b.light_rect(lid)
+
+    cam = Camera.look_at(lookfrom, (300, 278, 200), vfov=40.0,
+                         aspect=aspect, aperture=0.0, focus_dist=10.0,
+                         device=device)
+    info["lights"] = 1
+    scene = b.build(device)
+    info["host_s"] = dict(tessellation=tessellation, **b.seconds)
+    return scene, cam, info

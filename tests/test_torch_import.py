@@ -1,6 +1,8 @@
-"""srt_tpu_torch stands alone: importing it, rendering ball_scenes and
-cornell_boxes and taking a train step on the CPU pull in neither JAX nor
-the JAX package, nor anything the GPU machine lacks."""
+"""srt_tpu_torch stands alone: importing it, rendering ball_scenes,
+cornell_boxes and teapot_scene (its native BVH builder, clusters, the
+two-level walk, specular materials and a medium) and taking a train step
+on the CPU pull in neither JAX nor the JAX package, nor anything the GPU
+machine lacks."""
 from __future__ import annotations
 
 import json
@@ -25,6 +27,11 @@ tri_scene, tri_cam, _ = get_scene("cornell_boxes", device="cpu")
 tri_img = render_regen(tri_scene, tri_cam,
                        RenderConfig(width=8, height=8, spp=2, max_depth=4))
 import srt_tpu_torch.kernels.intersect, srt_tpu_torch.accel.bvh
+import srt_tpu_torch.render.intersect as ri
+ri.SINGLE_LEVEL_BUDGET = 0          # the two-level walk on a small mesh
+pot, pot_cam, _ = get_scene("teapot_scene", device="cpu", divs=3)
+pot_img = render_regen(pot, pot_cam,
+                       RenderConfig(width=8, height=8, spp=2, max_depth=4))
 step = make_train_step(scene, cam, {"tex_color": scene.tex_color}, width=4,
                        height=4, spp=1, max_depth=2, device="cpu")
 loss = step(torch.full((4, 4, 3), 0.3), 0)
@@ -32,6 +39,8 @@ print(json.dumps({"shape": list(img.shape),
                   "finite": bool(img.isfinite().all()
                                  and tri_img.isfinite().all()
                                  and tri_img.mean() > 0
+                                 and pot_img.isfinite().all()
+                                 and pot_img.mean() > 0
                                  and loss.isfinite()),
                   "modules": sorted(m.split(".")[0] for m in sys.modules)}))
 """

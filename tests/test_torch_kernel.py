@@ -1,8 +1,8 @@
 """The CUDA kernels (srt_tpu_torch/csrc/): the regeneration bounce
 (``regen_bounce.cu``), the per-bounce step (``bounce.cu``, the train
 forward, and with a triangle hit the bounce of triangle scenes), its VJP,
-the train backward (``bounce_bwd.cu``), and the triangle BVH walk
-(``intersect_tris.cu``).
+the train backward (``bounce_bwd.cu``), and the triangle BVH walks, single
+level (``intersect_tris.cu``) and two level (``intersect_big.cu``).
 
 On a machine with an NVIDIA GPU the ``cuda``-marked tests build the
 kernels and hold one launch of each against its plain version lane by
@@ -285,6 +285,100 @@ def test_triangle_kernels_match_plain_on_gpu(cuda_device):
                              (t, u, v, idx))
     torch.cuda.synchronize()
     assert kb.LAUNCHES_FWD == fwd + 1
+    assert torch.equal(out["depth"], ref["depth"])
+    contract.check_bounce(
+        {k: ref[k].cpu().numpy() for k in ("alive", "d", "beta", "radiance")},
+        {k: out[k].cpu().numpy() for k in ("alive", "d", "beta", "radiance")})
+
+
+def _clustered_soup(device, n):
+    """A 1,500-triangle soup clustered at caps 128/256 (dozens of clusters
+    under a deep top tree) and ``n`` random rays through it."""
+    r = np.random.default_rng(8)
+    b = SceneBuilder(cluster_node_cap=128, cluster_tri_cap=256)
+    b.triangles(r.standard_normal((1500, 3, 3)).astype(np.float32),
+                b.lambertian(b.constant((0.5, 0.5, 0.5))))
+    scene = b.build(device)
+    o = (r.standard_normal((n, 3)) * 3).astype(np.float32)
+    d = r.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (scene, torch.from_numpy(o).to(device),
+            torch.from_numpy(d).to(device))
+
+
+def test_two_level_wrapper_checks_its_arguments():
+    """On the CPU no kernel runs, but B4's arguments are built and checked:
+    the records hold whole padded cluster blocks."""
+    scene, o, d = _clustered_soup("cpu", 300)
+    tables = ki.pack_big_tables(scene)
+    n_cl = scene.cl_tris.shape[0]
+    assert n_cl > 10
+    assert tables["nodes"].shape == (n_cl * 128, 9)
+    assert tables["tris"].shape == (n_cl * 256, 9)
+    args, out = ki.big_kernel_args(tables, o, d)
+    assert (args.n, args.n_top, args.node_cap, args.tri_cap) == (
+        300, scene.top_skip.shape[0], 128, 256)
+    assert [x.dtype for x in out] == [torch.float32] * 3 + [torch.int32]
+    with pytest.raises(ValueError, match="padded blocks"):
+        ki.big_kernel_args(dict(tables, nodes=tables["nodes"][:-1]), o, d)
+    with pytest.raises(ValueError, match="rays"):
+        ki.big_kernel_args(tables, o.T, d)
+
+
+@pytest.mark.cuda
+def test_two_level_kernel_matches_plain_on_gpu(cuda_device):
+    """One launch of B4 against the plain two-level walk and one of B3 on
+    the same rays, on 20,000 rays through a clustered soup (a partial last
+    block): hits, indices and (t, u, v) equal, as the walks share their
+    arithmetic."""
+    scene, o, d = _clustered_soup(cuda_device, 20000)
+    launches = ki.LAUNCHES_BIG
+    got = ki.intersect_tris_big(scene, ki.pack_big_tables(scene), o, d)
+    ref = ki.intersect_tris_big_reference(scene, o, d)
+    single = ki.intersect_tris(scene, ki.pack_tables(scene), o, d)
+    torch.cuda.synchronize()
+    assert ki.LAUNCHES_BIG == launches + 1
+    hit = ref[0] < 3e38
+    assert int(hit.sum()) > 1000
+    for out in (got, single):
+        assert torch.equal(out[0] < 3e38, hit)
+        assert torch.equal(out[3].long()[hit], ref[3][hit])
+        for a, b, tol in zip(out[:3], ref[:3], (2e-5, 1e-4, 1e-4)):
+            assert float((a - b)[hit].abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_specular_media_bounce_matches_plain_on_gpu(cuda_device):
+    """One launch of B2 in its external-hit mode on a teapot_scene state
+    (divs=6; camera rays through the image's lower half, which holds the
+    teapots and the glass sphere, after two plain bounces) against the
+    plain step fed the same hit: the specular branch and the media sweep
+    within the per-bounce contract, depth exact."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scene, cam, _ = get_scene("teapot_scene", device=cuda_device, divs=6)
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=50)
+    n = 20000
+    r = np.random.default_rng(9)
+    pix = torch.from_numpy(r.integers(64 * 32, 64 * 64, n)).to(cuda_device)
+    (o, d, t), salt = camera_rays(cam, pix, 1, width=64, height=64, seed=2)
+    st = dict(o=o, d=d, time=t, beta=torch.ones_like(o),
+              radiance=torch.zeros_like(o), salt=salt,
+              alive=torch.ones(n, dtype=torch.bool, device=cuda_device),
+              depth=torch.zeros(n, dtype=torch.int32, device=cuda_device))
+    with torch.no_grad():
+        for _ in range(2):
+            st = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
+    st = {k: v.contiguous() for k, v in st.items()}
+    hit = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"], st["d"])
+    fwd = kb.LAUNCHES_FWD
+    out = kb.bounce_fwd(scene, flags, tables, st, spec, hit)
+    ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec, hit)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES_FWD == fwd + 1
+    assert int(st["alive"].sum()) > 2000
     assert torch.equal(out["depth"], ref["depth"])
     contract.check_bounce(
         {k: ref[k].cpu().numpy() for k in ("alive", "d", "beta", "radiance")},

@@ -47,8 +47,11 @@ def test_scene_tables_bit_equal(name, jax_balls):
     want = convert.scene_from_arrays(_arrays(scene_j), device="cpu")
     for f in dataclasses.fields(TorchScene):
         a, b = getattr(got, f.name), getattr(want, f.name)
-        assert a.dtype == b.dtype and a.shape == b.shape, f.name
-        assert torch.equal(a, b), f.name
+        # the two-level BVH exists on scenes with triangles only
+        assert (a is None) == (b is None), f.name
+        if a is not None:
+            assert a.dtype == b.dtype and a.shape == b.shape, f.name
+            assert torch.equal(a, b), f.name
     if name == "ball_scenes":
         assert get_scene(name, device="cpu")[2] == jax_balls[2]
 
