@@ -51,7 +51,33 @@ of which raises on failure:
    16 spp, depth 50, a 65,536-lane wavefront and seed 0, first kernels
    against plain versions on a 32x32, 4 spp, depth 8 image, then once to
    warm up and three times timed, every bounce one B4 and one B2 launch
-   and no B3 or B1.
+   and no B3 or B1;
+13. the sphere-winner kernel (B6) against its plain version on three
+   inputs: the 16,384-lane ball_scenes train wavefront after two bounces,
+   65,536 ball_scenes camera rays, and a 20-sphere scene of moving,
+   flipped and plain spheres in an env dome under 65,536 random rays:
+   index equal and ``t`` equal to the bit; the time per launch and the
+   bound;
+14. B1 and B2 with moving spheres (``kMoving``) against their plain
+   versions under the per-bounce contract: ball_scenes with every ball's
+   ``center1 = center0 + (0, 10, 0)``, one step of a mid-flight
+   65,536-lane B1 wavefront and one B2 launch on a 16,384-lane train
+   state;
+15. the geometry train step: the hybrid backward's per-bounce cotangents
+   (the rows, the material table, ``sph_center0``, ``sph_radius``,
+   ``rect_k``) against ``torch.autograd`` of the plain step with its own
+   sphere sweep on a 16,384-lane state; then ``make_train_step`` on
+   ball_scenes with ``{"sph_center0", "sph_radius", "rect_k"}`` at phase
+   6's width and engine, one step to warm up and three timed, every
+   bounce one B2 and one B6 launch and no B5; the losses and the three
+   gradients finite, the gradients nonzero;
+16. the cornell_boxes train step with ``{"tex_color"}`` at 128x128, 4 spp,
+   depth 50 on phase 6's engine: first B3 against its plain walk (as in
+   phase 7) and B2's external-hit mode against its plain version (as in
+   phase 8) on a 16,384-lane cornell_boxes train state, with their times
+   at that shape; then one step to warm up and one counted, every bounce
+   one B3 and one B2 launch and no B6 or B5; the loss and the gradient
+   finite.
 
 Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -115,6 +141,12 @@ TRI_UV_ATOL = 1e-4
 # backward kernel runs two such passes
 OPS_DUAL = 15
 BWD_PASSES = 2
+# B6: one sphere test of sphere_t with the motion lerp (a lerp of the
+# centre, the quadratic, the root choice), counted the same way
+OPS_SPHERE_MOVING = 28
+GEOM_PARAMS = ("sph_center0", "sph_radius", "rect_k")
+CORNELL_TRAIN = dict(width=128, height=128, spp=4, max_depth=50)
+MOVE_Y = 10.0           # phase 14: each ball's centre1 - centre0 in y
 
 
 def log(*a):
@@ -267,19 +299,20 @@ def phase_render(scene, cam, ppm) -> int:
     return launches
 
 
-def train_state(scene, cam, flags, tables, spec, dev) -> dict:
+def train_state(scene, cam, flags, tables, spec, dev,
+                bounces: int = 3, size: dict = TRAIN) -> dict:
     """A mid-flight 16,384-lane wavefront of the train engine: lanes start
-    from ``render_pixels``' camera rays (256x256, 4 spp, seed 0, taken in
-    a seeded order), take three plain bounces, and a lane that ends is
-    refilled from the ray queue, as the engine does; then a seeded half of
-    the lanes is marked dead."""
+    from ``render_pixels``' camera rays (``size``'s width and spp, 256x256
+    and 4 by default, seed 0, taken in a seeded order), take ``bounces``
+    plain bounces, and a lane that ends is refilled from the ray queue, as
+    the engine does; then a seeded half of the lanes is marked dead."""
     import numpy as np
     import torch
 
     from srt_tpu_torch.diff.inverse import camera_rays
     from srt_tpu_torch.kernels import bounce as kb
 
-    w, spp = TRAIN["width"], TRAIN["spp"]
+    w, spp = size["width"], size["spp"]
     rays, salt = camera_rays(cam, torch.arange(w * w, device=dev), spp,
                              width=w, height=w, seed=0)
     r = np.random.default_rng(1)
@@ -294,7 +327,7 @@ def train_state(scene, cam, flags, tables, spec, dev) -> dict:
               salt=torch.zeros((n,), dtype=torch.int32, device=dev),
               depth=torch.zeros((n,), dtype=torch.int32, device=dev))
     cursor = 0
-    for i in range(4):
+    for i in range(bounces + 1):
         lanes = torch.nonzero(~st["alive"])[:, 0]
         src = queue[cursor:cursor + lanes.shape[0]]
         cursor += lanes.shape[0]
@@ -305,7 +338,7 @@ def train_state(scene, cam, flags, tables, spec, dev) -> dict:
         st["radiance"][lanes] = 0.0
         st["depth"][lanes] = 0
         st["alive"][lanes] = True
-        if i < 3:
+        if i < bounces:
             with torch.no_grad():
                 st = kb.bounce_step_ref(scene, flags, tables["mat"], st,
                                         spec)
@@ -595,28 +628,43 @@ def check_tri_kernel(label: str, scene, o, d) -> dict:
 
 def phase_tri_kernels(scene, cam, dev) -> tuple[dict, dict]:
     """Phases 7 and 8: B3 on both inputs, B2's external-hit mode on (a)."""
-    import torch
-
-    from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import intersect as ki
-    from srt_tpu_torch.kernels.build import launch
     from srt_tpu_torch.scene.ir import SceneFlags
-    from srt_tpu_torch.utils import contract
 
     st, inp, step, _ = tri_wavefront(scene, cam, dev)
     b3 = check_tri_kernel("cornell", scene, st["o"], st["d"])
     check_tri_kernel("final-ground", *ground_field(dev))
 
-    flags, tables = SceneFlags.of(scene), inp.tables
     tri = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"], st["d"])
+    b2 = check_ext_bounce("cornell", scene, SceneFlags.of(scene),
+                          inp.tables, st, step, tri)
+    b3.update(name="intersect_tris", route="cuda",
+              source="srt_tpu_torch/csrc/intersect_tris.cu",
+              replaces="srt_tpu/pallas/intersect.py:148", library_ms=None)
+    return b3, b2
+
+
+def check_ext_bounce(label: str, scene, flags, tables, st, step,
+                     tri) -> dict:
+    """Phase 8 on one input: one launch of B2's external-hit mode with the
+    triangle hit ``tri`` against the plain step under the per-bounce
+    contract, depth exact; times and bound."""
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels.build import launch
+    from srt_tpu_torch.utils import contract
+
+    dev = st["o"].device
     out_k = kb.bounce_fwd(scene, flags, tables, st, step, tri)
     out_p = kb.bounce_step_ref(scene, flags, tables["mat"], st, step, tri)
     torch.cuda.synchronize()
     if not torch.equal(out_k["depth"], out_p["depth"]):
-        raise AssertionError("B2 external-hit depth differs")
+        raise AssertionError(f"B2 external-hit {label}: depth differs")
     keys = ("alive", "d", "beta", "radiance")
     m = contract.check_bounce({k: out_p[k].cpu().numpy() for k in keys},
                               {k: out_k[k].cpu().numpy() for k in keys})
+    n = st["o"].shape[0]
     n_live = int(st["alive"].sum())
     n_tri = int((st["alive"] & (tri[0] < 3e38)).sum())
     fargs, _ = kb.fwd_args(scene, tables, st, step, tri)
@@ -624,16 +672,14 @@ def phase_tri_kernels(scene, cam, dev) -> tuple[dict, dict]:
                for _ in range(2)]
     plain_ms = time_ms(lambda: kb.bounce_step_ref(
         scene, flags, tables["mat"], st, step, tri), 5)
-    ms_bound, by = bound(LANES * (73 + 53), n_live * (
+    ms_bound, by = bound(n * (73 + 53), n_live * (
         scene.n_rects * OPS_RECT + OPS_SHADE) + n_tri * OPS_TRI_HIT)
-    log(f"[bounce-ext] {LANES} lanes, {n_live} live, {n_tri} on a "
+    log(f"[bounce-ext-{label}] {n} lanes, {n_live} live, {n_tri} on a "
         f"triangle: depth exact, {json.dumps(m)}; ms per launch {kern_ms}, "
         f"plain {plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
-    b3.update(name="intersect_tris", route="cuda",
-              source="srt_tpu_torch/csrc/intersect_tris.cu",
-              replaces="srt_tpu/pallas/intersect.py:148", library_ms=None)
-    return b3, {"max_abs_err": max(m[k]["max"] for k in keys[1:]),
-                "ms": min(kern_ms)}
+    return {"max_abs_err": max(m[k]["max"] for k in keys[1:]),
+            "ms": min(kern_ms), "plain_ms": plain_ms, "bound_ms": ms_bound,
+            "bound_by": by}
 
 
 def phase_tri_render(scene, cam) -> tuple[int, int]:
@@ -897,6 +943,346 @@ def phase_teapot_render(scene, cam) -> tuple[int, int]:
     return b4, b2
 
 
+def moving_spheres_scene(dev):
+    """Phase 13's third input: 20 spheres at seeded places in a 50-radius
+    env dome, every fourth moving, every fourth flipped (the pattern of
+    ``tests/test_pallas.py:116-157``), and 65,536 seeded rays from the
+    spheres' region with seeded times."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.scene.build import SceneBuilder
+
+    r = np.random.default_rng(11)
+    b = SceneBuilder()
+    m = b.lambertian(b.constant((0.5, 0.5, 0.5)))
+    for i in range(20):
+        c = r.uniform(-4, 4, 3)
+        if i % 4 == 0:
+            b.sphere(c, 0.5, m, center1=c + r.uniform(-1, 1, 3))
+        else:
+            b.sphere(c, 0.5, m, flip=i % 4 == 1)
+    b.sphere((0, 0, 0), 50.0, b.diffuse_light(b.constant((1, 1, 1))),
+             env=True)
+    scene = b.build(dev)
+    o = (r.standard_normal((LANES, 3)) * 2).astype(np.float32)
+    d = r.standard_normal((LANES, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = r.uniform(0, 1, LANES).astype(np.float32)
+    return scene, *(torch.from_numpy(x).to(dev) for x in (o, d, t))
+
+
+def check_winner(label: str, scene, o, d, time) -> dict:
+    """Phase 13 on one input: B6 against its plain version, index equal
+    and ``t`` equal to the bit; its time per launch, the plain version's
+    and the bound."""
+    import torch
+
+    from srt_tpu_torch.kernels import spheres as ks
+    from srt_tpu_torch.kernels.bounce import build_tables
+    from srt_tpu_torch.kernels.build import launch
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    sph = build_tables(scene, SceneFlags.of(scene))["sph"]
+    pt, pidx = ks.sphere_winner_reference(scene, o, d, time)
+    hits = int((pidx >= 0).sum())
+    if not hits:
+        raise AssertionError(f"B6 {label}: no ray hits a sphere")
+    t, idx = ks.sphere_winner(scene, sph, o, d, time)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, pidx):
+        raise AssertionError(f"B6 {label}: index differs on "
+                             f"{int((idx != pidx).sum())} rays")
+    if not torch.equal(t, pt):
+        raise AssertionError(f"B6 {label}: t differs on "
+                             f"{int((t != pt).sum())} rays, max "
+                             f"{float((t - pt).abs().max())}")
+    args, _ = ks.kernel_args(sph, o, d, time, 1e-3)
+    kern_ms = [time_ms(lambda: launch("srt_sphere_winner", args, o.device),
+                       200) for _ in range(2)]
+    plain_ms = time_ms(lambda: ks.sphere_winner_reference(scene, o, d, time),
+                       5)
+    n, s = o.shape[0], scene.n_spheres
+    ms_bound, by = bound(n * (28 + 8) + 48 * s, n * s * OPS_SPHERE_MOVING)
+    log(f"[winner-{label}] {n} rays, {s} spheres, {hits} hits: indices and "
+        f"t equal to the bit; ms per launch {kern_ms}, plain "
+        f"{plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
+    return {"max_abs_err": 0.0, "ms": min(kern_ms), "plain_ms": plain_ms,
+            "bound_ms": ms_bound, "bound_by": by}
+
+
+def phase_winner(scene, cam, dev) -> dict:
+    """Phase 13: B6 on its three inputs; the kernels line takes the train
+    wavefront's numbers, the shape the geometry train step gives it."""
+    import torch
+
+    from srt_tpu_torch.diff.inverse import camera_rays
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    flags = SceneFlags.of(scene)
+    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    st = train_state(scene, cam, flags, kb.build_tables(scene, flags), spec,
+                     dev, bounces=2)
+    b6 = check_winner("train", scene, st["o"], st["d"], st["time"])
+    w = TRAIN["width"]
+    (o, d, t), _ = camera_rays(cam, torch.arange(w * w, device=dev), 1,
+                               width=w, height=w, seed=0)
+    check_winner("camera", scene, o.contiguous(), d.contiguous(),
+                 t.contiguous())
+    check_winner("moving", *moving_spheres_scene(dev))
+    b6.update(name="sphere_winner", route="cuda",
+              source="srt_tpu_torch/csrc/sphere_winner.cu",
+              replaces="srt_tpu/pallas/spheres.py:123", library_ms=None)
+    return b6
+
+
+def moved_balls(scene):
+    """ball_scenes with every ball moving ``MOVE_Y`` up over the shutter
+    interval (the env dome stays)."""
+    import dataclasses
+
+    c1 = scene.sph_center0.clone()
+    c1[~scene.sph_env, 1] += MOVE_Y
+    return dataclasses.replace(scene, sph_center1=c1)
+
+
+def phase_moving_bounces(scene, cam, dev) -> None:
+    """Phase 14: B1 and B2 with kMoving against their plain versions."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.core.sobol import sobol_points
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.utils import contract
+
+    moved = moved_balls(scene)
+    flags = SceneFlags.of(moved)
+    if not flags.moving:
+        raise AssertionError("the moved scene's flags say static")
+    spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
+                        rr_start=1 << 30, pdf_floor=1e-9, seed=0)
+    inp = kb.RegenInputs(moved, flags, cam, torch.from_numpy(
+        sobol_points(16, 2).astype(np.float32)))
+    mid = kb.new_wavefront(LANES, dev)
+    mid["cursor"].fill_(spec.total_work // 2)
+    for _ in range(3):
+        kb.regen_bounce_reference(inp, mid, spec)
+    st_k, st_p = clone(mid), clone(mid)
+    launches = kb.LAUNCHES
+    kb.regen_bounce(inp, st_k, spec)
+    kb.regen_bounce_reference(inp, st_p, spec)
+    torch.cuda.synchronize()
+    if kb.LAUNCHES != launches + 1:
+        raise AssertionError("B1 did not launch")
+    for k in ("salt", "pix", "depth", "cursor"):
+        if not torch.equal(st_k[k], st_p[k]):
+            raise AssertionError(f"B1 moving: {k} differs")
+    m1 = contract.check_bounce(contract.wavefront_arrays(st_p),
+                               contract.wavefront_arrays(st_k))
+
+    tables = kb.build_tables(moved, flags)
+    step = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    st = train_state(moved, cam, flags, tables, step, dev)
+    out_k = kb.bounce_fwd(moved, flags, tables, st, step)
+    out_p = kb.bounce_step_ref(moved, flags, tables["mat"], st, step)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k["depth"], out_p["depth"]):
+        raise AssertionError("B2 moving: depth differs")
+    keys = ("alive", "d", "beta", "radiance")
+    m2 = contract.check_bounce({k: out_p[k].cpu().numpy() for k in keys},
+                               {k: out_k[k].cpu().numpy() for k in keys})
+    # the lerp must matter: the same state with the spheres held static
+    static = kb.bounce_step_ref(scene, SceneFlags.of(scene), tables["mat"],
+                                st, step)
+    moved_lanes = int((static["d"] != out_p["d"]).any(1).sum())
+    if not moved_lanes:
+        raise AssertionError("moving the balls changed no lane")
+    log(f"[moving] balls moving {MOVE_Y} up: B1 {LANES} lanes ints exact, "
+        f"{json.dumps(m1)}; B2 {TRAIN_LANES} lanes depth exact, "
+        f"{json.dumps(m2)}; {moved_lanes} lanes differ from the static "
+        "scene's bounce")
+
+
+def phase_geom_train(scene, cam, dev) -> tuple[int, int]:
+    """Phase 15: ``BounceHybrid``'s per-bounce cotangents (one B2 forward
+    and one backward under autograd) against ``torch.autograd`` of the
+    plain step with its own sphere sweep, then the geometry train step;
+    returns the B2 and B6 launches of the timed steps."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import make_train_step
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.kernels import bounce_vjp as kv
+    from srt_tpu_torch.kernels import spheres as ks
+    from srt_tpu_torch.render.regen_scan import steps_for
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.utils import contract
+
+    flags = SceneFlags.of(scene)._replace(moving=True)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    st = train_state(scene, cam, flags, tables, spec, dev)
+    with torch.no_grad():
+        ends = ~kb.bounce_fwd(scene, flags, tables, st, spec)["alive"]
+    r = np.random.default_rng(4)
+    ct = {k: torch.from_numpy(r.standard_normal((TRAIN_LANES, 3))
+                              .astype(np.float32)).to(dev) for k in kbb.ROWS}
+    for k in ("o", "d", "beta"):
+        ct[k][ends] = 0.0
+    geom = {k: getattr(scene, k).clone().requires_grad_()
+            for k in GEOM_PARAMS}
+    rows = {k: st[k].clone().requires_grad_() for k in kbb.ROWS}
+    mat = tables["mat"].clone().requires_grad_()
+    launches = ks.LAUNCHES
+    # BounceHybrid under autograd, as the train step runs it
+    out = kv.bounce_hybrid(scene, flags, dict(tables, mat=mat),
+                           dict(st, **rows), spec, geom)
+    grads = torch.autograd.grad(
+        [out[k] for k in kbb.ROWS],
+        [rows[k] for k in kbb.ROWS] + [mat] + list(geom.values()),
+        [ct[k] for k in kbb.ROWS])
+    got = (dict(zip(kbb.ROWS, grads[:4])), grads[4],
+           dict(zip(geom, grads[5:])))
+    ref = kbb.replay_vjp(scene, flags, tables["mat"], st, ct, spec, geom)
+    torch.cuda.synchronize()
+    if ks.LAUNCHES != launches + 1:
+        raise AssertionError("the hybrid backward did not launch B6")
+    m = contract.check_grads({k: ref[0][k].cpu().numpy() for k in kbb.ROWS},
+                             {k: got[0][k].cpu().numpy() for k in kbb.ROWS})
+    rel = {}
+    for name, a, b in [("mat", ref[1], got[1])] + [
+            (k, ref[2][k], got[2][k]) for k in GEOM_PARAMS]:
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        scale = float(np.abs(a).max())
+        rel[name] = float(np.abs(a - b).max() / max(scale, 1e-30))
+        if not np.isfinite(b).all() or scale == 0.0 or not np.allclose(
+                b, a, rtol=contract.GRAD_RTOL, atol=1e-4 * scale):
+            raise AssertionError(f"hybrid {name} cotangent differs: max rel "
+                                 f"{rel[name]}, scale {scale}")
+    log(f"[hybrid] {TRAIN_LANES} lanes: d_state {json.dumps(m)}; sums "
+        f"max |d| / max|ref| {json.dumps(rel)}")
+
+    w, spp = TRAIN["width"], TRAIN["spp"]
+    rays = w * w * spp
+    step = make_train_step(scene, cam, {k: getattr(scene, k)
+                                        for k in GEOM_PARAMS},
+                           width=w, height=w, spp=spp,
+                           max_depth=TRAIN["max_depth"], lr=TRAIN_LR,
+                           engine_kw=TRAIN_ENGINE, device=dev)
+    target = torch.full((w, w, 3), TRAIN_TARGET, device=dev)
+    t0 = time.time()
+    loss0 = float(step(target, 0))
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = ks.LAUNCHES = 0
+    walls, losses = [], []
+    for seed in range(1, TRAIN_STEPS + 1):
+        t0 = time.time()
+        loss = step(target, seed)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        losses.append(float(loss))
+    fwd, b6, b5 = kb.LAUNCHES_FWD, ks.LAUNCHES, kbb.LAUNCHES_BWD
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = steps_for(rays, TRAIN_ENGINE["wavefront"],
+                        TRAIN_ENGINE["depth_budget"], TRAIN["max_depth"],
+                        drain=TRAIN_ENGINE["drain"])
+    if not fwd == b6 == n_steps * TRAIN_STEPS or b5:
+        raise AssertionError(f"{fwd} B2, {b6} B6 and {b5} B5 launches for "
+                             f"{TRAIN_STEPS} steps of {n_steps} bounces")
+    if not all(np.isfinite([loss0] + losses)):
+        raise AssertionError(f"losses {loss0} {losses}")
+    sums = {}
+    for k in GEOM_PARAMS:
+        g = step.params[k].grad.cpu().numpy()
+        sums[k] = float(np.abs(g).sum())
+        if not np.isfinite(g).all() or sums[k] == 0.0:
+            raise AssertionError(f"{k} gradient: finite "
+                                 f"{bool(np.isfinite(g).all())}, |sum| "
+                                 f"{sums[k]}")
+    moved = float((step.params["sph_center0"].detach()
+                   - scene.sph_center0).abs().max())
+    med = sorted(walls)[len(walls) // 2]
+    log(f"[geom-train] ball_scenes {w}x{w}x{spp} depth {TRAIN['max_depth']}, "
+        f"params {list(GEOM_PARAMS)}, {n_steps} bounces a step: median "
+        f"{rays / med:.1f} train-step rays/s (step walls {walls} s), warm-up "
+        f"step {warmup_s:.3f} s, peak memory {peak} bytes, losses "
+        f"{[loss0] + losses}, {fwd} B2, {b6} B6 and {b5} B5 launches, "
+        f"gradient |sums| {json.dumps(sums)}, centres moved up to {moved}")
+    return fwd, b6
+
+
+def phase_cornell_train(dev) -> tuple[int, int, dict, dict]:
+    """Phase 16: B3 and B2's external-hit mode against their plain
+    versions on a cornell_boxes train state, then the cornell_boxes train
+    step; returns the B3 and B2 launches of the counted step and the two
+    kernels' checks at the train wavefront's shape."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import get_scene, make_train_step
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.kernels import spheres as ks
+    from srt_tpu_torch.render.regen_scan import steps_for
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    scene, cam, _ = get_scene("cornell_boxes", device=dev)
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=CORNELL_TRAIN["max_depth"])
+    st = train_state(scene, cam, flags, tables, spec, dev,
+                     size=CORNELL_TRAIN)
+    walk = ki.pack_walk(scene)
+    if walk["big"]:
+        raise AssertionError("cornell_boxes' train step walks B4, not B3")
+    b3_train = check_tri_kernel("cornell-train", scene, st["o"], st["d"])
+    b2_train = check_ext_bounce("cornell-train", scene, flags, tables, st,
+                                spec, ki.closest_tris(scene, walk, st["o"],
+                                                      st["d"]))
+
+    w, spp = CORNELL_TRAIN["width"], CORNELL_TRAIN["spp"]
+    step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
+                           width=w, height=w, spp=spp,
+                           max_depth=CORNELL_TRAIN["max_depth"], lr=TRAIN_LR,
+                           engine_kw=TRAIN_ENGINE, device=dev)
+    target = torch.full((w, w, 3), TRAIN_TARGET, device=dev)
+    loss0 = float(step(target, 0))
+    ki.LAUNCHES = ki.LAUNCHES_BIG = kb.LAUNCHES_FWD = 0
+    ks.LAUNCHES = kbb.LAUNCHES_BWD = 0
+    t0 = time.time()
+    loss = float(step(target, 1))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    b3, b2, b6, b5, b4 = (ki.LAUNCHES, kb.LAUNCHES_FWD, ks.LAUNCHES,
+                          kbb.LAUNCHES_BWD, ki.LAUNCHES_BIG)
+    n_steps = steps_for(w * w * spp, TRAIN_ENGINE["wavefront"],
+                        TRAIN_ENGINE["depth_budget"],
+                        CORNELL_TRAIN["max_depth"],
+                        drain=TRAIN_ENGINE["drain"])
+    if not b3 == b2 == n_steps or b6 or b5 or b4:
+        raise AssertionError(f"{b3} B3, {b2} B2, {b6} B6, {b5} B5, {b4} B4 "
+                             f"launches for {n_steps} bounces")
+    g = step.params["tex_color"].grad.cpu().numpy()
+    if not np.isfinite([loss0, loss]).all() or not np.isfinite(g).all() \
+            or not np.abs(g).sum() > 0.0:
+        raise AssertionError(f"cornell train: losses {loss0} {loss}, "
+                             f"gradient {g}")
+    log(f"[cornell-train] cornell_boxes {w}x{w}x{spp} depth "
+        f"{CORNELL_TRAIN['max_depth']}, params ['tex_color'], {n_steps} "
+        f"bounces a step: step wall {wall:.3f} s ({w * w * spp / wall:.1f} train-step "
+        f"rays/s), losses {[loss0, loss]}, {b3} B3, {b2} B2, {b6} B6, {b5} "
+        f"B5 launches, tex_color gradient finite, |sum| "
+        f"{float(np.abs(g).sum())}")
+    return b3, b2, b3_train, b2_train
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ppm", default=None,
@@ -939,21 +1325,37 @@ def main() -> None:
     pot, pot_cam = teapot(dev)
     b4, b2_pot = phase_teapot_kernels(pot, pot_cam, dev)      # 10, 11
     b4["launches"], b2_pot_render = phase_teapot_render(pot, pot_cam)  # 12
-    b2["launches"] = b2_train + b2_render + b2_pot_render
+    del pot
+    b6 = phase_winner(scene, cam, dev)                        # 13
+    phase_moving_bounces(scene, cam, dev)                     # 14
+    b2_geom, b6["launches"] = phase_geom_train(scene, cam, dev)   # 15
+    b3_train, b2_cornell, b3_ct, b2_ct = phase_cornell_train(dev)   # 16
+    b3["launches"] += b3_train
+    b3["max_abs_err"] = max(b3["max_abs_err"], b3_ct["max_abs_err"])
+    b2["launches"] = (b2_train + b2_render + b2_pot_render + b2_geom
+                      + b2_cornell)
     b2["max_abs_err"] = max(b2["max_abs_err"], b2_ext["max_abs_err"],
-                            b2_pot["max_abs_err"])
+                            b2_pot["max_abs_err"], b2_ct["max_abs_err"])
     log(f"[kernels] B2 launches: {b2_train} on the train path, {b2_render} "
         f"in external-hit mode on the cornell render path, {b2_pot_render} "
-        f"on the teapot render path; B2 ms per launch {b2['ms']} (train "
-        f"state, 16,384 lanes), {b2_ext['ms']} (cornell external hit, "
-        f"65,536 lanes), {b2_pot['ms']} (teapot: specular and media, 65,536 "
-        f"lanes); B4 {b4['ms']} ms against B3 {b4['b3_ms']} ms on the "
-        f"teapot's wavefront after three bounces")
+        f"on the teapot render path, {b2_geom} on the geometry train path, "
+        f"{b2_cornell} on the cornell train path; B3 launches "
+        f"{b3['launches'] - b3_train} on the cornell render path and "
+        f"{b3_train} on the cornell train path; B2 ms per launch "
+        f"{b2['ms']} (train state, 16,384 lanes), {b2_ext['ms']} (cornell external hit, "
+        f"65,536 lanes), {b2_ct['ms']} (cornell train state, external hit, "
+        f"16,384 lanes; plain {b2_ct['plain_ms']}, bound "
+        f"{b2_ct['bound_ms']}), {b2_pot['ms']} (teapot: specular and media, "
+        f"65,536 lanes); B3 ms per launch {b3['ms']} (cornell render "
+        f"wavefront, 65,536 lanes), {b3_ct['ms']} (cornell train state, "
+        f"16,384 lanes; plain {b3_ct['plain_ms']}, bound "
+        f"{b3_ct['bound_ms']}); B4 {b4['ms']} ms against B3 {b4['b3_ms']} "
+        f"ms on the teapot's wavefront after three bounces")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in (b1, b2, b3, b4, b5)]}),
+                                  for kern in (b1, b2, b3, b4, b5, b6)]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,9 +24,11 @@
 // triangles the kernel is the triangle-free instantiation, which holds
 // neither.
 //
-// State is (n, 3) rows for o, d, beta, radiance; salt (int32 bit
-// patterns), depth int32, alive bool. A dead lane passes through with
-// depth + 1. Time is not read: moving spheres are outside the slice.
+// State is (n, 3) rows for o, d, beta, radiance; time float; salt (int32
+// bit patterns), depth int32, alive bool. A dead lane passes through with
+// depth + 1. With moving spheres (moving != 0, the template's kMoving) a
+// lane sees each sphere at its centre at the lane's time; the static
+// instantiations do not read the time.
 //
 // Bound: as the regeneration kernel, the shading chain (registers and
 // divergence), not bytes: a lane reads 57 B (73 B with a triangle hit)
@@ -70,6 +72,8 @@ struct BounceArgs {
   int n_tris;                   // 0: no external hit
   const float* med;             // (n_med, 10) media (external-hit mode)
   int n_med;
+  const float* time;            // (n,) ray times (read when moving)
+  int moving;                   // spheres move over the shutter interval
 };
 
 }  // extern "C"
@@ -105,7 +109,7 @@ __device__ __forceinline__ ExtHit triangle_hit(const BounceArgs& a, int i) {
   return e;
 }
 
-template <bool kExt>
+template <bool kExt, bool kMoving>
 __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   extern __shared__ float smem[];
   const SceneView sv = scene_view(a, smem);
@@ -118,14 +122,16 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   L.beta = load_row3(a.beta, i);
   L.rad = load_row3(a.rad, i);
   const int depth = a.depth[i];
+  const float time = kMoving ? a.time[i] : 0.0f;
   bool alive = false;
   if (a.alive[i]) {
     if constexpr (kExt) {
       const ExtHit e = triangle_hit(a, i);
-      alive = bounce<true>(sv, (uint32_t)a.salt[i], depth, L, &e, a.med,
-                           a.n_med);
+      alive = bounce<true, kMoving>(sv, (uint32_t)a.salt[i], depth, time, L,
+                                    &e, a.med, a.n_med);
     } else {
-      alive = bounce(sv, (uint32_t)a.salt[i], depth, L);
+      alive = bounce<false, kMoving>(sv, (uint32_t)a.salt[i], depth, time,
+                                     L);
     }
   }
   store_row3(a.o_out, i, L.o);
@@ -136,15 +142,15 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   a.alive_out[i] = alive ? 1 : 0;
 }
 
-template <bool kExt>
+template <bool kExt, bool kMoving>
 int launch_bounce(const BounceArgs& a, cudaStream_t stream) {
   size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light);
   cudaError_t err = cudaFuncSetAttribute(
-      bounce_kernel<kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      bounce_kernel<kExt, kMoving>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = (a.n + kBlock - 1) / kBlock;
-  bounce_kernel<kExt><<<blocks, kBlock, smem, stream>>>(a);
+  bounce_kernel<kExt, kMoving><<<blocks, kBlock, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -153,6 +159,10 @@ int launch_bounce(const BounceArgs& a, cudaStream_t stream) {
 extern "C" int srt_bounce(const BounceArgs* args, void* stream) {
   const BounceArgs& a = *args;
   if (a.n <= 0) return (int)cudaSuccess;
-  return a.n_tris > 0 ? launch_bounce<true>(a, (cudaStream_t)stream)
-                      : launch_bounce<false>(a, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a.n_tris > 0)
+    return a.moving ? launch_bounce<true, true>(a, s)
+                    : launch_bounce<true, false>(a, s);
+  return a.moving ? launch_bounce<false, true>(a, s)
+                  : launch_bounce<false, false>(a, s);
 }

@@ -4,7 +4,9 @@
 // Replaces srt_tpu/pallas/bounce_bwd.py:_bwd_kernel (launched by
 // fused_bounce_bwd) under frozen geometry. Per lane, as the TPU kernel:
 //   1. replay the closest-hit sweep in float (bounce_core.cuh), which gives
-//      the forward's winner, hit frame and branch decisions;
+//      the forward's winner, hit frame and branch decisions (static spheres:
+//      a scene with moving spheres takes the hybrid backward,
+//      kernels/bounce_vjp.py);
 //   2. recompute the winner's t from (o, d) with the sweep's formulas, the
 //      same value bit for bit, now with tangents (hit_t);
 //   3. differentiate the shading (shade<Dual<K>>, the forward's own code)
@@ -108,7 +110,7 @@ __device__ __noinline__ Contracted vjp_pass(const SceneView& s,
   const D p0 = seed(mt[1], 9, base), p1 = seed(mt[2], 10, base);
   const V3T<D> mc = v3<D>(seed(mt[6], 11, base), seed(mt[7], 12, base),
                           seed(mt[8], 13, base));
-  shade<D>(s, W, salt, depth, p0, p1, mc, L);
+  shade<D>(s, W, salt, depth, 0.0f, p0, p1, mc, L);
   Contracted c;
 #pragma unroll
   for (int k = 0; k < kTan; ++k)

@@ -1,11 +1,15 @@
 // The bounce of one lane, shared by the three bounce kernels:
 // regen_bounce.cu (B1, regeneration + bounce), bounce.cu (B2, one bounce
 // of an explicit state, optionally with an external triangle hit) and
-// bounce_bwd.cu (B5, the bounce's VJP). B2's external-hit instantiation
-// (kExt) also holds the media sweep and the specular branch (metal,
-// dielectric, isotropic) of srt_tpu/pallas/bounce.py:486-542 and
-// 663-729; the triangle-free instantiations, B1's among them, compile
-// without them.
+// bounce_bwd.cu (B5, the bounce's VJP); and the sphere test, which the
+// sphere-winner kernel (sphere_winner.cu, B6) shares with the bounce's
+// sweep. B2's external-hit instantiation (kExt) also holds the media
+// sweep and the specular branch (metal, dielectric, isotropic) of
+// srt_tpu/pallas/bounce.py:486-542 and 663-729; the triangle-free
+// instantiations, B1's among them, compile without them. kMoving (B1, B2)
+// puts each sphere at its centre at the ray's time, as the JAX kernels'
+// ``moving`` static does; the static instantiations do not read the time.
+// B6 always lerps, as the JAX sphere kernel does.
 //
 // The closest-hit sweep runs in float. Everything after it, the shading
 // (shade<T>), is written once over a scalar type T:
@@ -641,30 +645,51 @@ struct Winner {
   bool hit;
 };
 
+// ---- the sphere test ------------------------------------------------------
+// A record of the (S, 12) sphere table: centre0 xyz, centre1 - centre0
+// xyz, t0, 1 / max(t1 - t0, 1e-20), radius, material, flip sign, env flag.
+// With kMoving the centre at ``time`` (moving_sphere.h:19-21), the lerp
+// factor taken with the table's reciprocal as the JAX kernels take it
+// (pallas/bounce.py:393-396, pallas/spheres.py:150-154); else centre0.
+template <bool kMoving>
+__device__ __forceinline__ V3 sphere_center(const float* r, float time) {
+  if constexpr (kMoving) {
+    const float f = (time - r[6]) * r[7];
+    return v3(r[0] + f * r[3], r[1] + f * r[4], r[2] + f * r[5]);
+  } else {
+    return v3(r[0], r[1], r[2]);
+  }
+}
+
+// The ray's distance to sphere record r: the near root, else the far root,
+// beyond t_min; an env dome always at its far root; kBig on a miss. The
+// bounce's sweep (closest_hit) and the sphere-winner kernel (B6) both call
+// this, so B6's winner is the sphere the bounce shades, bit for bit.
+template <bool kMoving>
+__device__ __forceinline__ float sphere_t(const float* r, V3 o, V3 d,
+                                          float time, float t_min) {
+  const V3 oc = sub(o, sphere_center<kMoving>(r, time));
+  const float b = dot(oc, d);
+  const float c = dot(oc, oc) - r[8] * r[8];
+  const float disc = b * b - c;
+  const float sq = disc > 0.0f ? sqrtf(disc) : 0.0f;
+  const float t0 = -b - sq, t1 = -b + sq;
+  if (r[11] > 0.0f) return t1 > t_min ? t1 : kBig;   // env dome: far root
+  if (disc > 0.0f && t0 > t_min && t0 < kBig) return t0;
+  if (disc > 0.0f && t1 > t_min && t1 < kBig) return t1;
+  return kBig;
+}
+
 // Spheres, then rects; strict < keeps the lowest index.
-__device__ inline Winner closest_hit(const SceneView& s, V3 o, V3 d) {
+template <bool kMoving = false>
+__device__ inline Winner closest_hit(const SceneView& s, V3 o, V3 d,
+                                     float time = 0.0f) {
   Winner W;
   float t_best = kBig;
   int w_sph = -1, w_rect = -1;
   float w_u = 0.0f, w_v = 0.0f;
   for (int k = 0; k < s.n_sph; ++k) {
-    const float* r = s.sph + 12 * k;
-    V3 oc = sub(o, v3(r[0], r[1], r[2]));
-    float b = dot(oc, d);
-    float c = dot(oc, oc) - r[8] * r[8];
-    float disc = b * b - c;
-    float sq = disc > 0.0f ? sqrtf(disc) : 0.0f;
-    float t0 = -b - sq, t1 = -b + sq;
-    float t;
-    if (r[11] > 0.0f) {   // env dome: always hit at the far root
-      t = t1 > kTMin ? t1 : kBig;
-    } else if (disc > 0.0f && t0 > kTMin && t0 < kBig) {
-      t = t0;
-    } else if (disc > 0.0f && t1 > kTMin && t1 < kBig) {
-      t = t1;
-    } else {
-      t = kBig;
-    }
+    const float t = sphere_t<kMoving>(s.sph + 12 * k, o, d, time, kTMin);
     if (t < t_best) {
       t_best = t;
       w_sph = k;
@@ -864,7 +889,8 @@ struct LaneT {
 // and 1 and ``mc`` its constant colour. Returns alive-after-bounce (before
 // the depth cap) and updates L. Emitter and miss lanes keep o, d, beta.
 // kExt: the winner may be an external (triangle) hit or a medium event,
-// and specular lanes take the specular branch.
+// and specular lanes take the specular branch. kMoving: a sphere winner's
+// centre is its centre at the lane's ``time``.
 template <class T>
 __device__ __forceinline__ bool scatter_to(const SceneView& s, uint32_t salt,
                                            int depth, const V3T<T>& p,
@@ -883,11 +909,11 @@ __device__ __forceinline__ bool scatter_to(const SceneView& s, uint32_t salt,
   return alive;
 }
 
-template <class T, bool kExt = false>
+template <class T, bool kExt = false, bool kMoving = false>
 __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
-                                      uint32_t salt, int depth, const T& mp0,
-                                      const T& mp1, const V3T<T>& mc,
-                                      LaneT<T>& L) {
+                                      uint32_t salt, int depth, float time,
+                                      const T& mp0, const T& mp1,
+                                      const V3T<T>& mc, LaneT<T>& L) {
   const V3T<T> o = L.o, d = L.d;
   const bool hit = W.hit;
   V3T<T> p = o;
@@ -904,7 +930,7 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
       n_st = lift3<T>(W.n);
     } else {
       const float* r = s.sph + 12 * W.sph;
-      unit = divide(sub(p, lift3<T>(v3(r[0], r[1], r[2]))), r[8]);
+      unit = divide(sub(p, lift3<T>(sphere_center<kMoving>(r, time))), r[8]);
       n_st = scale(unit, r[10]);
     }
     if (val(dot(n_st, n_st)) > 1e-12f) normal = n_st;
@@ -1028,26 +1054,27 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
   return scatter_to(s, salt, depth, p, wi, nb, L);
 }
 
-// The forward bounce of one live lane (B1, B2): returns alive-after-bounce
-// (before the depth cap) and updates L. With kExt (B2's external-hit
-// mode) the external hit ``e`` takes part in the closest hit, then the
-// media ``med`` (n_med records, see take_media); without it the code is
-// the triangle-free bounce, as B1 compiles it.
-template <bool kExt = false>
+// The forward bounce of one live lane (B1, B2) at ray time ``time``: returns
+// alive-after-bounce (before the depth cap) and updates L. With kExt (B2's
+// external-hit mode) the external hit ``e`` takes part in the closest hit,
+// then the media ``med`` (n_med records, see take_media); without it the
+// code is the triangle-free bounce, as B1 compiles it. kMoving: spheres at
+// their centres at ``time`` (sphere_center).
+template <bool kExt = false, bool kMoving = false>
 __device__ __forceinline__ bool bounce(const SceneView& s, uint32_t salt,
-                                       int depth, LaneT<float>& L,
+                                       int depth, float time, LaneT<float>& L,
                                        const ExtHit* e = nullptr,
                                        const float* med = nullptr,
                                        int n_med = 0) {
-  Winner W = closest_hit(s, L.o, L.d);
+  Winner W = closest_hit<kMoving>(s, L.o, L.d, time);
   const uint32_t bsalt = hash_combine(salt, (uint32_t)depth);
   if constexpr (kExt) {
     take_external(W, *e);
     take_media(W, med, n_med, L.o, L.d, bsalt);
   }
   const float* mt = s.mat + 14 * W.m;
-  return shade<float, kExt>(s, W, bsalt, depth, mt[1], mt[2],
-                            v3(mt[6], mt[7], mt[8]), L);
+  return shade<float, kExt, kMoving>(s, W, bsalt, depth, time, mt[1],
+                                     mt[2], v3(mt[6], mt[7], mt[8]), L);
 }
 
 }  // namespace srt

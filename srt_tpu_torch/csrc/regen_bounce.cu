@@ -4,8 +4,9 @@
 // (launched by fused_regen_bounce). Each launch, for every lane:
 //   1. a dead lane takes the next (pixel, sample) work item and becomes a
 //      fresh camera ray (Sobol pixel jitter, thin lens, sampler salt);
-//   2. closest hit over the spheres (env domes hit at the far root) and
-//      the axis-aligned rects;
+//   2. closest hit over the spheres (env domes hit at the far root; with
+//      moving != 0, the template's kMoving, each sphere at its centre at
+//      the lane's time) and the axis-aligned rects;
 //   3. emission (the env dome's image texture is looked up here, where
 //      the JAX package defers it to an XLA epilogue);
 //   4. the diffuse branch: Beckmann VNDF or cosine-lobe BSDF sample mixed
@@ -62,6 +63,7 @@ struct RegenArgs {
   int width, height, spp, total_work, max_depth, rr_start;
   float pdf_floor;
   unsigned int seed;
+  int moving;          // spheres move over the shutter interval
 };
 
 }  // extern "C"
@@ -89,6 +91,7 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+template <bool kMoving>
 __global__ void __launch_bounds__(kBlock)
 regen_bounce_kernel(const RegenArgs a) {
   extern __shared__ float smem[];
@@ -177,7 +180,7 @@ regen_bounce_kernel(const RegenArgs a) {
       salt = (uint32_t)a.salt[i];
     }
     if (live) {
-      bool alive_next = bounce(sv, salt, depth, L);
+      bool alive_next = bounce<false, kMoving>(sv, salt, depth, time, L);
       alive_fin = alive_next && depth + 1 < a.max_depth;
       store3(a.o, a.n, i, L.o);
       store3(a.d, a.n, i, L.d);
@@ -206,19 +209,25 @@ regen_bounce_kernel(const RegenArgs a) {
   }
 }
 
+template <bool kMoving>
+int launch_regen(const RegenArgs& a, cudaStream_t stream) {
+  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light);
+  cudaError_t err = cudaFuncSetAttribute(
+      regen_bounce_kernel<kMoving>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = (a.n + kBlock - 1) / kBlock;
+  regen_bounce_kernel<kMoving><<<blocks, kBlock, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int srt_regen_bounce(const RegenArgs* args, void* stream) {
   const RegenArgs& a = *args;
   if (a.n <= 0) return (int)cudaSuccess;
-  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light);
-  cudaError_t err = cudaFuncSetAttribute(
-      regen_bounce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = (a.n + kBlock - 1) / kBlock;
-  regen_bounce_kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return a.moving ? launch_regen<true>(a, (cudaStream_t)stream)
+                  : launch_regen<false>(a, (cudaStream_t)stream);
 }
 
 extern "C" const char* srt_cuda_error_string(int err) {

@@ -2,14 +2,18 @@
 (counterpart of ``srt_tpu/diff/inverse.py``).
 
 Gradients of an image loss with respect to scene parameters -- material
-parameters (Beckmann roughness, Oren-Nayar A/B) and texture colours
-(albedo, emission) -- straight through the wavefront estimator: the
+parameters (Beckmann roughness, Oren-Nayar A/B), texture colours (albedo,
+emission) and geometry (sphere centres and radii, rect planes such as a
+light's height) -- straight through the wavefront estimator: the
 regeneration engine :mod:`srt_tpu_torch.render.regen_scan`, whose bounce
-is kernel B2 forward and kernel B5 backward on the card. Random decisions
-are pure functions of ``(seed, pixel, sample, bounce, dimension)``; the
-gradient follows the JAX package's backward kernel, through the sampled
-direction and the pdfs (ROADMAP C2). Geometry stays frozen: a geometric
-field, or the image atlas, among the parameters raises.
+is kernel B2 forward and, on the card, kernel B5 backward under frozen
+geometry or the hybrid backward (the plain bounce replayed under autograd
+with kernel B6's sphere winner) for geometry and for the scenes B5 does
+not cover (triangles, media, specular materials, moving spheres). Random
+decisions are pure functions of ``(seed, pixel, sample, bounce,
+dimension)``; the gradient follows the JAX package's backward kernel,
+through the sampled direction and the pdfs (ROADMAP C2). The image atlas
+among the parameters raises.
 """
 from __future__ import annotations
 
@@ -21,36 +25,24 @@ import torch
 from srt_tpu_torch.core import rng
 from srt_tpu_torch.kernels.bounce import (DIM_LENS, DIM_TIME, StepSpec,
                                           build_tables)
-from srt_tpu_torch.kernels.bounce_bwd import require_bwd_kernel
 from srt_tpu_torch.render.camera import Camera
 from srt_tpu_torch.render.regen_scan import steps_for, trace_queue
-from srt_tpu_torch.scene.ir import SceneFlags, TorchScene
+from srt_tpu_torch.scene.ir import (CENTRE_FIELDS, SceneFlags, TorchScene,
+                                    require_covered)
 
 DIM_PIX_X = 30                   # pixel-jitter sampler dimensions
 DIM_PIX_Y = 31
 
-#: Scene fields whose cotangents exist only on the geometric paths
-#: (``inverse.py:58-64``); the port's backward leaves them frozen.
-GEOM_FIELDS = frozenset({
-    "sph_center0", "sph_center1", "sph_times", "sph_radius",
-    "rect_bounds", "rect_k",
-    "tri_p0", "tri_p1", "tri_p2", "tri_uv", "tri_n",
-    "med_center", "med_radius", "med_half", "med_density",
-    "bvh_lo", "bvh_hi",
-})
-
 
 def splice(scene: TorchScene, params: dict) -> TorchScene:
     """Replace scene fields by name from a parameter dict (e.g.
-    ``{"tex_color": ..., "mat_params": ...}``). Geometric fields and the
-    image atlas raise ``NotImplementedError``: their gradients need the
-    hybrid linearised backward (ROADMAP A13)."""
-    frozen = sorted(set(params) & (GEOM_FIELDS | {"atlas"}))
-    if frozen:
+    ``{"tex_color": ..., "sph_center0": ...}``). The image atlas raises
+    ``NotImplementedError``: its gradient needs the float atlas path the
+    port lacks (ROADMAP A13)."""
+    if "atlas" in params:
         raise NotImplementedError(
-            f"srt_tpu_torch does not optimise {frozen} yet: geometry and "
-            "image-atlas gradients need the hybrid linearised backward "
-            "(ROADMAP A13)")
+            "srt_tpu_torch does not optimise the image atlas yet: its "
+            "gradient needs the float atlas lookup (ROADMAP A13)")
     unknown = sorted(set(params) - {f.name for f in
                                     dataclasses.fields(TorchScene)})
     if unknown:
@@ -75,15 +67,18 @@ def render_pixels(scene: TorchScene, camera: Camera, pixel_ids, *,
                   depth_budget: float = 4.0, drain: int | None = 12,
                   flags: SceneFlags | None = None) -> torch.Tensor:
     """Mean radiance per pixel (P, 3), differentiable in the scene's
-    material parameters and texture colours. Pixel jitter, lens and time
-    samples come from the counter RNG (dimensions 30-34), as
-    ``inverse.py:97-111`` draws them. Runs on the scene's device."""
+    material parameters, texture colours and geometric tensors, whichever
+    require a gradient (the bounce takes kernel B5's backward when no
+    geometric tensor does, ``bounce_vjp.bounce_step_auto``). Pixel
+    jitter, lens and time samples come from the counter RNG (dimensions
+    30-34), as ``inverse.py:97-111`` draws them. Runs on the scene's
+    device."""
     if engine != "regen":
         raise NotImplementedError(
             f"engine {engine!r}: the port has the regeneration engine; the "
             "lockstep scan engine is ROADMAP A6")
     flags = flags if flags is not None else SceneFlags.of(scene)
-    require_bwd_kernel(scene, flags)
+    require_covered(scene, flags)
     pixel_ids = torch.as_tensor(pixel_ids, device=scene.device).long()
     p = pixel_ids.shape[0]
     rays, salt = camera_rays(camera, pixel_ids, spp, width=width,
@@ -119,7 +114,10 @@ def image_loss(params: dict, scene: TorchScene, camera: Camera, target,
                max_depth: int, seed, engine: str = "regen",
                engine_kw: dict | None = None,
                flags: SceneFlags | None = None) -> torch.Tensor:
-    """L2 loss between the rendered pixels and ``target`` (P, 3)."""
+    """L2 loss between the rendered pixels and ``target`` (P, 3). The
+    geometry is frozen exactly when no parameter is geometric, as
+    ``inverse.py:150-151`` freezes it: a spliced parameter is the only
+    scene tensor that requires a gradient."""
     img = render_pixels(splice(scene, params), camera, pixel_ids,
                         width=width, height=height, spp=spp,
                         max_depth=max_depth, seed=seed, engine=engine,
@@ -138,11 +136,12 @@ class TrainStep:
     """One Adam step of an image loss per call: ``step(target, seed) ->
     loss``. ``params`` holds the optimised tensors (leaves on the step's
     device); ``optimizer`` their ``torch.optim.Adam``; ``loss_fn(params,
-    target (P, 3), seed)`` the differentiable loss."""
+    target (P, 3), seed)`` the differentiable loss; ``flags`` the scene
+    flags its bounces run with."""
 
     def __init__(self, scene: TorchScene, camera: Camera, params: dict,
-                 loss_fn: Callable, lr: float, device):
-        self.scene, self.camera = scene, camera
+                 loss_fn: Callable, lr: float, device, flags: SceneFlags):
+        self.scene, self.camera, self.flags = scene, camera, flags
         self.params = {k: torch.as_tensor(v, dtype=torch.float32)
                        .to(device).clone().requires_grad_()
                        for k, v in params.items()}
@@ -172,13 +171,19 @@ def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
     every pixel (counterpart of ``inverse.py:160-186``; ``optax.adam``
     becomes :func:`adam`). The scene, camera and parameters move to
     ``device``; the step updates ``TrainStep.params`` in place. The
-    sharded ``mesh`` branch is ROADMAP A11."""
+    sharded ``mesh`` branch is ROADMAP A11. A sphere-centre parameter
+    makes the spheres moving for the forward kernel, as the JAX package's
+    flags degrade (``ir.py:115-125``): an optimised ``sph_center0`` leaves
+    ``sph_center1`` where it was, so after the first step the sphere
+    moves over the shutter interval."""
     if mesh is not None:
         raise NotImplementedError("the sharded train step is ROADMAP A11")
-    splice(scene, params)               # refuse geometric parameters early
+    splice(scene, params)               # refuse the atlas early
     scene, camera = scene_to(scene, device), camera_to(camera, device)
     flags = SceneFlags.of(scene)
-    require_bwd_kernel(scene, flags)    # and scenes B5 cannot differentiate
+    if set(params) & CENTRE_FIELDS:
+        flags = flags._replace(moving=True)
+    require_covered(scene, flags)
     pixel_ids = torch.arange(width * height, device=scene.device)
 
     def loss_fn(p, target, seed):
@@ -187,4 +192,4 @@ def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
                           seed=seed, engine=engine, engine_kw=engine_kw,
                           flags=flags)
 
-    return TrainStep(scene, camera, params, loss_fn, lr, scene.device)
+    return TrainStep(scene, camera, params, loss_fn, lr, scene.device, flags)

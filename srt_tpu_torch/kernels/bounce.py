@@ -41,6 +41,11 @@ in that mode it also runs the media sweep and the specular branch of
 metal, dielectric and isotropic materials. :func:`bounce_step_ref` is its
 plain version and :func:`bounce_fwd` the wrapper; ``csrc/bounce.cu`` runs the same
 ``bounce()`` of ``csrc/bounce_core.cuh`` as B1.
+
+On a scene whose spheres move (``SceneFlags.moving``) both kernels take
+their ``kMoving`` instantiation, which puts each sphere at its centre at
+the lane's time, as the JAX kernels' ``moving`` static does; the plain
+versions always do (a static sphere's lerp leaves its centre as it is).
 """
 from __future__ import annotations
 
@@ -245,7 +250,8 @@ class _Args(ctypes.Structure):
         + [(name, ctypes.c_int) for name in (
             "n", "n_sph", "n_rect", "n_mat", "n_light", "n_atlas", "width",
             "height", "spp", "total_work", "max_depth", "rr_start")]
-        + [("pdf_floor", ctypes.c_float), ("seed", ctypes.c_uint32)])
+        + [("pdf_floor", ctypes.c_float), ("seed", ctypes.c_uint32),
+           ("moving", ctypes.c_int)])
 
 
 _STATE_F32 = {"o": 3, "d": 3, "time": 1, "beta": 3, "radiance": 3}
@@ -302,7 +308,7 @@ def _launch(inp: RegenInputs, st: dict, spec: RegenSpec) -> None:
         width=spec.width, height=spec.height, spp=spec.spp,
         total_work=spec.total_work, max_depth=spec.max_depth,
         rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
-        seed=spec.seed & rng.MASK32)
+        seed=spec.seed & rng.MASK32, moving=int(inp.flags.moving))
     launch("srt_regen_bounce", args, dev)
     LAUNCHES += 1
     st["dead"], st["dead_next"] = st["dead_next"], st["dead"]
@@ -352,18 +358,20 @@ def material_view(scene: TorchScene, mat: torch.Tensor) -> TorchScene:
 
 def bounce_step_ref(scene: TorchScene, flags: SceneFlags,
                     mat: torch.Tensor, state: dict, spec: StepSpec,
-                    tri=None) -> dict:
+                    tri=None, sph=None) -> dict:
     """The plain version of B2: ``render.integrator.bounce_step`` on the
     material view of ``mat`` (the image emission of the environment dome is
     evaluated inside its emission term, as the kernel does). ``state``:
     ``o d beta radiance`` (N, 3) float32, ``time`` (N,), ``salt`` (N,)
     int32 bit patterns, ``depth`` (N,) int32, ``alive`` (N,) bool. ``tri``:
     on a triangle scene, each lane's closest triangle ``(t, u, v, idx)``
-    as kernel B3 gives it (the plain walk computes it when None). Returns
-    the next state with ``depth + 1`` and ``alive`` not yet capped by
-    depth."""
+    as kernel B3 gives it (the plain walk computes it when None). ``sph``:
+    each lane's winning sphere ``(t, idx)`` as kernel B6 gives it, whose
+    hit is then assembled differentiably; the plain sweep runs when None.
+    Returns the next state with ``depth + 1`` and ``alive`` not yet capped
+    by depth."""
     return bounce_step(material_view(scene, mat), state, spec.max_depth,
-                       spec.rr_start, flags, spec.pdf_floor, tri)
+                       spec.rr_start, flags, spec.pdf_floor, tri, sph)
 
 
 _ROWS = ("o", "d", "beta", "radiance")
@@ -383,7 +391,8 @@ class _BounceArgs(ctypes.Structure):
             "tri_t", "tri_u", "tri_v", "tri_idx", "tri_n", "tri_uv",
             "tri_mat")]
         + [("n_tris", ctypes.c_int), ("med", ctypes.c_void_p),
-           ("n_med", ctypes.c_int)])
+           ("n_med", ctypes.c_int), ("time", ctypes.c_void_p),
+           ("moving", ctypes.c_int)])
 
 
 def check_state(state: dict, tables: dict, device) -> int:
@@ -391,6 +400,7 @@ def check_state(state: dict, tables: dict, device) -> int:
     read on ``device``; returns the lane count."""
     n = state["alive"].shape[0]
     want = {**{k: (torch.float32, (n, 3)) for k in _ROWS},
+            "time": (torch.float32, (n,)),
             "salt": (_I32, (n,)), "depth": (_I32, (n,)),
             "alive": (torch.bool, (n,))}
     for k, (dtype, shape) in want.items():
@@ -448,9 +458,11 @@ def _tri_args(scene: TorchScene, tables: dict, tri, n: int, dev) -> dict:
 
 
 def fwd_args(scene: TorchScene, tables: dict, state: dict,
-             spec: StepSpec, tri=None) -> tuple[_BounceArgs, dict]:
+             spec: StepSpec, tri=None,
+             moving: bool = False) -> tuple[_BounceArgs, dict]:
     """The checked arguments of one ``csrc/bounce.cu`` launch and the
-    output tensors it writes; ``tri`` as in :func:`bounce_fwd`."""
+    output tensors it writes; ``tri`` as in :func:`bounce_fwd`, ``moving``
+    the kernel's ``kMoving``."""
     dev = state["alive"].device
     n = check_state(state, tables, dev)
     ext = _tri_args(scene, tables, tri, n, dev)
@@ -464,14 +476,14 @@ def fwd_args(scene: TorchScene, tables: dict, state: dict,
         rad_out=out["radiance"].data_ptr(), **table_args(scene, tables),
         n=n, max_depth=spec.max_depth,
         rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
-        **ext)
+        **ext, time=state["time"].data_ptr(), moving=int(moving))
     return args, out
 
 
-def _launch_fwd(scene: TorchScene, tables: dict, state: dict,
-                spec: StepSpec, tri) -> dict:
+def _launch_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
+                state: dict, spec: StepSpec, tri) -> dict:
     global LAUNCHES_FWD
-    args, out = fwd_args(scene, tables, state, spec, tri)
+    args, out = fwd_args(scene, tables, state, spec, tri, flags.moving)
     launch("srt_bounce", args, state["alive"].device)
     LAUNCHES_FWD += 1
     return dict(out, time=state["time"], salt=state["salt"])
@@ -484,12 +496,12 @@ def bounce_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
     tensors. On a triangle scene ``tri`` is each lane's closest triangle
     ``(t, u, v, idx)`` from :func:`kernels.intersect.intersect_tris`, which
     the kernel requires. No autograd: :class:`kernels.bounce_vjp.BounceCore`
-    wraps this."""
+    and :class:`kernels.bounce_vjp.BounceHybrid` wrap this."""
     dev = state["alive"].device
     if dev.type == "cpu":
         with torch.no_grad():
             return bounce_step_ref(scene, flags, tables["mat"], state, spec,
                                    tri)
     if dev.type == "cuda":
-        return _launch_fwd(scene, tables, state, spec, tri)
+        return _launch_fwd(scene, flags, tables, state, spec, tri)
     raise ValueError(f"no bounce kernel for {dev}")

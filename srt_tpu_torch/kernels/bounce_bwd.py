@@ -7,7 +7,9 @@ versions of the same function:
 * :func:`bounce_bwd_reference`, the plain version: ``torch.autograd`` of
   the plain step :func:`kernels.bounce.bounce_step_ref`, which detaches
   nothing -- the gradient goes through the BSDF sample and the Beckmann
-  pdf, as the JAX package's backward kernel's does (ROADMAP C2);
+  pdf, as the JAX package's backward kernel's does (ROADMAP C2). It is
+  :func:`replay_vjp` with no geometric tensor, the same code the hybrid
+  backward (:mod:`kernels.bounce_vjp`) replays;
 * ``csrc/bounce_bwd.cu``: per lane, the forward's closest hit replayed in
   float, the winner's ``t`` recomputed with tangents, and the forward's
   own shading code run in forward-mode dual numbers (two passes of seven
@@ -16,13 +18,15 @@ versions of the same function:
   (M, 14) table, as ``bounce_bwd.py:301-316`` does with ``.at[].add``.
 
 :func:`bounce_bwd` takes the plain version for CPU tensors and launches
-the kernel for CUDA tensors; it never falls back. ``index_add_`` on CUDA
-floats is atomic, so the table's sums differ in their last bits from run
-to run.
+the kernel for CUDA tensors; it never falls back, and it raises for a
+scene the kernel cannot differentiate (:func:`require_bwd_kernel`), on
+either device. ``index_add_`` on CUDA floats is atomic, so the table's
+sums differ in their last bits from run to run.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -39,52 +43,88 @@ LAUNCHES_BWD = 0
 ROWS = ("o", "d", "beta", "radiance")
 
 
-def require_bwd_kernel(scene: TorchScene, flags: SceneFlags) -> None:
-    """Raise unless the backward gives this scene's exact gradient under
-    frozen geometry: the counterpart of ``bwd_kernel_available``
-    (``bounce_bwd.py:58-73``) as an explicit check that reads no
-    environment variable. Triangles are refused here: the kernel has no
-    external-hit input, so it would differentiate a triangle lane as if
-    the triangle were not there; and so are media and the specular
-    materials, whose sweep and branch the backward lacks, whatever the
-    coverage gate admits. The parity estimator and moving spheres
-    the coverage gate refuses; geometric parameters
-    ``diff.inverse.splice``."""
+def _bwd_kernel_gaps(scene: TorchScene, flags: SceneFlags) -> list[str]:
+    """What this scene has that the backward kernel cannot differentiate."""
+    gaps = []
     if scene.n_tris:
-        raise NotImplementedError(
-            "srt_tpu_torch cannot differentiate triangle scenes yet: the "
-            "backward kernel has no external-hit mode (ROADMAP A13)")
+        gaps.append("triangle scenes: it has no external-hit mode")
     if scene.n_media:
-        raise NotImplementedError(
-            "srt_tpu_torch cannot differentiate participating media yet: "
-            "the backward kernel has no media sweep (ROADMAP A13)")
+        gaps.append("participating media: it has no media sweep")
     specular = sorted(MaterialType(m).name for m in
                       set(flags.mat_kinds) & SPECULAR_MATS)
     if specular:
+        gaps.append(f"{specular}: it has no specular branch")
+    if flags.moving:
+        gaps.append("moving spheres: it replays static spheres")
+    return gaps
+
+
+def bwd_kernel_available(scene: TorchScene, flags: SceneFlags) -> bool:
+    """Whether the backward kernel gives this scene's exact gradient under
+    frozen geometry: the counterpart of ``bwd_kernel_available``
+    (``bounce_bwd.py:58-73``), reading no environment variable. Moving
+    spheres go to the hybrid backward as there, and so do triangles
+    (the kernel has no external-hit input, so it would differentiate a
+    triangle lane as if the triangle were not there), media and the
+    specular materials, whose sweep and branch it lacks. The parity
+    estimator the coverage gate refuses."""
+    return not _bwd_kernel_gaps(scene, flags)
+
+
+def require_bwd_kernel(scene: TorchScene, flags: SceneFlags) -> None:
+    """Raise unless the backward kernel covers this scene (see
+    :func:`bwd_kernel_available`). :func:`bounce_bwd` checks this before
+    it runs; the train step gives such a scene the hybrid backward
+    instead (``kernels.bounce_vjp.bounce_step_auto``)."""
+    gaps = _bwd_kernel_gaps(scene, flags)
+    if gaps:
         raise NotImplementedError(
-            f"srt_tpu_torch cannot differentiate {specular} yet: the "
-            "backward kernel has no specular branch (ROADMAP A13)")
+            f"the backward kernel cannot differentiate {gaps[0]}; the train "
+            "step takes the hybrid backward for it (ROADMAP A13)")
     require_covered(scene, flags)
+
+
+def _detached(scene: TorchScene) -> TorchScene:
+    return dataclasses.replace(scene, **{
+        f.name: getattr(scene, f.name).detach()
+        for f in dataclasses.fields(TorchScene)
+        if isinstance(getattr(scene, f.name), torch.Tensor)})
+
+
+def replay_vjp(scene: TorchScene, flags: SceneFlags, mat: torch.Tensor,
+               state: dict, ct: dict, spec: StepSpec, geom: dict | None = None,
+               tri=None, sph=None):
+    """``torch.autograd.grad`` of :func:`bounce_step_ref` at ``state`` for
+    the cotangents ``ct`` of its ``o d beta radiance``. ``geom`` names the
+    scene's geometric tensors to differentiate too (a subset of
+    ``GEOM_FIELDS``); ``tri`` and ``sph`` are the triangles' and the
+    spheres' winners when the caller has them (else the plain step finds
+    them itself). Returns ``(d_state, d_mat, d_geom)``: the cotangents of
+    the input rows, of the (M, 14) material table and of each ``geom``
+    tensor."""
+    geom = geom or {}
+    with torch.enable_grad():
+        rows = {k: state[k].detach().requires_grad_() for k in ROWS}
+        mat = mat.detach().requires_grad_()
+        leaves = {k: v.detach().requires_grad_() for k, v in geom.items()}
+        out = bounce_step_ref(dataclasses.replace(_detached(scene), **leaves),
+                              flags, mat, dict(state, **rows), spec, tri, sph)
+        inputs = [rows[k] for k in ROWS] + [mat] + list(leaves.values())
+        grads = torch.autograd.grad([out[k] for k in ROWS], inputs,
+                                    [ct[k] for k in ROWS], allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, inputs)]
+    return (dict(zip(ROWS, grads[:4])), grads[4],
+            dict(zip(leaves, grads[5:])))
 
 
 def bounce_bwd_reference(scene: TorchScene, flags: SceneFlags,
                          mat: torch.Tensor, state: dict, ct: dict,
                          spec: StepSpec):
-    """Plain version: ``torch.autograd.grad`` of :func:`bounce_step_ref`.
-    ``ct`` holds the cotangents of the step's ``o d beta radiance``.
-    Returns ``(d_state, d_mat)``: the cotangents of the inputs' ``o d beta
+    """Plain version: :func:`replay_vjp` with the geometry frozen. Returns
+    ``(d_state, d_mat)``: the cotangents of the inputs' ``o d beta
     radiance`` and of the (M, 14) material table."""
-    with torch.enable_grad():
-        leaves = {k: state[k].detach().requires_grad_() for k in ROWS}
-        mat = mat.detach().requires_grad_()
-        out = bounce_step_ref(scene, flags, mat, dict(state, **leaves), spec)
-        grads = torch.autograd.grad([out[k] for k in ROWS],
-                                    [leaves[k] for k in ROWS] + [mat],
-                                    [ct[k] for k in ROWS],
-                                    allow_unused=True)
-    zero = [torch.zeros_like(v) for v in list(leaves.values()) + [mat]]
-    grads = [z if g is None else g for g, z in zip(grads, zero)]
-    return dict(zip(ROWS, grads[:4])), grads[4]
+    return replay_vjp(scene, flags, mat, state, ct, spec)[:2]
 
 
 class _BwdArgs(ctypes.Structure):
@@ -160,7 +200,9 @@ def bounce_bwd(scene: TorchScene, flags: SceneFlags, tables: dict,
     """The VJP of one bounce at ``state`` (the inputs of
     :func:`kernels.bounce.bounce_fwd`) for the cotangents ``ct``: returns
     ``(d_state, d_mat)`` as :func:`bounce_bwd_reference` does. The plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    version for CPU tensors, the CUDA kernel for CUDA tensors; a scene the
+    kernel cannot differentiate raises on both (:func:`require_bwd_kernel`)."""
+    require_bwd_kernel(scene, flags)
     dev = state["alive"].device
     if dev.type == "cpu":
         return bounce_bwd_reference(scene, flags, tables["mat"], state, ct,

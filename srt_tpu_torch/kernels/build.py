@@ -36,7 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: C entry points, each ``int f(const Args*, cudaStream_t)`` returning the
 #: launch's cudaError_t
 ENTRY_POINTS = ("srt_regen_bounce", "srt_bounce", "srt_bounce_bwd",
-                "srt_intersect_tris", "srt_intersect_big")
+                "srt_intersect_tris", "srt_intersect_big",
+                "srt_sphere_winner")
 
 _LIB = None
 

@@ -40,6 +40,7 @@ from srt_tpu_torch.render.intersect import \
     intersect_tris as intersect_tris_reference
 from srt_tpu_torch.render.intersect import \
     intersect_tris_big as intersect_tris_big_reference
+from srt_tpu_torch.render.intersect import two_level
 from srt_tpu_torch.scene.ir import TorchScene
 
 #: Kernel launches made by :func:`intersect_tris` (the CUDA path only).
@@ -192,3 +193,19 @@ def intersect_tris_big(scene: TorchScene, tables: dict, o: torch.Tensor,
     launch("srt_intersect_big", args, o.device)
     LAUNCHES_BIG += 1
     return out
+
+
+def pack_walk(scene: TorchScene) -> dict:
+    """The tables of the walk :func:`two_level` picks for ``scene``, with
+    ``big`` saying which (B4's when True, else B3's)."""
+    big = two_level(scene)
+    return dict((pack_big_tables if big else pack_tables)(scene), big=big)
+
+
+def closest_tris(scene: TorchScene, walk: dict, o: torch.Tensor,
+                 d: torch.Tensor):
+    """Each ray's closest triangle from the walk ``walk`` packs
+    (:func:`pack_walk`): B4 or B3 on CUDA tensors, their plain versions on
+    CPU tensors."""
+    fn = intersect_tris_big if walk["big"] else intersect_tris
+    return fn(scene, walk, o, d)

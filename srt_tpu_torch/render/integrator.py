@@ -74,18 +74,20 @@ def apply_media(scene: TorchScene, o, d, salt, hit: Hit) -> Hit:
 
 def bounce_step(scene: TorchScene, state: dict, max_depth: int,
                 rr_start: int, flags: SceneFlags,
-                pdf_floor: float = 1e-9, tri=None) -> dict:
+                pdf_floor: float = 1e-9, tri=None, sph=None) -> dict:
     """``state`` keys: ``o d (N,3) f32, time (N,) f32, beta radiance (N,3)
     f32, alive (N,) bool, salt (N,) 32-bit words (any int dtype), depth
-    (N,) int32``. ``tri``: the triangles' closest hit ``(t, u, v, tri)``
-    if the caller has it (see ``intersect_scene``). Returns the next state
-    (``alive`` does not yet fold in the depth cap; the caller does)."""
+    (N,) int32``. ``tri``: the triangles' closest hit ``(t, u, v, tri)``,
+    ``sph``: the spheres' winner ``(t, idx)``, if the caller has them (see
+    ``intersect_scene``). Returns the next state (``alive`` does not yet
+    fold in the depth cap; the caller does)."""
     depth = state["depth"]
     salt = rng.hash_combine(rng.as_word(state["salt"]), rng.as_word(depth))
     o, d = state["o"], state["d"]
     alive, beta = state["alive"], state["beta"]
 
-    hit = intersect_scene(scene, o, d, 1e-3, tri, flags.bvh_leaf)
+    hit = intersect_scene(scene, o, d, 1e-3, tri, flags.bvh_leaf,
+                          state["time"], sph)
     if scene.n_media:
         hit = apply_media(scene, o, d, salt, hit)
     # sanitize miss lanes: zero normal -> +z, far position -> origin

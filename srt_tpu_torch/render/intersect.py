@@ -3,8 +3,14 @@
 
 Spheres and rects: a dense sweep over primitive chunks, the JAX package's
 default for sphere scenes (its sphere BVH is opt-in and off the main
-path). Ties keep the lowest index. Moving spheres are outside the port's
-coverage, so centers are ``sph_center0``.
+path). Ties keep the lowest index. A sphere is at its centre at the ray's
+time (``moving_sphere.h:19-21``), the lerp factor taken with the
+reciprocal of the shutter span as the kernels' tables hold it (the JAX
+package's XLA sweep divides). :func:`sphere_winner` is the plain version
+of kernel B6, each ray's winning sphere ``(t, idx)`` only;
+:func:`assemble_sphere_hit` re-derives the winner's hit differentiably,
+so geometry gradients flow through the one winning sphere while the
+winner itself is detached (``intersect.py:91-140``).
 
 Triangles: :func:`intersect_tris` is the plain version of kernel B3, the
 per-ray stackless skip-link walk over the scene's BVH with
@@ -89,10 +95,23 @@ def _ray_at(o, d, t):
     return o + torch.clamp(t, max=T_POS_MAX)[:, None] * d
 
 
-def _sphere_chunk(scene: TorchScene, o, d, t_min, c0, c1) -> Hit:
-    cen = scene.sph_center0[c0:c1]                       # (C, 3)
+def _lerp_factor(times: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+    """``(time - t0) / (t1 - t0)`` as the kernels take it, times the
+    table's reciprocal ``1 / max(t1 - t0, 1e-20)``; ``times`` (..., 2)
+    broadcasts against ``time``."""
+    inv_dt = 1.0 / torch.clamp(times[..., 1] - times[..., 0], min=1e-20)
+    return (time - times[..., 0]) * inv_dt
+
+
+def _sphere_t(scene: TorchScene, o, d, time, t_min, c0, c1):
+    """Each ray's distance to spheres ``c0:c1`` (N, C), BIG on a miss (the
+    kernels' ``sphere_t``), and the spheres' centres at the rays' times
+    (N, C, 3)."""
+    cen0 = scene.sph_center0[c0:c1]                      # (C, 3)
+    f = _lerp_factor(scene.sph_times[c0:c1][None], time[:, None])  # (N, C)
+    cen = cen0[None] + f[..., None] * (scene.sph_center1[c0:c1] - cen0)[None]
     rad = scene.sph_radius[c0:c1]                        # (C,)
-    oc = o[:, None, :] - cen[None]                       # (N, C, 3)
+    oc = o[:, None, :] - cen                             # (N, C, 3)
     dd = d[:, None, :]
     b = (oc[..., 0] * dd[..., 0] + oc[..., 1] * dd[..., 1]
          + oc[..., 2] * dd[..., 2])
@@ -107,16 +126,74 @@ def _sphere_chunk(scene: TorchScene, o, d, t_min, c0, c1) -> Hit:
     t = torch.where(valid0, t0, torch.where(valid1, t1, BIG))
     # env dome: always hit at the far crossing (env_sphere.h:27-38)
     env = scene.sph_env[c0:c1][None]
-    t = torch.where(env, torch.where(t1 > t_min, t1, BIG), t)
+    return torch.where(env, torch.where(t1 > t_min, t1, BIG), t), cen
 
+
+def _sphere_chunk(scene: TorchScene, o, d, time, t_min, c0, c1) -> Hit:
+    t, cen = _sphere_t(scene, o, d, time, t_min, c0, c1)
+    rad = scene.sph_radius[c0:c1]
     tb, k = torch.min(t, dim=1)                          # first on ties
     hit = tb < BIG
     p = _ray_at(o, d, tb)
-    unit = (p - cen[k]) / rad[k][:, None]
+    unit = (p - cen[torch.arange(o.shape[0], device=o.device), k]) \
+        / rad[k][:, None]
     flip = scene.sph_flip[c0:c1][k] ^ scene.sph_env[c0:c1][k]
     normal = torch.where(flip[:, None], -unit, unit)
     return Hit(t=torch.where(hit, tb, BIG), hit=hit, p=p, normal=normal,
                uv=sphere_uv(unit), mat=scene.sph_mat[c0:c1][k].long())
+
+
+def sphere_winner(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
+                  time: torch.Tensor, t_min: float = 1e-3):
+    """Each ray's closest sphere, the plain version of kernel B6
+    (``srt_tpu/pallas/spheres.py:123-177``): ``(t, idx)``, ``t`` float32
+    (BIG on a miss) and ``idx`` int32 (-1 on a miss); ``t < BIG`` to count,
+    env domes at their far crossing, the first minimum on ties."""
+    n, dev = o.shape[0], o.device
+    t_best = torch.full((n,), BIG, device=dev)
+    idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for c0 in range(0, scene.n_spheres, PRIM_CHUNK):
+        c1 = min(c0 + PRIM_CHUNK, scene.n_spheres)
+        tb, k = torch.min(_sphere_t(scene, o, d, time, t_min, c0, c1)[0], 1)
+        better = tb < t_best
+        t_best = torch.where(better, tb, t_best)
+        idx = torch.where(better, (k + c0).to(torch.int32), idx)
+    return t_best, idx
+
+
+def assemble_sphere_hit(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
+                        time: torch.Tensor, t_min: float,
+                        k: torch.Tensor) -> Hit:
+    """The differentiable hit on each ray's winning sphere ``k`` (-1: a
+    miss), the port of ``_assemble_sphere_hit`` (``intersect.py:91-129``):
+    the near root when it lies beyond ``t_min``, else the far root, which
+    an env dome always takes. The winner is detached; the hit's ``t``,
+    position, normal and uv follow the sphere's centre and radius.
+    ``safe_sqrt`` and the position clamp at ``T_POS_MAX`` keep miss lanes
+    free of NaN in the backward."""
+    hit_any = k >= 0
+    kc = torch.clamp(k, min=0).long()
+    cen0 = scene.sph_center0[kc]
+    f = _lerp_factor(scene.sph_times[kc], time)
+    cen = cen0 + f[:, None] * (scene.sph_center1[kc] - cen0)
+    rad = scene.sph_radius[kc]
+    oc = o - cen
+    b = dot(oc, d)
+    c = dot(oc, oc) - rad * rad
+    disc = b * b - c
+    sq = safe_sqrt(disc)
+    t0 = -b - sq
+    t1 = -b + sq
+    env = scene.sph_env[kc]
+    t = torch.where(env | ~((disc > 0.0) & (t0 > t_min)), t1, t0)
+    hit = hit_any & (t > t_min)
+    tb = torch.where(hit, t, BIG)
+    p = _ray_at(o, d, tb)
+    unit = (p - cen) / rad[:, None]
+    flip = scene.sph_flip[kc] ^ env
+    normal = torch.where(flip[:, None], -unit, unit)
+    return Hit(t=tb, hit=hit, p=p, normal=normal, uv=sphere_uv(unit),
+               mat=scene.sph_mat[kc].long())
 
 
 def _rect_chunk(scene: TorchScene, o, d, t_min, c0, c1) -> Hit:
@@ -369,17 +446,25 @@ def tri_hit(scene: TorchScene, o: torch.Tensor, d: torch.Tensor, t, u, v,
 
 
 def intersect_scene(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
-                    t_min: float = 1e-3, tri=None,
-                    leaf_size: int = 4) -> Hit:
+                    t_min: float = 1e-3, tri=None, leaf_size: int = 4,
+                    time: torch.Tensor | None = None, sph=None) -> Hit:
     """Closest hit over every sphere, then every rect, then the triangles
-    (an earlier family wins ties). ``tri`` is the triangles' closest hit
-    ``(t, u, v, tri)`` when the caller has it (kernel B3's or B4's
-    output); otherwise :func:`intersect_tris_any` computes it with
-    ``leaf_size``."""
+    (an earlier family wins ties), at the rays' ``time`` (0 when None).
+    ``sph`` is the spheres' winner ``(t, idx)`` when the caller has it
+    (kernel B6's output): the sphere hit is then assembled from it
+    (:func:`assemble_sphere_hit`) instead of swept. ``tri`` is the
+    triangles' closest hit ``(t, u, v, tri)`` when the caller has it
+    (kernel B3's or B4's output); otherwise :func:`intersect_tris_any`
+    computes it with ``leaf_size``."""
     best = Hit.none(o.shape[0], o.device)
-    for c0 in range(0, scene.n_spheres, PRIM_CHUNK):
+    if time is None:
+        time = torch.zeros(o.shape[0], device=o.device)
+    if scene.n_spheres and sph is not None:
+        best = assemble_sphere_hit(scene, o, d, time, t_min, sph[1])
+    for c0 in range(0, scene.n_spheres if sph is None else 0, PRIM_CHUNK):
         c1 = min(c0 + PRIM_CHUNK, scene.n_spheres)
-        best = best.closer_of(_sphere_chunk(scene, o, d, t_min, c0, c1))
+        best = best.closer_of(_sphere_chunk(scene, o, d, time, t_min, c0,
+                                            c1))
     for c0 in range(0, scene.n_rects, PRIM_CHUNK):
         c1 = min(c0 + PRIM_CHUNK, scene.n_rects)
         best = best.closer_of(_rect_chunk(scene, o, d, t_min, c0, c1))

@@ -100,9 +100,8 @@ def _tri_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
     dev = scene.device
     step = kb.StepSpec(max_depth=spec.max_depth, rr_start=spec.rr_start,
                        pdf_floor=spec.pdf_floor)
-    big = two_level(scene)
     if plain:
-        walk = intersect_tris_big if big else intersect_tris
+        walk = intersect_tris_big if two_level(scene) else intersect_tris
 
         def hits(o, d):
             return walk(scene, o, d, leaf_size=flags.bvh_leaf)
@@ -111,11 +110,10 @@ def _tri_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
             return kb.bounce_step_ref(scene, flags, tables["mat"], state,
                                       step, tri)
     else:
-        walk = ki.intersect_tris_big if big else ki.intersect_tris
-        tri_tables = (ki.pack_big_tables if big else ki.pack_tables)(scene)
+        packed = ki.pack_walk(scene)
 
         def hits(o, d):
-            return walk(scene, tri_tables, o, d)
+            return ki.closest_tris(scene, packed, o, d)
 
         def bounce(state, tri):
             return kb.bounce_fwd(scene, flags, tables, state, step, tri)

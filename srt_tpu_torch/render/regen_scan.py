@@ -8,21 +8,24 @@ runs ``n_steps`` substeps, a number fixed in advance
 (:func:`steps_for`), so the whole trace is one autograd tape and the
 host never waits on the device. Each substep regenerates dead lanes from
 the queue of primary rays (``torch.cumsum`` ranks), takes one
-differentiable bounce (:func:`kernels.bounce_vjp.bounce_core`: kernel B2
-forward, kernel B5 backward) and emits the paths that finished. Paths
+differentiable bounce (:func:`kernels.bounce_vjp.bounce_step_auto`: kernel
+B2 forward; kernel B5 backward, or the hybrid backward for geometry
+gradients and the scenes B5 does not cover) and emits the paths that
+finished. Paths
 that exhaust the budget are truncated: their partial radiance is flushed
 at the end, the same contract as a depth cap.
 
 The JAX engine's ``checkpoint`` and ``unroll`` are ``lax.scan`` knobs
-with no counterpart: the tape already keeps only what ``BounceCore``
-saves, each bounce's inputs.
+with no counterpart: the tape already keeps only what ``BounceCore`` and
+``BounceHybrid`` save, each bounce's inputs.
 """
 from __future__ import annotations
 
 import torch
 
+from srt_tpu_torch.kernels import intersect as ki
 from srt_tpu_torch.kernels.bounce import StepSpec
-from srt_tpu_torch.kernels.bounce_vjp import bounce_core
+from srt_tpu_torch.kernels.bounce_vjp import bounce_step_auto
 from srt_tpu_torch.scene.ir import SceneFlags, TorchScene
 
 _F32 = torch.float32
@@ -35,7 +38,9 @@ def trace_queue(scene: TorchScene, flags: SceneFlags, tables: dict, rays,
     time (N,))`` with sampler salts (N,) int32 -> ``((N, 3) radiance,
     (N,) started)``. ``started`` is 1.0 for rays the budget reached (a
     path cut by the budget still counts, with its partial radiance), 0.0
-    for rays never started."""
+    for rays never started. The bounce takes the backward kernel when no
+    geometric tensor of the scene requires a gradient
+    (``regen_scan.py:118-125``)."""
     origin, direction, ray_time = rays
     n = origin.shape[0]
     m = min(wavefront, n)
@@ -51,6 +56,7 @@ def trace_queue(scene: TorchScene, flags: SceneFlags, tables: dict, rays,
     cursor = torch.zeros((), dtype=torch.int64, device=dev)
     rid = torch.zeros((m,), dtype=torch.int64, device=dev)
     rids, contribs, started_ids = [], [], []
+    walk = ki.pack_walk(scene) if scene.n_tris else None
 
     for _ in range(n_steps):
         # regenerate dead lanes from the queue (regen_scan.py:88-111)
@@ -73,7 +79,7 @@ def trace_queue(scene: TorchScene, flags: SceneFlags, tables: dict, rays,
 
         # one bounce, then the depth cap (regen_scan.py:113-126)
         was_alive = st["alive"]
-        nxt = bounce_core(scene, flags, tables, st, spec)
+        nxt = bounce_step_auto(scene, flags, tables, st, spec, walk)
         alive = nxt["alive"] & (nxt["depth"] < spec.max_depth)
 
         # finished paths, NaN-scrubbed, scattered once at the end

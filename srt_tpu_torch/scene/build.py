@@ -133,9 +133,14 @@ class SceneBuilder:
         return self._push_mat(MaterialType.ISOTROPIC, tex)
 
     # ------------------------------------------------------------------ geo
-    def sphere(self, center, radius, mat, flip=False, env=False) -> int:
+    def sphere(self, center, radius, mat, flip=False, env=False,
+               center1=None, t0=0.0, t1=1.0) -> int:
+        """A sphere; with ``center1`` a moving one, at ``center`` at time
+        ``t0`` and ``center1`` at ``t1`` (``moving_sphere.h``)."""
         c0 = np.asarray(center, np.float32)
-        self._sph.append((c0, float(radius), int(mat), bool(flip), bool(env)))
+        c1 = c0 if center1 is None else np.asarray(center1, np.float32)
+        self._sph.append((c0, float(radius), int(mat), bool(flip), bool(env),
+                          c1, (t0, t1)))
         return len(self._sph) - 1
 
     def rect(self, axis: int, a0, a1, b0, b1, k, mat, flip=False) -> int:
@@ -263,9 +268,9 @@ class SceneBuilder:
                              | rgb[:, 2]).astype(i32)
         n_tex = len(self._tex_type)
         tables = dict(
-            sph_center0=s_c0, sph_center1=s_c0.copy(),
-            sph_times=np.tile(np.asarray([0.0, 1.0], f32),
-                              (len(self._sph), 1)),
+            sph_center0=s_c0,
+            sph_center1=arr([s[5] for s in self._sph], f32, (3,)),
+            sph_times=arr([s[6] for s in self._sph], f32, (2,)),
             sph_radius=arr([s[1] for s in self._sph], f32, ()),
             sph_mat=arr([s[2] for s in self._sph], i32, ()),
             sph_flip=arr([s[3] for s in self._sph], bool, ()),

@@ -38,6 +38,21 @@ class LightKind(enum.IntEnum):
     SPHERE = 1  # cone sampling, sphere.h:69-86
 
 
+#: Scene fields whose cotangents exist only on the geometric paths
+#: (``srt_tpu/diff/inverse.py:58-64``): the hybrid backward differentiates
+#: them, the backward kernel B5 does not.
+GEOM_FIELDS = frozenset({
+    "sph_center0", "sph_center1", "sph_times", "sph_radius",
+    "rect_bounds", "rect_k",
+    "tri_p0", "tri_p1", "tri_p2", "tri_uv", "tri_n",
+    "med_center", "med_radius", "med_half", "med_density",
+    "bvh_lo", "bvh_hi",
+})
+#: the geometric fields that move a sphere's centre over the shutter
+#: interval: optimising one makes the spheres moving (``ir.py:115-125``)
+CENTRE_FIELDS = frozenset({"sph_center0", "sph_center1", "sph_times"})
+
+
 @dataclasses.dataclass
 class TorchScene:
     """All-device scene state; every tensor lives on one device."""
@@ -215,8 +230,6 @@ def require_covered(scene: TorchScene, flags: SceneFlags,
             missing("mesh-bounded participating media", "A7")
     elif scene.n_media:
         missing("participating media without triangles (kernel B1)", "A7")
-    if flags.moving:
-        missing("moving spheres", "A7")
     if ref_parity:
         missing("the reference-parity estimator", "A9")
     if scene.merl.shape[0]:

@@ -7,8 +7,11 @@ Times one inverse-rendering train step -- forward, backward, Adam -- of
 forward and kernel B5 backward. Defaults are the JAX package's r5 train
 configuration at 256x256: 4 spp, depth 50, a 16,384-lane wavefront, depth
 budget 4.0, drain 12 (76 bounces a step), parameters ``{"tex_color"}``,
-Adam at 1e-2 towards a constant 0.3 image. There is no ``scan`` engine
-(ROADMAP A6).
+Adam at 1e-2 towards a constant 0.3 image. With ``--scene cornell_boxes``
+(triangles) the bounce is kernel B3 then B2 forward and the hybrid
+backward (the plain bounce replayed under autograd,
+``kernels/bounce_vjp.py``). Geometric parameters are timed by
+``chip_smoke.py`` phase 15. There is no ``scan`` engine (ROADMAP A6).
 
 Usage: ``python -m srt_tpu_torch.trainbench [--width 256] [--profile DIR]``.
 ``--profile`` adds one step timed phase by phase (forward, backward, Adam)
@@ -56,11 +59,14 @@ def profile_step(out_dir: str, step, target, seed: int) -> dict:
     log(f"[profile] wall {wall:.4f}s (profiler on), device busy "
         f"{busy_us / 1e6:.4f}s = {busy_us / 1e6 / wall:.3f} of the wall")
     kernels = {}
-    for us, count, key in sorted(rows, reverse=True)[:15]:
-        if us:
+    for rank, (us, count, key) in enumerate(sorted(rows, reverse=True)):
+        if us and rank < 15:
             log(f"[profile] {us / 1e3:10.3f} ms {count:6d} calls "
                 f"{us / count:9.2f} us/call  {key[:90]}")
-        if "::bounce_kernel<" in key or "::bounce_bwd_kernel(" in key:
+        if any(k in key for k in ("::bounce_kernel<", "::bounce_bwd_kernel(",
+                                  "::sphere_winner_kernel<",
+                                  "::intersect_tris_kernel(",
+                                  "::intersect_big_kernel(")):
             kernels[key] = {"us_per_launch": us / max(count, 1),
                             "launches": count}
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,

@@ -1,8 +1,9 @@
 """The CUDA kernels (srt_tpu_torch/csrc/): the regeneration bounce
 (``regen_bounce.cu``), the per-bounce step (``bounce.cu``, the train
 forward, and with a triangle hit the bounce of triangle scenes), its VJP,
-the train backward (``bounce_bwd.cu``), and the triangle BVH walks, single
-level (``intersect_tris.cu``) and two level (``intersect_big.cu``).
+the train backward (``bounce_bwd.cu``), the triangle BVH walks, single
+level (``intersect_tris.cu``) and two level (``intersect_big.cu``), and
+the sphere winner of the hybrid backward (``sphere_winner.cu``).
 
 On a machine with an NVIDIA GPU the ``cuda``-marked tests build the
 kernels and hold one launch of each against its plain version lane by
@@ -27,6 +28,7 @@ from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import build
 from srt_tpu_torch.kernels import intersect as ki
+from srt_tpu_torch.kernels import spheres as ks
 from srt_tpu_torch.render.camera import Camera
 from srt_tpu_torch.scene.build import SceneBuilder
 from srt_tpu_torch.scene.ir import SceneFlags
@@ -117,11 +119,12 @@ def test_build_targets_sm90a_without_fast_math():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
     for src in ("regen_bounce.cu", "bounce.cu", "bounce_bwd.cu",
-                "intersect_tris.cu"):
+                "intersect_tris.cu", "sphere_winner.cu"):
         assert any(s.endswith("/" + src) for s in build.SOURCES), src
     for h in ("bounce_core.cuh", "tri_bvh.cuh"):
         assert any(s.endswith("/" + h) for s in build.HEADERS), h
     assert "srt_intersect_tris" in build.ENTRY_POINTS
+    assert "srt_sphere_winner" in build.ENTRY_POINTS
     assert build.library_path().startswith(build.BUILD_DIR)
 
 
@@ -383,3 +386,68 @@ def test_specular_media_bounce_matches_plain_on_gpu(cuda_device):
     contract.check_bounce(
         {k: ref[k].cpu().numpy() for k in ("alive", "d", "beta", "radiance")},
         {k: out[k].cpu().numpy() for k in ("alive", "d", "beta", "radiance")})
+
+
+def _winner_inputs(device, name, n=20000):
+    """Rays for the sphere winner: ball_scenes camera rays after one plain
+    bounce (lanes on the balls, the floor and the dome), or ``n`` seeded
+    rays through a scene of 20 spheres, every fourth moving and every
+    fourth flipped, in an env dome."""
+    if name == "moving":
+        r = np.random.default_rng(12)
+        b = SceneBuilder()
+        m = b.lambertian(b.constant((0.5, 0.5, 0.5)))
+        for i in range(20):
+            c = r.uniform(-4, 4, 3)
+            b.sphere(c, 0.5, m, flip=i % 4 == 1,
+                     center1=c + r.uniform(-1, 1, 3) if i % 4 == 0 else None)
+        b.sphere((0, 0, 0), 50.0, b.diffuse_light(b.constant((1, 1, 1))),
+                 env=True)
+        scene = b.build(device)
+        o, d = (r.standard_normal((n, 3)).astype(np.float32) for _ in "od")
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        rays = [torch.from_numpy(x).to(device) for x in
+                (o * 2, d, r.uniform(0, 1, n).astype(np.float32))]
+        return scene, kb.build_tables(scene, SceneFlags.of(scene))["sph"], rays
+    scene, _, _, st, _, _ = _train_inputs(device, n)
+    return (scene, kb.build_tables(scene, SceneFlags.of(scene))["sph"],
+            [st[k] for k in ("o", "d", "time")])
+
+
+def test_sphere_winner_wrapper_checks_its_arguments(monkeypatch):
+    """On CPU tensors the wrapper is the plain version and launches
+    nothing; B6's arguments are built and checked there too."""
+    monkeypatch.setattr(ks, "LAUNCHES", 0)
+    scene, sph, (o, d, t) = _winner_inputs("cpu", "moving", 300)
+    got = ks.sphere_winner(scene, sph, o, d, t)
+    want = ks.sphere_winner_reference(scene, o, d, t)
+    assert ks.LAUNCHES == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int((got[1] >= 0).sum()) == 300   # the env dome catches misses
+    args, out = ks.kernel_args(sph, o, d, t, 1e-3)
+    assert (args.n, args.n_sph) == (300, 21)
+    assert [x.dtype for x in out] == [torch.float32, torch.int32]
+    with pytest.raises(ValueError, match="rays"):
+        ks.kernel_args(sph, o, d, t[:-1], 1e-3)
+    with pytest.raises(ValueError, match="sphere table"):
+        ks.kernel_args(sph[:, :11], o, d, t, 1e-3)
+    with pytest.raises(ValueError, match="at most"):
+        ks.kernel_args(sph.repeat(200, 1), o, d, t, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ball_scenes", "moving"])
+def test_sphere_winner_matches_plain_on_gpu(name, cuda_device):
+    """One launch of B6 against its plain version on 20,000 rays (a partial
+    last block): the index equal and ``t`` equal to the bit (B6 runs the
+    bounce kernels' own sphere test, and the build keeps
+    ``--fmad=false``)."""
+    scene, sph, rays = _winner_inputs(cuda_device, name)
+    pt, pidx = ks.sphere_winner_reference(scene, *rays)
+    assert int((pidx >= 0).sum()) > 1000
+    launches = ks.LAUNCHES
+    t, idx = ks.sphere_winner(scene, sph, *rays)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES == launches + 1
+    assert torch.equal(idx, pidx)
+    assert torch.equal(t, pt)

@@ -500,8 +500,9 @@ def test_triangle_free_scenes_still_raise(make):
 
 
 def test_gates_on_the_teapot():
-    """The teapot is covered; a mesh-bounded medium is not; the train step
-    refuses it (triangles, media and specular materials alike)."""
+    """The teapot is covered; a mesh-bounded medium is not; the backward
+    kernel refuses it (triangles, media and specular materials alike), and
+    the train step gives it the hybrid backward instead."""
     scene, cam = _teapot()[3:5]
     require_covered(scene, SceneFlags.of(scene))
     mesh_med = dataclasses.replace(
@@ -509,5 +510,9 @@ def test_gates_on_the_teapot():
     with pytest.raises(NotImplementedError, match="A7"):
         require_covered(mesh_med, SceneFlags.of(mesh_med))
     with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(scene, cam, {"tex_color": scene.tex_color}, width=4,
-                        height=4, spp=1, max_depth=2, device="cpu")
+        kbb.require_bwd_kernel(scene, SceneFlags.of(scene))
+    assert not kbb.bwd_kernel_available(scene, SceneFlags.of(scene))
+    step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
+                           width=4, height=4, spp=1, max_depth=2,
+                           device="cpu")
+    assert not step.flags.moving

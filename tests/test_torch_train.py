@@ -169,13 +169,23 @@ def test_inverse_recovers_albedo():
 
 
 def test_splice_refuses_geometry_and_the_atlas():
+    """The image atlas is still refused (A13), and so are the sharded step
+    (A11) and the scan engine (A6); geometric fields are accepted: splice
+    sets them, the train step optimises them, and a sphere-centre
+    parameter makes the spheres moving for the forward kernel."""
     scene, cam = _lit_room()
-    for key in ("sph_center0", "rect_k", "atlas"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            splice(scene, {key: getattr(scene, key)})
-        with pytest.raises(NotImplementedError, match="A13"):
-            make_train_step(scene, cam, {key: getattr(scene, key)},
-                            device="cpu", **LOSS)
+    with pytest.raises(NotImplementedError, match="A13"):
+        splice(scene, {"atlas": scene.atlas})
+    with pytest.raises(NotImplementedError, match="A13"):
+        make_train_step(scene, cam, {"atlas": scene.atlas}, device="cpu",
+                        **LOSS)
+    for key in ("sph_center0", "sph_radius", "rect_k"):
+        moved = getattr(scene, key) + 0.5
+        assert torch.equal(getattr(splice(scene, {key: moved}), key), moved)
+        step = make_train_step(scene, cam, {key: getattr(scene, key)},
+                               device="cpu", **LOSS)
+        assert step.params[key].requires_grad
+        assert step.flags.moving == (key == "sph_center0")
     with pytest.raises(NotImplementedError, match="A11"):
         make_train_step(scene, cam, {"tex_color": scene.tex_color},
                         mesh=object(), device="cpu", **LOSS)

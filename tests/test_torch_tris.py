@@ -42,6 +42,7 @@ from srt_tpu_torch import (RenderConfig, convert, get_scene, make_train_step,
 from srt_tpu_torch.accel.bvh import build_bvh
 from srt_tpu_torch.diff.inverse import render_pixels
 from srt_tpu_torch.kernels import bounce as kb
+from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import intersect as ki
 from srt_tpu_torch.render.intersect import intersect_tris, tri_hit
 from srt_tpu_torch.scene.build import SceneBuilder
@@ -334,15 +335,26 @@ def test_plain_render_equals_default_on_cpu():
 
 
 def test_train_step_refuses_triangles():
-    """Kernel B5 has no external-hit mode: a triangle scene's gradient is
-    refused, not silently wrong."""
+    """Kernel B5 has no external-hit mode: it refuses a triangle scene
+    rather than differentiate it wrong, and the train step gives the scene
+    the hybrid backward instead (``kernels.bounce_vjp``), whose gradient
+    reaches the colours."""
     scene, cam = _cornell()[2:]
+    flags = SceneFlags.of(scene)
+    assert not kbb.bwd_kernel_available(scene, flags)
     with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(scene, cam, {"tex_color": scene.tex_color}, width=4,
-                        height=4, spp=1, max_depth=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        render_pixels(scene, cam, torch.arange(4), width=2, height=2, spp=1,
-                      max_depth=2, seed=0)
+        kbb.require_bwd_kernel(scene, flags)
+    step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
+                           width=4, height=4, spp=1, max_depth=2,
+                           device="cpu")
+    assert np.isfinite(float(step(torch.full((4, 4, 3), 0.3), 0)))
+    assert float(step.params["tex_color"].grad.abs().sum()) > 0.0
+    tc = scene.tex_color.clone().requires_grad_()
+    img = render_pixels(dataclasses.replace(scene, tex_color=tc), cam,
+                        torch.arange(4), width=2, height=2, spp=1,
+                        max_depth=2, seed=0)
+    img.sum().backward()
+    assert torch.isfinite(tc.grad).all()
 
 
 def _with_material(mtype: int) -> TorchScene:
