@@ -9,7 +9,11 @@ of which raises on failure:
    ``sm_90a``, all at once, and links one library;
 3. the regeneration kernel (B1) against its plain PyTorch version on the
    card: one step of a mid-flight 65,536-lane ball_scenes wavefront lane
-   by lane, a 64x64, 4 spp, depth 8 image, and the time per bounce of each;
+   by lane, a 64x64, 4 spp, depth 8 image, and the time per bounce of each
+   (the kernel's as bare launches on fixed arguments, and through its
+   wrapper); ``ptxas``' registers of B1's four instantiations, lean and
+   rich, static and moving, and of B2's eight (with and without the
+   external hit);
 4. the render path: ``render_regen`` on ball_scenes at 512x512, 16 spp,
    depth 50, a 65,536-lane wavefront and seed 0, through B1, once to warm
    up and five times timed;
@@ -77,10 +81,28 @@ of which raises on failure:
    phase 8) on a 16,384-lane cornell_boxes train state, with their times
    at that shape; then one step to warm up and one counted, every bounce
    one B3 and one B2 launch and no B6 or B5; the loss and the gradient
-   finite.
+   finite;
+17. B1's rich instantiation against its plain version on one mid-flight
+   65,536-lane step of ``random_scene``, ``two_perlin_spheres``,
+   ``earth_sphere`` and a room with a sphere and a box medium
+   (``tests/_torch_scenes.py:lit_room_media``), and its lean one on
+   ``final1``'s 1,000 spheres (48 KB of shared memory), under the
+   per-bounce contract, with the families each step shaded, the time per
+   launch and the bound;
+18. B2's external-hit mode with marble and image albedo against its plain
+   version on a mid-flight 65,536-lane ``final`` wavefront (its 4,800
+   triangles walked by B3); then the new path: ``render_regen`` on
+   ``random_scene`` at 512x512, 16 spp, depth 50, a 65,536-lane wavefront
+   and seed 0 through B1's rich instantiation, once to warm up and three
+   times timed, every bounce one B1 launch, the mean and the NaN pixels.
 
 Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
+
+``python3 chip_smoke.py --compare TREE [TREE ...]`` instead
+times B1, B3, B2's external hit, the ball_scenes render and three train
+steps from each checkout TREE in turns (see ``compare``), for example the
+parent commit unpacked with ``git archive`` under ``build/``.
 """
 from __future__ import annotations
 
@@ -147,6 +169,31 @@ OPS_SPHERE_MOVING = 28
 GEOM_PARAMS = ("sph_center0", "sph_radius", "rect_k")
 CORNELL_TRAIN = dict(width=128, height=128, spp=4, max_depth=50)
 MOVE_Y = 10.0           # phase 14: each ball's centre1 - centre0 in y
+# The rich instantiation, counted the same way from bounce_core.cuh: the
+# checker (three scaled sines and their product, texture_at), one Perlin
+# octave's setup (floors, fractions, hermite weights, six permutation
+# reads, the octave's weight and the doubled point) and one of its eight
+# corners (a gradient read by xor, the dot, the trilinear weight), marble's
+# closing sine; an image lookup (sphere uv, texel, unpack); a sphere
+# light's cone sample (sphere_light_dir) and its pdf (sphere_light_pdf)
+OPS_CHECKER = 9
+OPS_OCTAVE = 36
+OPS_CORNER = 16
+OPS_MARBLE = 7 * (OPS_OCTAVE + 8 * OPS_CORNER) + 8
+OPS_IMAGE = 20
+OPS_SPHERE_SAMPLE = 75
+OPS_SPHERE_PDF = 35
+# phase 17's scenes and the image row the work cursor starts at (rows
+# their objects fill)
+RICH_CASES = (("random_scene", 216), ("final1", 220),
+              ("two_perlin_spheres", 240), ("earth_sphere", 200),
+              ("lit_room_media", 296))
+FINAL_ROW = 280         # phase 18: final's marble and earth spheres
+# random_scene's mean at 512x512x16x50: the plain version on the CPU at
+# 64x64, 4 spp, depth 50 gave 0.409
+RICH_MEAN = (0.3, 0.55)
+# --compare: kernel timing rounds a run, 50 (B1) or 200 launches each
+COMPARE_ROUNDS = 5
 
 
 def log(*a):
@@ -185,6 +232,96 @@ def time_bounces(step, inp, st0, spec, reps: int) -> float:
     return time_ms(lambda: step(inp, st, spec), reps)
 
 
+def bare_launch_ms(entry: str, size: int, call, reps: int) -> float:
+    """Milliseconds per launch of the library's ``entry`` over ``reps``
+    bare launches: the ``size``-byte arguments of two calls of its
+    wrapper ``call`` are captured and replayed in turn (B1's work-queue
+    buffers alternate as its wrapper swaps them), so the wrapper's host
+    work stays out of the timed loop. What ``call`` returns is held, so
+    its outputs outlive the capture. Any version of the package can be
+    timed this way (``--compare``)."""
+    import ctypes
+
+    import torch
+
+    from srt_tpu_torch.kernels import build
+
+    lib = build.load_library()
+    orig = getattr(lib, entry)
+    blobs = []
+
+    def capture(addr, stream):
+        blobs.append(ctypes.create_string_buffer(ctypes.string_at(addr, size),
+                                                 size))
+        return orig(addr, stream)
+
+    setattr(lib, entry, capture)
+    try:
+        held = [call(), call()]
+    finally:
+        setattr(lib, entry, orig)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def two():
+        for b in blobs:
+            if orig(ctypes.addressof(b), stream):
+                raise RuntimeError(f"{entry} launch failed")
+    ms = time_ms(two, max(reps // 2, 1)) / 2
+    del held
+    return ms
+
+
+def kernel_registers(report: str, kernel: str) -> dict:
+    """``ptxas``' registers of each instantiation of the CUDA kernel
+    ``kernel``, keyed by its template's bool arguments as digits (B1's
+    ``kMoving kRich``, B2's ``kExt kMoving kRich``), from the build's
+    ``-Xptxas -v`` report."""
+    import re
+    mangled = f"{len(kernel)}{kernel}"
+    out, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and mangled in entry:
+            key = "".join(re.findall(r"Lb(\d)E", entry)) or "-"
+            out[key] = int(m.group(1))
+            entry = None
+    return out
+
+
+def b1_wavefront(inp, spec, dev, cursor: int) -> dict:
+    """A mid-flight ``LANES``-lane B1 wavefront: the work cursor at
+    ``cursor``, three plain bounces, then a seeded half of the lanes
+    marked finished."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+
+    mid = kb.new_wavefront(LANES, dev)
+    mid["cursor"].fill_(cursor)
+    for _ in range(3):
+        kb.regen_bounce_reference(inp, mid, spec)
+    half = torch.from_numpy(np.random.default_rng(0).random(LANES) < 0.5)
+    mid["alive"][half.to(dev)] = 0
+    mid["dead"].copy_(kb.count_dead(mid["alive"]))
+    return mid
+
+
+def b1_launch_ms(inp, st0, spec, reps: int) -> float:
+    """Milliseconds per bare B1 launch from a copy of ``st0``."""
+    import ctypes
+
+    from srt_tpu_torch.kernels import bounce as kb
+
+    st = clone(st0)
+    return bare_launch_ms("srt_regen_bounce", ctypes.sizeof(kb._Args),
+                          lambda: kb.regen_bounce(inp, st, spec), reps)
+
+
 def phase_regen_kernel(scene, cam, dev) -> dict:
     """Phase 3: kernel B1 against its plain version."""
     import numpy as np
@@ -201,15 +338,7 @@ def phase_regen_kernel(scene, cam, dev) -> dict:
                         rr_start=1 << 30, pdf_floor=1e-9, seed=0)
     jitter = torch.from_numpy(sobol_points(16, 2).astype(np.float32))
     inp = kb.RegenInputs(scene, flags, cam, jitter)
-    # mid-flight: the work cursor at mid-image (the spheres), three plain
-    # bounces, then a random half of the lanes marked finished
-    mid = kb.new_wavefront(LANES, dev)
-    mid["cursor"].fill_(spec.total_work // 2)
-    for _ in range(3):
-        kb.regen_bounce_reference(inp, mid, spec)
-    half = torch.from_numpy(np.random.default_rng(0).random(LANES) < 0.5)
-    mid["alive"][half.to(dev)] = 0
-    mid["dead"].copy_(kb.count_dead(mid["alive"]))
+    mid = b1_wavefront(inp, spec, dev, spec.total_work // 2)  # the spheres
     dead0 = float((mid["alive"] == 0).float().mean())
     st_k, st_p = clone(mid), clone(mid)
     kb.regen_bounce(inp, st_k, spec)
@@ -228,12 +357,19 @@ def phase_regen_kernel(scene, cam, dev) -> dict:
         f"exact, fin mismatch {fin_mismatch}, {json.dumps(m)}")
 
     plain_ms = [time_bounces(kb.regen_bounce_reference, inp, mid, spec, 10)]
-    kern_ms = [time_bounces(kb.regen_bounce, inp, mid, spec, 50)
-               for _ in range(2)]
+    kern_ms = [b1_launch_ms(inp, mid, spec, 50) for _ in range(2)]
+    wrapped_ms = [time_bounces(kb.regen_bounce, inp, mid, spec, 50)
+                  for _ in range(2)]
     plain_ms.append(time_bounces(kb.regen_bounce_reference, inp, mid,
                                  spec, 10))
-    log(f"[bounce] ms per bounce at {LANES} lanes: kernel {kern_ms}, "
-        f"plain {plain_ms}")
+    log(f"[bounce] ms per bounce at {LANES} lanes: kernel {kern_ms} (bare "
+        f"launches; {wrapped_ms} through regen_bounce), plain {plain_ms}")
+    from srt_tpu_torch.kernels import build
+    report = build.ptxas_report()
+    log(f"[bounce] ptxas registers of B1 by kMoving kRich "
+        f"{json.dumps(kernel_registers(report, 'regen_bounce_kernel'))}, of "
+        f"B2 by kExt kMoving kRich "
+        f"{json.dumps(kernel_registers(report, 'bounce_kernel'))}")
 
     small = RenderConfig(width=64, height=64, spp=4, max_depth=8,
                          wavefront=LANES)
@@ -408,7 +544,7 @@ def phase_train_kernels(scene, cam, dev) -> list:
     # wrapper's checks and allocations stay out of the timed loop
     from srt_tpu_torch.kernels.build import launch
     reps_k, reps_p = 200, 5
-    fargs, _ = kb.fwd_args(scene, tables, st, spec)
+    fargs, _ = kb.fwd_args(scene, flags, tables, st, spec)
     bargs, _ = kbb.bwd_args(scene, tables, st, ct, spec)
     fwd_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), reps_k)
               for _ in range(2)]
@@ -438,36 +574,55 @@ def phase_train_kernels(scene, cam, dev) -> list:
          "bound_by": bwd_bound[1], **common}]
 
 
+def train_walls(scene, cam, params: dict, size: dict, dev, steps: int,
+                reset=None) -> tuple:
+    """``make_train_step`` on ``scene`` at ``size`` (width, spp, depth)
+    with phase 6's engine, optimiser and target: one step (seed 0) to warm
+    up, then ``reset()`` when given, then ``steps`` timed steps with seeds
+    1, 2, ... Returns the step, the warm-up seconds, the losses (the
+    warm-up's first) and the step walls in seconds."""
+    import torch
+
+    from srt_tpu_torch import make_train_step
+
+    w = size["width"]
+    step = make_train_step(scene, cam, params, width=w, height=w,
+                           spp=size["spp"], max_depth=size["max_depth"],
+                           lr=TRAIN_LR, engine_kw=TRAIN_ENGINE, device=dev)
+    target = torch.full((w, w, 3), TRAIN_TARGET, device=dev)
+    t0 = time.time()
+    losses = [float(step(target, 0))]
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    if reset is not None:
+        reset()
+    walls = []
+    for seed in range(1, steps + 1):
+        t0 = time.time()
+        loss = step(target, seed)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        losses.append(float(loss))
+    return step, warmup_s, losses, walls
+
+
 def phase_train(scene, cam, dev) -> tuple[int, int]:
     """Phase 6: the train path; returns the B2 and B5 launches of the
     timed steps."""
     import numpy as np
-    import torch
 
-    from srt_tpu_torch import make_train_step
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import bounce_bwd as kbb
     from srt_tpu_torch.render.regen_scan import steps_for
 
     w, spp = TRAIN["width"], TRAIN["spp"]
     rays = w * w * spp
-    step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
-                           width=w, height=w, spp=spp,
-                           max_depth=TRAIN["max_depth"], lr=TRAIN_LR,
-                           engine_kw=TRAIN_ENGINE, device=dev)
-    target = torch.full((w, w, 3), TRAIN_TARGET, device=dev)
-    t0 = time.time()
-    loss0 = float(step(target, 0))
-    torch.cuda.synchronize()
-    warmup_s = time.time() - t0
-    kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = 0
-    walls, losses = [], []
-    for seed in range(1, TRAIN_STEPS + 1):
-        t0 = time.time()
-        loss = step(target, seed)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        losses.append(float(loss))
+
+    def reset():
+        kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = 0
+    step, warmup_s, (loss0, *losses), walls = train_walls(
+        scene, cam, {"tex_color": scene.tex_color}, TRAIN, dev, TRAIN_STEPS,
+        reset)
     fwd, bwd = kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD
     n_steps = steps_for(rays, TRAIN_ENGINE["wavefront"],
                         TRAIN_ENGINE["depth_budget"], TRAIN["max_depth"],
@@ -667,19 +822,73 @@ def check_ext_bounce(label: str, scene, flags, tables, st, step,
     n = st["o"].shape[0]
     n_live = int(st["alive"].sum())
     n_tri = int((st["alive"] & (tri[0] < 3e38)).sum())
-    fargs, _ = kb.fwd_args(scene, tables, st, step, tri)
+    fargs, _ = kb.fwd_args(scene, flags, tables, st, step, tri)
     kern_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), 200)
                for _ in range(2)]
     plain_ms = time_ms(lambda: kb.bounce_step_ref(
         scene, flags, tables["mat"], st, step, tri), 5)
-    ms_bound, by = bound(n * (73 + 53), n_live * (
-        scene.n_rects * OPS_RECT + OPS_SHADE) + n_tri * OPS_TRI_HIT)
+    c = census(scene, st["o"], st["d"], st["time"], st["salt"], st["depth"],
+               st["alive"], tri)
+    ms_bound, by = bound(n * (73 + 53), shade_ops(scene, flags, c)
+                         + n_tri * OPS_TRI_HIT)
     log(f"[bounce-ext-{label}] {n} lanes, {n_live} live, {n_tri} on a "
-        f"triangle: depth exact, {json.dumps(m)}; ms per launch {kern_ms}, "
-        f"plain {plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
+        f"triangle: depth exact, {json.dumps(m)}; shaded {json.dumps(c)}; "
+        f"ms per launch {kern_ms}, plain {plain_ms:.3f}, bound "
+        f"{ms_bound:.6f} ({by})")
     return {"max_abs_err": max(m[k]["max"] for k in keys[1:]),
             "ms": min(kern_ms), "plain_ms": plain_ms, "bound_ms": ms_bound,
-            "bound_by": by}
+            "bound_by": by, "census": c}
+
+
+def census(scene, o, d, time_, salt, depth, alive, tri=None) -> dict:
+    """What one bounce of these rays shades, from the plain hit after the
+    media sweep: the lanes by family, and the lanes whose light sample
+    picked a sphere light (the bounce's own uniform of dimension 13)."""
+    import torch
+
+    from srt_tpu_torch.core import rng
+    from srt_tpu_torch.materials.materials import is_specular
+    from srt_tpu_torch.render.integrator import apply_media
+    from srt_tpu_torch.render.intersect import intersect_scene
+    from srt_tpu_torch.scene.ir import LightKind, MaterialType, TextureType
+
+    word = rng.hash_combine(rng.as_word(salt), rng.as_word(depth))
+    hit = intersect_scene(scene, o, d, time=time_, tri=tri)
+    if scene.n_media:
+        hit = apply_media(scene, o, d, word, hit)
+    on = alive & hit.hit
+    mt = scene.mat_type[hit.mat]
+    tt = scene.tex_type[scene.mat_tex[hit.mat]]
+    light = mt == int(MaterialType.DIFFUSE_LIGHT)
+    spec = on & is_specular(scene, hit.mat)
+    diffuse = on & ~spec & ~light
+    n_lights = scene.n_lights
+    sph_pick = torch.zeros_like(on)
+    if n_lights:
+        pick = torch.clamp((rng.uniform(word, 13) * n_lights).long(),
+                           max=n_lights - 1)
+        sph_pick = diffuse & (scene.light_kind.long()[pick]
+                              == int(LightKind.SPHERE))
+    medium = on & torch.isin(hit.mat, scene.med_mat.long())
+    return {k: int(v.sum()) for k, v in dict(
+        live=alive, specular=spec, diffuse=diffuse, emitter=on & light,
+        medium=medium, checker=on & (tt == int(TextureType.CHECKER)),
+        marble=on & (tt == int(TextureType.NOISE)),
+        image=on & (tt == int(TextureType.IMAGE)),
+        sphere_light_sample=sph_pick).items()}
+
+
+def shade_ops(scene, flags, c: dict) -> int:
+    """Operations of one bounce of the lanes ``census`` counted: the
+    sweep and the media on every live lane, the shading by family."""
+    n_sph_lights = sum(1 for k in flags.light_kinds if k == 1)
+    sphere = OPS_SPHERE_MOVING if flags.moving else OPS_SPHERE
+    return (c["live"] * (scene.n_spheres * sphere + scene.n_rects * OPS_RECT
+                         + scene.n_media * OPS_MEDIUM)
+            + c["diffuse"] * (OPS_SHADE + n_sph_lights * OPS_SPHERE_PDF)
+            + c["sphere_light_sample"] * OPS_SPHERE_SAMPLE
+            + c["specular"] * OPS_SPECULAR + c["checker"] * OPS_CHECKER
+            + c["marble"] * OPS_MARBLE + c["image"] * OPS_IMAGE)
 
 
 def phase_tri_render(scene, cam) -> tuple[int, int]:
@@ -872,7 +1081,7 @@ def phase_teapot_kernels(scene, cam, dev) -> tuple[dict, dict]:
     if not n_spec or not int(medium.sum()):
         raise AssertionError(f"teapot wavefront: {n_spec} specular lanes, "
                              f"{int(medium.sum())} medium events")
-    fargs, _ = kb.fwd_args(scene, tables, st, step, tri)
+    fargs, _ = kb.fwd_args(scene, flags, tables, st, step, tri)
     kern_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), 200)
                for _ in range(2)]
     plain_ms = time_ms(lambda: kb.bounce_step_ref(
@@ -1113,7 +1322,6 @@ def phase_geom_train(scene, cam, dev) -> tuple[int, int]:
     import numpy as np
     import torch
 
-    from srt_tpu_torch import make_train_step
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import bounce_bwd as kbb
     from srt_tpu_torch.kernels import bounce_vjp as kv
@@ -1168,25 +1376,13 @@ def phase_geom_train(scene, cam, dev) -> tuple[int, int]:
 
     w, spp = TRAIN["width"], TRAIN["spp"]
     rays = w * w * spp
-    step = make_train_step(scene, cam, {k: getattr(scene, k)
-                                        for k in GEOM_PARAMS},
-                           width=w, height=w, spp=spp,
-                           max_depth=TRAIN["max_depth"], lr=TRAIN_LR,
-                           engine_kw=TRAIN_ENGINE, device=dev)
-    target = torch.full((w, w, 3), TRAIN_TARGET, device=dev)
-    t0 = time.time()
-    loss0 = float(step(target, 0))
-    torch.cuda.synchronize()
-    warmup_s = time.time() - t0
-    torch.cuda.reset_peak_memory_stats()
-    kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = ks.LAUNCHES = 0
-    walls, losses = [], []
-    for seed in range(1, TRAIN_STEPS + 1):
-        t0 = time.time()
-        loss = step(target, seed)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        losses.append(float(loss))
+
+    def reset():
+        torch.cuda.reset_peak_memory_stats()
+        kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = ks.LAUNCHES = 0
+    step, warmup_s, (loss0, *losses), walls = train_walls(
+        scene, cam, {k: getattr(scene, k) for k in GEOM_PARAMS}, TRAIN, dev,
+        TRAIN_STEPS, reset)
     fwd, b6, b5 = kb.LAUNCHES_FWD, ks.LAUNCHES, kbb.LAUNCHES_BWD
     peak = torch.cuda.max_memory_allocated()
     n_steps = steps_for(rays, TRAIN_ENGINE["wavefront"],
@@ -1223,9 +1419,8 @@ def phase_cornell_train(dev) -> tuple[int, int, dict, dict]:
     step; returns the B3 and B2 launches of the counted step and the two
     kernels' checks at the train wavefront's shape."""
     import numpy as np
-    import torch
 
-    from srt_tpu_torch import get_scene, make_train_step
+    from srt_tpu_torch import get_scene
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import bounce_bwd as kbb
     from srt_tpu_torch.kernels import intersect as ki
@@ -1248,18 +1443,13 @@ def phase_cornell_train(dev) -> tuple[int, int, dict, dict]:
                                                       st["d"]))
 
     w, spp = CORNELL_TRAIN["width"], CORNELL_TRAIN["spp"]
-    step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
-                           width=w, height=w, spp=spp,
-                           max_depth=CORNELL_TRAIN["max_depth"], lr=TRAIN_LR,
-                           engine_kw=TRAIN_ENGINE, device=dev)
-    target = torch.full((w, w, 3), TRAIN_TARGET, device=dev)
-    loss0 = float(step(target, 0))
-    ki.LAUNCHES = ki.LAUNCHES_BIG = kb.LAUNCHES_FWD = 0
-    ks.LAUNCHES = kbb.LAUNCHES_BWD = 0
-    t0 = time.time()
-    loss = float(step(target, 1))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+
+    def reset():
+        ki.LAUNCHES = ki.LAUNCHES_BIG = kb.LAUNCHES_FWD = 0
+        ks.LAUNCHES = kbb.LAUNCHES_BWD = 0
+    step, _, (loss0, loss), (wall,) = train_walls(
+        scene, cam, {"tex_color": scene.tex_color}, CORNELL_TRAIN, dev, 1,
+        reset)
     b3, b2, b6, b5, b4 = (ki.LAUNCHES, kb.LAUNCHES_FWD, ks.LAUNCHES,
                           kbb.LAUNCHES_BWD, ki.LAUNCHES_BIG)
     n_steps = steps_for(w * w * spp, TRAIN_ENGINE["wavefront"],
@@ -1283,15 +1473,338 @@ def phase_cornell_train(dev) -> tuple[int, int, dict, dict]:
     return b3, b2, b3_train, b2_train
 
 
+def media_room(dev):
+    """Phase 17's media scene: ``tests/_torch_scenes.py:lit_room_media``
+    (a sphere and a box medium, metal, glass and image-albedo spheres, two
+    rect lights) built with the port's builder, and its camera."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from _torch_scenes import LIT_ROOM_CAMERA, lit_room_media
+
+    from srt_tpu_torch.render.camera import Camera
+    from srt_tpu_torch.scene.build import SceneBuilder
+
+    return (lit_room_media(SceneBuilder()).build(dev),
+            Camera.look_at(**LIT_ROOM_CAMERA, device=dev))
+
+
+# the families phase 17's step must shade on each scene
+RICH_EXPECT = {"random_scene": ("checker", "specular"),
+               "final1": ("diffuse",),
+               "two_perlin_spheres": ("marble", "sphere_light_sample"),
+               "earth_sphere": ("image", "sphere_light_sample"),
+               "lit_room_media": ("medium", "specular", "image")}
+
+
+def phase_rich_kernel(dev) -> dict:
+    """Phase 17: B1's rich instantiation against its plain version on a
+    mid-flight 65,536-lane step of each of ``RICH_CASES``; returns the
+    largest error and the cases' times and bounds."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import get_scene
+    from srt_tpu_torch.core.sobol import sobol_points
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.utils import contract
+
+    spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
+                        rr_start=1 << 30, pdf_floor=1e-9, seed=0)
+    jitter = torch.from_numpy(sobol_points(16, 2).astype(np.float32))
+    out = {"max_abs_err": 0.0, "cases": {}}
+    for name, row in RICH_CASES:
+        if name == "lit_room_media":
+            scene, cam = media_room(dev)
+        else:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                scene, cam, _ = get_scene(name, device=dev)
+        flags = SceneFlags.of(scene)
+        inp = kb.RegenInputs(scene, flags, cam, jitter)
+        # final1 (Lambertian spheres, a rect light) is lean: it is here for
+        # its 1,000 spheres, 48 KB of records in shared memory
+        if inp.rich != (name != "final1"):
+            raise AssertionError(f"{name} takes B1's "
+                                 f"{'rich' if inp.rich else 'lean'} "
+                                 "instantiation")
+        mid = b1_wavefront(inp, spec, dev, row * spec.width * spec.spp)
+        rows = {k: mid[k].T for k in ("o", "d", "beta", "radiance")}
+        state, take, _ = kb.regenerate(inp, spec, dict(
+            mid, **rows, alive=mid["alive"] != 0), mid["cursor"])
+        c = census(scene, state["o"], state["d"], state["time"],
+                   state["salt"], state["depth"], state["alive"])
+        st_k, st_p = clone(mid), clone(mid)
+        launches = kb.LAUNCHES
+        kb.regen_bounce(inp, st_k, spec)
+        kb.regen_bounce_reference(inp, st_p, spec)
+        torch.cuda.synchronize()
+        if kb.LAUNCHES != launches + 1:
+            raise AssertionError(f"B1 {name}: the kernel did not launch")
+        for k in ("salt", "pix", "depth", "cursor"):
+            if not torch.equal(st_k[k], st_p[k]):
+                bad = int((st_k[k] != st_p[k]).sum())
+                raise AssertionError(f"B1 {name}: {k} differs on {bad} lanes")
+        fin_mismatch = float((st_k["fin"] != st_p["fin"]).float().mean())
+        if fin_mismatch > contract.ALIVE_MISMATCH:
+            raise AssertionError(f"B1 {name}: fin mismatch {fin_mismatch}")
+        m = contract.check_bounce(contract.wavefront_arrays(st_p),
+                                  contract.wavefront_arrays(st_k))
+        missing = [f for f in RICH_EXPECT[name] if not c[f]]
+        if missing:
+            raise AssertionError(f"B1 {name}: the step shades no {missing}: "
+                                 f"{c}")
+        kern_ms = [b1_launch_ms(inp, mid, spec, 50) for _ in range(2)]
+        plain_ms = time_bounces(kb.regen_bounce_reference, inp, mid, spec, 3)
+        n_new = int(take.sum())
+        ms_bound, by = bound(LANES * (68 + 12) + c["live"] * 48 + n_new * 12,
+                             shade_ops(scene, flags, c))
+        err = max(m[k]["max"] for k in ("d", "beta", "radiance"))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["cases"][name] = dict(ms=min(kern_ms), plain_ms=plain_ms,
+                                  bound_ms=ms_bound, bound_by=by)
+        log(f"[rich-{name}] {'rich' if inp.rich else 'lean'} B1, {LANES} "
+            f"lanes, {scene.n_spheres} spheres, "
+            f"{scene.n_rects} rects, {scene.n_media} media, lights "
+            f"{list(flags.light_kinds)}: ints exact, fin mismatch "
+            f"{fin_mismatch}, {json.dumps(m)}; shaded {json.dumps(c)} "
+            f"({n_new} regenerated); ms per launch {kern_ms}, plain "
+            f"{plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
+    return out
+
+
+def phase_final_ext(dev) -> dict:
+    """Phase 18, first part: B2's external-hit mode with marble and image
+    albedo on a mid-flight ``final`` wavefront against its plain version,
+    the triangles walked by B3."""
+    import warnings
+
+    from srt_tpu_torch import get_scene
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scene, cam, _ = get_scene("final", device=dev)
+    st, inp, step, _ = tri_wavefront(scene, cam, dev, row=FINAL_ROW)
+    walk = ki.pack_walk(scene)
+    if walk["big"]:
+        raise AssertionError("final's triangles take B4, not B3")
+    tri = ki.closest_tris(scene, walk, st["o"], st["d"])
+    out = check_ext_bounce("final", scene, SceneFlags.of(scene), inp.tables,
+                           st, step, tri)
+    for k in ("marble", "image", "medium", "specular"):
+        if not out["census"][k]:
+            raise AssertionError(f"B2 final: no {k} lane: {out['census']}")
+    return out
+
+
+def phase_rich_render(dev) -> int:
+    """Phase 18, second part: the new path, random_scene through B1's
+    rich instantiation; returns its launches in the timed renders."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import RenderConfig, get_scene, render_regen
+    from srt_tpu_torch.kernels import bounce as kb
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scene, cam, _ = get_scene("random_scene", device=dev)
+    cfg = RenderConfig(**MAIN)
+    t0 = time.time()
+    render_regen(scene, cam, cfg)
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    kb.LAUNCHES = 0
+    runs = []
+    for _ in range(TRI_MAIN_REPS):
+        img, met = render_regen(scene, cam, cfg, metrics=True)
+        runs.append((img.cpu().numpy(), met))
+    launches = kb.LAUNCHES
+    bounces = sum(m.bounces for _, m in runs)
+    if launches != bounces or launches == 0:
+        raise AssertionError(f"random_scene: {launches} B1 launches for "
+                             f"{bounces} bounces")
+    for img, met in runs:
+        nan_pixels = int(np.isnan(img).sum())
+        mean = float(img.mean())
+        if (not np.isfinite(img).all() or nan_pixels
+                or not RICH_MEAN[0] < mean < RICH_MEAN[1]):
+            raise AssertionError(f"random_scene image: mean {mean}, nan "
+                                 f"{nan_pixels}")
+    rates = sorted(m.primary_rays_per_sec for _, m in runs)
+    log(f"[rich-main] random_scene {MAIN['width']}x{MAIN['height']}x"
+        f"{MAIN['spp']} depth {MAIN['max_depth']}, {TRI_MAIN_REPS} renders: "
+        f"median {rates[len(rates) // 2]:.1f} primary rays/s (all {rates}), "
+        f"first render {warmup_s:.3f}s, mean {mean:.5f}, nan_pixels "
+        f"{nan_pixels}, {launches} B1 launches for {bounces} bounces, "
+        f"{json.dumps(met.to_dict())}")
+    return launches
+
+
+def cornell_times(dev) -> dict:
+    """``--measure`` on cornell_boxes: B3 and B2's external hit as bare
+    launches on phase 7's render wavefront, ``COMPARE_ROUNDS`` times, and two
+    steps of phase 16's train cell."""
+    import ctypes
+
+    from srt_tpu_torch import get_scene
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    scene, cam, _ = get_scene("cornell_boxes", device=dev)
+    flags = SceneFlags.of(scene)
+    st, inp, step, _ = tri_wavefront(scene, cam, dev)
+    packed = ki.pack_tables(scene)
+    tri = ki.intersect_tris(scene, packed, st["o"], st["d"])
+    out = {"b3_ms": [], "b2_ext_ms": []}
+    for _ in range(COMPARE_ROUNDS):
+        out["b3_ms"].append(bare_launch_ms(
+            "srt_intersect_tris", ctypes.sizeof(ki._Args),
+            lambda: ki.intersect_tris(scene, packed, st["o"], st["d"]), 200))
+        out["b2_ext_ms"].append(bare_launch_ms(
+            "srt_bounce", ctypes.sizeof(kb._BounceArgs),
+            lambda: kb.bounce_fwd(scene, flags, inp.tables, st, step, tri),
+            200))
+    out["train_s"] = train_walls(scene, cam, {"tex_color": scene.tex_color},
+                                 CORNELL_TRAIN, dev, 2)[3]
+    return out
+
+
+def measure_tree() -> dict:
+    """``--measure``: what ``--compare`` times in one checkout, with the
+    package found first on ``sys.path``: its build, ``ptxas``' registers
+    of B1 and B2, B1 on phase 3's ball_scenes wavefront as bare launches
+    and through its wrapper (``COMPARE_ROUNDS`` times, 50 launches each), the
+    ball_scenes train step with ``{"tex_color"}`` (phase 6, three steps)
+    and with the geometric parameters (phase 15, two steps), and
+    ``cornell_times``. A measurement the checkout's package cannot make
+    holds its error instead."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import get_scene
+    from srt_tpu_torch.core.sobol import sobol_points
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import build
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    build.load_library()
+    out = {"build_s": time.time() - t0}
+    report = build.ptxas_report()
+    out["registers"] = {k: kernel_registers(report, k) for k in
+                        ("regen_bounce_kernel", "bounce_kernel")}
+    scene, cam, _ = get_scene("ball_scenes", device=dev)
+    spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
+                        rr_start=1 << 30, pdf_floor=1e-9, seed=0)
+    inp = kb.RegenInputs(scene, SceneFlags.of(scene), cam, torch.from_numpy(
+        sobol_points(16, 2).astype(np.float32)))
+    mid = b1_wavefront(inp, spec, dev, spec.total_work // 2)
+    out["b1_bare_ms"] = [b1_launch_ms(inp, mid, spec, 50)
+                         for _ in range(COMPARE_ROUNDS)]
+    out["b1_wrapped_ms"] = [time_bounces(kb.regen_bounce, inp, mid, spec, 50)
+                            for _ in range(COMPARE_ROUNDS)]
+    for key, fn in (
+            ("train_s", lambda: train_walls(
+                scene, cam, {"tex_color": scene.tex_color}, TRAIN, dev,
+                TRAIN_STEPS)[3]),
+            ("geom_train_s", lambda: train_walls(
+                scene, cam, {k: getattr(scene, k) for k in GEOM_PARAMS},
+                TRAIN, dev, 2)[3]),
+            ("cornell", lambda: cornell_times(dev))):
+        try:
+            out[key] = fn()
+        except Exception as e:      # a path this checkout does not have
+            out[key] = f"{type(e).__name__}: {e}"[:300]
+    return out
+
+
+def compare(trees: list) -> None:
+    """``--compare``: each checkout in ``trees`` in turns, in the order
+    given and then in reverse (A B C C B A), each time in fresh processes
+    that import that checkout's package and build its kernels from its own
+    sources: ``measure_tree`` with this script's timers, then
+    ``python -m srt_tpu_torch.bench`` (ball_scenes 512x512x16x50) from the
+    checkout. Prints a line per run and each checkout's extremes."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"[compare] {smi}")
+    runs = {t: [] for t in trees}
+    for tree in trees + trees[::-1]:
+        path = os.path.abspath(tree)
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--measure"],
+            cwd=path, capture_output=True, text=True)
+        lines = [ln for ln in child.stdout.splitlines()
+                 if ln.startswith("compare ")]
+        if child.returncode or not lines:
+            raise SystemExit(f"--measure in {tree} failed:\n{child.stdout}\n"
+                             f"{child.stderr[-4000:]}")
+        res = json.loads(lines[-1][len("compare "):])
+        bench = subprocess.run([sys.executable, "-m", "srt_tpu_torch.bench",
+                                "--min-seconds", "3"], cwd=path,
+                               capture_output=True, text=True)
+        if bench.returncode:
+            raise SystemExit(f"bench in {tree} failed:\n"
+                             f"{bench.stderr[-4000:]}")
+        res["bench_rays_per_s"] = json.loads(
+            bench.stdout.strip().splitlines()[-1])["value"]
+        log(f"[compare] {tree} {json.dumps(res)}")
+        runs[tree].append(res)
+
+    def extremes(rs, *keys):
+        """The least and the largest value under ``keys`` in the runs
+        ``rs``; null where no run measured it."""
+        vals = []
+        for r in rs:
+            for k in keys:
+                r = r.get(k) if isinstance(r, dict) else None
+            vals += (r if isinstance(r, list)
+                     else [r] if isinstance(r, (int, float)) else [])
+        return [min(vals), max(vals)] if vals else None
+    log("[compare] summary " + json.dumps({t: {
+        "b1_bare_ms": extremes(rs, "b1_bare_ms"),
+        "b1_wrapped_ms": extremes(rs, "b1_wrapped_ms"),
+        "bench_rays_per_s": extremes(rs, "bench_rays_per_s"),
+        "train_s": extremes(rs, "train_s"),
+        "geom_train_s": extremes(rs, "geom_train_s"),
+        "cornell_train_s": extremes(rs, "cornell", "train_s"),
+        "cornell_b3_ms": extremes(rs, "cornell", "b3_ms"),
+        "cornell_b2_ext_ms": extremes(rs, "cornell", "b2_ext_ms"),
+        "registers": rs[0]["registers"]} for t, rs in runs.items()}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ppm", default=None,
                     help="also write the main-path image (sqrt gamma) here")
+    ap.add_argument("--compare", nargs="+", metavar="TREE",
+                    help="instead of the smoke run, time B1, B2, B3, the "
+                    "ball_scenes render and the train steps of each "
+                    "checkout in turns")
+    ap.add_argument("--measure", action="store_true",
+                    help=argparse.SUPPRESS)   # one run of --compare
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    if args.compare:
+        compare(args.compare)
+        return
+    if args.measure:    # the checkout in the working directory
+        sys.path.insert(0, os.getcwd())
+        print("compare " + json.dumps(measure_tree()), flush=True)
+        return
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
     from srt_tpu_torch import get_scene
@@ -1330,12 +1843,23 @@ def main() -> None:
     phase_moving_bounces(scene, cam, dev)                     # 14
     b2_geom, b6["launches"] = phase_geom_train(scene, cam, dev)   # 15
     b3_train, b2_cornell, b3_ct, b2_ct = phase_cornell_train(dev)   # 16
+    rich = phase_rich_kernel(dev)                             # 17
+    b2_final = phase_final_ext(dev)                           # 18
+    b1_rich = phase_rich_render(dev)
+    b1["max_abs_err"] = max(b1["max_abs_err"], rich["max_abs_err"])
+    log(f"[kernels] B1 launches: {b1['launches']} on the ball_scenes render "
+        f"path, {b1_rich} on the random_scene render path; B1 ms per launch "
+        f"{b1['ms']} (ball_scenes, lean), rich "
+        f"{json.dumps(rich['cases'])}; B2 on final {b2_final['ms']} ms "
+        f"(plain {b2_final['plain_ms']}, bound {b2_final['bound_ms']})")
+    b1["launches"] += b1_rich
     b3["launches"] += b3_train
     b3["max_abs_err"] = max(b3["max_abs_err"], b3_ct["max_abs_err"])
     b2["launches"] = (b2_train + b2_render + b2_pot_render + b2_geom
                       + b2_cornell)
     b2["max_abs_err"] = max(b2["max_abs_err"], b2_ext["max_abs_err"],
-                            b2_pot["max_abs_err"], b2_ct["max_abs_err"])
+                            b2_pot["max_abs_err"], b2_ct["max_abs_err"],
+                            b2_final["max_abs_err"])
     log(f"[kernels] B2 launches: {b2_train} on the train path, {b2_render} "
         f"in external-hit mode on the cornell render path, {b2_pot_render} "
         f"on the teapot render path, {b2_geom} on the geometry train path, "

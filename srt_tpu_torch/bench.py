@@ -6,7 +6,8 @@ default workload, ``ball_scenes`` at 512x512, 16 spp, depth 50, no
 roulette, through the regeneration engine and its CUDA kernels
 (``--scene cornell_boxes`` takes the triangle path with the single-level
 walk, ``--scene teapot_scene`` the 1,278,400-triangle teapots through the
-two-level walk).
+two-level walk; ``--scene`` takes any scene of ``scene.library``, e.g.
+``random_scene`` through B1's rich instantiation, or ``final``).
 ``vs_baseline`` divides by the reference C++ renderer's rate recorded in
 ``BASELINE_MEASURED.json`` (measured on another machine's CPU).
 

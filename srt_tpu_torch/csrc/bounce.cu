@@ -18,11 +18,12 @@
 // normalised interpolated normal, the interpolated uv, tri_mat[idx], the
 // math of srt_tpu/render/intersect.py:396-403 -- where the JAX package
 // gathers in XLA between the two launches, and lets it compete after the
-// spheres and rects. Then the media sweep (sphere and box media, after the
-// triangle hit, as srt_tpu/pallas/bounce.py:1268-1275), and specular
-// lanes (metal, dielectric, isotropic) take the specular branch. Without
-// triangles the kernel is the triangle-free instantiation, which holds
-// neither.
+// spheres and rects. With or without triangles the kernel is the rich
+// instantiation (kRich) when the scene has any of these families (rich !=
+// 0), and lean otherwise: the media sweep (sphere and box media, after the
+// triangle hit, as srt_tpu/pallas/bounce.py:1268-1275), the specular
+// branch of metal, dielectric and isotropic lanes, checker, marble and
+// image textures, sphere lights.
 //
 // State is (n, 3) rows for o, d, beta, radiance; time float; salt (int32
 // bit patterns), depth int32, alive bool. A dead lane passes through with
@@ -70,10 +71,15 @@ struct BounceArgs {
   const float* tri_uv;          // (n_tris, 6) per-vertex uv
   const int* tri_mat;           // (n_tris,)
   int n_tris;                   // 0: no external hit
-  const float* med;             // (n_med, 10) media (external-hit mode)
+  const float* med;             // (n_med, 10) media (rich)
   int n_med;
   const float* time;            // (n,) ray times (read when moving)
   int moving;                   // spheres move over the shutter interval
+  int rich;                     // the rich instantiation (kRich)
+  const int* light_kind;        // (n_light,) 0 rect, 1 sphere (rich)
+  const float* perlin_vec;      // (256, 3) (rich)
+  const int* perlin_perm;       // (3, 256) (rich)
+  int perlin;                   // stage the Perlin tables (noise)
 };
 
 }  // extern "C"
@@ -109,10 +115,11 @@ __device__ __forceinline__ ExtHit triangle_hit(const BounceArgs& a, int i) {
   return e;
 }
 
-template <bool kExt, bool kMoving>
+template <bool kExt, bool kMoving, bool kRich>
 __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   extern __shared__ float smem[];
-  const SceneView sv = scene_view(a, smem);
+  SceneView sv = scene_view(a, smem);
+  if constexpr (kRich) stage_rich(sv, smem, a);
   __syncthreads();
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= a.n) return;
@@ -127,11 +134,11 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   if (a.alive[i]) {
     if constexpr (kExt) {
       const ExtHit e = triangle_hit(a, i);
-      alive = bounce<true, kMoving>(sv, (uint32_t)a.salt[i], depth, time, L,
-                                    &e, a.med, a.n_med);
+      alive = bounce<true, kMoving, kRich>(sv, (uint32_t)a.salt[i], depth,
+                                           time, L, &e);
     } else {
-      alive = bounce<false, kMoving>(sv, (uint32_t)a.salt[i], depth, time,
-                                     L);
+      alive = bounce<false, kMoving, kRich>(sv, (uint32_t)a.salt[i], depth,
+                                            time, L);
     }
   }
   store_row3(a.o_out, i, L.o);
@@ -142,16 +149,23 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   a.alive_out[i] = alive ? 1 : 0;
 }
 
-template <bool kExt, bool kMoving>
+template <bool kExt, bool kMoving, bool kRich>
 int launch_bounce(const BounceArgs& a, cudaStream_t stream) {
-  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light);
+  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light)
+                + (kRich ? srt::rich_smem_bytes(a.perlin) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      bounce_kernel<kExt, kMoving>,
+      bounce_kernel<kExt, kMoving, kRich>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = (a.n + kBlock - 1) / kBlock;
-  bounce_kernel<kExt, kMoving><<<blocks, kBlock, smem, stream>>>(a);
+  bounce_kernel<kExt, kMoving, kRich><<<blocks, kBlock, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool kExt, bool kRich>
+int launch_moving(const BounceArgs& a, cudaStream_t stream) {
+  return a.moving ? launch_bounce<kExt, true, kRich>(a, stream)
+                  : launch_bounce<kExt, false, kRich>(a, stream);
 }
 
 }  // namespace
@@ -161,8 +175,8 @@ extern "C" int srt_bounce(const BounceArgs* args, void* stream) {
   if (a.n <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (a.n_tris > 0)
-    return a.moving ? launch_bounce<true, true>(a, s)
-                    : launch_bounce<true, false>(a, s);
-  return a.moving ? launch_bounce<false, true>(a, s)
-                  : launch_bounce<false, false>(a, s);
+    return a.rich ? launch_moving<true, true>(a, s)
+                  : launch_moving<true, false>(a, s);
+  return a.rich ? launch_moving<false, true>(a, s)
+                : launch_moving<false, false>(a, s);
 }

@@ -3,13 +3,18 @@
 // of an explicit state, optionally with an external triangle hit) and
 // bounce_bwd.cu (B5, the bounce's VJP); and the sphere test, which the
 // sphere-winner kernel (sphere_winner.cu, B6) shares with the bounce's
-// sweep. B2's external-hit instantiation (kExt) also holds the media
-// sweep and the specular branch (metal, dielectric, isotropic) of
-// srt_tpu/pallas/bounce.py:486-542 and 663-729; the triangle-free
-// instantiations, B1's among them, compile without them. kMoving (B1, B2)
-// puts each sphere at its centre at the ray's time, as the JAX kernels'
-// ``moving`` static does; the static instantiations do not read the time.
-// B6 always lerps, as the JAX sphere kernel does.
+// sweep. kRich (B1, B2) holds every family of the JAX kernel beyond the
+// lean bounce: the media sweep and the specular branch (metal, dielectric,
+// isotropic) of srt_tpu/pallas/bounce.py:486-542 and 663-729, checker,
+// Perlin-marble and image textures on any material (_shade_core,
+// :626-661, which defers noise and image albedo to an XLA epilogue;
+// here they are evaluated in the kernel, the Perlin tables staged in
+// shared memory), and sphere lights (:800-821, :844-860); the lean
+// instantiations (ball_scenes' B1, cornell_boxes' B2, B5's
+// shade<Dual<7>>) compile without any of it.
+// kMoving (B1, B2) puts each sphere at its centre at the ray's time, as
+// the JAX kernels' ``moving`` static does; the static instantiations do
+// not read the time. B6 always lerps, as the JAX sphere kernel does.
 //
 // The closest-hit sweep runs in float. Everything after it, the shading
 // (shade<T>), is written once over a scalar type T:
@@ -46,7 +51,11 @@ constexpr float kSqrtPiInv = 0.5641895835477563f;
 constexpr float kCoefMax = 3e37f;
 constexpr int kOrenNayar = 1, kBeckmann = 2, kMetal = 3, kDielectric = 4,
               kDiffuseLight = 5, kIsotropic = 6;
-constexpr int kTexImage = 3;
+constexpr int kTexChecker = 1, kTexNoise = 2, kTexImage = 3;
+constexpr int kLightSphere = 1;
+constexpr float kInv4Pi = 0.0795774715459476678f;
+constexpr int kPerlin = 256;     // entries of each Perlin table
+constexpr int kOctaves = 7;      // perlin_turb's depth (perlin.h:48-58)
 
 // ---- scalar types: float, and Dual<K> ------------------------------------
 template <int K>
@@ -241,6 +250,10 @@ __device__ __forceinline__ float signf(float x) {
 // 1/x with |x| < 1e-20 replaced by +1e-20 (a ray's reciprocal direction)
 __device__ __forceinline__ float safe_inv(float x) {
   return 1.0f / (fabsf(x) < 1e-20f ? 1e-20f : x);
+}
+// sqrt(max(x, 0)), +0 where x <= 0 (vecmath.safe_sqrt)
+__device__ __forceinline__ float sqrt_pos(float x) {
+  return x > 0.0f ? sqrtf(x) : 0.0f;
 }
 
 // ---- 3-vectors -------------------------------------------------------------
@@ -545,8 +558,11 @@ __device__ T oren_nayar_term(const V3T<T>& wi, const V3T<T>& wo, const T& a,
 
 // ---- the scene a bounce reads -----------------------------------------
 // Tables entries-major (kernels/bounce.py:build_tables): spheres (S, 12),
-// rects (R, 10), materials (M, 14), rect lights (L, 8) -- staged in
-// shared memory by each kernel -- and the image tables in global memory.
+// rects (R, 10), materials (M, 14), lights (L, 8) -- staged in shared
+// memory by each kernel -- and the image tables in global memory. The
+// rich instantiation also reads the media (n_med, 10) and the lights'
+// kinds (L,) from global memory and the Perlin tables, gradients (256, 3)
+// and permutations (3, 256), from shared memory (stage_rich).
 struct SceneView {
   const float* sph;
   const float* rect;
@@ -557,6 +573,11 @@ struct SceneView {
   int n_sph, n_rect, n_mat, n_light, n_atlas;
   int max_depth, rr_start;
   float pdf_floor;
+  const float* med;        // kRich
+  const int* light_kind;   // kRich: 0 rect, 1 sphere
+  const float* pvec;       // kRich, scenes with noise textures
+  const int* pperm;
+  int n_med;
 };
 
 // Stage the scene tables in shared memory (``smem`` holds
@@ -608,6 +629,35 @@ inline size_t smem_bytes(int n_sph, int n_rect, int n_mat, int n_light) {
                                   + 8 * n_light);
 }
 
+// The rich instantiation's part of the scene: the media and the lights'
+// kinds in global memory, and, when ``a.perlin`` is set, the Perlin
+// tables copied into ``smem`` after the tables stage_tables put there
+// (rich_smem_bytes more); the caller synchronises the block after.
+template <class Args>
+__device__ __forceinline__ void stage_rich(SceneView& s, float* smem,
+                                           const Args& a) {
+  s.med = a.med;
+  s.n_med = a.n_med;
+  s.light_kind = a.light_kind;
+  s.pvec = nullptr;
+  s.pperm = nullptr;
+  if (a.perlin) {
+    float* pv = smem + 12 * s.n_sph + 10 * s.n_rect + 14 * s.n_mat
+                + 8 * s.n_light;
+    int* pp = reinterpret_cast<int*>(pv + 3 * kPerlin);
+    for (int k = threadIdx.x; k < 3 * kPerlin; k += blockDim.x) {
+      pv[k] = a.perlin_vec[k];
+      pp[k] = a.perlin_perm[k];
+    }
+    s.pvec = pv;
+    s.pperm = pp;
+  }
+}
+
+inline size_t rich_smem_bytes(int perlin) {
+  return perlin ? sizeof(float) * 6 * kPerlin : 0;
+}
+
 // ---- textures (materials/textures.py, render/intersect.py:sphere_uv) ---
 __device__ inline void sphere_uv(V3 unit, float& u, float& v) {
   float x = unit.x, y = unit.y, z = unit.z;
@@ -632,6 +682,55 @@ __device__ inline V3 image_value(const SceneView& s, int tex, float u,
   return v3((float)((bits >> 16) & 255) / 255.0f,
             (float)((bits >> 8) & 255) / 255.0f,
             (float)(bits & 255) / 255.0f);
+}
+
+// Gradient noise (perlin.h:7-46, textures.py:perlin_noise): the lattice
+// cell by floor then int, wrapped by & 255 (two's complement, as numpy
+// and XLA wrap negative coordinates); the three permutations xor-combined
+// index the gradients; the corner dots blended trilinearly with the
+// hermite weights, in the plain version's order.
+__device__ inline float perlin_noise(const SceneView& s, V3 p) {
+  const float fx = floorf(p.x), fy = floorf(p.y), fz = floorf(p.z);
+  const float ux = p.x - fx, uy = p.y - fy, uz = p.z - fz;
+  const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
+  const float sx = ux * ux * (3.0f - 2.0f * ux);
+  const float sy = uy * uy * (3.0f - 2.0f * uy);
+  const float sz = uz * uz * (3.0f - 2.0f * uz);
+  const int hx[2] = {s.pperm[ix & 255], s.pperm[(ix + 1) & 255]};
+  const int hy[2] = {s.pperm[kPerlin + (iy & 255)],
+                     s.pperm[kPerlin + ((iy + 1) & 255)]};
+  const int hz[2] = {s.pperm[2 * kPerlin + (iz & 255)],
+                     s.pperm[2 * kPerlin + ((iz + 1) & 255)]};
+  float acc = 0.0f;
+#pragma unroll
+  for (int di = 0; di < 2; ++di)
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj)
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const float* g = s.pvec + 3 * (hx[di] ^ hy[dj] ^ hz[dk]);
+        const float corner = g[0] * (ux - (float)di) + g[1] * (uy - (float)dj)
+                             + g[2] * (uz - (float)dk);
+        const float wx = di ? sx : 1.0f - sx;
+        const float wy = dj ? sy : 1.0f - sy;
+        const float wz = dk ? sz : 1.0f - sz;
+        acc = acc + wx * wy * wz * corner;
+      }
+  return acc;
+}
+
+// Marble, 0.5 (1 + sin(scale z + 5 turb(scale p))) (texture.h:42), with
+// kOctaves octaves of turbulence (perlin.h:48-58).
+__device__ inline float marble(const SceneView& s, float scl, V3 p) {
+  V3 q = scale(p, scl);
+  float acc = 0.0f, w = 1.0f;
+#pragma unroll 1
+  for (int o = 0; o < kOctaves; ++o) {
+    acc = acc + w * perlin_noise(s, q);
+    w *= 0.5f;
+    q = scale(q, 2.0f);
+  }
+  return 0.5f * (1.0f + sinf(scl * p.z + 5.0f * fabsf(acc)));
 }
 
 // ---- closest hit (float) ---------------------------------------------------
@@ -846,6 +945,68 @@ __device__ inline void scatter_specular(int m_type, float p0, V3 alb, V3 n,
   att = alb;
 }
 
+// The colour of material record ``mt``'s texture at the hit (the rich
+// instantiation; texture_value, srt_tpu_torch/materials/textures.py):
+// constant, checker (the sign of three sines at p, texture.h:13-19),
+// marble (column 12 holds the noise scale) or the image at the rect's or
+// triangle's uv, or at the sphere's from its unit vector ``unit``.
+__device__ inline V3 texture_at(const SceneView& s, const float* mt,
+                                const Winner& W, V3 unit, V3 p) {
+  const int tt = (int)mt[5];
+  if (tt == kTexChecker) {
+    const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y)
+                        * sinf(10.0f * p.z);
+    return sines < 0.0f ? v3(mt[9], mt[10], mt[11]) : v3(mt[6], mt[7], mt[8]);
+  }
+  if (tt == kTexNoise) {
+    const float m = marble(s, mt[12], p);
+    return v3(m, m, m);
+  }
+  if (tt == kTexImage) {
+    float u = W.u, v = W.v;
+    if (W.rect < 0 && W.tri < 0) sphere_uv(unit, u, v);
+    return image_value(s, (int)mt[13], u, v);
+  }
+  return v3(mt[6], mt[7], mt[8]);
+}
+
+// Sphere lights (render/lights.py:_sphere_sample, _sphere_pdf;
+// sphere.h:7-15, 69-86). ``l`` is the light's row: centre xyz, radius.
+// From inside the sphere every direction hits it: a uniform direction,
+// pdf 1/4pi.
+__device__ inline V3 sphere_light_dir(const float* l, V3 p, float u1,
+                                      float u2) {
+  const V3 to_c = sub(v3(l[0], l[1], l[2]), p);
+  const float rad = l[3];
+  const float dist_sq = dot(to_c, to_c);
+  const bool inside = dist_sq <= rad * rad;
+  const float cmx = sqrt_pos(1.0f - rad * rad / fmaxf(dist_sq, 1e-12f));
+  const float z = inside ? 1.0f - 2.0f * u2 : 1.0f + u2 * (cmx - 1.0f);
+  const float phi = kTwoPi * u1;
+  const float sq = sqrt_pos(1.0f - z * z);
+  const V3 lw = normalize(to_c);
+  const V3 la = fabsf(lw.x) > 0.9f ? v3(0.0f, 1.0f, 0.0f)
+                                   : v3(1.0f, 0.0f, 0.0f);
+  const V3 lv = normalize(cross(lw, la));
+  const V3 lu = cross(lw, lv);
+  return add(add(scale(lu, cosf(phi) * sq), scale(lv, sinf(phi) * sq)),
+             scale(lw, z));
+}
+
+__device__ inline float sphere_light_pdf(const float* l, V3 p, V3 wi) {
+  const V3 oc = sub(p, v3(l[0], l[1], l[2]));
+  const float rad = l[3];
+  const float b = dot(oc, wi);
+  const float c = dot(oc, oc) - rad * rad;
+  const float disc = b * b - c;
+  const float sqd = sqrt_pos(disc);
+  const bool hits = disc > 0.0f && (-b - sqd > 1e-3f || -b + sqd > 1e-3f);
+  const float cmx = sqrt_pos(1.0f - rad * rad / fmaxf(c + rad * rad, 1e-12f));
+  const float solid = kTwoPi * (1.0f - cmx);
+  const float pdf = hits ? 1.0f / fmaxf(solid, 1e-12f) : 0.0f;
+  return c <= 0.0f ? kInv4Pi : pdf;
+}
+
 // The winner's t: the sweep's value in the forward; in the backward the
 // same formulas recomputed from (o, d), the same value bit for bit, with
 // tangents (bounce_bwd.py:155-177).
@@ -883,14 +1044,18 @@ struct LaneT {
 // Everything after the closest hit: emission (the env dome's image
 // texture looked up here, where the JAX package defers it to an XLA
 // epilogue), then the diffuse branch -- Beckmann VNDF or cosine-lobe
-// BSDF sample mixed 50/50 with a rect-light sample, the mixture pdf, the
+// BSDF sample mixed 50/50 with a light sample, the mixture pdf, the
 // BSDF weight, roulette. ``salt`` is the bounce's salt (the lane's salt
 // combined with its depth); ``mp0, mp1`` are the material's parameters 0
 // and 1 and ``mc`` its constant colour. Returns alive-after-bounce (before
 // the depth cap) and updates L. Emitter and miss lanes keep o, d, beta.
-// kExt: the winner may be an external (triangle) hit or a medium event,
-// and specular lanes take the specular branch. kMoving: a sphere winner's
-// centre is its centre at the lane's ``time``.
+// kExt: the winner may be an external (triangle) hit. kRich (float only):
+// the winner may be a medium event, the albedo and the emission are the
+// material's texture at the hit (texture_at), specular lanes take the
+// specular branch, and a light row may be a sphere (light_kind); the
+// albedo multiplies the throughput before roulette, as the plain version
+// does. kMoving: a sphere winner's centre is its centre at the lane's
+// ``time``.
 template <class T>
 __device__ __forceinline__ bool scatter_to(const SceneView& s, uint32_t salt,
                                            int depth, const V3T<T>& p,
@@ -909,11 +1074,15 @@ __device__ __forceinline__ bool scatter_to(const SceneView& s, uint32_t salt,
   return alive;
 }
 
-template <class T, bool kExt = false, bool kMoving = false>
+template <class T, bool kExt = false, bool kMoving = false,
+          bool kRich = false>
 __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
                                       uint32_t salt, int depth, float time,
                                       const T& mp0, const T& mp1,
                                       const V3T<T>& mc, LaneT<T>& L) {
+  // W.tri >= 0 marks a winner whose normal and uv are given: a triangle
+  // (kExt) or an in-scatter event of take_media (kRich)
+  constexpr bool kGiven = kExt || kRich;
   const V3T<T> o = L.o, d = L.d;
   const bool hit = W.hit;
   V3T<T> p = o;
@@ -926,7 +1095,7 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
       const float* r = s.rect + 10 * W.rect;
       n_st = v3<T>(T(0.0f), T(0.0f), T(0.0f));
       set_comp(n_st, (int)r[0], T(r[9]));
-    } else if (kExt && W.tri >= 0) {
+    } else if (kGiven && W.tri >= 0) {
       n_st = lift3<T>(W.n);
     } else {
       const float* r = s.sph + 12 * W.sph;
@@ -937,14 +1106,20 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
   }
   const float* mt = s.mat + 14 * W.m;
   const int m_type = (int)mt[0];
+  // the albedo (and an emitter's emission): the constant colour, or with
+  // kRich the texture at the hit
+  V3T<T> alb = mc;
+  if constexpr (kRich) {
+    if (hit) alb = texture_at(s, mt, W, unit, p);
+  }
 
   // emission: one-sided, where the stored normal faces the ray
   if (hit && m_type == kDiffuseLight) {
     if (val(dot(normal, d)) < 0.0f) {
-      V3T<T> e = mc;
-      if ((int)mt[5] == kTexImage) {
+      V3T<T> e = alb;
+      if (!kRich && (int)mt[5] == kTexImage) {
         float u = W.u, v = W.v;
-        if (W.rect < 0 && !(kExt && W.tri >= 0))
+        if (W.rect < 0 && !(kGiven && W.tri >= 0))
           sphere_uv(val3(unit), u, v);
         e = lift3<T>(image_value(s, (int)mt[13], u, v));
       }
@@ -954,10 +1129,10 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
     return false;   // emitters do not scatter
   }
   if (!hit) return false;
-  if constexpr (kExt) {
+  if constexpr (kRich) {
     if (m_type == kMetal || m_type == kDielectric || m_type == kIsotropic) {
       V3 dir, att;
-      scatter_specular(m_type, mp0, mc, normal, d, salt, dir, att);
+      scatter_specular(m_type, mp0, alb, normal, d, salt, dir, att);
       return scatter_to(s, salt, depth, p, dir,
                         v3(L.beta.x * att.x, L.beta.y * att.y,
                            L.beta.z * att.z), L);
@@ -995,16 +1170,27 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
     wi = normalize(add(add(scale(bu, cd.x), scale(bv, cd.y)),
                        scale(nw, cd.z)));
   }
-  // light sample: a uniform point on the picked rect light
+  // light sample: a uniform point on the picked rect light, or with
+  // kRich a cone toward a sphere light
   if (s.n_light > 0) {
     int pick = min((int)(uniform(salt, 13) * (float)s.n_light),
                    s.n_light - 1);
     const float* l = s.light + 8 * pick;
-    V3 point;
-    set_comp(point, (int)l[0], l[3]);
-    set_comp(point, (int)l[1], l[4] + u1 * (l[5] - l[4]));
-    set_comp(point, (int)l[2], l[6] + u2 * (l[7] - l[6]));
-    if (uniform(salt, 12) < 0.5f) wi = normalize(sub(lift3<T>(point), p));
+    bool sphere_light = false;
+    if constexpr (kRich) sphere_light = __ldg(s.light_kind + pick)
+                                        == kLightSphere;
+    if (sphere_light) {
+      if constexpr (kRich) {
+        const V3 wl = sphere_light_dir(l, p, u1, u2);
+        if (uniform(salt, 12) < 0.5f) wi = wl;
+      }
+    } else {
+      V3 point;
+      set_comp(point, (int)l[0], l[3]);
+      set_comp(point, (int)l[1], l[4] + u1 * (l[5] - l[4]));
+      set_comp(point, (int)l[2], l[6] + u2 * (l[7] - l[6]));
+      if (uniform(salt, 12) < 0.5f) wi = normalize(sub(lift3<T>(point), p));
+    }
   }
 
   // BSDF pdf and weight at wi (shared half vector)
@@ -1030,6 +1216,12 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
     T lpdf = T(0.0f);
     for (int k = 0; k < s.n_light; ++k) {
       const float* l = s.light + 8 * k;
+      if constexpr (kRich) {
+        if (__ldg(s.light_kind + k) == kLightSphere) {
+          lpdf = lpdf + sphere_light_pdf(l, p, wi);
+          continue;
+        }
+      }
       int na = (int)l[0], ua = (int)l[1], va = (int)l[2];
       T d_n = comp(wi, na);
       T t = (l[3] - comp(p, na))
@@ -1045,36 +1237,32 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
     pdf = 0.5f * (lpdf / (float)s.n_light) + 0.5f * bpdf;
   }
 
-  // throughput update (albedo is the material's constant texture)
+  // throughput update: the albedo times the BSDF weight over the pdf
   const bool ok = val(pdf) > s.pdf_floor;
   const T den = xmax(pdf, s.pdf_floor);
-  const V3T<T> nb = v3<T>(L.beta.x * (ok ? mc.x * wgt / den : T(0.0f)),
-                          L.beta.y * (ok ? mc.y * wgt / den : T(0.0f)),
-                          L.beta.z * (ok ? mc.z * wgt / den : T(0.0f)));
+  const V3T<T> nb = v3<T>(L.beta.x * (ok ? alb.x * wgt / den : T(0.0f)),
+                          L.beta.y * (ok ? alb.y * wgt / den : T(0.0f)),
+                          L.beta.z * (ok ? alb.z * wgt / den : T(0.0f)));
   return scatter_to(s, salt, depth, p, wi, nb, L);
 }
 
 // The forward bounce of one live lane (B1, B2) at ray time ``time``: returns
 // alive-after-bounce (before the depth cap) and updates L. With kExt (B2's
-// external-hit mode) the external hit ``e`` takes part in the closest hit,
-// then the media ``med`` (n_med records, see take_media); without it the
-// code is the triangle-free bounce, as B1 compiles it. kMoving: spheres at
-// their centres at ``time`` (sphere_center).
-template <bool kExt = false, bool kMoving = false>
+// external-hit mode) the external hit ``e`` takes part in the closest hit;
+// with kRich the media sweep follows (take_media) and the rich shading
+// runs; the lean instantiation is the bounce ball_scenes' B1 compiles.
+// kMoving: spheres at their centres at ``time`` (sphere_center).
+template <bool kExt = false, bool kMoving = false, bool kRich = false>
 __device__ __forceinline__ bool bounce(const SceneView& s, uint32_t salt,
                                        int depth, float time, LaneT<float>& L,
-                                       const ExtHit* e = nullptr,
-                                       const float* med = nullptr,
-                                       int n_med = 0) {
+                                       const ExtHit* e = nullptr) {
   Winner W = closest_hit<kMoving>(s, L.o, L.d, time);
   const uint32_t bsalt = hash_combine(salt, (uint32_t)depth);
-  if constexpr (kExt) {
-    take_external(W, *e);
-    take_media(W, med, n_med, L.o, L.d, bsalt);
-  }
+  if constexpr (kExt) take_external(W, *e);
+  if constexpr (kRich) take_media(W, s.med, s.n_med, L.o, L.d, bsalt);
   const float* mt = s.mat + 14 * W.m;
-  return shade<float, kExt, kMoving>(s, W, bsalt, depth, time, mt[1],
-                                     mt[2], v3(mt[6], mt[7], mt[8]), L);
+  return shade<float, kExt, kMoving, kRich>(
+      s, W, bsalt, depth, time, mt[1], mt[2], v3(mt[6], mt[7], mt[8]), L);
 }
 
 }  // namespace srt

@@ -10,10 +10,15 @@
 //   3. emission (the env dome's image texture is looked up here, where
 //      the JAX package defers it to an XLA epilogue);
 //   4. the diffuse branch: Beckmann VNDF or cosine-lobe BSDF sample mixed
-//      50/50 with a rect-light sample, the mixture pdf, the BSDF weight,
+//      50/50 with a light sample, the mixture pdf, the BSDF weight,
 //      roulette and the depth cap.
 // Steps 2-4 are bounce_core.cuh's bounce(), shared with bounce.cu and
-// bounce_bwd.cu. The arithmetic follows the plain PyTorch version
+// bounce_bwd.cu. With rich != 0 (the template's kRich) the kernel is the
+// rich instantiation: after the closest hit the media sweep, then the
+// specular branch of metal, dielectric and isotropic lanes, checker,
+// marble and image textures on every material (the Perlin tables staged
+// in shared memory after the scene tables), and sphere lights; the lean
+// instantiations (ball_scenes) compile without any of it. The arithmetic follows the plain PyTorch version
 // (srt_tpu_torch/kernels/bounce.py:regen_bounce_reference) operation by
 // operation, in the same order, so the two differ only by libm ulps.
 // Build without --use_fast_math and with --fmad=false for that reason.
@@ -28,7 +33,9 @@
 // Newton-bisection rounds of erfinv on Beckmann lanes next to Oren-Nayar
 // and emitter lanes), not bytes: a lane moves ~80 B of state per bounce.
 // Scene tables live in shared memory; dead and emitter-hit lanes skip
-// the shading work.
+// the shading work. The rich instantiation adds divergence: a
+// dielectric or metal lane beside a diffuse one, and seven octaves of
+// eight Perlin corners on the few lanes that hit a marble.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,6 +71,13 @@ struct RegenArgs {
   float pdf_floor;
   unsigned int seed;
   int moving;          // spheres move over the shutter interval
+  const float* med;    // (n_med, 10) media (rich)
+  int n_med;
+  int rich;            // the rich instantiation (kRich)
+  const int* light_kind;     // (n_light,) 0 rect, 1 sphere (rich)
+  const float* perlin_vec;   // (256, 3) (rich)
+  const int* perlin_perm;    // (3, 256) (rich)
+  int perlin;          // stage the Perlin tables (a noise texture)
 };
 
 }  // extern "C"
@@ -91,7 +105,7 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-template <bool kMoving>
+template <bool kMoving, bool kRich>
 __global__ void __launch_bounds__(kBlock)
 regen_bounce_kernel(const RegenArgs a) {
   extern __shared__ float smem[];
@@ -101,7 +115,8 @@ regen_bounce_kernel(const RegenArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int i = blockIdx.x * kBlock + tid;
   const bool valid = i < a.n;
-  const SceneView sv = scene_view(a, smem);
+  SceneView sv = scene_view(a, smem);
+  if constexpr (kRich) stage_rich(sv, smem, a);
 
   // work-queue rank of each dead lane: dead lanes of earlier blocks (as
   // the previous launch left them), then the in-block exclusive scan
@@ -180,7 +195,8 @@ regen_bounce_kernel(const RegenArgs a) {
       salt = (uint32_t)a.salt[i];
     }
     if (live) {
-      bool alive_next = bounce<false, kMoving>(sv, salt, depth, time, L);
+      bool alive_next = bounce<false, kMoving, kRich>(sv, salt, depth,
+                                                      time, L);
       alive_fin = alive_next && depth + 1 < a.max_depth;
       store3(a.o, a.n, i, L.o);
       store3(a.d, a.n, i, L.d);
@@ -209,15 +225,16 @@ regen_bounce_kernel(const RegenArgs a) {
   }
 }
 
-template <bool kMoving>
+template <bool kMoving, bool kRich>
 int launch_regen(const RegenArgs& a, cudaStream_t stream) {
-  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light);
+  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light)
+                + (kRich ? srt::rich_smem_bytes(a.perlin) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      regen_bounce_kernel<kMoving>,
+      regen_bounce_kernel<kMoving, kRich>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = (a.n + kBlock - 1) / kBlock;
-  regen_bounce_kernel<kMoving><<<blocks, kBlock, smem, stream>>>(a);
+  regen_bounce_kernel<kMoving, kRich><<<blocks, kBlock, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -226,8 +243,12 @@ int launch_regen(const RegenArgs& a, cudaStream_t stream) {
 extern "C" int srt_regen_bounce(const RegenArgs* args, void* stream) {
   const RegenArgs& a = *args;
   if (a.n <= 0) return (int)cudaSuccess;
-  return a.moving ? launch_regen<true>(a, (cudaStream_t)stream)
-                  : launch_regen<false>(a, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a.rich)
+    return a.moving ? launch_regen<true, true>(a, s)
+                    : launch_regen<false, true>(a, s);
+  return a.moving ? launch_regen<true, false>(a, s)
+                  : launch_regen<false, false>(a, s);
 }
 
 extern "C" const char* srt_cuda_error_string(int err) {

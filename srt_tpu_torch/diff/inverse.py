@@ -13,7 +13,10 @@ not cover (triangles, media, specular materials, moving spheres). Random
 decisions are pure functions of ``(seed, pixel, sample, bounce,
 dimension)``; the gradient follows the JAX package's backward kernel,
 through the sampled direction and the pdfs (ROADMAP C2). The image atlas
-among the parameters raises.
+among the parameters raises, and so does a scene with a family the port
+renders but does not differentiate yet (``scene.ir.require_trainable``:
+checker and noise textures, image albedo, sphere lights, and the
+specular branch or media without triangles).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from srt_tpu_torch.kernels.bounce import (DIM_LENS, DIM_TIME, StepSpec,
 from srt_tpu_torch.render.camera import Camera
 from srt_tpu_torch.render.regen_scan import steps_for, trace_queue
 from srt_tpu_torch.scene.ir import (CENTRE_FIELDS, SceneFlags, TorchScene,
-                                    require_covered)
+                                    require_trainable)
 
 DIM_PIX_X = 30                   # pixel-jitter sampler dimensions
 DIM_PIX_Y = 31
@@ -78,7 +81,7 @@ def render_pixels(scene: TorchScene, camera: Camera, pixel_ids, *,
             f"engine {engine!r}: the port has the regeneration engine; the "
             "lockstep scan engine is ROADMAP A6")
     flags = flags if flags is not None else SceneFlags.of(scene)
-    require_covered(scene, flags)
+    require_trainable(scene, flags)
     pixel_ids = torch.as_tensor(pixel_ids, device=scene.device).long()
     p = pixel_ids.shape[0]
     rays, salt = camera_rays(camera, pixel_ids, spp, width=width,
@@ -183,7 +186,7 @@ def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
     flags = SceneFlags.of(scene)
     if set(params) & CENTRE_FIELDS:
         flags = flags._replace(moving=True)
-    require_covered(scene, flags)
+    require_trainable(scene, flags)
     pixel_ids = torch.arange(width * height, device=scene.device)
 
     def loss_fn(p, target, seed):

@@ -36,16 +36,22 @@ explicit state, out of place, no regeneration and no depth cap. Replaces
 ``bounce.py:1425-1552``) without the parity plane. On a triangle scene it
 takes each lane's closest triangle ``(t, u, v, idx)`` from kernel B3
 (``kernels/intersect.py``), or from B4 on a mesh beyond the single-level
-budget, and assembles the hit itself (the external-hit mode, ``has_ext``);
-in that mode it also runs the media sweep and the specular branch of
-metal, dielectric and isotropic materials. :func:`bounce_step_ref` is its
-plain version and :func:`bounce_fwd` the wrapper; ``csrc/bounce.cu`` runs the same
-``bounce()`` of ``csrc/bounce_core.cuh`` as B1.
+budget, and assembles the hit itself (the external-hit mode, ``has_ext``).
+:func:`bounce_step_ref` is its plain version and :func:`bounce_fwd` the
+wrapper; ``csrc/bounce.cu`` runs the same ``bounce()`` of
+``csrc/bounce_core.cuh`` as B1.
 
 On a scene whose spheres move (``SceneFlags.moving``) both kernels take
 their ``kMoving`` instantiation, which puts each sphere at its centre at
 the lane's time, as the JAX kernels' ``moving`` static does; the plain
 versions always do (a static sphere's lerp leaves its centre as it is).
+
+A scene with any family of :func:`scene.ir.rich_families` (the specular
+branch, media, checker and noise textures, image albedo, sphere lights)
+takes the kernels' ``kRich`` instantiation, which holds them all, with or
+without triangles. Image albedo is multiplied into the
+throughput before roulette, as JAX's XLA ``bounce_step`` does (its
+kernel multiplies it in afterwards, the same thing without roulette).
 """
 from __future__ import annotations
 
@@ -58,7 +64,8 @@ from srt_tpu_torch.core import rng
 from srt_tpu_torch.kernels.build import launch
 from srt_tpu_torch.render.integrator import bounce_step
 from srt_tpu_torch.render.intersect import RECT_NAXIS, RECT_UAXIS, RECT_VAXIS
-from srt_tpu_torch.scene.ir import SceneFlags, TorchScene
+from srt_tpu_torch.scene.ir import (LightKind, SceneFlags, TextureType,
+                                    TorchScene, rich_families)
 
 #: Kernel launches made by :func:`regen_bounce` (the CUDA path only).
 LAUNCHES = 0
@@ -91,11 +98,19 @@ class RegenSpec:
 def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
     """Scene records the kernels read (``bounce.py:_build_tables``),
     entries-major so one record is contiguous: spheres (S, 12), rects
-    (R, 10), materials (M, 14), rect lights (L, 8), all float32 (lights
-    are rects: the coverage gate refuses sphere lights); for B2's
+    (R, 10), materials (M, 14), lights (L, 8), all float32; for B2's
     external hit the triangles' normals (T, 9), uv (T, 6) and materials
-    (T,) int32; and the media (M, 10): kind, center, radius, half extents,
-    density, material (``bounce.py:1402``)."""
+    (T,) int32; the media (M, 10): kind, center, radius, half extents,
+    density, material (``bounce.py:1402``); and for the rich
+    instantiation the lights' kinds and the Perlin tables.
+
+    A rect light's row is its rect's first eight columns, a sphere light's
+    its centre, radius and four zeros (``bounce.py:1394-1400``). The JAX
+    kernel knows each row's kind statically; here the kind is a separate
+    int32 array ``light_kind`` (L,), read at run time, so the lean
+    instantiation's table stays as it was. A material's column 12, which
+    the JAX table reserves for the noise scale, holds its texture's
+    ``tex_scale``."""
     f = _F32
     dev = scene.device
     S, R = scene.n_spheres, scene.n_rects
@@ -119,10 +134,15 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
     mat = torch.cat([
         scene.mat_type[:, None].to(f), scene.mat_params,
         scene.tex_type[tex][:, None].to(f), scene.tex_color[tex],
-        scene.tex_color2[tex],
-        torch.zeros((scene.mat_type.shape[0], 1), dtype=f, device=dev),
+        scene.tex_color2[tex], scene.tex_scale[tex][:, None],
         tex[:, None].to(f)], 1)
-    light = rect_geo[scene.light_index.long().clamp(0, max(R - 1, 0))]
+    sph_light = torch.cat([scene.sph_center0, scene.sph_radius[:, None],
+                           torch.zeros((S, 4), dtype=f, device=dev)], 1)
+    rows = [(rect_geo if kind == int(LightKind.RECT) else sph_light)[idx]
+            for kind, idx in zip(scene.light_kind.tolist(),
+                                 scene.light_index.tolist())]
+    light = (torch.stack(rows) if rows
+             else torch.zeros((0, 8), dtype=f, device=dev))
     atlas = (scene.atlas_u32 if scene.atlas_u32 is not None
              else torch.zeros((1,), dtype=_I32, device=dev))
     T = scene.n_tris
@@ -138,19 +158,65 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
                 tri_n=scene.tri_n.reshape(T, 9).contiguous(),
                 tri_uv=scene.tri_uv.reshape(T, 6).contiguous(),
                 tri_mat=scene.tri_mat.to(_I32).contiguous(),
-                med=med.reshape(-1, 10).contiguous())
+                med=med.reshape(-1, 10).contiguous(),
+                light_kind=scene.light_kind.to(_I32).contiguous(),
+                perlin_vec=scene.perlin_vec.to(f).contiguous(),
+                perlin_perm=scene.perlin_perm.to(_I32).contiguous())
+
+
+_RICH_TABLES = ("med", "light_kind", "perlin_vec", "perlin_perm")
+
+
+def _check_tables(tables: dict, keys, device) -> None:
+    for k in keys:
+        if tables[k].device != device or not tables[k].is_contiguous():
+            raise ValueError(f"table {k!r} must be contiguous on {device}")
+
+
+def rich_args(scene: TorchScene, flags: SceneFlags, tables: dict) -> dict:
+    """The rich instantiation's fields of a bounce kernel's arguments:
+    ``rich``, the media, the lights' kinds, and the Perlin tables, which
+    the kernel stages in shared memory only when a texture is noise. None
+    on a lean scene (no :func:`scene.ir.rich_families`), whose kernel
+    reads none of them: the structure's zeros select the lean
+    instantiation. Decided on the host from ``flags``."""
+    if not rich_families(scene, flags):
+        return {}
+    _check_tables(tables, _RICH_TABLES, scene.device)
+    return dict(rich=1, med=tables["med"].data_ptr(),
+                n_med=tables["med"].shape[0],
+                light_kind=tables["light_kind"].data_ptr(),
+                perlin_vec=tables["perlin_vec"].data_ptr(),
+                perlin_perm=tables["perlin_perm"].data_ptr(),
+                perlin=int(int(TextureType.NOISE) in flags.tex_kinds))
 
 
 class RegenInputs:
     """What a launch reads besides the wavefront: the scene, its kernel
-    tables, the camera record and the (spp, 2) Sobol jitter table."""
+    tables, the camera record and the (spp, 2) Sobol jitter table.
+    ``fields`` holds the launch arguments these fix for a whole render
+    (pointers and counts of the tables, the instantiation), checked
+    once; ``rich`` says whether B1 takes its rich instantiation."""
 
     def __init__(self, scene: TorchScene, flags: SceneFlags, camera,
                  jitter: torch.Tensor):
         self.scene, self.flags, self.camera = scene, flags, camera
         self.jitter = jitter.to(device=scene.device, dtype=_F32).contiguous()
         self.cam_record = camera.record().contiguous()
-        self.tables = build_tables(scene, flags)
+        self.rich = bool(rich_families(scene, flags))
+        tb = self.tables = build_tables(scene, flags)
+        dev = scene.device
+        _check_tables(dict(tb, cam=self.cam_record, jitter=self.jitter),
+                      (*tb, "cam", "jitter"), dev)
+        self.fields = dict(
+            **{k: tb[k].data_ptr() for k in
+               ("sph", "rect", "mat", "light", "tex_img", "atlas_u32")},
+            cam=self.cam_record.data_ptr(), jitter=self.jitter.data_ptr(),
+            n_sph=tb["sph"].shape[0], n_rect=tb["rect"].shape[0],
+            n_mat=tb["mat"].shape[0], n_light=tb["light"].shape[0],
+            n_atlas=(tb["atlas_u32"].shape[0]
+                     if scene.atlas_u32 is not None else 0),
+            moving=int(flags.moving), **rich_args(scene, flags, tb))
 
 
 def new_wavefront(n: int, device) -> dict:
@@ -241,6 +307,13 @@ def count_dead(alive: torch.Tensor) -> torch.Tensor:
     return dead.view(-1, BLOCK).sum(1, dtype=_I32)
 
 
+#: the rich instantiation's fields, the same tail of ``RegenArgs`` and
+#: ``BounceArgs`` (``csrc/regen_bounce.cu``, ``csrc/bounce.cu``)
+_RICH_FIELDS = [("rich", ctypes.c_int), ("light_kind", ctypes.c_void_p),
+                ("perlin_vec", ctypes.c_void_p),
+                ("perlin_perm", ctypes.c_void_p), ("perlin", ctypes.c_int)]
+
+
 class _Args(ctypes.Structure):
     """``RegenArgs`` of ``csrc/regen_bounce.cu``, field for field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
@@ -251,7 +324,9 @@ class _Args(ctypes.Structure):
             "n", "n_sph", "n_rect", "n_mat", "n_light", "n_atlas", "width",
             "height", "spp", "total_work", "max_depth", "rr_start")]
         + [("pdf_floor", ctypes.c_float), ("seed", ctypes.c_uint32),
-           ("moving", ctypes.c_int)])
+           ("moving", ctypes.c_int), ("med", ctypes.c_void_p),
+           ("n_med", ctypes.c_int)]
+        + _RICH_FIELDS)
 
 
 _STATE_F32 = {"o": 3, "d": 3, "time": 1, "beta": 3, "radiance": 3}
@@ -277,39 +352,36 @@ def _check_state(st: dict, n: int, device) -> None:
         raise ValueError("wavefront 'dead' must hold one count per block")
 
 
-def _launch(inp: RegenInputs, st: dict, spec: RegenSpec) -> None:
-    """Launch ``csrc/regen_bounce.cu`` on the current stream."""
-    global LAUNCHES
+def regen_args(inp: RegenInputs, st: dict, spec: RegenSpec) -> _Args:
+    """The checked arguments of one ``csrc/regen_bounce.cu`` launch on
+    the wavefront ``st`` (its ``dead``/``cursor`` in, ``dead_next``/
+    ``cursor_next`` out)."""
     n = st["alive"].shape[0]
     dev = st["alive"].device
     _check_state(st, n, dev)
+    if inp.scene.device != dev:
+        raise ValueError(f"the scene's tables are on {inp.scene.device}, "
+                         f"the wavefront on {dev}")
     if spec.total_work >= 2 ** 31 - n:
         raise ValueError("work queue beyond int32 ranks")
-    tb = inp.tables
-    for k, t in (*tb.items(), ("cam", inp.cam_record),
-                 ("jitter", inp.jitter)):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"table {k!r} must be contiguous on {dev}")
     ptr = {k: st[k].data_ptr() for k in
            ("o", "d", "time", "beta", "salt", "depth", "alive", "pix",
             "fin")}
-    args = _Args(
+    return _Args(
         **ptr, rad=st["radiance"].data_ptr(),
         dead_in=st["dead"].data_ptr(), dead_out=st["dead_next"].data_ptr(),
         cursor_in=st["cursor"].data_ptr(),
-        cursor_out=st["cursor_next"].data_ptr(),
-        **{k: tb[k].data_ptr() for k in
-           ("sph", "rect", "mat", "light", "tex_img", "atlas_u32")},
-        cam=inp.cam_record.data_ptr(), jitter=inp.jitter.data_ptr(),
-        n=n, n_sph=tb["sph"].shape[0], n_rect=tb["rect"].shape[0],
-        n_mat=tb["mat"].shape[0], n_light=tb["light"].shape[0],
-        n_atlas=(tb["atlas_u32"].shape[0]
-                 if inp.scene.atlas_u32 is not None else 0),
+        cursor_out=st["cursor_next"].data_ptr(), **inp.fields, n=n,
         width=spec.width, height=spec.height, spp=spec.spp,
         total_work=spec.total_work, max_depth=spec.max_depth,
         rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
-        seed=spec.seed & rng.MASK32, moving=int(inp.flags.moving))
-    launch("srt_regen_bounce", args, dev)
+        seed=spec.seed & rng.MASK32)
+
+
+def _launch(inp: RegenInputs, st: dict, spec: RegenSpec) -> None:
+    """Launch ``csrc/regen_bounce.cu`` on the current stream."""
+    global LAUNCHES
+    launch("srt_regen_bounce", regen_args(inp, st, spec), st["alive"].device)
     LAUNCHES += 1
     st["dead"], st["dead_next"] = st["dead_next"], st["dead"]
     st["cursor"], st["cursor_next"] = st["cursor_next"], st["cursor"]
@@ -353,7 +425,8 @@ def material_view(scene: TorchScene, mat: torch.Tensor) -> TorchScene:
         mat_tex=torch.arange(mat.shape[0], dtype=scene.mat_tex.dtype,
                              device=mat.device),
         tex_type=scene.tex_type[tex], tex_color=mat[:, 6:9],
-        tex_color2=mat[:, 9:12], tex_img=scene.tex_img[tex])
+        tex_color2=mat[:, 9:12], tex_scale=scene.tex_scale[tex],
+        tex_img=scene.tex_img[tex])
 
 
 def bounce_step_ref(scene: TorchScene, flags: SceneFlags,
@@ -392,7 +465,8 @@ class _BounceArgs(ctypes.Structure):
             "tri_mat")]
         + [("n_tris", ctypes.c_int), ("med", ctypes.c_void_p),
            ("n_med", ctypes.c_int), ("time", ctypes.c_void_p),
-           ("moving", ctypes.c_int)])
+           ("moving", ctypes.c_int)]
+        + _RICH_FIELDS)
 
 
 def check_state(state: dict, tables: dict, device) -> int:
@@ -410,9 +484,7 @@ def check_state(state: dict, tables: dict, device) -> int:
             raise ValueError(f"state {k!r}: want contiguous {dtype} {shape} "
                              f"on {device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
-    for k in _TABLES:
-        if tables[k].device != device or not tables[k].is_contiguous():
-            raise ValueError(f"table {k!r} must be contiguous on {device}")
+    _check_tables(tables, _TABLES, device)
     if tables["mat"].dtype != torch.float32:
         raise ValueError("table 'mat' must be float32")
     return n
@@ -430,8 +502,8 @@ def table_args(scene: TorchScene, tables: dict) -> dict:
 
 def _tri_args(scene: TorchScene, tables: dict, tri, n: int, dev) -> dict:
     """The external-hit fields of B2's arguments: none on a scene without
-    triangles, else B3's or B4's ``(t, u, v, idx)``, the triangle tables
-    and the media."""
+    triangles, else B3's or B4's ``(t, u, v, idx)`` and the triangle
+    tables."""
     if not scene.n_tris:
         return {}
     if tri is None:
@@ -447,22 +519,20 @@ def _tri_args(scene: TorchScene, tables: dict, tri, n: int, dev) -> dict:
             or not idx.is_contiguous()):
         raise ValueError(f"triangle hit 'idx': want contiguous int32 ({n},) "
                          f"on {dev}")
-    for k in ("tri_n", "tri_uv", "tri_mat", "med"):
-        if tables[k].device != dev or not tables[k].is_contiguous():
-            raise ValueError(f"table {k!r} must be contiguous on {dev}")
+    _check_tables(tables, ("tri_n", "tri_uv", "tri_mat"), dev)
     return dict(tri_t=tri[0].data_ptr(), tri_u=tri[1].data_ptr(),
                 tri_v=tri[2].data_ptr(), tri_idx=idx.data_ptr(),
                 **{k: tables[k].data_ptr() for k in ("tri_n", "tri_uv",
-                                                     "tri_mat", "med")},
-                n_tris=scene.n_tris, n_med=tables["med"].shape[0])
+                                                     "tri_mat")},
+                n_tris=scene.n_tris)
 
 
-def fwd_args(scene: TorchScene, tables: dict, state: dict,
-             spec: StepSpec, tri=None,
-             moving: bool = False) -> tuple[_BounceArgs, dict]:
+def fwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
+             state: dict, spec: StepSpec,
+             tri=None) -> tuple[_BounceArgs, dict]:
     """The checked arguments of one ``csrc/bounce.cu`` launch and the
-    output tensors it writes; ``tri`` as in :func:`bounce_fwd`, ``moving``
-    the kernel's ``kMoving``."""
+    output tensors it writes; ``tri`` as in :func:`bounce_fwd`.
+    ``flags`` picks the instantiation (``kMoving``, ``kRich``)."""
     dev = state["alive"].device
     n = check_state(state, tables, dev)
     ext = _tri_args(scene, tables, tri, n, dev)
@@ -476,14 +546,15 @@ def fwd_args(scene: TorchScene, tables: dict, state: dict,
         rad_out=out["radiance"].data_ptr(), **table_args(scene, tables),
         n=n, max_depth=spec.max_depth,
         rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
-        **ext, time=state["time"].data_ptr(), moving=int(moving))
+        **ext, time=state["time"].data_ptr(), moving=int(flags.moving),
+        **rich_args(scene, flags, tables))
     return args, out
 
 
 def _launch_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
                 state: dict, spec: StepSpec, tri) -> dict:
     global LAUNCHES_FWD
-    args, out = fwd_args(scene, tables, state, spec, tri, flags.moving)
+    args, out = fwd_args(scene, flags, tables, state, spec, tri)
     launch("srt_bounce", args, state["alive"].device)
     LAUNCHES_FWD += 1
     return dict(out, time=state["time"], salt=state["salt"])

@@ -35,7 +35,7 @@ from srt_tpu_torch.kernels.bounce import (_TABLES, MAT_GRAD_COLS, StepSpec,
                                           table_args)
 from srt_tpu_torch.kernels.build import launch
 from srt_tpu_torch.scene.ir import (SPECULAR_MATS, MaterialType, SceneFlags,
-                                    TorchScene, require_covered)
+                                    TorchScene, require_trainable)
 
 #: Kernel launches made by :func:`bounce_bwd` (the CUDA path only).
 LAUNCHES_BWD = 0
@@ -81,7 +81,7 @@ def require_bwd_kernel(scene: TorchScene, flags: SceneFlags) -> None:
         raise NotImplementedError(
             f"the backward kernel cannot differentiate {gaps[0]}; the train "
             "step takes the hybrid backward for it (ROADMAP A13)")
-    require_covered(scene, flags)
+    require_trainable(scene, flags)
 
 
 def _detached(scene: TorchScene) -> TorchScene:

@@ -3,6 +3,8 @@
 anisotropic Beckmann and one-sided diffuse lights, whose diffuse branch
 has Lambertian's cosine lobe as its default, and the one-sample specular
 branch of metal, dielectric and isotropic (:func:`scatter_specular`).
+Albedo and emission are the material's texture at the hit's uv and
+position (:func:`textures.texture_value`).
 
 Conventions as in the JAX package: the shading frame is built about the
 face normal (the stored normal flipped toward the viewer), ``wo`` is the
@@ -43,12 +45,13 @@ def _alphas(scene: TorchScene, mat):
             torch.where(params[:, 1] > 1e-4, params[:, 1], 1e-4))
 
 
-def emitted(scene: TorchScene, mat, uv, normal, ray_dir, flags: SceneFlags):
+def emitted(scene: TorchScene, mat, uv, p, normal, ray_dir,
+            flags: SceneFlags):
     """One-sided emission (``material.h:348-354``): only where the stored
     normal faces the incoming ray."""
     is_light = scene.mat_type[mat] == int(MaterialType.DIFFUSE_LIGHT)
     facing = dot(normal, ray_dir) < 0.0
-    e = texture_value(scene, scene.mat_tex[mat], uv, flags)
+    e = texture_value(scene, scene.mat_tex[mat], uv, p, flags)
     return torch.where((is_light & facing)[:, None], e, 0.0)
 
 
@@ -84,7 +87,7 @@ def _sphere_dir(u_z, u_phi):
     return r_xy, phi, z
 
 
-def scatter_specular(scene: TorchScene, mat, uv, normal, ray_dir, u,
+def scatter_specular(scene: TorchScene, mat, uv, p, normal, ray_dir, u,
                      flags: SceneFlags):
     """The specular branch, in the forms of the JAX kernel
     (``srt_tpu/pallas/bounce.py:663-729``): returns the new direction and
@@ -102,7 +105,7 @@ def scatter_specular(scene: TorchScene, mat, uv, normal, ray_dir, u,
     att = torch.ones_like(ray_dir)
     kinds = flags.mat_kinds
     if _METAL in kinds or _ISO in kinds:
-        alb = texture_value(scene, scene.mat_tex[mat], uv, flags)
+        alb = texture_value(scene, scene.mat_tex[mat], uv, p, flags)
     if _METAL in kinds:
         r_xy, phi, z = _sphere_dir(u[0], u[1])
         radius = cbrt_pos(torch.clamp(u[2], min=1e-12))
@@ -193,12 +196,12 @@ def bsdf_pdf(scene: TorchScene, mat, basis, wo, wi_world,
     return torch.where(scene.mat_type[mat] == _BECK, beck, pdf)
 
 
-def bsdf_weight(scene: TorchScene, mat, uv, basis, wo, wi_world,
+def bsdf_weight(scene: TorchScene, mat, uv, p, basis, wo, wi_world,
                 flags: SceneFlags):
     """f(wo, wi) * |cosθi| — the reference's attenuation*scattering_pdf."""
     t = scene.mat_type[mat]
     params = scene.mat_params[mat]
-    alb = texture_value(scene, scene.mat_tex[mat], uv, flags)
+    alb = texture_value(scene, scene.mat_tex[mat], uv, p, flags)
     wi = to_local(basis, wi_world)
     w = torch.clamp(wi[:, 2], min=0.0) * _INV_PI         # Lambertian
     if int(MaterialType.OREN_NAYAR) in flags.mat_kinds:

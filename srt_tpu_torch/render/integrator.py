@@ -3,8 +3,9 @@
 ``Raytracing_n.cpp:55-106``).
 
 Covers the port's slices: sphere and box media (:func:`apply_media`),
-the specular branch of metal, dielectric and isotropic materials, no
-parity mode. The diffuse branch is the reference's 50/50 mixture of light
+the specular branch of metal, dielectric and isotropic materials,
+textures at the hit's uv and position, rect and sphere lights, no parity
+mode. The diffuse branch is the reference's 50/50 mixture of light
 sampling and BSDF sampling with its closed-form mixture pdf; Russian
 roulette is ours and off when ``rr_start >= max_depth``.
 """
@@ -98,7 +99,7 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
                     hit.normal, up)
 
     # emission, added whether or not the path continues
-    emit = mats.emitted(scene, hit.mat, hit.uv, normal, d, flags)
+    emit = mats.emitted(scene, hit.mat, hit.uv, p, normal, d, flags)
     radiance = state["radiance"] + torch.where((alive & hit.hit)[:, None],
                                                beta * emit, 0.0)
     scatters = hit.hit & mats.is_scattering(scene, hit.mat)
@@ -116,7 +117,8 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
     pdf = mats.bsdf_pdf(scene, hit.mat, basis, wo, wi, flags)
     if scene.n_lights:
         pdf = 0.5 * lights.lights_pdf(scene, p, wi) + 0.5 * pdf
-    weight = mats.bsdf_weight(scene, hit.mat, hit.uv, basis, wo, wi, flags)
+    weight = mats.bsdf_weight(scene, hit.mat, hit.uv, p, basis, wo, wi,
+                              flags)
     # below-floor pdfs contribute zero (the reference retries instead)
     diff_beta = torch.where((pdf > pdf_floor)[:, None],
                             gsdiv(weight,
@@ -127,7 +129,7 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
     if set(flags.mat_kinds) & SPECULAR_MATS:
         u_spec = [rng.uniform(salt, DIM_SPEC + i) for i in range(4)]
         spec_dir, spec_att = mats.scatter_specular(
-            scene, hit.mat, hit.uv, normal, d, u_spec, flags)
+            scene, hit.mat, hit.uv, p, normal, d, u_spec, flags)
         specular = scatters & mats.is_specular(scene, hit.mat)
         wi = where3(specular, spec_dir, wi)
         diff_beta = where3(specular, spec_att, diff_beta)

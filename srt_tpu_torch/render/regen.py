@@ -7,15 +7,18 @@ Two loops, chosen by the scene as ``fused_regen_available`` chooses
 * without triangles, one launch of
   :func:`srt_tpu_torch.kernels.bounce.regen_bounce` (kernel B1) is one
   bounce of the whole wavefront plus the regeneration of its dead lanes
-  from the ``(pixel, sample)`` work queue;
+  from the ``(pixel, sample)`` work queue; the scene's families pick its
+  instantiation (``RegenInputs.rich``: lean for ball_scenes, rich for the
+  specular branch, media, checker and noise textures, image albedo and
+  sphere lights);
 * with triangles (``regen.py:135-255``), each bounce regenerates the dead
   lanes in torch (:func:`kernels.bounce.regenerate`), finds each lane's
   closest triangle with the walk the JAX package's rule picks once a
   render (:func:`render.intersect.two_level`: kernel B4, the two-level
   walk, for a mesh beyond the single-level budget such as
   ``teapot_scene``'s, else kernel B3) and runs the bounce with kernel B2
-  in its external-hit mode (:func:`kernels.bounce.bounce_fwd`), then
-  applies the depth cap.
+  in its external-hit mode (:func:`kernels.bounce.bounce_fwd`, lean or
+  rich as above), then applies the depth cap.
 
 The host loop adds the finished lanes' radiance into the image,
 NaN-scrubbed and counted. Every random decision is a pure function of

@@ -1,11 +1,12 @@
 """Host-side scene construction (counterpart of ``srt_tpu/scene/build.py``).
 
-Covers what the port's slices render: spheres (static and env domes),
-axis-aligned rects, boxes, triangles and triangle meshes with their BVH
-and its two-level clustering, sphere media, constant and image textures,
-Lambertian, Oren–Nayar, Beckmann, metal, dielectric, isotropic and
-diffuse-light materials, and rect lights. The tables are packed in numpy
-exactly as the JAX builder packs them, then moved to one device.
+Covers what the port's slices render: spheres (static, moving and env
+domes), axis-aligned rects, boxes, triangles and triangle meshes with
+their BVH and its two-level clustering, sphere and box media, constant,
+checker, noise and image textures, Lambertian, Oren–Nayar, Beckmann,
+metal, dielectric, isotropic and diffuse-light materials, and rect and
+sphere lights. The tables, the Perlin tables among them, are packed in
+numpy exactly as the JAX builder packs them, then moved to one device.
 """
 from __future__ import annotations
 
@@ -20,6 +21,10 @@ from srt_tpu_torch.accel.bvh import build_bvh
 from srt_tpu_torch.accel.cluster import build_clusters
 from srt_tpu_torch.scene.ir import (LightKind, MaterialType, TextureType,
                                     TorchScene)
+
+#: the seed of the Perlin tables, the JAX builder's default
+#: (``srt_tpu/scene/build.py:42,450``)
+PERLIN_SEED = 7
 
 
 def rotation_y(angle_deg: float) -> np.ndarray:
@@ -58,6 +63,8 @@ class SceneBuilder:
     seconds: dict = field(default_factory=dict, init=False)
     _tex_type: list = field(default_factory=list)
     _tex_color: list = field(default_factory=list)
+    _tex_color2: list = field(default_factory=list)
+    _tex_scale: list = field(default_factory=list)
     _tex_img: list = field(default_factory=list)
     _atlas: list = field(default_factory=list)
     _atlas_len: int = 0
@@ -74,6 +81,12 @@ class SceneBuilder:
     def constant(self, color) -> int:
         return self._push_tex(TextureType.CONSTANT, color=color)
 
+    def checker(self, even, odd) -> int:
+        return self._push_tex(TextureType.CHECKER, color=even, color2=odd)
+
+    def noise(self, scale: float) -> int:
+        return self._push_tex(TextureType.NOISE, scale=scale)
+
     def image(self, pixels: np.ndarray) -> int:
         """Register an image texture. ``pixels``: (ny, nx, 3) uint8 or f32."""
         px = np.asarray(pixels)
@@ -88,9 +101,12 @@ class SceneBuilder:
         self._atlas_len += px.size
         return self._push_tex(TextureType.IMAGE, img=(offset, nx, ny))
 
-    def _push_tex(self, ttype, color=(0, 0, 0), img=(0, 0, 0)) -> int:
+    def _push_tex(self, ttype, color=(0, 0, 0), color2=(0, 0, 0),
+                  scale=0.0, img=(0, 0, 0)) -> int:
         self._tex_type.append(int(ttype))
         self._tex_color.append(np.asarray(color, np.float32))
+        self._tex_color2.append(np.asarray(color2, np.float32))
+        self._tex_scale.append(float(scale))
         self._tex_img.append(np.asarray(img, np.int32))
         return len(self._tex_type) - 1
 
@@ -220,9 +236,22 @@ class SceneBuilder:
         self._med.append((0, np.asarray(center, np.float32), float(radius),
                           np.zeros(3, np.float32), float(density), mat))
 
+    def medium_box(self, p0, p1, density, albedo_tex: int) -> None:
+        """A constant medium bounded by an axis-aligned box, the convex
+        case of ``constant_medium.h:4-50``, stored as centre and half
+        extents."""
+        mat = self.isotropic(albedo_tex)
+        p0 = np.asarray(p0, np.float32)
+        p1 = np.asarray(p1, np.float32)
+        self._med.append((1, 0.5 * (p0 + p1), 0.0, np.abs(0.5 * (p1 - p0)),
+                          float(density), mat))
+
     def light_rect(self, rect_id: int) -> None:
         """NEE light registration (the reference's hlist)."""
         self._lights.append((LightKind.RECT, rect_id))
+
+    def light_sphere(self, sph_id: int) -> None:
+        self._lights.append((LightKind.SPHERE, sph_id))
 
     # ---------------------------------------------------------------- build
     def build(self, device="cuda") -> TorchScene:
@@ -266,7 +295,12 @@ class SceneBuilder:
                 rgb = q.astype(np.uint32).reshape(-1, 3)
                 atlas_u32 = ((rgb[:, 0] << 16) | (rgb[:, 1] << 8)
                              | rgb[:, 2]).astype(i32)
-        n_tex = len(self._tex_type)
+        # the Perlin tables as the JAX builder draws them (perlin.h:94-97
+        # draws them from drand48 at static init; the seed is pinned)
+        prng = np.random.default_rng(PERLIN_SEED)
+        pv = prng.uniform(-1.0, 1.0, (256, 3)).astype(f32)
+        pv /= np.maximum(np.linalg.norm(pv, axis=1, keepdims=True), 1e-9)
+        perm = np.stack([prng.permutation(256) for _ in range(3)]).astype(i32)
         tables = dict(
             sph_center0=s_c0,
             sph_center1=arr([s[5] for s in self._sph], f32, (3,)),
@@ -294,9 +328,10 @@ class SceneBuilder:
             mat_params=arr(self._mat_params, f32, (4,)),
             tex_type=arr(self._tex_type, i32, ()),
             tex_color=arr(self._tex_color, f32, (3,)),
-            tex_color2=np.zeros((n_tex, 3), f32),
+            tex_color2=arr(self._tex_color2, f32, (3,)),
+            tex_scale=arr(self._tex_scale, f32, ()),
             tex_img=arr(self._tex_img, i32, (3,)),
-            atlas=atlas,
+            atlas=atlas, perlin_vec=pv, perlin_perm=perm,
             merl=np.zeros((0, 3, 1), f32),
             light_kind=arr([int(li[0]) for li in self._lights], i32, ()),
             light_index=arr([li[1] for li in self._lights], i32, ()),

@@ -93,9 +93,13 @@ class TorchScene:
     mat_params: torch.Tensor    # (Mt, 4) f32
     tex_type: torch.Tensor      # (Tx,) i32
     tex_color: torch.Tensor     # (Tx, 3) f32
-    tex_color2: torch.Tensor    # (Tx, 3) f32
+    tex_color2: torch.Tensor    # (Tx, 3) f32 checker odd colour
+    tex_scale: torch.Tensor     # (Tx,) f32 noise scale
     tex_img: torch.Tensor       # (Tx, 3) i32 (atlas offset, nx, ny)
     atlas: torch.Tensor         # (A,) f32
+    # Perlin tables (perlin.h:28-97), drawn on the host from a fixed seed
+    perlin_vec: torch.Tensor    # (256, 3) f32 unit gradients
+    perlin_perm: torch.Tensor   # (3, 256) i32 permutations (x, y, z)
     merl: torch.Tensor          # (Nm, 3, n) f32; the gate reads its length
     light_kind: torch.Tensor    # (L,) i32
     light_index: torch.Tensor   # (L,) i32
@@ -204,49 +208,84 @@ def _fused_bounce_eligible(scene: TorchScene, mat_types: np.ndarray,
 
 
 _COVERED_MATS = {int(MaterialType.LAMBERTIAN), int(MaterialType.OREN_NAYAR),
-                 int(MaterialType.BECKMANN), int(MaterialType.DIFFUSE_LIGHT)}
-#: what the bounce covers on scenes with triangles only (B2's external-hit
-#: mode holds the specular branch and the media sweep; B1 does not yet)
+                 int(MaterialType.BECKMANN), int(MaterialType.DIFFUSE_LIGHT),
+                 int(MaterialType.METAL), int(MaterialType.DIELECTRIC),
+                 int(MaterialType.ISOTROPIC)}
+#: the one-sample specular branch (metal, dielectric, isotropic)
 SPECULAR_MATS = {int(MaterialType.METAL), int(MaterialType.DIELECTRIC),
                  int(MaterialType.ISOTROPIC)}
-_COVERED_TEX = {int(TextureType.CONSTANT), int(TextureType.IMAGE)}
+#: the train step's ROADMAP item for what only the render side covers
+TRAIN_ITEM = "A14"
+
+
+def rich_families(scene: TorchScene, flags: SceneFlags) -> list[str]:
+    """The families of this scene that only the bounce kernels' rich
+    instantiation holds (``kRich`` in ``csrc/bounce_core.cuh``): the
+    specular branch, the media sweep, checker and noise textures, image
+    textures on scattering materials, sphere lights. Empty for a scene
+    the lean instantiation shades (ball_scenes, cornell_boxes). Reads the
+    flags and the table shapes only, no device memory, so a launch can
+    decide on the host alone."""
+    out = []
+    specular = sorted(MaterialType(m).name for m in
+                      set(flags.mat_kinds) & SPECULAR_MATS)
+    if specular:
+        out.append(f"materials {specular}")
+    if scene.n_media:
+        out.append("participating media")
+    if set(flags.tex_kinds) & {int(TextureType.CHECKER),
+                               int(TextureType.NOISE)}:
+        out.append("checker and noise textures")
+    if flags.fused_deferred_albedo:
+        out.append("noise or image textures on scattering materials")
+    if int(LightKind.SPHERE) in flags.light_kinds:
+        out.append("sphere lights")
+    return out
+
+
+def _missing(what: str, item: str):
+    raise NotImplementedError(
+        f"srt_tpu_torch does not cover {what} yet (ROADMAP {item})")
 
 
 def require_covered(scene: TorchScene, flags: SceneFlags,
                     ref_parity: bool = False) -> None:
-    """Raise ``NotImplementedError`` for a scene outside the port's slice,
-    naming the ROADMAP item that will port what it needs. Metal,
-    dielectric, isotropic materials and sphere or box media are covered on
-    scenes with triangles, whose bounce is kernel B2; a triangle-free
-    scene takes kernel B1, which does not hold them yet."""
-    def missing(what: str, item: str):
-        raise NotImplementedError(
-            f"srt_tpu_torch does not cover {what} yet (ROADMAP {item})")
-
-    covered = set(_COVERED_MATS)
-    if scene.n_tris:
-        covered |= SPECULAR_MATS
-        if bool((scene.med_kind == 2).any()):
-            missing("mesh-bounded participating media", "A7")
-    elif scene.n_media:
-        missing("participating media without triangles (kernel B1)", "A7")
+    """Raise ``NotImplementedError`` for a scene the port cannot render,
+    naming the ROADMAP item that will port what it needs. Every family of
+    the JAX package's fused bounce kernel is covered (``_kernel``,
+    ``srt_tpu/pallas/bounce.py:1067``, gated by ``_fused_bounce_eligible``)
+    except the parity estimator; mesh-bounded media and MERL materials lie
+    outside that kernel too. Reads device memory only on a scene with
+    media: the train step runs it before every backward launch."""
+    if scene.n_media and bool((scene.med_kind == 2).any()):
+        _missing("mesh-bounded participating media", "A7")
     if ref_parity:
-        missing("the reference-parity estimator", "A9")
+        _missing("the reference-parity estimator", "A9")
     if scene.merl.shape[0]:
-        missing("MERL measured BRDFs", "A12")
-    if not set(flags.mat_kinds) <= covered:
+        _missing("MERL measured BRDFs", "A12")
+    if not set(flags.mat_kinds) <= _COVERED_MATS:
         names = sorted(MaterialType(m).name for m in
-                       set(flags.mat_kinds) - covered)
-        missing(f"materials {names}" + ("" if scene.n_tris else
-                                        " without triangles (kernel B1)"),
-                "A7")
-    if not set(flags.tex_kinds) <= _COVERED_TEX:
-        missing("checker and noise textures", "A7")
-    if flags.fused_deferred_albedo:
-        missing("image textures on scattering materials", "A7")
-    if any(k != int(LightKind.RECT) for k in flags.light_kinds):
-        missing("sphere lights", "A7")
+                       set(flags.mat_kinds) - _COVERED_MATS)
+        _missing(f"materials {names}", "A7")
     if scene.atlas.shape[0] and scene.atlas_u32 is None:
-        missing("image atlases that are not 8-bit", "A7")
+        _missing("image atlases that are not 8-bit", "A7")
     if not flags.fused_bounce:
-        missing("scenes beyond the bounce kernel's table caps", "A7")
+        _missing("scenes beyond the bounce kernel's table caps", "A7")
+
+
+def require_trainable(scene: TorchScene, flags: SceneFlags) -> None:
+    """Raise ``NotImplementedError`` for a scene the train step cannot
+    differentiate: what :func:`require_covered` refuses, and the families
+    covered for rendering only (:data:`TRAIN_ITEM`): checker and noise
+    textures, image albedo, sphere lights, and the specular branch or
+    media on a scene without triangles. The specular branch and media on
+    triangle scenes keep the hybrid backward they had."""
+    require_covered(scene, flags)
+    fams = rich_families(scene, flags)
+    if scene.n_tris:
+        fams = [f for f in fams if not f.startswith("materials")
+                and f != "participating media"]
+    if fams:
+        _missing(f"{fams[0]} in the train step"
+                 + ("" if scene.n_tris else " (a scene without triangles)"),
+                 TRAIN_ITEM)

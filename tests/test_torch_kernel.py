@@ -19,7 +19,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
-from _torch_scenes import LIT_ROOM_CAMERA, lit_room
+from _torch_scenes import LIT_ROOM_CAMERA, lit_room, lit_room_media
 
 from srt_tpu_torch import get_scene
 from srt_tpu_torch.core.sobol import sobol_points
@@ -45,13 +45,14 @@ def cuda_device():
 
 
 def _scene(name, device):
-    if name == "ball_scenes":
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            scene, cam, _ = get_scene(name, device=device)
-        return scene, cam
-    return (lit_room(SceneBuilder()).build(device),
-            Camera.look_at(**LIT_ROOM_CAMERA, device=device))
+    if name in ("lit_room", "lit_room_media"):
+        fill = lit_room if name == "lit_room" else lit_room_media
+        return (fill(SceneBuilder()).build(device),
+                Camera.look_at(**LIT_ROOM_CAMERA, device=device))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scene, cam, _ = get_scene(name, device=device)
+    return scene, cam
 
 
 def _inputs(device, n=4096, cursor=2048, name="ball_scenes"):
@@ -64,6 +65,23 @@ def _inputs(device, n=4096, cursor=2048, name="ball_scenes"):
     st = kb.new_wavefront(n, device)
     st["cursor"].fill_(cursor)
     return inp, st, spec
+
+
+@pytest.mark.parametrize("name,rich,perlin", [
+    ("ball_scenes", 0, 0), ("random_scene", 1, 0),
+    ("two_perlin_spheres", 1, 1), ("lit_room_media", 1, 0)])
+def test_launch_arguments_pick_the_instantiation(name, rich, perlin):
+    """B1's launch arguments, built on the CPU: the lean instantiation for
+    ball_scenes (no rich field set), the rich one for the analytic
+    library's families, with the Perlin tables staged only for a noise
+    texture; the tables' fields are fixed once for the render."""
+    inp, st, spec = _inputs("cpu", n=300, name=name)
+    args = kb.regen_args(inp, st, spec)
+    assert (args.rich, args.perlin, inp.rich) == (rich, perlin, bool(rich))
+    assert bool(args.light_kind) == bool(rich) == bool(args.perlin_vec)
+    assert args.n_med == inp.scene.n_media * rich
+    assert args.sph == inp.tables["sph"].data_ptr() and args.n == 300
+    assert args.moving == int(inp.flags.moving)
 
 
 def test_cpu_tensors_take_the_plain_version(monkeypatch):
@@ -163,10 +181,14 @@ def test_train_wrappers_take_the_plain_version(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["ball_scenes", "lit_room"])
+@pytest.mark.parametrize("name", ["ball_scenes", "lit_room", "random_scene",
+                                  "two_perlin_spheres", "earth_sphere",
+                                  "two_spheres", "lit_room_media"])
 def test_kernel_matches_plain_on_gpu(name, cuda_device):
     """One launch against the plain version, roulette on (from depth 2),
-    20,000 lanes (a partial last block)."""
+    20,000 lanes (a partial last block); the scenes after the first two
+    take the rich instantiation (image albedo multiplies the throughput
+    before roulette in both)."""
     inp, st, spec = _inputs(cuda_device, n=20000, name=name)
     for _ in range(3):
         kb.regen_bounce_reference(inp, st, spec)
@@ -180,6 +202,24 @@ def test_kernel_matches_plain_on_gpu(name, cuda_device):
         assert torch.equal(st_k[k], st[k]), k
     contract.check_bounce(contract.wavefront_arrays(st),
                           contract.wavefront_arrays(st_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random_scene", "lit_room_media"])
+def test_rich_bounce_matches_plain_on_gpu(name, cuda_device):
+    """B2's rich instantiation without triangles (the specular branch,
+    media, textures) against the plain step, 20,000 lanes."""
+    scene, flags, tables, st, spec, _ = _train_inputs(cuda_device, 20000,
+                                                      name)
+    launches = kb.LAUNCHES_FWD
+    out = kb.bounce_fwd(scene, flags, tables, st, spec)
+    ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES_FWD == launches + 1
+    assert torch.equal(out["depth"], ref["depth"])
+    keys = ("alive", "d", "beta", "radiance")
+    contract.check_bounce({k: ref[k].cpu().numpy() for k in keys},
+                          {k: out[k].cpu().numpy() for k in keys})
 
 
 @pytest.mark.cuda
@@ -253,12 +293,13 @@ def test_triangle_wrappers_check_their_arguments():
     checked: B2 on a triangle scene needs B3's hit, with an int32 index."""
     scene, flags, tables, st, spec, tri = _tri_inputs("cpu", 300)
     with pytest.raises(ValueError, match="closest hit"):
-        kb.fwd_args(scene, tables, st, spec)
+        kb.fwd_args(scene, flags, tables, st, spec)
     with pytest.raises(ValueError, match="idx"):
-        kb.fwd_args(scene, tables, st, spec, tri)
-    args, _ = kb.fwd_args(scene, tables, st, spec,
+        kb.fwd_args(scene, flags, tables, st, spec, tri)
+    args, _ = kb.fwd_args(scene, flags, tables, st, spec,
                           (*tri[:3], tri[3].to(torch.int32)))
     assert args.n_tris == 24 and args.tri_idx
+    assert args.rich == 0       # cornell_boxes takes the lean external hit
     args, out = ki.kernel_args(ki.pack_tables(scene), st["o"], st["d"])
     assert args.n == 300 and args.n_nodes == scene.n_bvh_nodes
     assert [x.dtype for x in out] == [torch.float32] * 3 + [torch.int32]

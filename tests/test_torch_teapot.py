@@ -489,14 +489,19 @@ def _metal_balls() -> TorchScene:
     pytest.param(lambda: _balls_with(**_one_medium(0)), id="medium"),
     pytest.param(_metal_balls, id="metal")])
 def test_triangle_free_scenes_still_raise(make):
-    """Without triangles the bounce is kernel B1, which holds neither the
-    specular branch nor the media sweep yet: the gate names A7, and the
-    train step's own gate refuses them too."""
+    """Without triangles the bounce is kernel B1, whose rich instantiation
+    holds the specular branch and the media sweep: the render gate admits
+    them. The train step refuses them (ROADMAP A14), and the backward
+    kernel's gate still names its own gaps (A13)."""
     scene = make()
-    with pytest.raises(NotImplementedError, match="A7"):
-        require_covered(scene, SceneFlags.of(scene))
+    flags = SceneFlags.of(scene)
+    require_covered(scene, flags)
+    cam = get_scene("ball_scenes", device="cpu")[1]
+    with pytest.raises(NotImplementedError, match="A14"):
+        make_train_step(scene, cam, {"tex_color": scene.tex_color}, width=4,
+                        height=4, spp=1, max_depth=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
-        kbb.require_bwd_kernel(scene, SceneFlags.of(scene))
+        kbb.require_bwd_kernel(scene, flags)
 
 
 def test_gates_on_the_teapot():

@@ -47,7 +47,8 @@ from srt_tpu_torch.kernels import intersect as ki
 from srt_tpu_torch.render.intersect import intersect_tris, tri_hit
 from srt_tpu_torch.scene.build import SceneBuilder
 from srt_tpu_torch.scene.ir import (MaterialType, SceneFlags, TextureType,
-                                    TorchScene, require_covered)
+                                    TorchScene, require_covered,
+                                    require_trainable)
 from srt_tpu_torch.utils import contract
 
 torch.set_num_threads(1)
@@ -371,25 +372,32 @@ def _rects_only(scene: TorchScene) -> TorchScene:
                                tri_p2=scene.tri_p2[:0])
 
 
-# metal, dielectric and sphere or box media are covered on triangle scenes
-# (kernel B2's external-hit mode, tests/test_torch_teapot.py); the gate
-# still refuses them where kernel B1 would run, and mesh-bounded media
+# the render gate covers metal, dielectric, checker textures and sphere
+# or box media on every scene (kernel B1's and B2's rich instantiation);
+# the train step refuses the render-only families (ROADMAP A14), and the
+# gate still refuses mesh-bounded media
 @pytest.mark.parametrize("change,item", [
     pytest.param(lambda s: dataclasses.replace(
         s, med_kind=torch.full((1,), 2, dtype=torch.int32)), "A7",
         id="media"),
     pytest.param(lambda s: _rects_only(
-        _with_material(int(MaterialType.METAL))), "A7", id="metal"),
+        _with_material(int(MaterialType.METAL))), "A14", id="metal"),
     pytest.param(lambda s: _rects_only(
-        _with_material(int(MaterialType.DIELECTRIC))), "A7",
+        _with_material(int(MaterialType.DIELECTRIC))), "A14",
         id="dielectric"),
     pytest.param(lambda s: dataclasses.replace(
         s, tex_type=torch.full_like(s.tex_type, int(TextureType.CHECKER))),
-        "A7", id="checker")])
+        "A14", id="checker")])
 def test_gate_still_refuses(change, item):
     scene = change(_cornell()[2])
+    flags = SceneFlags.of(scene)
+    if item == "A7":
+        with pytest.raises(NotImplementedError, match=item):
+            require_covered(scene, flags)
+        return
+    require_covered(scene, flags)
     with pytest.raises(NotImplementedError, match=item):
-        require_covered(scene, SceneFlags.of(scene))
+        require_trainable(scene, flags)
 
 
 def test_gate_refuses_parity_on_triangles():
