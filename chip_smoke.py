@@ -94,7 +94,28 @@ of which raises on failure:
    triangles walked by B3); then the new path: ``render_regen`` on
    ``random_scene`` at 512x512, 16 spp, depth 50, a 65,536-lane wavefront
    and seed 0 through B1's rich instantiation, once to warm up and three
-   times timed, every bounce one B1 launch, the mean and the NaN pixels.
+   times timed, every bounce one B1 launch, the mean and the NaN pixels;
+19. the rich train kernels against their plain versions on a mid-flight
+   16,384-lane train state (phase 5's) of each of ``two_spheres``,
+   ``two_perlin_spheres``, ``earth_sphere`` and the media room: one launch
+   of B2's rich instantiation against the plain step under the per-bounce
+   contract, and one of B5's (``csrc/bounce_bwd.cu``, ``kRich``) against
+   ``torch.autograd`` of it, the state cotangents under ``check_grads``
+   and the (M, 14) material sums within ``GRAD_RTOL``; the lanes of each
+   family, each kernel's time per bare launch and its bound; ``ptxas``'
+   registers of both B5 instantiations;
+20. the train step on the rich families at phase 6's settings: each of
+   those four scenes through ``make_train_step`` (``{"tex_color"}``, the
+   media room ``{"mat_params", "tex_color"}``), one step to warm up, three
+   timed and one split into forward, backward and Adam, every bounce one
+   B2 and one rich B5 launch and no B6; then, on a 16,384-lane
+   ``random_scene`` train state, B2's rich ``kMoving`` instantiation
+   against the plain step and B6 against its plain version on its 484
+   moving spheres (as in phase 13), and the hybrid on
+   ``random_scene`` (moving spheres) with ``{"tex_color"}`` at 64x64, 4
+   spp, depth 50, one step (the width cut because the hybrid's torch
+   replay takes about 0.1 s a bounce), every bounce one B2 and one B6
+   launch and no B5; the losses and gradients finite, no NaN.
 
 Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -158,11 +179,22 @@ TEAPOT_MEAN = (0.45, 0.75)
 # between its XLA walk and its Pallas kernel (tests/test_pallas.py)
 TRI_T_ATOL = 2e-5
 TRI_UV_ATOL = 1e-4
-# shade<Dual<7>>: each float operation becomes a value and 7 tangents,
-# 15 operations on average (a product takes 1 + 3*7, a sum 1 + 7); the
-# backward kernel runs two such passes
-OPS_DUAL = 15
-BWD_PASSES = 2
+# B5's bound counts what the bounce's VJP needs, not what the kernel's
+# forward-mode passes do: the sweeps once in float, and the shading
+# VJP_SHADE times the forward's operations -- the forward replayed once,
+# then its reverse sweep at about twice the forward (the adjoint of a
+# product is two products and two sums), as a reverse-mode VJP such as
+# the JAX kernel's jax.vjp costs
+VJP_SHADE = 3
+# phase 19's scenes and the families each state must hold
+RICH_BWD_EXPECT = {"two_spheres": ("checker", "sphere_light_sample"),
+                   "two_perlin_spheres": ("marble", "sphere_light_sample"),
+                   "earth_sphere": ("image", "sphere_light_sample"),
+                   "lit_room_media": ("medium", "specular", "image")}
+# phase 20's hybrid step on random_scene (moving spheres): the width cut
+# from the train cell's 256 to keep the torch replay's ~0.1 s a bounce
+# inside the time limit
+HYBRID_RICH = dict(width=64, height=64, spp=4, max_depth=50)
 # B6: one sphere test of sphere_t with the motion lerp (a lerp of the
 # centre, the quadratic, the root choice), counted the same way
 OPS_SPHERE_MOVING = 28
@@ -545,7 +577,7 @@ def phase_train_kernels(scene, cam, dev) -> list:
     from srt_tpu_torch.kernels.build import launch
     reps_k, reps_p = 200, 5
     fargs, _ = kb.fwd_args(scene, flags, tables, st, spec)
-    bargs, _ = kbb.bwd_args(scene, tables, st, ct, spec)
+    bargs, _ = kbb.bwd_args(scene, flags, tables, st, ct, spec)
     fwd_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), reps_k)
               for _ in range(2)]
     fwd_plain = time_ms(lambda: kb.bounce_step_ref(
@@ -559,8 +591,8 @@ def phase_train_kernels(scene, cam, dev) -> list:
 
     sweep = scene.n_spheres * OPS_SPHERE + scene.n_rects * OPS_RECT
     fwd_bound = bound(n * (57 + 53), n_live * (sweep + OPS_SHADE))
-    bwd_bound = bound(n * (105 + 92), n_live * (
-        sweep + BWD_PASSES * OPS_DUAL * OPS_SHADE))
+    bwd_bound = bound(n * (105 + 92),
+                      n_live * (sweep + VJP_SHADE * OPS_SHADE))
     common = {"route": "cuda", "library_ms": None}
     return [
         {"name": "bounce", "source": "srt_tpu_torch/csrc/bounce.cu",
@@ -791,7 +823,7 @@ def phase_tri_kernels(scene, cam, dev) -> tuple[dict, dict]:
     check_tri_kernel("final-ground", *ground_field(dev))
 
     tri = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"], st["d"])
-    b2 = check_ext_bounce("cornell", scene, SceneFlags.of(scene),
+    b2 = check_b2("cornell", scene, SceneFlags.of(scene),
                           inp.tables, st, step, tri)
     b3.update(name="intersect_tris", route="cuda",
               source="srt_tpu_torch/csrc/intersect_tris.cu",
@@ -799,12 +831,14 @@ def phase_tri_kernels(scene, cam, dev) -> tuple[dict, dict]:
     return b3, b2
 
 
-def check_ext_bounce(label: str, scene, flags, tables, st, step,
-                     tri) -> dict:
-    """Phase 8 on one input: one launch of B2's external-hit mode with the
-    triangle hit ``tri`` against the plain step under the per-bounce
-    contract, depth exact; times and bound."""
+def check_b2(label: str, scene, flags, tables, st, step,
+             tri=None) -> dict:
+    """One launch of B2 against the plain step under the per-bounce
+    contract, depth exact; times and bound. With ``tri``, the triangles'
+    closest hit, its external-hit mode (phases 8, 11, 16, 18), else the
+    plain bounce of a train state (phases 19, 20)."""
     import torch
+    from _torch_census import bounce_census
 
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels.build import launch
@@ -815,23 +849,24 @@ def check_ext_bounce(label: str, scene, flags, tables, st, step,
     out_p = kb.bounce_step_ref(scene, flags, tables["mat"], st, step, tri)
     torch.cuda.synchronize()
     if not torch.equal(out_k["depth"], out_p["depth"]):
-        raise AssertionError(f"B2 external-hit {label}: depth differs")
+        raise AssertionError(f"B2 {label}: depth differs")
     keys = ("alive", "d", "beta", "radiance")
     m = contract.check_bounce({k: out_p[k].cpu().numpy() for k in keys},
                               {k: out_k[k].cpu().numpy() for k in keys})
     n = st["o"].shape[0]
     n_live = int(st["alive"].sum())
-    n_tri = int((st["alive"] & (tri[0] < 3e38)).sum())
+    n_tri = 0 if tri is None else int((st["alive"] & (tri[0] < 3e38)).sum())
     fargs, _ = kb.fwd_args(scene, flags, tables, st, step, tri)
     kern_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), 200)
                for _ in range(2)]
     plain_ms = time_ms(lambda: kb.bounce_step_ref(
         scene, flags, tables["mat"], st, step, tri), 5)
-    c = census(scene, st["o"], st["d"], st["time"], st["salt"], st["depth"],
-               st["alive"], tri)
-    ms_bound, by = bound(n * (73 + 53), shade_ops(scene, flags, c)
-                         + n_tri * OPS_TRI_HIT)
-    log(f"[bounce-ext-{label}] {n} lanes, {n_live} live, {n_tri} on a "
+    c = bounce_census(scene, st["o"], st["d"], st["time"], st["salt"],
+                      st["depth"], st["alive"], tri)
+    # a lane reads 57 B, 73 B with a triangle hit, and writes 53 B
+    ms_bound, by = bound(n * (57 + (0 if tri is None else 16) + 53),
+                         shade_ops(scene, flags, c) + n_tri * OPS_TRI_HIT)
+    log(f"[bounce-{label}] {n} lanes, {n_live} live, {n_tri} on a "
         f"triangle: depth exact, {json.dumps(m)}; shaded {json.dumps(c)}; "
         f"ms per launch {kern_ms}, plain {plain_ms:.3f}, bound "
         f"{ms_bound:.6f} ({by})")
@@ -840,46 +875,8 @@ def check_ext_bounce(label: str, scene, flags, tables, st, step,
             "bound_by": by, "census": c}
 
 
-def census(scene, o, d, time_, salt, depth, alive, tri=None) -> dict:
-    """What one bounce of these rays shades, from the plain hit after the
-    media sweep: the lanes by family, and the lanes whose light sample
-    picked a sphere light (the bounce's own uniform of dimension 13)."""
-    import torch
-
-    from srt_tpu_torch.core import rng
-    from srt_tpu_torch.materials.materials import is_specular
-    from srt_tpu_torch.render.integrator import apply_media
-    from srt_tpu_torch.render.intersect import intersect_scene
-    from srt_tpu_torch.scene.ir import LightKind, MaterialType, TextureType
-
-    word = rng.hash_combine(rng.as_word(salt), rng.as_word(depth))
-    hit = intersect_scene(scene, o, d, time=time_, tri=tri)
-    if scene.n_media:
-        hit = apply_media(scene, o, d, word, hit)
-    on = alive & hit.hit
-    mt = scene.mat_type[hit.mat]
-    tt = scene.tex_type[scene.mat_tex[hit.mat]]
-    light = mt == int(MaterialType.DIFFUSE_LIGHT)
-    spec = on & is_specular(scene, hit.mat)
-    diffuse = on & ~spec & ~light
-    n_lights = scene.n_lights
-    sph_pick = torch.zeros_like(on)
-    if n_lights:
-        pick = torch.clamp((rng.uniform(word, 13) * n_lights).long(),
-                           max=n_lights - 1)
-        sph_pick = diffuse & (scene.light_kind.long()[pick]
-                              == int(LightKind.SPHERE))
-    medium = on & torch.isin(hit.mat, scene.med_mat.long())
-    return {k: int(v.sum()) for k, v in dict(
-        live=alive, specular=spec, diffuse=diffuse, emitter=on & light,
-        medium=medium, checker=on & (tt == int(TextureType.CHECKER)),
-        marble=on & (tt == int(TextureType.NOISE)),
-        image=on & (tt == int(TextureType.IMAGE)),
-        sphere_light_sample=sph_pick).items()}
-
-
 def shade_ops(scene, flags, c: dict) -> int:
-    """Operations of one bounce of the lanes ``census`` counted: the
+    """Operations of one bounce of the lanes ``bounce_census`` counted: the
     sweep and the media on every live lane, the shading by family."""
     n_sph_lights = sum(1 for k in flags.light_kinds if k == 1)
     sphere = OPS_SPHERE_MOVING if flags.moving else OPS_SPHERE
@@ -1438,7 +1435,7 @@ def phase_cornell_train(dev) -> tuple[int, int, dict, dict]:
     if walk["big"]:
         raise AssertionError("cornell_boxes' train step walks B4, not B3")
     b3_train = check_tri_kernel("cornell-train", scene, st["o"], st["d"])
-    b2_train = check_ext_bounce("cornell-train", scene, flags, tables, st,
+    b2_train = check_b2("cornell-train", scene, flags, tables, st,
                                 spec, ki.closest_tris(scene, walk, st["o"],
                                                       st["d"]))
 
@@ -1477,8 +1474,6 @@ def media_room(dev):
     """Phase 17's media scene: ``tests/_torch_scenes.py:lit_room_media``
     (a sphere and a box medium, metal, glass and image-albedo spheres, two
     rect lights) built with the port's builder, and its camera."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests"))
     from _torch_scenes import LIT_ROOM_CAMERA, lit_room_media
 
     from srt_tpu_torch.render.camera import Camera
@@ -1486,6 +1481,21 @@ def media_room(dev):
 
     return (lit_room_media(SceneBuilder()).build(dev),
             Camera.look_at(**LIT_ROOM_CAMERA, device=dev))
+
+
+def rich_scene(name: str, dev):
+    """A scene of phases 17, 19 and 20 and its camera: the media room, or
+    a library scene (its absent assets' stand-ins without a warning)."""
+    import warnings
+
+    from srt_tpu_torch import get_scene
+
+    if name == "lit_room_media":
+        return media_room(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scene, cam, _ = get_scene(name, device=dev)
+    return scene, cam
 
 
 # the families phase 17's step must shade on each scene
@@ -1500,12 +1510,10 @@ def phase_rich_kernel(dev) -> dict:
     """Phase 17: B1's rich instantiation against its plain version on a
     mid-flight 65,536-lane step of each of ``RICH_CASES``; returns the
     largest error and the cases' times and bounds."""
-    import warnings
-
     import numpy as np
     import torch
+    from _torch_census import bounce_census
 
-    from srt_tpu_torch import get_scene
     from srt_tpu_torch.core.sobol import sobol_points
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.scene.ir import SceneFlags
@@ -1516,12 +1524,7 @@ def phase_rich_kernel(dev) -> dict:
     jitter = torch.from_numpy(sobol_points(16, 2).astype(np.float32))
     out = {"max_abs_err": 0.0, "cases": {}}
     for name, row in RICH_CASES:
-        if name == "lit_room_media":
-            scene, cam = media_room(dev)
-        else:
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")
-                scene, cam, _ = get_scene(name, device=dev)
+        scene, cam = rich_scene(name, dev)
         flags = SceneFlags.of(scene)
         inp = kb.RegenInputs(scene, flags, cam, jitter)
         # final1 (Lambertian spheres, a rect light) is lean: it is here for
@@ -1534,7 +1537,7 @@ def phase_rich_kernel(dev) -> dict:
         rows = {k: mid[k].T for k in ("o", "d", "beta", "radiance")}
         state, take, _ = kb.regenerate(inp, spec, dict(
             mid, **rows, alive=mid["alive"] != 0), mid["cursor"])
-        c = census(scene, state["o"], state["d"], state["time"],
+        c = bounce_census(scene, state["o"], state["d"], state["time"],
                    state["salt"], state["depth"], state["alive"])
         st_k, st_p = clone(mid), clone(mid)
         launches = kb.LAUNCHES
@@ -1593,7 +1596,7 @@ def phase_final_ext(dev) -> dict:
     if walk["big"]:
         raise AssertionError("final's triangles take B4, not B3")
     tri = ki.closest_tris(scene, walk, st["o"], st["d"])
-    out = check_ext_bounce("final", scene, SceneFlags.of(scene), inp.tables,
+    out = check_b2("final", scene, SceneFlags.of(scene), inp.tables,
                            st, step, tri)
     for k in ("marble", "image", "medium", "specular"):
         if not out["census"][k]:
@@ -1647,6 +1650,200 @@ def phase_rich_render(dev) -> int:
     return launches
 
 
+def phase_rich_bwd(dev) -> dict:
+    """Phase 19: B2's and B5's rich instantiations against their plain
+    versions on a train state of each scene of ``RICH_BWD_EXPECT``, the
+    forward and the backward of every bounce of phase 20's steps; returns
+    each kernel's largest error and the cases' times and bounds."""
+    import numpy as np
+    import torch
+    from _torch_census import bounce_census
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.kernels import build
+    from srt_tpu_torch.kernels.build import launch
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.utils import contract
+
+    regs = kernel_registers(build.ptxas_report(), "bounce_bwd_kernel")
+    log(f"[rich-bwd] ptxas registers of B5 (lean 0, rich 1): "
+        f"{json.dumps(regs)}")
+    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    n = TRAIN_LANES
+    out = {"max_abs_err": 0.0, "cases": {}, "b2_err": 0.0, "b2_cases": {}}
+    for name, expect in RICH_BWD_EXPECT.items():
+        scene, cam = rich_scene(name, dev)
+        flags = SceneFlags.of(scene)
+        tables = kb.build_tables(scene, flags)
+        st = train_state(scene, cam, flags, tables, spec, dev)
+        if not kb.fwd_args(scene, flags, tables, st, spec)[0].rich:
+            raise AssertionError(f"B2 {name}: not the rich instantiation")
+        b2 = check_b2(f"rich-train-{name}", scene, flags, tables, st, spec)
+        out["b2_err"] = max(out["b2_err"], b2["max_abs_err"])
+        out["b2_cases"][name] = {k: b2[k] for k in ("ms", "plain_ms",
+                                                    "bound_ms", "bound_by")}
+        c = bounce_census(scene, st["o"], st["d"], st["time"], st["salt"],
+                          st["depth"], st["alive"])
+        missing = [f for f in expect if not c[f]]
+        if missing:
+            raise AssertionError(f"B5 {name}: the state holds no {missing}: "
+                                 f"{c}")
+        with torch.no_grad():
+            ends = ~kb.bounce_step_ref(scene, flags, tables["mat"], st,
+                                       spec)["alive"]
+        r = np.random.default_rng(5)
+        ct = {k: torch.from_numpy(r.standard_normal((n, 3))
+                                  .astype(np.float32)).to(dev)
+              for k in kbb.ROWS}
+        for k in ("o", "d", "beta"):
+            ct[k][ends] = 0.0
+        rich0 = kbb.LAUNCHES_BWD_RICH
+        g_k, dmat_k = kbb.bounce_bwd(scene, flags, tables, st, ct, spec)
+        g_p, dmat_p = kbb.bounce_bwd_reference(scene, flags, tables["mat"],
+                                               st, ct, spec)
+        torch.cuda.synchronize()
+        if kbb.LAUNCHES_BWD_RICH != rich0 + 1:
+            raise AssertionError(f"B5 {name}: the rich kernel did not launch")
+        m = contract.check_grads({k: g_p[k].cpu().numpy() for k in kbb.ROWS},
+                                 {k: g_k[k].cpu().numpy() for k in kbb.ROWS})
+        a, b = dmat_p.cpu().numpy(), dmat_k.cpu().numpy()
+        scale = float(np.abs(a).max())
+        mat_rel = float(np.abs(a - b).max() / max(scale, 1e-30))
+        if not np.isfinite(b).all() or scale == 0.0 or not np.allclose(
+                b, a, rtol=contract.GRAD_RTOL, atol=1e-4 * scale):
+            raise AssertionError(f"B5 {name}: material sums differ: max rel "
+                                 f"{mat_rel}, scale {scale}")
+        bargs, _ = kbb.bwd_args(scene, flags, tables, st, ct, spec)
+        kern_ms = [time_ms(lambda: launch("srt_bounce_bwd", bargs, dev), 200)
+                   for _ in range(2)]
+        plain_ms = time_ms(lambda: kbb.bounce_bwd_reference(
+            scene, flags, tables["mat"], st, ct, spec), 3)
+        # each lane reads 105 B (state, salt, depth, alive, cotangents) and
+        # writes 92 B (cotangents, ten material columns, the id); the
+        # sweeps run once, the shading's VJP VJP_SHADE times its forward
+        sweeps = c["live"] * (scene.n_spheres * OPS_SPHERE
+                              + scene.n_rects * OPS_RECT
+                              + scene.n_media * OPS_MEDIUM)
+        ops = sweeps + VJP_SHADE * (shade_ops(scene, flags, c) - sweeps)
+        ms_bound, by = bound(n * (105 + 92), ops)
+        out["max_abs_err"] = max(out["max_abs_err"], m["max_abs"])
+        out["cases"][name] = dict(ms=min(kern_ms), plain_ms=plain_ms,
+                                  bound_ms=ms_bound, bound_by=by)
+        log(f"[rich-bwd-{name}] {n} lanes, {int(st['alive'].sum())} live: "
+            f"d_state {json.dumps(m)}, (M,14) sums max |d| / max|ref| "
+            f"{mat_rel:.3e}; families {json.dumps(c)}; ms per launch "
+            f"{kern_ms}, plain {plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
+    return out
+
+
+def phase_rich_train(dev) -> dict:
+    """Phase 20: the train step on the rich families, then the hybrid
+    step on random_scene after B2 and B6 are held against their plain
+    versions on its train state; returns the B2, B5 and B6 launches of the
+    timed steps and those two checks."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.kernels import spheres as ks
+    from srt_tpu_torch.render.regen_scan import steps_for
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.trainbench import phase_walls
+
+    def counts():
+        return (kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD, kbb.LAUNCHES_BWD_RICH,
+                ks.LAUNCHES)
+
+    def reset():
+        kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = kbb.LAUNCHES_BWD_RICH = 0
+        ks.LAUNCHES = 0
+
+    def grads_of(step) -> dict:
+        gs = {k: v.grad.cpu().numpy() for k, v in step.params.items()}
+        nan = sum(int(np.isnan(g).sum()) for g in gs.values())
+        if nan or not all(np.isfinite(g).all() for g in gs.values()):
+            raise AssertionError(f"gradients with {nan} NaN: {gs}")
+        return {k: float(np.abs(g).sum()) for k, g in gs.items()}
+
+    w, spp = TRAIN["width"], TRAIN["spp"]
+    rays = w * w * spp
+    n_steps = steps_for(rays, TRAIN_ENGINE["wavefront"],
+                        TRAIN_ENGINE["depth_budget"], TRAIN["max_depth"],
+                        drain=TRAIN_ENGINE["drain"])
+    total = {"b2": 0, "b5": 0, "b6": 0}
+    for name in RICH_BWD_EXPECT:
+        scene, cam = rich_scene(name, dev)
+        params = {"tex_color": scene.tex_color}
+        if name == "lit_room_media":
+            params["mat_params"] = scene.mat_params
+        step, warmup_s, (loss0, *losses), walls = train_walls(
+            scene, cam, params, TRAIN, dev, TRAIN_STEPS, reset)
+        fwd, bwd, rich, b6 = counts()
+        want = n_steps * TRAIN_STEPS
+        if not fwd == bwd == rich == want or b6:
+            raise AssertionError(f"{name}: {fwd} B2, {bwd} B5 ({rich} rich) "
+                                 f"and {b6} B6 launches for {TRAIN_STEPS} "
+                                 f"steps of {n_steps} bounces")
+        total["b2"] += fwd
+        total["b5"] += bwd
+        if not np.isfinite([loss0] + losses).all():
+            raise AssertionError(f"{name}: losses {loss0} {losses}")
+        sums = grads_of(step)
+        walls_split = phase_walls(
+            step, torch.full((w, w, 3), TRAIN_TARGET, device=dev),
+            TRAIN_STEPS + 1)
+        med = sorted(walls)[len(walls) // 2]
+        log(f"[rich-train-{name}] {w}x{w}x{spp} depth {TRAIN['max_depth']}, "
+            f"params {sorted(params)}, {n_steps} bounces a step: median "
+            f"{rays / med:.1f} train-step rays/s (step walls {walls} s), "
+            f"warm-up step {warmup_s:.3f} s, split {json.dumps(walls_split)}, "
+            f"losses {[loss0] + losses}, {fwd} B2 and {bwd} B5 launches "
+            f"({rich} rich), 0 B6, gradients finite, 0 NaN, |sums| "
+            f"{json.dumps(sums)}")
+
+    # the kernels of the hybrid step, first on a 16,384-lane random_scene
+    # train state: B2's rich kMoving instantiation (the forward) and B6
+    # on its 484 moving spheres (the backward's winner)
+    scene, cam = rich_scene("random_scene", dev)
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=HYBRID_RICH["max_depth"])
+    st = train_state(scene, cam, flags, tables, spec, dev)
+    if not (flags.moving and kb.fwd_args(scene, flags, tables, st,
+                                         spec)[0].rich):
+        raise AssertionError("B2 random_scene: not the rich kMoving "
+                             "instantiation")
+    total["b2_moving"] = check_b2("rich-moving-random_scene", scene, flags,
+                                  tables, st, spec)
+    total["b6_check"] = check_winner("random_scene", scene, st["o"], st["d"],
+                                     st["time"])
+    hw, hspp = HYBRID_RICH["width"], HYBRID_RICH["spp"]
+    h_steps = steps_for(hw * hw * hspp, TRAIN_ENGINE["wavefront"],
+                        TRAIN_ENGINE["depth_budget"], HYBRID_RICH["max_depth"],
+                        drain=TRAIN_ENGINE["drain"])
+    step, _, (loss0, loss), (wall,) = train_walls(
+        scene, cam, {"tex_color": scene.tex_color}, HYBRID_RICH, dev, 1,
+        reset)
+    fwd, bwd, rich, b6 = counts()
+    if not fwd == b6 == h_steps or bwd:
+        raise AssertionError(f"random_scene: {fwd} B2, {b6} B6 and {bwd} B5 "
+                             f"launches for {h_steps} bounces")
+    if not np.isfinite([loss0, loss]).all():
+        raise AssertionError(f"random_scene: losses {loss0} {loss}")
+    total["b2"] += fwd
+    total["b6"] += b6
+    sums = grads_of(step)
+    log(f"[rich-train-random_scene] hybrid, {hw}x{hw}x{hspp} depth "
+        f"{HYBRID_RICH['max_depth']} (width cut from {w}: the torch replay), "
+        f"params ['tex_color'], {h_steps} bounces: step wall {wall:.3f} s "
+        f"({hw * hw * hspp / wall:.1f} train-step rays/s), losses "
+        f"{[loss0, loss]}, {fwd} B2, {b6} B6, {bwd} B5 launches, gradient "
+        f"finite, 0 NaN, |sum| {json.dumps(sums)}")
+    return total
+
+
 def cornell_times(dev) -> dict:
     """``--measure`` on cornell_boxes: B3 and B2's external hit as bare
     launches on phase 7's render wavefront, ``COMPARE_ROUNDS`` times, and two
@@ -1677,11 +1874,37 @@ def cornell_times(dev) -> dict:
     return out
 
 
+def b5_bare_times(scene, cam, dev) -> list:
+    """``--measure``: the lean B5 as bare launches on phase 5's ball_scenes
+    train state, ``COMPARE_ROUNDS`` times, 200 launches each."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    st = train_state(scene, cam, flags, tables, spec, dev)
+    r = np.random.default_rng(2)
+    ct = {k: torch.from_numpy(r.standard_normal((TRAIN_LANES, 3))
+                              .astype(np.float32)).to(dev) for k in kbb.ROWS}
+    return [bare_launch_ms("srt_bounce_bwd", ctypes.sizeof(kbb._BwdArgs),
+                           lambda: kbb.bounce_bwd(scene, flags, tables, st,
+                                                  ct, spec), 200)
+            for _ in range(COMPARE_ROUNDS)]
+
+
 def measure_tree() -> dict:
     """``--measure``: what ``--compare`` times in one checkout, with the
     package found first on ``sys.path``: its build, ``ptxas``' registers
-    of B1 and B2, B1 on phase 3's ball_scenes wavefront as bare launches
-    and through its wrapper (``COMPARE_ROUNDS`` times, 50 launches each), the
+    of B1, B2 and B5, B1 on phase 3's ball_scenes wavefront as bare
+    launches and through its wrapper (``COMPARE_ROUNDS`` times, 50
+    launches each), the lean B5 as bare launches (``b5_bare_times``), the
     ball_scenes train step with ``{"tex_color"}`` (phase 6, three steps)
     and with the geometric parameters (phase 15, two steps), and
     ``cornell_times``. A measurement the checkout's package cannot make
@@ -1701,7 +1924,8 @@ def measure_tree() -> dict:
     out = {"build_s": time.time() - t0}
     report = build.ptxas_report()
     out["registers"] = {k: kernel_registers(report, k) for k in
-                        ("regen_bounce_kernel", "bounce_kernel")}
+                        ("regen_bounce_kernel", "bounce_kernel",
+                         "bounce_bwd_kernel")}
     scene, cam, _ = get_scene("ball_scenes", device=dev)
     spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
                         rr_start=1 << 30, pdf_floor=1e-9, seed=0)
@@ -1713,6 +1937,7 @@ def measure_tree() -> dict:
     out["b1_wrapped_ms"] = [time_bounces(kb.regen_bounce, inp, mid, spec, 50)
                             for _ in range(COMPARE_ROUNDS)]
     for key, fn in (
+            ("b5_bare_ms", lambda: b5_bare_times(scene, cam, dev)),
             ("train_s", lambda: train_walls(
                 scene, cam, {"tex_color": scene.tex_color}, TRAIN, dev,
                 TRAIN_STEPS)[3]),
@@ -1774,6 +1999,7 @@ def compare(trees: list) -> None:
     log("[compare] summary " + json.dumps({t: {
         "b1_bare_ms": extremes(rs, "b1_bare_ms"),
         "b1_wrapped_ms": extremes(rs, "b1_wrapped_ms"),
+        "b5_bare_ms": extremes(rs, "b5_bare_ms"),
         "bench_rays_per_s": extremes(rs, "bench_rays_per_s"),
         "train_s": extremes(rs, "train_s"),
         "geom_train_s": extremes(rs, "geom_train_s"),
@@ -1788,7 +2014,7 @@ def main() -> None:
     ap.add_argument("--ppm", default=None,
                     help="also write the main-path image (sqrt gamma) here")
     ap.add_argument("--compare", nargs="+", metavar="TREE",
-                    help="instead of the smoke run, time B1, B2, B3, the "
+                    help="instead of the smoke run, time B1, B5, B2, B3, the "
                     "ball_scenes render and the train steps of each "
                     "checkout in turns")
     ap.add_argument("--measure", action="store_true",
@@ -1805,7 +2031,10 @@ def main() -> None:
         sys.path.insert(0, os.getcwd())
         print("compare " + json.dumps(measure_tree()), flush=True)
         return
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the package, and the tests' helpers: the media room (_torch_scenes)
+    # and the bounce census (_torch_census)
+    sys.path[:0] = [root, os.path.join(root, "tests")]
 
     from srt_tpu_torch import get_scene
     from srt_tpu_torch.kernels import build
@@ -1846,6 +2075,21 @@ def main() -> None:
     rich = phase_rich_kernel(dev)                             # 17
     b2_final = phase_final_ext(dev)                           # 18
     b1_rich = phase_rich_render(dev)
+    rich_bwd = phase_rich_bwd(dev)                            # 19
+    rich_train = phase_rich_train(dev)                        # 20
+    log(f"[kernels] B5 launches: {b5['launches']} lean on the ball_scenes "
+        f"train path, {rich_train['b5']} rich on the rich train paths; B5 "
+        f"ms per launch {b5['ms']} (lean, ball_scenes), rich "
+        f"{json.dumps(rich_bwd['cases'])}; B2 {rich_train['b2']} and B6 "
+        f"{rich_train['b6']} launches on the rich train paths; B2 ms per "
+        f"launch on the rich train states {json.dumps(rich_bwd['b2_cases'])}"
+        f", on random_scene's (kMoving) {rich_train['b2_moving']['ms']}; B6 "
+        f"on random_scene's {rich_train['b6_check']['ms']}")
+    b5["launches"] += rich_train["b5"]
+    b6["launches"] += rich_train["b6"]
+    b5["max_abs_err"] = max(b5["max_abs_err"], rich_bwd["max_abs_err"])
+    b6["max_abs_err"] = max(b6["max_abs_err"],
+                            rich_train["b6_check"]["max_abs_err"])
     b1["max_abs_err"] = max(b1["max_abs_err"], rich["max_abs_err"])
     log(f"[kernels] B1 launches: {b1['launches']} on the ball_scenes render "
         f"path, {b1_rich} on the random_scene render path; B1 ms per launch "
@@ -1856,10 +2100,11 @@ def main() -> None:
     b3["launches"] += b3_train
     b3["max_abs_err"] = max(b3["max_abs_err"], b3_ct["max_abs_err"])
     b2["launches"] = (b2_train + b2_render + b2_pot_render + b2_geom
-                      + b2_cornell)
+                      + b2_cornell + rich_train["b2"])
     b2["max_abs_err"] = max(b2["max_abs_err"], b2_ext["max_abs_err"],
                             b2_pot["max_abs_err"], b2_ct["max_abs_err"],
-                            b2_final["max_abs_err"])
+                            b2_final["max_abs_err"], rich_bwd["b2_err"],
+                            rich_train["b2_moving"]["max_abs_err"])
     log(f"[kernels] B2 launches: {b2_train} on the train path, {b2_render} "
         f"in external-hit mode on the cornell render path, {b2_pot_render} "
         f"on the teapot render path, {b2_geom} on the geometry train path, "

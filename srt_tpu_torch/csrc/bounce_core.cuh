@@ -10,8 +10,13 @@
 // :626-661, which defers noise and image albedo to an XLA epilogue;
 // here they are evaluated in the kernel, the Perlin tables staged in
 // shared memory), and sphere lights (:800-821, :844-860); the lean
-// instantiations (ball_scenes' B1, cornell_boxes' B2, B5's
-// shade<Dual<7>>) compile without any of it.
+// instantiations (ball_scenes' B1, cornell_boxes' B2, the lean B5's
+// shade<Dual<7>>) compile without any of it. The rich helpers are written
+// over the scalar type as shade<T> is, so B5's rich instantiation
+// (bounce_bwd.cu's kRich) differentiates them: the media event's distance,
+// the specular branch, the checker's colours, the marble in the hit
+// point, sphere-light samples and pdfs; an image lookup has no tangent
+// (nearest texel).
 // kMoving (B1, B2) puts each sphere at its centre at the ray's time, as
 // the JAX kernels' ``moving`` static does; the static instantiations do
 // not read the time. B6 always lerps, as the JAX sphere kernel does.
@@ -27,7 +32,9 @@
 // (srt_tpu/pallas/bounce.py:111-154) and of the plain PyTorch version
 // (srt_tpu_torch/core/gradsafe.py): a sqrt tangent of 0 where x <= 0, and
 // every division's denominator coefficient clamped to +-3e37. min/max
-// pass the first argument's tangent on a tie, as torch.clamp does.
+// pass the first argument's tangent on a tie, as torch.clamp does; where a
+// tie is structural (a ray starting on a medium's face, hit_t) the tangent
+// is halved, as jnp.maximum and torch.maximum split it.
 //
 // The arithmetic follows the plain PyTorch version
 // (srt_tpu_torch/render/integrator.py:bounce_step) operation by operation,
@@ -237,6 +244,16 @@ __device__ __forceinline__ Dual<K> xmax(const Dual<K>& a, const Dual<K>& b) {
   const float v = fmaxf(a.v, b.v);
   return v == a.v ? a : b;
 }
+template <int K>
+__device__ __forceinline__ Dual<K> xmin(const Dual<K>& a, const Dual<K>& b) {
+  const float v = fminf(a.v, b.v);
+  return v == a.v ? a : b;
+}
+__device__ __forceinline__ float xsin(float x) { return sinf(x); }
+template <int K>
+__device__ __forceinline__ Dual<K> xsin(const Dual<K>& x) {
+  return chain(x, sinf(x.v), cosf(x.v));
+}
 template <class T>
 __device__ __forceinline__ T xclamp(const T& x, float lo, float hi) {
   return xmin(xmax(x, lo), hi);
@@ -251,9 +268,14 @@ __device__ __forceinline__ float signf(float x) {
 __device__ __forceinline__ float safe_inv(float x) {
   return 1.0f / (fabsf(x) < 1e-20f ? 1e-20f : x);
 }
-// sqrt(max(x, 0)), +0 where x <= 0 (vecmath.safe_sqrt)
+// sqrt(max(x, 0)), +0 where x <= 0 (vecmath.safe_sqrt), its tangent 0
+// there (_grad_safe_sqrt)
 __device__ __forceinline__ float sqrt_pos(float x) {
   return x > 0.0f ? sqrtf(x) : 0.0f;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> sqrt_pos(const Dual<K>& x) {
+  return x.v > 0.0f ? xsqrt(x) : Dual<K>(0.0f);
 }
 
 // ---- 3-vectors -------------------------------------------------------------
@@ -322,11 +344,12 @@ __device__ __forceinline__ V3T<T> safe_normalize(const V3T<T>& a) {
 }
 // times the reciprocal length, +z for |a|^2 <= 1e-12 (the JAX kernel's
 // _safe_normalize3)
-__device__ __forceinline__ V3 safe_normalize_rcp(V3 a) {
-  const float l2 = dot(a, a);
-  const bool ok = l2 > 1e-12f;
-  const float inv = 1.0f / sqrtf(ok ? l2 : 1.0f);
-  return scale(ok ? a : v3(0.0f, 0.0f, 1.0f), inv);
+template <class T>
+__device__ __forceinline__ V3T<T> safe_normalize_rcp(const V3T<T>& a) {
+  const T l2 = dot(a, a);
+  const bool ok = val(l2) > 1e-12f;
+  const T inv = 1.0f / xsqrt(ok ? l2 : T(1.0f));
+  return scale(ok ? a : v3<T>(T(0.0f), T(0.0f), T(1.0f)), inv);
 }
 template <class T>
 __device__ __forceinline__ T comp(const V3T<T>& a, int axis) {
@@ -688,20 +711,23 @@ __device__ inline V3 image_value(const SceneView& s, int tex, float u,
 // cell by floor then int, wrapped by & 255 (two's complement, as numpy
 // and XLA wrap negative coordinates); the three permutations xor-combined
 // index the gradients; the corner dots blended trilinearly with the
-// hermite weights, in the plain version's order.
-__device__ inline float perlin_noise(const SceneView& s, V3 p) {
-  const float fx = floorf(p.x), fy = floorf(p.y), fz = floorf(p.z);
-  const float ux = p.x - fx, uy = p.y - fy, uz = p.z - fz;
+// hermite weights, in the plain version's order. Over T the tangents run
+// through the fractions (the floor's tangent is 0).
+template <class T>
+__device__ inline T perlin_noise(const SceneView& s, const V3T<T>& p) {
+  const float fx = floorf(val(p.x)), fy = floorf(val(p.y));
+  const float fz = floorf(val(p.z));
+  const T ux = p.x - fx, uy = p.y - fy, uz = p.z - fz;
   const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
-  const float sx = ux * ux * (3.0f - 2.0f * ux);
-  const float sy = uy * uy * (3.0f - 2.0f * uy);
-  const float sz = uz * uz * (3.0f - 2.0f * uz);
+  const T sx = ux * ux * (3.0f - 2.0f * ux);
+  const T sy = uy * uy * (3.0f - 2.0f * uy);
+  const T sz = uz * uz * (3.0f - 2.0f * uz);
   const int hx[2] = {s.pperm[ix & 255], s.pperm[(ix + 1) & 255]};
   const int hy[2] = {s.pperm[kPerlin + (iy & 255)],
                      s.pperm[kPerlin + ((iy + 1) & 255)]};
   const int hz[2] = {s.pperm[2 * kPerlin + (iz & 255)],
                      s.pperm[2 * kPerlin + ((iz + 1) & 255)]};
-  float acc = 0.0f;
+  T acc = T(0.0f);
 #pragma unroll
   for (int di = 0; di < 2; ++di)
 #pragma unroll
@@ -709,11 +735,11 @@ __device__ inline float perlin_noise(const SceneView& s, V3 p) {
 #pragma unroll
       for (int dk = 0; dk < 2; ++dk) {
         const float* g = s.pvec + 3 * (hx[di] ^ hy[dj] ^ hz[dk]);
-        const float corner = g[0] * (ux - (float)di) + g[1] * (uy - (float)dj)
-                             + g[2] * (uz - (float)dk);
-        const float wx = di ? sx : 1.0f - sx;
-        const float wy = dj ? sy : 1.0f - sy;
-        const float wz = dk ? sz : 1.0f - sz;
+        const T corner = g[0] * (ux - (float)di) + g[1] * (uy - (float)dj)
+                         + g[2] * (uz - (float)dk);
+        const T wx = di ? sx : 1.0f - sx;
+        const T wy = dj ? sy : 1.0f - sy;
+        const T wz = dk ? sz : 1.0f - sz;
         acc = acc + wx * wy * wz * corner;
       }
   return acc;
@@ -721,16 +747,18 @@ __device__ inline float perlin_noise(const SceneView& s, V3 p) {
 
 // Marble, 0.5 (1 + sin(scale z + 5 turb(scale p))) (texture.h:42), with
 // kOctaves octaves of turbulence (perlin.h:48-58).
-__device__ inline float marble(const SceneView& s, float scl, V3 p) {
-  V3 q = scale(p, scl);
-  float acc = 0.0f, w = 1.0f;
+template <class T>
+__device__ inline T marble(const SceneView& s, float scl, const V3T<T>& p) {
+  V3T<T> q = scale(p, scl);
+  T acc = T(0.0f);
+  float w = 1.0f;
 #pragma unroll 1
   for (int o = 0; o < kOctaves; ++o) {
     acc = acc + w * perlin_noise(s, q);
     w *= 0.5f;
     q = scale(q, 2.0f);
   }
-  return 0.5f * (1.0f + sinf(scl * p.z + 5.0f * fabsf(acc)));
+  return 0.5f * (1.0f + xsin(scl * p.z + 5.0f * xabs(acc)));
 }
 
 // ---- closest hit (float) ---------------------------------------------------
@@ -851,43 +879,67 @@ __device__ __forceinline__ void take_external(Winner& W, const ExtHit& e) {
   }
 }
 
+// Medium record ``r`` (kind, center xyz, radius, half extents xyz,
+// density, material) along the ray: where the ray enters it (``t_in``)
+// and leaves it (``t_out``), and whether it crosses it at all. Over T in
+// the safe_ad forms of _media_sweep (srt_tpu/pallas/bounce.py:505, :511):
+// the sphere's root by sqrt_pos and the slabs' reciprocals by a clamped
+// division, the same values as the float forms.
+template <class T>
+__device__ __forceinline__ bool medium_span(const float* __restrict__ r,
+                                            const V3T<T>& o, const V3T<T>& d,
+                                            T& t_in, T& t_out) {
+  const V3T<T> oc = sub(o, lift3<T>(v3(__ldg(r + 1), __ldg(r + 2),
+                                       __ldg(r + 3))));
+  if (__ldg(r) == 1.0f) {   // box
+    const V3 h = v3(__ldg(r + 5), __ldg(r + 6), __ldg(r + 7));
+    const V3T<T> inv = v3<T>(
+        1.0f / (fabsf(val(d.x)) < 1e-20f ? T(1e-20f) : d.x),
+        1.0f / (fabsf(val(d.y)) < 1e-20f ? T(1e-20f) : d.y),
+        1.0f / (fabsf(val(d.z)) < 1e-20f ? T(1e-20f) : d.z));
+    const T t0x = (-h.x - oc.x) * inv.x, t1x = (h.x - oc.x) * inv.x;
+    const T t0y = (-h.y - oc.y) * inv.y, t1y = (h.y - oc.y) * inv.y;
+    const T t0z = (-h.z - oc.z) * inv.z, t1z = (h.z - oc.z) * inv.z;
+    t_in = xmax(xmax(xmin(t0x, t1x), xmin(t0y, t1y)), xmin(t0z, t1z));
+    t_out = xmin(xmin(xmax(t0x, t1x), xmax(t0y, t1y)), xmax(t0z, t1z));
+    return val(t_out) > val(t_in);
+  }
+  const float rad = __ldg(r + 4);
+  const T bq = dot(oc, d);
+  const T cq = dot(oc, oc) - rad * rad;
+  const T disc = bq * bq - cq;
+  const T sq = sqrt_pos(disc);
+  t_in = -bq - sq;
+  t_out = -bq + sq;
+  return val(disc) > 0.0f;
+}
+
+// The free flight of medium ``m``: an exponential draw of dimension m of
+// the bounce's ``salt``, no tangent.
+__device__ __forceinline__ float free_flight(const float* __restrict__ r,
+                                             uint32_t salt, int m) {
+  const float u = fmaxf(uniform(salt, (uint32_t)m), 1e-12f);
+  return -logf(u) / __ldg(r + 8);
+}
+
 // Participating media after the surface hit (_media_sweep,
 // srt_tpu/pallas/bounce.py:486-542): for each sphere (kind 0) or box
-// (kind 1) medium, records (n_med, 10) of kind, center xyz, radius, half
-// extents xyz, density, material, an exponential free flight from where
-// the ray enters it; an event nearer than the winner overrides it, shaded
-// as the medium's isotropic material with normal +x and uv 0. ``salt`` is
-// the bounce's salt; medium m draws dimension m.
+// (kind 1) medium of the (n_med, 10) records, an exponential free flight
+// from where the ray enters it; an event nearer than the winner overrides
+// it, shaded as the medium's isotropic material with normal +x and uv 0,
+// W.tri holding the medium's index. ``salt`` is the bounce's salt; medium
+// m draws dimension m.
 __device__ inline void take_media(Winner& W, const float* __restrict__ med,
                                   int n_med, V3 o, V3 d, uint32_t salt) {
-  const V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
   for (int m = 0; m < n_med; ++m) {
     const float* r = med + 10 * m;
-    const V3 oc = sub(o, v3(__ldg(r + 1), __ldg(r + 2), __ldg(r + 3)));
-    const float rad = __ldg(r + 4);
-    const float bq = dot(oc, d);
-    const float cq = dot(oc, oc) - rad * rad;
-    const float disc = bq * bq - cq;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const V3 h = v3(__ldg(r + 5), __ldg(r + 6), __ldg(r + 7));
-    const float t0x = (-h.x - oc.x) * inv.x, t1x = (h.x - oc.x) * inv.x;
-    const float t0y = (-h.y - oc.y) * inv.y, t1y = (h.y - oc.y) * inv.y;
-    const float t0z = (-h.z - oc.z) * inv.z, t1z = (h.z - oc.z) * inv.z;
-    const float b_in = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                             fminf(t0z, t1z));
-    const float b_out = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                              fmaxf(t0z, t1z));
-    const bool is_box = __ldg(r) == 1.0f;
-    const float t_in = is_box ? b_in : -bq - sq;
-    const float t_out = is_box ? b_out : -bq + sq;
-    const bool ok = is_box ? b_out > b_in : disc > 0.0f;
+    float t_in, t_out;
+    const bool ok = medium_span(r, o, d, t_in, t_out);
     const float t_enter = fmaxf(t_in, 0.0f);
     const float t_exit = fminf(t_out, W.t);
-    const float u = fmaxf(uniform(salt, (uint32_t)m), 1e-12f);
-    const float free_flight = -logf(u) / __ldg(r + 8);
-    const float t_sc = t_enter + free_flight;
-    if (ok && t_exit > t_enter && free_flight < t_exit - t_enter
-        && t_sc < W.t) {
+    const float free = free_flight(r, salt, m);
+    const float t_sc = t_enter + free;
+    if (ok && t_exit > t_enter && free < t_exit - t_enter && t_sc < W.t) {
       W.t = t_sc;
       W.u = 0.0f;
       W.v = 0.0f;
@@ -905,30 +957,35 @@ __device__ inline void take_media(Winner& W, const float* __restrict__ med,
 // material (srt_tpu/pallas/bounce.py:663-729): the new direction and the
 // attenuation. ``n`` is the stored normal, ``p0`` the material's first
 // parameter (fuzz, refractive index), ``alb`` its colour; uniforms of
-// dimensions 8-11 of the bounce's salt.
-__device__ inline void scatter_specular(int m_type, float p0, V3 alb, V3 n,
-                                        V3 d, uint32_t salt, V3& dir,
-                                        V3& att) {
-  const float ddn = dot(d, n);
-  const V3 refl = sub(d, scale(n, 2.0f * ddn));
+// dimensions 8-11 of the bounce's salt. Schlick's reflectance only picks
+// the branch, so it is taken on the values.
+template <class T>
+__device__ inline void scatter_specular(int m_type, const T& p0,
+                                        const V3T<T>& alb, const V3T<T>& n,
+                                        const V3T<T>& d, uint32_t salt,
+                                        V3T<T>& dir, V3T<T>& att) {
+  const T ddn = dot(d, n);
+  const V3T<T> refl = sub(d, scale(n, 2.0f * ddn));
   if (m_type == kDielectric) {
-    const float ref_idx = fmaxf(p0, 1e-2f);
-    const bool going_out = ddn > 0.0f;
-    const V3 out_n = going_out ? neg(n) : n;
-    const float ni = going_out ? ref_idx : 1.0f / ref_idx;
-    const float cosine = going_out ? ddn : -ddn;
-    const float dt = dot(d, out_n);
-    const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
-    const float sq = disc > 0.0f ? sqrtf(disc) : 0.0f;
-    const V3 refr = sub(scale(sub(d, scale(out_n, dt)), ni), scale(out_n, sq));
-    float r0 = (1.0f - ref_idx) / (1.0f + ref_idx);
+    const T ref_idx = xmax(p0, 1e-2f);
+    const bool going_out = val(ddn) > 0.0f;
+    const V3T<T> out_n = going_out ? neg(n) : n;
+    const T ni = going_out ? ref_idx : 1.0f / ref_idx;
+    const float cosine = going_out ? val(ddn) : -val(ddn);
+    const T dt = dot(d, out_n);
+    const T disc = 1.0f - ni * ni * (1.0f - dt * dt);
+    const T sq = sqrt_pos(disc);
+    const V3T<T> refr = sub(scale(sub(d, scale(out_n, dt)), ni),
+                            scale(out_n, sq));
+    const float fi = val(ref_idx);
+    float r0 = (1.0f - fi) / (1.0f + fi);
     r0 = r0 * r0;
     const float omc = fmaxf(1.0f - cosine, 0.0f);
     const float omc2 = omc * omc;
     const float schlick = r0 + (1.0f - r0) * omc2 * omc2 * omc;
-    const float reflect_prob = disc > 0.0f ? schlick : 1.0f;
+    const float reflect_prob = val(disc) > 0.0f ? schlick : 1.0f;
     dir = normalize(uniform(salt, 11) < reflect_prob ? refl : refr);
-    att = v3(1.0f, 1.0f, 1.0f);
+    att = v3<T>(T(1.0f), T(1.0f), T(1.0f));
     return;
   }
   const float z = 1.0f - 2.0f * uniform(salt, 8);
@@ -938,86 +995,112 @@ __device__ inline void scatter_specular(int m_type, float p0, V3 alb, V3 n,
     const float radius = cbrt_pos(fmaxf(uniform(salt, 10), 1e-12f));
     const V3 ball = v3(radius * r_xy * cosf(phi), radius * r_xy * sinf(phi),
                        radius * z);
-    dir = safe_normalize_rcp(add(refl, scale(ball, p0)));
+    dir = safe_normalize_rcp(add(refl, v3<T>(ball.x * p0, ball.y * p0,
+                                             ball.z * p0)));
   } else {   // isotropic: a uniform direction
-    dir = normalize(v3(r_xy * cosf(phi), r_xy * sinf(phi), z));
+    dir = lift3<T>(normalize(v3(r_xy * cosf(phi), r_xy * sinf(phi), z)));
   }
   att = alb;
 }
 
 // The colour of material record ``mt``'s texture at the hit (the rich
 // instantiation; texture_value, srt_tpu_torch/materials/textures.py):
-// constant, checker (the sign of three sines at p, texture.h:13-19),
-// marble (column 12 holds the noise scale) or the image at the rect's or
-// triangle's uv, or at the sphere's from its unit vector ``unit``.
-__device__ inline V3 texture_at(const SceneView& s, const float* mt,
-                                const Winner& W, V3 unit, V3 p) {
+// the constant colour ``mc``, the checker's (the sign of three sines at p,
+// texture.h:13-19; ``mc2`` the odd colour), marble (column 12 holds the
+// noise scale) or the image at the rect's or triangle's uv, or at the
+// sphere's from its unit vector ``unit``. ``mc`` and ``mc2`` are columns
+// 6-8 and 9-11 of ``mt``, with tangents in B5.
+template <class T>
+__device__ inline V3T<T> texture_at(const SceneView& s, const float* mt,
+                                    const Winner& W, V3 unit,
+                                    const V3T<T>& p, const V3T<T>& mc,
+                                    const V3T<T>& mc2) {
   const int tt = (int)mt[5];
   if (tt == kTexChecker) {
-    const float sines = sinf(10.0f * p.x) * sinf(10.0f * p.y)
-                        * sinf(10.0f * p.z);
-    return sines < 0.0f ? v3(mt[9], mt[10], mt[11]) : v3(mt[6], mt[7], mt[8]);
+    const float sines = sinf(10.0f * val(p.x)) * sinf(10.0f * val(p.y))
+                        * sinf(10.0f * val(p.z));
+    return sines < 0.0f ? mc2 : mc;
   }
   if (tt == kTexNoise) {
-    const float m = marble(s, mt[12], p);
-    return v3(m, m, m);
+    const T m = marble(s, mt[12], p);
+    return v3<T>(m, m, m);
   }
   if (tt == kTexImage) {
     float u = W.u, v = W.v;
     if (W.rect < 0 && W.tri < 0) sphere_uv(unit, u, v);
-    return image_value(s, (int)mt[13], u, v);
+    return lift3<T>(image_value(s, (int)mt[13], u, v));
   }
-  return v3(mt[6], mt[7], mt[8]);
+  return mc;
 }
 
 // Sphere lights (render/lights.py:_sphere_sample, _sphere_pdf;
 // sphere.h:7-15, 69-86). ``l`` is the light's row: centre xyz, radius.
 // From inside the sphere every direction hits it: a uniform direction,
-// pdf 1/4pi.
-__device__ inline V3 sphere_light_dir(const float* l, V3 p, float u1,
-                                      float u2) {
-  const V3 to_c = sub(v3(l[0], l[1], l[2]), p);
+// pdf 1/4pi; the cone's cos_max, negative there, takes sqrt_pos's zero
+// tangent.
+template <class T>
+__device__ inline V3T<T> sphere_light_dir(const float* l, const V3T<T>& p,
+                                          float u1, float u2) {
+  const V3T<T> to_c = sub(lift3<T>(v3(l[0], l[1], l[2])), p);
   const float rad = l[3];
-  const float dist_sq = dot(to_c, to_c);
-  const bool inside = dist_sq <= rad * rad;
-  const float cmx = sqrt_pos(1.0f - rad * rad / fmaxf(dist_sq, 1e-12f));
-  const float z = inside ? 1.0f - 2.0f * u2 : 1.0f + u2 * (cmx - 1.0f);
+  const T dist_sq = dot(to_c, to_c);
+  const bool inside = val(dist_sq) <= rad * rad;
+  const T cmx = sqrt_pos(1.0f - rad * rad / xmax(dist_sq, 1e-12f));
+  const T z = inside ? T(1.0f - 2.0f * u2) : 1.0f + u2 * (cmx - 1.0f);
   const float phi = kTwoPi * u1;
-  const float sq = sqrt_pos(1.0f - z * z);
-  const V3 lw = normalize(to_c);
-  const V3 la = fabsf(lw.x) > 0.9f ? v3(0.0f, 1.0f, 0.0f)
-                                   : v3(1.0f, 0.0f, 0.0f);
-  const V3 lv = normalize(cross(lw, la));
-  const V3 lu = cross(lw, lv);
+  const T sq = sqrt_pos(1.0f - z * z);
+  const V3T<T> lw = normalize(to_c);
+  const V3T<T> la = lift3<T>(fabsf(val(lw.x)) > 0.9f ? v3(0.0f, 1.0f, 0.0f)
+                                                     : v3(1.0f, 0.0f, 0.0f));
+  const V3T<T> lv = normalize(cross(lw, la));
+  const V3T<T> lu = cross(lw, lv);
   return add(add(scale(lu, cosf(phi) * sq), scale(lv, sinf(phi) * sq)),
              scale(lw, z));
 }
 
-__device__ inline float sphere_light_pdf(const float* l, V3 p, V3 wi) {
-  const V3 oc = sub(p, v3(l[0], l[1], l[2]));
+template <class T>
+__device__ inline T sphere_light_pdf(const float* l, const V3T<T>& p,
+                                     const V3T<T>& wi) {
+  const V3T<T> oc = sub(p, lift3<T>(v3(l[0], l[1], l[2])));
   const float rad = l[3];
-  const float b = dot(oc, wi);
-  const float c = dot(oc, oc) - rad * rad;
-  const float disc = b * b - c;
-  const float sqd = sqrt_pos(disc);
-  const bool hits = disc > 0.0f && (-b - sqd > 1e-3f || -b + sqd > 1e-3f);
-  const float cmx = sqrt_pos(1.0f - rad * rad / fmaxf(c + rad * rad, 1e-12f));
-  const float solid = kTwoPi * (1.0f - cmx);
-  const float pdf = hits ? 1.0f / fmaxf(solid, 1e-12f) : 0.0f;
-  return c <= 0.0f ? kInv4Pi : pdf;
+  const T b = dot(oc, wi);
+  const T c = dot(oc, oc) - rad * rad;
+  const T disc = b * b - c;
+  const T sqd = sqrt_pos(disc);
+  const bool hits = val(disc) > 0.0f && (val(-b - sqd) > 1e-3f
+                                         || val(-b + sqd) > 1e-3f);
+  const T cmx = sqrt_pos(1.0f - rad * rad / xmax(c + rad * rad, 1e-12f));
+  const T solid = kTwoPi * (1.0f - cmx);
+  const T pdf = hits ? 1.0f / xmax(solid, 1e-12f) : T(0.0f);
+  return val(c) <= 0.0f ? T(kInv4Pi) : pdf;
 }
 
 // The winner's t: the sweep's value in the forward; in the backward the
 // same formulas recomputed from (o, d), the same value bit for bit, with
-// tangents (bounce_bwd.py:155-177).
+// tangents (bounce_bwd.py:155-177). With kRich a winner with W.tri >= 0
+// is a medium event (B5 takes no external hit): its t is where the ray
+// enters medium W.tri plus the free flight (the safe_ad twin of
+// _media_sweep, bounce_bwd.py:179-182).
+template <bool kRich>
 __device__ __forceinline__ float hit_t(const SceneView&, const Winner& W,
-                                       const V3&, const V3&) {
+                                       const V3&, const V3&, uint32_t) {
   return W.t;
 }
-template <int K>
+template <bool kRich, int K>
 __device__ Dual<K> hit_t(const SceneView& s, const Winner& W,
-                         const V3T<Dual<K>>& o, const V3T<Dual<K>>& d) {
+                         const V3T<Dual<K>>& o, const V3T<Dual<K>>& d,
+                         uint32_t salt) {
   using D = Dual<K>;
+  if (kRich && W.tri >= 0) {
+    const float* r = s.med + 10 * W.tri;
+    D t_in, t_out;
+    medium_span(r, o, d, t_in, t_out);
+    // max(t_in, 0) as jnp.maximum differentiates it: half the tangent on
+    // a tie (a ray that starts on the medium's face)
+    const D t_enter = t_in.v > 0.0f ? t_in
+                      : (t_in.v == 0.0f ? 0.5f * t_in : D(0.0f));
+    return t_enter + free_flight(r, salt, W.tri);
+  }
   if (W.rect >= 0) {
     const float* r = s.rect + 10 * W.rect;
     const int na = (int)r[0];
@@ -1047,10 +1130,11 @@ struct LaneT {
 // BSDF sample mixed 50/50 with a light sample, the mixture pdf, the
 // BSDF weight, roulette. ``salt`` is the bounce's salt (the lane's salt
 // combined with its depth); ``mp0, mp1`` are the material's parameters 0
-// and 1 and ``mc`` its constant colour. Returns alive-after-bounce (before
-// the depth cap) and updates L. Emitter and miss lanes keep o, d, beta.
-// kExt: the winner may be an external (triangle) hit. kRich (float only):
-// the winner may be a medium event, the albedo and the emission are the
+// and 1, ``mc`` its constant colour and ``mc2`` its second (the checker's
+// odd) colour. Returns alive-after-bounce (before the depth cap) and
+// updates L. Emitter and miss lanes keep o, d, beta.
+// kExt: the winner may be an external (triangle) hit. kRich: the winner
+// may be a medium event, the albedo and the emission are the
 // material's texture at the hit (texture_at), specular lanes take the
 // specular branch, and a light row may be a sphere (light_kind); the
 // albedo multiplies the throughput before roulette, as the plain version
@@ -1079,7 +1163,8 @@ template <class T, bool kExt = false, bool kMoving = false,
 __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
                                       uint32_t salt, int depth, float time,
                                       const T& mp0, const T& mp1,
-                                      const V3T<T>& mc, LaneT<T>& L) {
+                                      const V3T<T>& mc, const V3T<T>& mc2,
+                                      LaneT<T>& L) {
   // W.tri >= 0 marks a winner whose normal and uv are given: a triangle
   // (kExt) or an in-scatter event of take_media (kRich)
   constexpr bool kGiven = kExt || kRich;
@@ -1089,7 +1174,7 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
   V3T<T> normal = v3<T>(T(0.0f), T(0.0f), T(1.0f));
   V3T<T> unit = v3<T>(T(0.0f), T(0.0f), T(0.0f));
   if (hit) {
-    p = add(o, scale(d, xmin(hit_t(s, W, o, d), kTPosMax)));
+    p = add(o, scale(d, xmin(hit_t<kRich>(s, W, o, d, salt), kTPosMax)));
     V3T<T> n_st;
     if (W.rect >= 0) {
       const float* r = s.rect + 10 * W.rect;
@@ -1110,7 +1195,7 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
   // kRich the texture at the hit
   V3T<T> alb = mc;
   if constexpr (kRich) {
-    if (hit) alb = texture_at(s, mt, W, unit, p);
+    if (hit) alb = texture_at(s, mt, W, val3(unit), p, mc, mc2);
   }
 
   // emission: one-sided, where the stored normal faces the ray
@@ -1131,11 +1216,11 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
   if (!hit) return false;
   if constexpr (kRich) {
     if (m_type == kMetal || m_type == kDielectric || m_type == kIsotropic) {
-      V3 dir, att;
+      V3T<T> dir, att;
       scatter_specular(m_type, mp0, alb, normal, d, salt, dir, att);
       return scatter_to(s, salt, depth, p, dir,
-                        v3(L.beta.x * att.x, L.beta.y * att.y,
-                           L.beta.z * att.z), L);
+                        v3<T>(L.beta.x * att.x, L.beta.y * att.y,
+                              L.beta.z * att.z), L);
     }
   }
 
@@ -1181,7 +1266,7 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
                                         == kLightSphere;
     if (sphere_light) {
       if constexpr (kRich) {
-        const V3 wl = sphere_light_dir(l, p, u1, u2);
+        const V3T<T> wl = sphere_light_dir(l, p, u1, u2);
         if (uniform(salt, 12) < 0.5f) wi = wl;
       }
     } else {
@@ -1262,7 +1347,8 @@ __device__ __forceinline__ bool bounce(const SceneView& s, uint32_t salt,
   if constexpr (kRich) take_media(W, s.med, s.n_med, L.o, L.d, bsalt);
   const float* mt = s.mat + 14 * W.m;
   return shade<float, kExt, kMoving, kRich>(
-      s, W, bsalt, depth, time, mt[1], mt[2], v3(mt[6], mt[7], mt[8]), L);
+      s, W, bsalt, depth, time, mt[1], mt[2], v3(mt[6], mt[7], mt[8]),
+      v3(mt[9], mt[10], mt[11]), L);
 }
 
 }  // namespace srt

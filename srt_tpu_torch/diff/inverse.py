@@ -7,16 +7,16 @@ emission) and geometry (sphere centres and radii, rect planes such as a
 light's height) -- straight through the wavefront estimator: the
 regeneration engine :mod:`srt_tpu_torch.render.regen_scan`, whose bounce
 is kernel B2 forward and, on the card, kernel B5 backward under frozen
-geometry or the hybrid backward (the plain bounce replayed under autograd
-with kernel B6's sphere winner) for geometry and for the scenes B5 does
-not cover (triangles, media, specular materials, moving spheres). Random
+geometry -- its lean instantiation, or its rich one on the specular
+branch, media, checker, noise and image textures and sphere lights -- or
+the hybrid backward (the plain bounce replayed under autograd with kernel
+B6's sphere winner) for geometry and for the scenes B5 does not cover
+(triangles, moving spheres), as the JAX package's gate sends them. Random
 decisions are pure functions of ``(seed, pixel, sample, bounce,
 dimension)``; the gradient follows the JAX package's backward kernel,
 through the sampled direction and the pdfs (ROADMAP C2). The image atlas
-among the parameters raises, and so does a scene with a family the port
-renders but does not differentiate yet (``scene.ir.require_trainable``:
-checker and noise textures, image albedo, sphere lights, and the
-specular branch or media without triangles).
+among the parameters raises (ROADMAP A13), and so does what the render
+side refuses (``scene.ir.require_trainable``: mesh media, parity, MERL).
 """
 from __future__ import annotations
 

@@ -13,9 +13,14 @@ versions of the same function:
 * ``csrc/bounce_bwd.cu``: per lane, the forward's closest hit replayed in
   float, the winner's ``t`` recomputed with tangents, and the forward's
   own shading code run in forward-mode dual numbers (two passes of seven
-  tangents), each Jacobian column contracted with the cotangent. Per-lane
-  material cotangents are segment-summed here with ``index_add_`` into the
-  (M, 14) table, as ``bounce_bwd.py:301-316`` does with ``.at[].add``.
+  tangents), each Jacobian column contracted with the cotangent; on a
+  scene with any of :func:`scene.ir.rich_families` its rich
+  instantiation (``kRich``), which also replays the media sweep and
+  differentiates the specular branch, the media events, the checker's
+  colours, the marble and sphere lights (17 columns in passes of six
+  tangents). Per-lane material cotangents are segment-summed here
+  with ``index_add_`` into the (M, 14) table, as ``bounce_bwd.py:301-316``
+  does with ``.at[].add``.
 
 :func:`bounce_bwd` takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors; it never falls back, and it raises for a
@@ -30,30 +35,29 @@ import dataclasses
 
 import torch
 
-from srt_tpu_torch.kernels.bounce import (_TABLES, MAT_GRAD_COLS, StepSpec,
+from srt_tpu_torch.kernels.bounce import (_RICH_FIELDS, _TABLES,
+                                          MAT_GRAD_COLS, StepSpec,
                                           bounce_step_ref, check_state,
-                                          table_args)
+                                          rich_args, table_args)
 from srt_tpu_torch.kernels.build import launch
-from srt_tpu_torch.scene.ir import (SPECULAR_MATS, MaterialType, SceneFlags,
-                                    TorchScene, require_trainable)
+from srt_tpu_torch.scene.ir import SceneFlags, TorchScene, require_trainable
 
-#: Kernel launches made by :func:`bounce_bwd` (the CUDA path only).
+#: Kernel launches made by :func:`bounce_bwd` (the CUDA path only), both
+#: instantiations
 LAUNCHES_BWD = 0
+#: of which the rich instantiation's (``kRich``)
+LAUNCHES_BWD_RICH = 0
 
 ROWS = ("o", "d", "beta", "radiance")
 
 
 def _bwd_kernel_gaps(scene: TorchScene, flags: SceneFlags) -> list[str]:
-    """What this scene has that the backward kernel cannot differentiate."""
+    """What this scene has that the backward kernel cannot differentiate:
+    JAX's gate (``bounce_bwd.py:58-73``) less parity, which
+    :func:`scene.ir.require_covered` refuses."""
     gaps = []
     if scene.n_tris:
         gaps.append("triangle scenes: it has no external-hit mode")
-    if scene.n_media:
-        gaps.append("participating media: it has no media sweep")
-    specular = sorted(MaterialType(m).name for m in
-                      set(flags.mat_kinds) & SPECULAR_MATS)
-    if specular:
-        gaps.append(f"{specular}: it has no specular branch")
     if flags.moving:
         gaps.append("moving spheres: it replays static spheres")
     return gaps
@@ -63,10 +67,9 @@ def bwd_kernel_available(scene: TorchScene, flags: SceneFlags) -> bool:
     """Whether the backward kernel gives this scene's exact gradient under
     frozen geometry: the counterpart of ``bwd_kernel_available``
     (``bounce_bwd.py:58-73``), reading no environment variable. Moving
-    spheres go to the hybrid backward as there, and so do triangles
-    (the kernel has no external-hit input, so it would differentiate a
-    triangle lane as if the triangle were not there), media and the
-    specular materials, whose sweep and branch it lacks. The parity
+    spheres go to the hybrid backward as there, and so do triangles (the
+    kernel has no external-hit input, so it would differentiate a
+    triangle lane as if the triangle were not there). The parity
     estimator the coverage gate refuses."""
     return not _bwd_kernel_gaps(scene, flags)
 
@@ -136,14 +139,19 @@ class _BwdArgs(ctypes.Structure):
         + [(name, ctypes.c_int) for name in (
             "n", "n_sph", "n_rect", "n_mat", "n_light", "n_atlas",
             "max_depth", "rr_start")]
-        + [("pdf_floor", ctypes.c_float)])
+        + [("pdf_floor", ctypes.c_float), ("med", ctypes.c_void_p),
+           ("n_med", ctypes.c_int)]
+        + _RICH_FIELDS)
 
 
-def bwd_args(scene: TorchScene, tables: dict, state: dict, ct: dict,
+def bwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
+             state: dict, ct: dict,
              spec: StepSpec) -> tuple[_BwdArgs, tuple]:
     """The checked arguments of one ``csrc/bounce_bwd.cu`` launch and the
     outputs it writes: per-lane ``(d_state, d_mat_lane (N, 10), material
-    id (N,) int32)``, before the segment sum."""
+    id (N,) int32)``, before the segment sum. ``flags`` picks the
+    instantiation on the host (``rich`` when the scene has any of
+    :func:`scene.ir.rich_families`), with no device read."""
     dev = state["alive"].device
     n = check_state(state, tables, dev)
     ctc = {}
@@ -168,18 +176,20 @@ def bwd_args(scene: TorchScene, tables: dict, state: dict, ct: dict,
         g_beta=g["beta"].data_ptr(), g_rad=g["radiance"].data_ptr(),
         g_mat=g_mat.data_ptr(), wmat=wmat.data_ptr(),
         **table_args(scene, tables), n=n, max_depth=spec.max_depth,
-        rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor)
+        rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
+        **rich_args(scene, flags, tables))
     return args, (g, g_mat, wmat)
 
 
-def lane_cotangents(scene: TorchScene, tables: dict, state: dict, ct: dict,
-                    spec: StepSpec):
-    """Launch ``csrc/bounce_bwd.cu``; returns its outputs (see
-    :func:`bwd_args`)."""
-    global LAUNCHES_BWD
-    args, outs = bwd_args(scene, tables, state, ct, spec)
+def lane_cotangents(scene: TorchScene, flags: SceneFlags, tables: dict,
+                    state: dict, ct: dict, spec: StepSpec):
+    """Launch ``csrc/bounce_bwd.cu`` (its lean or its rich instantiation);
+    returns its outputs (see :func:`bwd_args`)."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_RICH
+    args, outs = bwd_args(scene, flags, tables, state, ct, spec)
     launch("srt_bounce_bwd", args, state["alive"].device)
     LAUNCHES_BWD += 1
+    LAUNCHES_BWD_RICH += args.rich
     return outs
 
 
@@ -209,5 +219,5 @@ def bounce_bwd(scene: TorchScene, flags: SceneFlags, tables: dict,
                                     spec)
     if dev.type != "cuda":
         raise ValueError(f"no bounce backward kernel for {dev}")
-    g, g_mat, wmat = lane_cotangents(scene, tables, state, ct, spec)
+    g, g_mat, wmat = lane_cotangents(scene, flags, tables, state, ct, spec)
     return g, segment_sum(g_mat, wmat, tables["mat"].shape[0])

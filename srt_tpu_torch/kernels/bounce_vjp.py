@@ -4,11 +4,15 @@ kernel B2 and save only the bounce's inputs:
 
 * :class:`BounceCore`, the split core (``bounce_vjp.py:89-117``): its
   backward launches the VJP kernel B5. Exact under frozen geometry on the
-  scenes B5 covers (:func:`kernels.bounce_bwd.bwd_kernel_available`). The
-  JAX package's split core defers the image texture epilogue outside its
-  custom VJP; the port folds the image lookup into both kernels, and its
-  cotangent in the uv is zero (nearest-neighbour lookup), so nothing is
-  left outside.
+  scenes B5 covers (:func:`kernels.bounce_bwd.bwd_kernel_available`):
+  every family of the render kernels but triangles and moving spheres,
+  the rich families (specular branch, media, checker, noise and image
+  textures, sphere lights) through B5's rich instantiation. The JAX
+  package's split core defers its noise and image textures to an epilogue
+  outside its custom VJP; the port evaluates them inside both kernels,
+  and B5 differentiates them as XLA differentiates that epilogue: the
+  image lookup's cotangent in the uv is zero (nearest-neighbour lookup),
+  the marble's goes to the hit point. So nothing is left outside.
 * :class:`BounceHybrid`, the hybrid (``bounce_vjp.py:40-84``): its backward
   replays the plain bounce :func:`kernels.bounce.bounce_step_ref` under
   autograd on the saved inputs and takes ``torch.autograd.grad`` of it,
@@ -20,7 +24,7 @@ kernel B2 and save only the bounce's inputs:
   ``intersect_tris_via_pallas`` detaches it (``intersect.py:379-403``). It
   gives the gradients of the scene's geometric tensors (sphere centres and
   radii, rect planes) and takes the scenes B5 does not cover: moving
-  spheres, triangles, media, specular materials.
+  spheres and triangles.
 
 :func:`bounce_step_auto` chooses between them as ``bounce_vjp.py:120-138``
 does. On CPU tensors the kernels are their plain versions.

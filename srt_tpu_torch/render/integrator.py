@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from srt_tpu_torch.core import rng
-from srt_tpu_torch.core.gradsafe import gsdiv
+from srt_tpu_torch.core.gradsafe import grad_safe_sqrt, gsdiv
 from srt_tpu_torch.core.vecmath import dot, to_local, where3
 from srt_tpu_torch.materials import materials as mats
 from srt_tpu_torch.render import lights
@@ -36,9 +36,12 @@ def apply_media(scene: TorchScene, o, d, salt, hit: Hit) -> Hit:
     homogeneous medium (``constant_medium.h:19-50``), in the forms of the
     JAX kernel's ``_media_sweep`` (``srt_tpu/pallas/bounce.py:486-542``).
     An event is a hit on the medium's isotropic material with normal +x
-    and uv 0. Mesh-bounded media are outside the coverage gate."""
+    and uv 0. The root and the slabs' reciprocals take the kernel
+    backward's ``safe_ad`` forms (:func:`grad_safe_sqrt`, :func:`gsdiv`):
+    the same values, and no NaN gradient on a lane that misses the medium.
+    Mesh-bounded media are outside the coverage gate."""
     g = torch.where(torch.abs(d) < 1e-20, 1e-20, d)
-    inv = 1.0 / g
+    inv = gsdiv(1.0, g)
     n = o.shape[0]
     for m in range(scene.n_media):
         oc = o - scene.med_center[m]
@@ -46,7 +49,7 @@ def apply_media(scene: TorchScene, o, d, salt, hit: Hit) -> Hit:
         rad = scene.med_radius[m]
         cq = dot(oc, oc) - rad * rad
         disc = bq * bq - cq
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        sq = grad_safe_sqrt(disc)
         half = scene.med_half[m]
         tt0 = (-half - oc) * inv
         tt1 = (half - oc) * inv
@@ -57,7 +60,9 @@ def apply_media(scene: TorchScene, o, d, salt, hit: Hit) -> Hit:
             t_in, t_out, ok = b_in, b_out, b_out > b_in
         else:
             t_in, t_out, ok = -bq - sq, -bq + sq, disc > 0.0
-        t_enter = torch.clamp(t_in, min=0.0)
+        # maximum, not clamp: half the gradient on a tie (a ray that
+        # starts on the medium's face), as jnp.maximum's
+        t_enter = torch.maximum(t_in, torch.zeros_like(t_in))
         t_exit = torch.minimum(t_out, hit.t)
         inside = ok & (t_exit > t_enter)
         u = torch.clamp(rng.uniform(salt, DIM_MEDIUM + m), min=1e-12)

@@ -151,8 +151,10 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 class SceneFlags(NamedTuple):
     """Static facts about a scene: which texture/material families and
-    light kinds it uses, its widest BVH leaf, whether any sphere moves, and
-    whether the JAX package's fused-bounce kernel would take it."""
+    light kinds it uses, its widest BVH leaf, whether any sphere moves,
+    whether the JAX package's fused-bounce kernel would take it, and
+    whether a medium is bounded by a mesh (read once here, so the coverage
+    gate reads no device memory)."""
     tex_kinds: tuple
     mat_kinds: tuple
     bvh_leaf: int = 4
@@ -160,6 +162,7 @@ class SceneFlags(NamedTuple):
     light_kinds: tuple = ()
     moving: bool = False
     fused_deferred_albedo: bool = False
+    mesh_media: bool = False
 
     @staticmethod
     def of(scene: TorchScene) -> "SceneFlags":
@@ -177,7 +180,13 @@ class SceneFlags(NamedTuple):
             light_kinds=tuple(_np(scene.light_kind).tolist()),
             moving=bool((_np(scene.sph_center0)
                          != _np(scene.sph_center1)).any()),
-            fused_deferred_albedo=defer)
+            fused_deferred_albedo=defer,
+            mesh_media=bool((_np(scene.med_kind) == 2).any()))
+
+
+#: the fields of :class:`SceneFlags` that the JAX package's ``SceneFlags``
+#: does not have (its gate reads ``med_kind`` where it needs it)
+PORT_FLAGS = ("mesh_media",)
 
 
 def _fused_bounce_eligible(scene: TorchScene, mat_types: np.ndarray,
@@ -214,8 +223,6 @@ _COVERED_MATS = {int(MaterialType.LAMBERTIAN), int(MaterialType.OREN_NAYAR),
 #: the one-sample specular branch (metal, dielectric, isotropic)
 SPECULAR_MATS = {int(MaterialType.METAL), int(MaterialType.DIELECTRIC),
                  int(MaterialType.ISOTROPIC)}
-#: the train step's ROADMAP item for what only the render side covers
-TRAIN_ITEM = "A14"
 
 
 def rich_families(scene: TorchScene, flags: SceneFlags) -> list[str]:
@@ -255,9 +262,9 @@ def require_covered(scene: TorchScene, flags: SceneFlags,
     the JAX package's fused bounce kernel is covered (``_kernel``,
     ``srt_tpu/pallas/bounce.py:1067``, gated by ``_fused_bounce_eligible``)
     except the parity estimator; mesh-bounded media and MERL materials lie
-    outside that kernel too. Reads device memory only on a scene with
-    media: the train step runs it before every backward launch."""
-    if scene.n_media and bool((scene.med_kind == 2).any()):
+    outside that kernel too. Reads the flags and the tables' shapes, no
+    device memory: the train step runs it before every backward launch."""
+    if flags.mesh_media:
         _missing("mesh-bounded participating media", "A7")
     if ref_parity:
         _missing("the reference-parity estimator", "A9")
@@ -275,17 +282,9 @@ def require_covered(scene: TorchScene, flags: SceneFlags,
 
 def require_trainable(scene: TorchScene, flags: SceneFlags) -> None:
     """Raise ``NotImplementedError`` for a scene the train step cannot
-    differentiate: what :func:`require_covered` refuses, and the families
-    covered for rendering only (:data:`TRAIN_ITEM`): checker and noise
-    textures, image albedo, sphere lights, and the specular branch or
-    media on a scene without triangles. The specular branch and media on
-    triangle scenes keep the hybrid backward they had."""
+    differentiate: exactly what :func:`require_covered` refuses (mesh
+    media, the parity estimator, MERL, atlases that are not 8-bit). Every
+    family the render kernels shade, the train step differentiates: kernel
+    B5 (its lean or rich instantiation) under frozen geometry, the hybrid
+    backward on triangles, moving spheres and geometric parameters."""
     require_covered(scene, flags)
-    fams = rich_families(scene, flags)
-    if scene.n_tris:
-        fams = [f for f in fams if not f.startswith("materials")
-                and f != "participating media"]
-    if fams:
-        _missing(f"{fams[0]} in the train step"
-                 + ("" if scene.n_tris else " (a scene without triangles)"),
-                 TRAIN_ITEM)

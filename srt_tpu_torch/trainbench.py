@@ -7,9 +7,13 @@ Times one inverse-rendering train step -- forward, backward, Adam -- of
 forward and kernel B5 backward. Defaults are the JAX package's r5 train
 configuration at 256x256: 4 spp, depth 50, a 16,384-lane wavefront, depth
 budget 4.0, drain 12 (76 bounces a step), parameters ``{"tex_color"}``,
-Adam at 1e-2 towards a constant 0.3 image. With ``--scene cornell_boxes``
-(triangles) the bounce is kernel B3 then B2 forward and the hybrid
-backward (the plain bounce replayed under autograd,
+Adam at 1e-2 towards a constant 0.3 image. On a scene with the rich
+families (``--scene two_spheres``, ``two_perlin_spheres``,
+``earth_sphere``: checker and noise textures, image emission, sphere
+lights) the bounce is B2's and B5's rich instantiations. With ``--scene
+cornell_boxes`` (triangles) or ``random_scene`` (moving spheres) the
+bounce is kernel B3 then B2 forward, or B2 alone, and the hybrid backward
+(the plain bounce replayed under autograd with B6's sphere winner,
 ``kernels/bounce_vjp.py``). Geometric parameters are timed by
 ``chip_smoke.py`` phase 15. There is no ``scan`` engine (ROADMAP A6).
 
@@ -63,7 +67,7 @@ def profile_step(out_dir: str, step, target, seed: int) -> dict:
         if us and rank < 15:
             log(f"[profile] {us / 1e3:10.3f} ms {count:6d} calls "
                 f"{us / count:9.2f} us/call  {key[:90]}")
-        if any(k in key for k in ("::bounce_kernel<", "::bounce_bwd_kernel(",
+        if any(k in key for k in ("::bounce_kernel<", "::bounce_bwd_kernel<",
                                   "::sphere_winner_kernel<",
                                   "::intersect_tris_kernel(",
                                   "::intersect_big_kernel(")):

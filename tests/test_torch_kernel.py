@@ -100,10 +100,10 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
                                     int((ref["alive"][256:] == 0).sum())]
 
 
-def _train_inputs(device, n, name="ball_scenes"):
+def _train_inputs(device, n, name="ball_scenes", bounces=2):
     """A mid-flight state of the train engine: ``render_pixels``' camera
-    rays (64x64, 4 spp) in a seeded order, two plain bounces with the
-    depth cap, a seeded half of the lanes dead; and a seeded cotangent,
+    rays (64x64, 4 spp) in a seeded order, ``bounces`` plain bounces with
+    the depth cap, a seeded half of the lanes dead; and a seeded cotangent,
     zero on o, d, beta where the step ends the path (the engine never
     reads them again, and the kernels leave them as they were)."""
     scene, cam = _scene(name, device)
@@ -118,7 +118,7 @@ def _train_inputs(device, n, name="ball_scenes"):
               alive=torch.ones(n, dtype=torch.bool, device=device),
               depth=torch.zeros(n, dtype=torch.int32, device=device))
     with torch.no_grad():
-        for _ in range(2):
+        for _ in range(bounces):
             st = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
     half = torch.from_numpy(r.random(n) < 0.5).to(device)
     st = {k: v.contiguous() for k, v in st.items()}
@@ -223,7 +223,9 @@ def test_rich_bounce_matches_plain_on_gpu(name, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["ball_scenes", "lit_room"])
+@pytest.mark.parametrize("name", ["ball_scenes", "lit_room", "two_spheres",
+                                  "two_perlin_spheres", "earth_sphere",
+                                  "lit_room_media"])
 def test_train_kernels_match_plain_on_gpu(name, cuda_device):
     """One launch of the train forward (B2) against the plain step, and of
     the train backward (B5) against ``torch.autograd`` of it, on 20,000
@@ -231,10 +233,14 @@ def test_train_kernels_match_plain_on_gpu(name, cuda_device):
     the per-bounce contract, the state cotangents under the gradient
     contract, and the (M, 14) segment sums within GRAD_RTOL plus 1e-4 of
     their largest entry (``index_add_`` on CUDA floats is atomic, so the
-    sums' last bits change from run to run)."""
-    scene, flags, tables, st, spec, ct = _train_inputs(cuda_device, 20000,
-                                                       name)
+    sums' last bits change from run to run). The scenes after the first
+    two take both kernels' rich instantiations; earth_sphere's state is
+    its camera rays, since after a bounce nearly every path has left its
+    two spheres."""
+    scene, flags, tables, st, spec, ct = _train_inputs(
+        cuda_device, 20000, name, 0 if name == "earth_sphere" else 2)
     fwd, bwd = kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD
+    rich = kbb.LAUNCHES_BWD_RICH
     out = kb.bounce_fwd(scene, flags, tables, st, spec)
     ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
     torch.cuda.synchronize()
@@ -251,6 +257,8 @@ def test_train_kernels_match_plain_on_gpu(name, cuda_device):
                                                 st, ct, spec)
     torch.cuda.synchronize()
     assert kbb.LAUNCHES_BWD == bwd + 1
+    assert kbb.LAUNCHES_BWD_RICH == rich + (name not in ("ball_scenes",
+                                                         "lit_room"))
     contract.check_grads({k: g_ref[k].cpu().numpy() for k in kbb.ROWS},
                          {k: g[k].cpu().numpy() for k in kbb.ROWS})
     a, b = d_mat_ref.cpu().numpy(), d_mat.cpu().numpy()

@@ -63,8 +63,8 @@ from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import intersect as ki
 from srt_tpu_torch.render import intersect as ri
 from srt_tpu_torch.render.integrator import apply_media
-from srt_tpu_torch.scene.ir import (MaterialType, SceneFlags, TorchScene,
-                                    require_covered)
+from srt_tpu_torch.scene.ir import (PORT_FLAGS, MaterialType, SceneFlags,
+                                    TorchScene, require_covered)
 from srt_tpu_torch.scene.teapot import create_teapot
 from srt_tpu_torch.utils import contract
 
@@ -183,7 +183,10 @@ def test_teapot_tables_bit_equal():
     assert all(s >= 0.0 for s in host_s.values())
     flags = SceneFlags.of(scene)
     want_flags = JaxSceneFlags.of(scene_j)._asdict()
-    assert flags._asdict() == {k: want_flags[k] for k in flags._fields}
+    shared = [k for k in flags._fields if k not in PORT_FLAGS]
+    assert ({k: getattr(flags, k) for k in shared}
+            == {k: want_flags[k] for k in shared})
+    assert not flags.mesh_media
     assert flags.fused_bounce
     rec_j = convert.camera_from_arrays(
         {k: np.asarray(v) for k, v in cam_j._asdict().items()},
@@ -491,17 +494,23 @@ def _metal_balls() -> TorchScene:
 def test_triangle_free_scenes_still_raise(make):
     """Without triangles the bounce is kernel B1, whose rich instantiation
     holds the specular branch and the media sweep: the render gate admits
-    them. The train step refuses them (ROADMAP A14), and the backward
-    kernel's gate still names its own gaps (A13)."""
+    them, and so does the train step, whose backward is B5's rich
+    instantiation. Both still raise on a medium bounded by a mesh (A7)."""
     scene = make()
     flags = SceneFlags.of(scene)
     require_covered(scene, flags)
     cam = get_scene("ball_scenes", device="cpu")[1]
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_train_step(scene, cam, {"tex_color": scene.tex_color}, width=4,
+    kbb.require_bwd_kernel(scene, flags)
+    step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
+                           width=4, height=4, spp=1, max_depth=2,
+                           device="cpu")
+    assert np.isfinite(float(step(torch.full((4, 4, 3), 0.3), 0)))
+    mesh = dataclasses.replace(scene, **_one_medium(2))
+    with pytest.raises(NotImplementedError, match="A7"):
+        make_train_step(mesh, cam, {"tex_color": mesh.tex_color}, width=4,
                         height=4, spp=1, max_depth=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        kbb.require_bwd_kernel(scene, flags)
+    with pytest.raises(NotImplementedError, match="A7"):
+        kbb.require_bwd_kernel(mesh, SceneFlags.of(mesh))
 
 
 def test_gates_on_the_teapot():

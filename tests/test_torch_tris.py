@@ -46,9 +46,9 @@ from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import intersect as ki
 from srt_tpu_torch.render.intersect import intersect_tris, tri_hit
 from srt_tpu_torch.scene.build import SceneBuilder
-from srt_tpu_torch.scene.ir import (MaterialType, SceneFlags, TextureType,
-                                    TorchScene, require_covered,
-                                    require_trainable)
+from srt_tpu_torch.scene.ir import (PORT_FLAGS, MaterialType, SceneFlags,
+                                    TextureType, TorchScene,
+                                    require_covered, require_trainable)
 from srt_tpu_torch.utils import contract
 
 torch.set_num_threads(1)
@@ -130,7 +130,10 @@ def test_cornell_boxes_tables_bit_equal():
         assert a is None or torch.equal(a, getattr(back, f.name)), f.name
     flags = SceneFlags.of(scene)
     want_flags = JaxSceneFlags.of(scene_j)._asdict()
-    assert flags._asdict() == {k: want_flags[k] for k in flags._fields}
+    shared = [k for k in flags._fields if k not in PORT_FLAGS]
+    assert ({k: getattr(flags, k) for k in shared}
+            == {k: want_flags[k] for k in shared})
+    assert not flags.mesh_media
     rec_j = convert.camera_from_arrays(
         {k: np.asarray(v) for k, v in cam_j._asdict().items()},
         device="cpu").record()
@@ -372,32 +375,40 @@ def _rects_only(scene: TorchScene) -> TorchScene:
                                tri_p2=scene.tri_p2[:0])
 
 
+def _mesh_medium(scene: TorchScene) -> TorchScene:
+    return dataclasses.replace(
+        scene, med_kind=torch.full((1,), 2, dtype=torch.int32))
+
+
 # the render gate covers metal, dielectric, checker textures and sphere
-# or box media on every scene (kernel B1's and B2's rich instantiation);
-# the train step refuses the render-only families (ROADMAP A14), and the
-# gate still refuses mesh-bounded media
+# or box media on every scene (kernel B1's and B2's rich instantiation),
+# and so does the train gate (B5's rich instantiation without triangles,
+# the hybrid with them); both still refuse mesh-bounded media
 @pytest.mark.parametrize("change,item", [
-    pytest.param(lambda s: dataclasses.replace(
-        s, med_kind=torch.full((1,), 2, dtype=torch.int32)), "A7",
-        id="media"),
+    pytest.param(_mesh_medium, "A7", id="media"),
     pytest.param(lambda s: _rects_only(
-        _with_material(int(MaterialType.METAL))), "A14", id="metal"),
+        _with_material(int(MaterialType.METAL))), None, id="metal"),
     pytest.param(lambda s: _rects_only(
-        _with_material(int(MaterialType.DIELECTRIC))), "A14",
+        _with_material(int(MaterialType.DIELECTRIC))), None,
         id="dielectric"),
     pytest.param(lambda s: dataclasses.replace(
         s, tex_type=torch.full_like(s.tex_type, int(TextureType.CHECKER))),
-        "A14", id="checker")])
+        None, id="checker")])
 def test_gate_still_refuses(change, item):
     scene = change(_cornell()[2])
     flags = SceneFlags.of(scene)
     if item == "A7":
         with pytest.raises(NotImplementedError, match=item):
             require_covered(scene, flags)
+        with pytest.raises(NotImplementedError, match=item):
+            require_trainable(scene, flags)
         return
     require_covered(scene, flags)
-    with pytest.raises(NotImplementedError, match=item):
-        require_trainable(scene, flags)
+    require_trainable(scene, flags)
+    assert kbb.bwd_kernel_available(scene, flags) == (not scene.n_tris)
+    mesh = _mesh_medium(scene)
+    with pytest.raises(NotImplementedError, match="A7"):
+        require_trainable(mesh, SceneFlags.of(mesh))
 
 
 def test_gate_refuses_parity_on_triangles():
