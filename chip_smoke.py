@@ -12,8 +12,8 @@ of which raises on failure:
    by lane, a 64x64, 4 spp, depth 8 image, and the time per bounce of each
    (the kernel's as bare launches on fixed arguments, and through its
    wrapper); ``ptxas``' registers of B1's four instantiations, lean and
-   rich, static and moving, and of B2's eight (with and without the
-   external hit);
+   rich, static and moving, and of B2's sixteen (with and without the
+   external hit, with and without parity);
 4. the render path: ``render_regen`` on ball_scenes at 512x512, 16 spp,
    depth 50, a 65,536-lane wavefront and seed 0, through B1, once to warm
    up and five times timed;
@@ -115,7 +115,29 @@ of which raises on failure:
    ``random_scene`` (moving spheres) with ``{"tex_color"}`` at 64x64, 4
    spp, depth 50, one step (the width cut because the hybrid's torch
    replay takes about 0.1 s a bounce), every bounce one B2 and one B6
-   launch and no B5; the losses and gradients finite, no NaN.
+   launch and no B5; the losses and gradients finite, no NaN;
+21. B2's parity instantiation (``kParity``) against the plain step under
+   the per-bounce contract and the ``stale`` plane's, on three mid-flight
+   65,536-lane wavefronts of the parity render path (phase 7's, three
+   plain bounces in): ball_scenes, ball_scenes with ``parity_no_stale``,
+   and cornell_boxes with B3's hit as the external hit; the parity census
+   (lanes that drew and retried, heap-slot reads of 0 and 1e30, stores),
+   which must reach each mechanism; the time per bare launch and the
+   bound; ``ptxas``' registers and spill stores of every B2 and B1
+   instantiation;
+22. the parity render path: ``render_regen`` with ``ref_parity`` on
+   ball_scenes, first kernel against plain on a 64x64, 4 spp, depth 8
+   image, then at 512x512, 16 spp, depth 50, a 65,536-lane wavefront and
+   seed 0 once to warm up and three times timed, every bounce one B2
+   parity launch and no B1; then cornell_boxes at the same settings, one
+   counted render, every bounce one B3 and one B2 parity launch; no NaN;
+23. the golden tool (``python -m srt_tpu_torch.golden``, called in
+   process): cornell_boxes at 512x512 and 64 spp with and without parity
+   against ``goldens/cornell_boxes_512.png``, the parity image darker on
+   the golden's tonemapped scale (diffuse surfaces lit by NEE only), and
+   ball_scenes under
+   parity at 16 spp against ``goldens/ball_parity_4096avg.png``, a record
+   (the environment dome is the 8x8 stand-in).
 
 Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -303,23 +325,27 @@ def bare_launch_ms(entry: str, size: int, call, reps: int) -> float:
     return ms
 
 
-def kernel_registers(report: str, kernel: str) -> dict:
+def kernel_registers(report: str, kernel: str, spills: bool = False) -> dict:
     """``ptxas``' registers of each instantiation of the CUDA kernel
     ``kernel``, keyed by its template's bool arguments as digits (B1's
-    ``kMoving kRich``, B2's ``kExt kMoving kRich``), from the build's
-    ``-Xptxas -v`` report."""
+    ``kMoving kRich``, B2's ``kExt kMoving kRich kParity``), from the
+    build's ``-Xptxas -v`` report; with ``spills`` each value is
+    ``[registers, bytes of spill stores]``."""
     import re
     mangled = f"{len(kernel)}{kernel}"
-    out, entry = {}, None
+    out, entry, spill = {}, None, 0
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry = m.group(1)
+            entry, spill = m.group(1), 0
             continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry and mangled in entry:
             key = "".join(re.findall(r"Lb(\d)E", entry)) or "-"
-            out[key] = int(m.group(1))
+            out[key] = [int(m.group(1)), spill] if spills else int(m.group(1))
             entry = None
     return out
 
@@ -495,7 +521,7 @@ def train_state(scene, cam, flags, tables, spec, dev,
               salt=torch.zeros((n,), dtype=torch.int32, device=dev),
               depth=torch.zeros((n,), dtype=torch.int32, device=dev))
     cursor = 0
-    for i in range(bounces + 1):
+    for i in range(4):
         lanes = torch.nonzero(~st["alive"])[:, 0]
         src = queue[cursor:cursor + lanes.shape[0]]
         cursor += lanes.shape[0]
@@ -680,11 +706,12 @@ def phase_train(scene, cam, dev) -> tuple[int, int]:
     return fwd, bwd
 
 
-def tri_wavefront(scene, cam, dev, row: int = 256) -> tuple:
-    """A mid-flight 65,536-lane wavefront of the triangle render path (the
-    work cursor at image row ``row``, mid-image by default, three plain
-    bounces, a lane that ends taking the next work item), then a seeded
-    half of the lanes marked dead.
+def step_wavefront(scene, cam, dev, row: int = 256, flags=None) -> tuple:
+    """A mid-flight 65,536-lane wavefront of the per-bounce render path,
+    with the scene's ``flags`` (its own by default; the parity flags for
+    phase 21): the work cursor at image row ``row``, mid-image by default,
+    three plain bounces, a lane that ends taking the next work item, then
+    a seeded half of the lanes marked dead.
     Returns the bounce's state (B2's layout), the render's inputs, and the
     wavefront's first rays (the camera rays, ``o`` and ``d``)."""
     import numpy as np
@@ -695,7 +722,7 @@ def tri_wavefront(scene, cam, dev, row: int = 256) -> tuple:
     from srt_tpu_torch.render.intersect import intersect_tris_any
     from srt_tpu_torch.scene.ir import SceneFlags
 
-    flags = SceneFlags.of(scene)
+    flags = SceneFlags.of(scene) if flags is None else flags
     spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
                         rr_start=1 << 30, pdf_floor=1e-9, seed=0)
     step = kb.StepSpec(max_depth=50)
@@ -721,7 +748,8 @@ def tri_wavefront(scene, cam, dev, row: int = 256) -> tuple:
             first = {k: state[k].contiguous() for k in ("o", "d")}
         if i == 3:
             break
-        tri = intersect_tris_any(scene, state["o"], state["d"])
+        tri = (intersect_tris_any(scene, state["o"], state["d"])
+               if scene.n_tris else None)
         nxt = kb.bounce_step_ref(scene, flags, inp.tables["mat"], state,
                                  step, tri)
         st = dict(nxt, alive=nxt["alive"] & (nxt["depth"] < 50), pix=pix)
@@ -818,7 +846,7 @@ def phase_tri_kernels(scene, cam, dev) -> tuple[dict, dict]:
     from srt_tpu_torch.kernels import intersect as ki
     from srt_tpu_torch.scene.ir import SceneFlags
 
-    st, inp, step, _ = tri_wavefront(scene, cam, dev)
+    st, inp, step, _ = step_wavefront(scene, cam, dev)
     b3 = check_tri_kernel("cornell", scene, st["o"], st["d"])
     check_tri_kernel("final-ground", *ground_field(dev))
 
@@ -838,7 +866,7 @@ def check_b2(label: str, scene, flags, tables, st, step,
     closest hit, its external-hit mode (phases 8, 11, 16, 18), else the
     plain bounce of a train state (phases 19, 20)."""
     import torch
-    from _torch_census import bounce_census
+    from _torch_census import bounce_census, parity_census
 
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels.build import launch
@@ -851,8 +879,9 @@ def check_b2(label: str, scene, flags, tables, st, step,
     if not torch.equal(out_k["depth"], out_p["depth"]):
         raise AssertionError(f"B2 {label}: depth differs")
     keys = ("alive", "d", "beta", "radiance")
-    m = contract.check_bounce({k: out_p[k].cpu().numpy() for k in keys},
-                              {k: out_k[k].cpu().numpy() for k in keys})
+    planes = keys + (("stale",) if flags.ref_parity else ())
+    m = contract.check_bounce({k: out_p[k].cpu().numpy() for k in planes},
+                              {k: out_k[k].cpu().numpy() for k in planes})
     n = st["o"].shape[0]
     n_live = int(st["alive"].sum())
     n_tri = 0 if tri is None else int((st["alive"] & (tri[0] < 3e38)).sum())
@@ -863,9 +892,17 @@ def check_b2(label: str, scene, flags, tables, st, step,
         scene, flags, tables["mat"], st, step, tri), 5)
     c = bounce_census(scene, st["o"], st["d"], st["time"], st["salt"],
                       st["depth"], st["alive"], tri)
-    # a lane reads 57 B, 73 B with a triangle hit, and writes 53 B
-    ms_bound, by = bound(n * (57 + (0 if tri is None else 16) + 53),
-                         shade_ops(scene, flags, c) + n_tri * OPS_TRI_HIT)
+    ops = shade_ops(scene, flags, c) + n_tri * OPS_TRI_HIT
+    if flags.ref_parity:
+        # a parity round samples, evaluates one pdf and the lights' pdfs
+        # as the default draw does: the census's retry rounds each add a
+        # shading's operations
+        c.update(parity_census(scene, flags, st, tri))
+        ops += c["retry_rounds"] * OPS_SHADE
+    # a lane reads 57 B, 73 B with a triangle hit, and writes 53 B, 57 B
+    # with the parity plane
+    ms_bound, by = bound(n * (57 + (0 if tri is None else 16) + 53
+                              + (4 if flags.ref_parity else 0)), ops)
     log(f"[bounce-{label}] {n} lanes, {n_live} live, {n_tri} on a "
         f"triangle: depth exact, {json.dumps(m)}; shaded {json.dumps(c)}; "
         f"ms per launch {kern_ms}, plain {plain_ms:.3f}, bound "
@@ -1050,7 +1087,7 @@ def phase_teapot_kernels(scene, cam, dev) -> tuple[dict, dict]:
     big, single = ki.pack_big_tables(scene), ki.pack_tables(scene)
     log(f"[teapot] pack_big_tables {pack_ms:.3f} ms a call")
     # rows 448-455: the teapots' lower edge and the glass sphere's top
-    st, inp, step, first = tri_wavefront(scene, cam, dev, row=TEAPOT_ROW)
+    st, inp, step, first = step_wavefront(scene, cam, dev, row=TEAPOT_ROW)
     b4_cam = check_big_kernel("camera", scene, big, single, first["o"],
                               first["d"])
     b4 = check_big_kernel("bounced", scene, big, single, st["o"], st["d"])
@@ -1591,7 +1628,7 @@ def phase_final_ext(dev) -> dict:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         scene, cam, _ = get_scene("final", device=dev)
-    st, inp, step, _ = tri_wavefront(scene, cam, dev, row=FINAL_ROW)
+    st, inp, step, _ = step_wavefront(scene, cam, dev, row=FINAL_ROW)
     walk = ki.pack_walk(scene)
     if walk["big"]:
         raise AssertionError("final's triangles take B4, not B3")
@@ -1844,6 +1881,181 @@ def phase_rich_train(dev) -> dict:
     return total
 
 
+# phase 21: (scene, parity_no_stale) of B2's parity inputs
+PARITY_CASES = (("ball_scenes", False), ("ball_scenes", True),
+                ("cornell_boxes", False))
+PARITY_MEAN = (0.05, 0.5)   # phase 22's images
+GOLDEN_SPP = 64             # phase 23's cornell_boxes renders
+
+
+def parity_scene(name: str, dev, no_stale: bool = False):
+    """A library scene, its camera and its flags under the parity
+    estimator (``parity_no_stale`` if asked)."""
+    import warnings
+
+    from srt_tpu_torch import RenderConfig, get_scene
+    from srt_tpu_torch.render.api import scene_flags
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scene, cam, _ = get_scene(name, device=dev)
+    cfg = RenderConfig(ref_parity=True, parity_no_stale=no_stale)
+    return scene, cam, scene_flags(scene, cfg)
+
+
+def phase_parity_kernel(dev) -> dict:
+    """Phase 21: B2's parity instantiation against the plain step on the
+    ``PARITY_CASES``; returns the kernels-line entry of B2 parity (the
+    times and bound of the first case) and the cases."""
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.kernels.build import ptxas_report
+
+    report = ptxas_report()
+    log(f"[parity] ptxas [registers, spill stores] of B2 by kExt kMoving "
+        f"kRich kParity "
+        f"{json.dumps(kernel_registers(report, 'bounce_kernel', True))}; "
+        f"of B1 by kMoving kRich "
+        f"{json.dumps(kernel_registers(report, 'regen_bounce_kernel', True))}")
+    cases = {}
+    for name, no_stale in PARITY_CASES:
+        scene, cam, flags = parity_scene(name, dev, no_stale)
+        st, inp, step, _ = step_wavefront(scene, cam, dev, flags=flags)
+        tri = None
+        if scene.n_tris:
+            tri = ki.closest_tris(scene, ki.pack_walk(scene), st["o"],
+                                  st["d"])
+        label = f"parity-{name}" + ("-no-stale" if no_stale else "")
+        r = check_b2(label, scene, flags, inp.tables, st, step, tri)
+        c = r["census"]
+        want = (("retried", "stores", "slot_reads_0")
+                + (() if no_stale else ("slot_reads_1e30",))
+                if name == "ball_scenes" else ("drew",))
+        missing = [k for k in want if not c[k]]
+        if missing or (no_stale and c["slot_reads_1e30"]):
+            raise AssertionError(f"B2 {label}: the state reaches no "
+                                 f"{missing}: {c}")
+        cases[label] = r
+    first = cases[f"parity-{PARITY_CASES[0][0]}"]
+    return {"name": "bounce_parity", "route": "cuda",
+            "source": "srt_tpu_torch/csrc/bounce.cu",
+            "replaces": "srt_tpu/pallas/bounce.py:1504",
+            "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None,
+            "cases": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")}
+                      for k, r in cases.items()}}
+
+
+def parity_renders(name: str, cfg, reps: int, dev) -> tuple:
+    """``reps`` timed renders of ``name`` under ``cfg`` after one to warm
+    up; checks every bounce launched one B2 parity, no B1, and one B3 on
+    a triangle scene, and the images; returns (B2 parity launches, B3
+    launches, the rates)."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import render_regen
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import intersect as ki
+
+    scene, cam, _ = parity_scene(name, dev)
+    t0 = time.time()
+    render_regen(scene, cam, cfg)
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    kb.LAUNCHES = kb.LAUNCHES_FWD = kb.LAUNCHES_PARITY = ki.LAUNCHES = 0
+    runs = []
+    for _ in range(reps):
+        img, met = render_regen(scene, cam, cfg, metrics=True)
+        runs.append((img.cpu().numpy(), met))
+    b2, b3, b1 = kb.LAUNCHES_PARITY, ki.LAUNCHES, kb.LAUNCHES
+    bounces = sum(m.bounces for _, m in runs)
+    if (b2 != bounces or kb.LAUNCHES_FWD != b2 or not bounces or b1
+            or b3 != (bounces if scene.n_tris else 0)):
+        raise AssertionError(f"{name} parity: {b2} B2 parity, {b3} B3 and "
+                             f"{b1} B1 launches for {bounces} bounces")
+    for img, met in runs:
+        nan_pixels = int(np.isnan(img).sum())
+        mean = float(img.mean())
+        if (not np.isfinite(img).all() or nan_pixels or met.nan_scrubbed
+                or not PARITY_MEAN[0] < mean < PARITY_MEAN[1]):
+            raise AssertionError(f"{name} parity image: mean {mean}, nan "
+                                 f"{nan_pixels}, scrubbed "
+                                 f"{met.nan_scrubbed}")
+    rates = sorted(m.primary_rays_per_sec for _, m in runs)
+    log(f"[parity-main] {name} {cfg.width}x{cfg.height}x{cfg.spp} depth "
+        f"{cfg.max_depth}, {reps} renders: median "
+        f"{rates[len(rates) // 2]:.1f} primary rays/s (all {rates}), first "
+        f"render {warmup_s:.3f}s, mean {mean:.5f}, nan_pixels {nan_pixels}, "
+        f"{b2} B2 parity, {b3} B3, {b1} B1 launches for {bounces} bounces, "
+        f"{json.dumps(met.to_dict())}")
+    return b2, b3, rates
+
+
+def phase_parity_render(dev) -> tuple:
+    """Phase 22: the parity render path; returns its B2 parity and B3
+    launches in the counted renders."""
+    from srt_tpu_torch import RenderConfig, render_regen
+    from srt_tpu_torch.utils import contract
+
+    scene, cam, _ = parity_scene("ball_scenes", dev)
+    small = RenderConfig(width=64, height=64, spp=4, max_depth=8,
+                         wavefront=LANES, ref_parity=True)
+    img_k = render_regen(scene, cam, small).cpu().numpy()
+    img_p = render_regen(scene, cam, small, plain=True).cpu().numpy()
+    mi = contract.check_image(img_k, img_p)
+    log(f"[parity-image] ball_scenes 64x64x4 depth 8 kernel vs plain: "
+        f"{json.dumps(mi)}")
+    del scene
+    cfg = RenderConfig(**MAIN, ref_parity=True)
+    b2, _, _ = parity_renders("ball_scenes", cfg, TRI_MAIN_REPS, dev)
+    b2_c, b3, _ = parity_renders("cornell_boxes", cfg, 1, dev)
+    return b2 + b2_c, b3
+
+
+def phase_golden(root: str, dev) -> None:
+    """Phase 23: the port's golden tool on the card: cornell_boxes at
+    512x512 with and without parity against the asset-free golden, and
+    ball_scenes under parity against the reference-parity golden, a
+    record only (the environment dome is the 8x8 stand-in here)."""
+    import math
+    import shutil
+    import tempfile
+
+    from srt_tpu_torch import golden
+
+    out_dir = tempfile.mkdtemp()
+    runs = [("cornell_boxes", GOLDEN_SPP, "cornell_boxes_512.png", False),
+            ("cornell_boxes", GOLDEN_SPP, "cornell_boxes_512.png", True),
+            ("ball_scenes", MAIN["spp"], "ball_parity_4096avg.png", True)]
+    recs = []
+    try:
+        for name, spp, gold, parity in runs:
+            argv = ["--scene", name, "--size", "512", "--spp", str(spp),
+                    "--golden", os.path.join(root, "goldens", gold),
+                    "--out-dir", out_dir, "--device", str(dev)]
+            rec = golden.run(golden.parse_args(
+                argv + (["--ref-parity"] if parity else [])))
+            if not all(math.isfinite(rec[k]) for k in
+                       ("psnr_db", "psnr_ds_db", "mean_ours")):
+                raise AssertionError(f"golden {name}: {rec}")
+            log(f"[golden] {'parity' if parity else 'default'} "
+                f"{json.dumps(rec)}")
+            recs.append(rec)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    # diffuse surfaces lit by NEE only (GOLDEN.md:17-24): parity loses the
+    # indirect light, so shadowed walls go dark and the tonemapped image
+    # the golden tool compares is darker, though the light-only draw's
+    # division by the 50/50 mixture pdf doubles the direct light and the
+    # linear mean comes out a few percent brighter (phase 22; in JAX too,
+    # tests/test_torch_parity_tris.py)
+    if not recs[1]["mean_ours"] < recs[0]["mean_ours"]:
+        raise AssertionError(f"cornell_boxes parity not darker: {recs}")
+
+
 def cornell_times(dev) -> dict:
     """``--measure`` on cornell_boxes: B3 and B2's external hit as bare
     launches on phase 7's render wavefront, ``COMPARE_ROUNDS`` times, and two
@@ -1857,7 +2069,7 @@ def cornell_times(dev) -> dict:
 
     scene, cam, _ = get_scene("cornell_boxes", device=dev)
     flags = SceneFlags.of(scene)
-    st, inp, step, _ = tri_wavefront(scene, cam, dev)
+    st, inp, step, _ = step_wavefront(scene, cam, dev)
     packed = ki.pack_tables(scene)
     tri = ki.intersect_tris(scene, packed, st["o"], st["d"])
     out = {"b3_ms": [], "b2_ext_ms": []}
@@ -2077,6 +2289,13 @@ def main() -> None:
     b1_rich = phase_rich_render(dev)
     rich_bwd = phase_rich_bwd(dev)                            # 19
     rich_train = phase_rich_train(dev)                        # 20
+    b2_parity = phase_parity_kernel(dev)                      # 21
+    b2_parity["launches"], b3_parity = phase_parity_render(dev)   # 22
+    phase_golden(root, dev)                                   # 23
+    log(f"[kernels] B2 parity launches: {b2_parity['launches']} on the "
+        f"ball_scenes and cornell_boxes parity render paths ({b3_parity} "
+        f"B3 on cornell_boxes'); ms per launch "
+        f"{json.dumps(b2_parity['cases'])}")
     log(f"[kernels] B5 launches: {b5['launches']} lean on the ball_scenes "
         f"train path, {rich_train['b5']} rich on the rich train paths; B5 "
         f"ms per launch {b5['ms']} (lean, ball_scenes), rich "
@@ -2097,7 +2316,7 @@ def main() -> None:
         f"{json.dumps(rich['cases'])}; B2 on final {b2_final['ms']} ms "
         f"(plain {b2_final['plain_ms']}, bound {b2_final['bound_ms']})")
     b1["launches"] += b1_rich
-    b3["launches"] += b3_train
+    b3["launches"] += b3_train + b3_parity
     b3["max_abs_err"] = max(b3["max_abs_err"], b3_ct["max_abs_err"])
     b2["launches"] = (b2_train + b2_render + b2_pot_render + b2_geom
                       + b2_cornell + rich_train["b2"])
@@ -2109,8 +2328,9 @@ def main() -> None:
         f"in external-hit mode on the cornell render path, {b2_pot_render} "
         f"on the teapot render path, {b2_geom} on the geometry train path, "
         f"{b2_cornell} on the cornell train path; B3 launches "
-        f"{b3['launches'] - b3_train} on the cornell render path and "
-        f"{b3_train} on the cornell train path; B2 ms per launch "
+        f"{b3['launches'] - b3_train - b3_parity} on the cornell render "
+        f"path, {b3_train} on the cornell train path and {b3_parity} on "
+        f"the cornell parity render path; B2 ms per launch "
         f"{b2['ms']} (train state, 16,384 lanes), {b2_ext['ms']} (cornell external hit, "
         f"65,536 lanes), {b2_ct['ms']} (cornell train state, external hit, "
         f"16,384 lanes; plain {b2_ct['plain_ms']}, bound "
@@ -2124,7 +2344,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in (b1, b2, b3, b4, b5, b6)]}),
+                                  for kern in (b1, b2, b2_parity, b3, b4,
+                                               b5, b6)]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,19 @@ def erf_as(x: torch.Tensor) -> torch.Tensor:
     return s * y
 
 
+def erf_reference_buggy(x: torch.Tensor) -> torch.Tensor:
+    """The reference's Erf as implemented (``common.h:40-44``), not erf:
+    its A&S evaluation adds the exponential instead of multiplying the
+    polynomial by it. The parity estimator's Beckmann sampler bounds its
+    bisection with this curve, as the reference's does."""
+    s = torch.sign(x)
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly_t = (((((1.061405429 * t - 1.453152027) * t) + 1.421413741) * t
+               - 0.284496736) * t + 0.254829592) * t
+    return s * (1.0 - poly_t + torch.exp(-ax * ax))
+
+
 def erfinv_giles(x: torch.Tensor) -> torch.Tensor:
     """Giles (2010) single-precision erfinv."""
     x = torch.clamp(x, -0.99999, 0.99999)

@@ -3,13 +3,13 @@
 // triangle scenes.
 //
 // Replaces srt_tpu/pallas/bounce.py:_kernel in its per-bounce mode
-// (regen=False, launched by fused_bounce), without the parity stale
-// plane, which comes with the parity slice. For every lane: closest hit,
-// emission (the env dome's image texture looked up here), the diffuse
-// branch and roulette -- bounce_core.cuh's bounce(), the same code as the
-// regeneration kernel's. No regeneration, no ranks, no depth cap: the
-// caller applies the cap (srt_tpu/render/regen_scan.py:126). Out of place,
-// because autograd keeps the inputs for the backward kernel.
+// (regen=False, launched by fused_bounce), its parity plane included. For
+// every lane: closest hit, emission (the env dome's image texture looked
+// up here), the diffuse branch and roulette -- bounce_core.cuh's
+// bounce(), the same code as the regeneration kernel's. No regeneration,
+// no ranks, no depth cap: the caller applies the cap
+// (srt_tpu/render/regen_scan.py:126). Out of place, because autograd
+// keeps the inputs for the backward kernel.
 //
 // External-hit mode (n_tris > 0, the template's kExt; bounce.py's
 // has_ext): the triangle BVH kernel (intersect_tris.cu) has left each
@@ -31,9 +31,19 @@
 // lane sees each sphere at its centre at the lane's time; the static
 // instantiations do not read the time.
 //
+// The reference-parity estimator (parity != 0, the template's kParity,
+// with every other family): each lane's heap slot starts the bounce at 0
+// or 1e30 (parity_slot; 0 under parity_no_stale), the diffuse branch
+// draws as bounce_core.cuh's diffuse_parity, and the slot after the
+// bounce goes to stale_out, (n,) float32. The incoming stale plane is not
+// read, as in the JAX kernel (bounce.py:966-970: the slot does not live
+// across bounces). JAX's TPU kernel evaluates every round on every lane
+// under masks; here a lane whose pdf turned positive leaves the loop, and
+// a round evaluates the stored pdf only where it took the Beckmann BSDF.
+//
 // Bound: as the regeneration kernel, the shading chain (registers and
 // divergence), not bytes: a lane reads 57 B (73 B with a triangle hit)
-// and writes 53 B.
+// and writes 53 B (57 B under parity).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,6 +90,9 @@ struct BounceArgs {
   const float* perlin_vec;      // (256, 3) (rich)
   const int* perlin_perm;       // (3, 256) (rich)
   int perlin;                   // stage the Perlin tables (noise)
+  float* stale_out;             // (n,) the heap slot after the bounce
+  int parity;                   // the parity estimator (kParity)
+  int parity_no_stale;          // parity: the slot reads 0
 };
 
 }  // extern "C"
@@ -115,7 +128,7 @@ __device__ __forceinline__ ExtHit triangle_hit(const BounceArgs& a, int i) {
   return e;
 }
 
-template <bool kExt, bool kMoving, bool kRich>
+template <bool kExt, bool kMoving, bool kRich, bool kParity>
 __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   extern __shared__ float smem[];
   SceneView sv = scene_view(a, smem);
@@ -130,17 +143,24 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   L.rad = load_row3(a.rad, i);
   const int depth = a.depth[i];
   const float time = kMoving ? a.time[i] : 0.0f;
+  // the heap slot, on every lane (the default instantiations have none)
+  float slot = 0.0f;
+  if constexpr (kParity)
+    slot = parity_slot(hash_combine((uint32_t)a.salt[i], (uint32_t)depth),
+                       a.parity_no_stale);
+  float* const slot_p = kParity ? &slot : nullptr;
   bool alive = false;
   if (a.alive[i]) {
     if constexpr (kExt) {
       const ExtHit e = triangle_hit(a, i);
-      alive = bounce<true, kMoving, kRich>(sv, (uint32_t)a.salt[i], depth,
-                                           time, L, &e);
+      alive = bounce<true, kMoving, kRich, kParity>(
+          sv, (uint32_t)a.salt[i], depth, time, L, &e, slot_p);
     } else {
-      alive = bounce<false, kMoving, kRich>(sv, (uint32_t)a.salt[i], depth,
-                                            time, L);
+      alive = bounce<false, kMoving, kRich, kParity>(
+          sv, (uint32_t)a.salt[i], depth, time, L, nullptr, slot_p);
     }
   }
+  if constexpr (kParity) a.stale_out[i] = slot;
   store_row3(a.o_out, i, L.o);
   store_row3(a.d_out, i, L.d);
   store_row3(a.beta_out, i, L.beta);
@@ -149,23 +169,30 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   a.alive_out[i] = alive ? 1 : 0;
 }
 
-template <bool kExt, bool kMoving, bool kRich>
+template <bool kExt, bool kMoving, bool kRich, bool kParity>
 int launch_bounce(const BounceArgs& a, cudaStream_t stream) {
   size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light)
                 + (kRich ? srt::rich_smem_bytes(a.perlin) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      bounce_kernel<kExt, kMoving, kRich>,
+      bounce_kernel<kExt, kMoving, kRich, kParity>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = (a.n + kBlock - 1) / kBlock;
-  bounce_kernel<kExt, kMoving, kRich><<<blocks, kBlock, smem, stream>>>(a);
+  bounce_kernel<kExt, kMoving, kRich, kParity>
+      <<<blocks, kBlock, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool kExt, bool kRich>
+template <bool kExt, bool kRich, bool kParity>
 int launch_moving(const BounceArgs& a, cudaStream_t stream) {
-  return a.moving ? launch_bounce<kExt, true, kRich>(a, stream)
-                  : launch_bounce<kExt, false, kRich>(a, stream);
+  return a.moving ? launch_bounce<kExt, true, kRich, kParity>(a, stream)
+                  : launch_bounce<kExt, false, kRich, kParity>(a, stream);
+}
+
+template <bool kExt, bool kRich>
+int launch_parity(const BounceArgs& a, cudaStream_t stream) {
+  return a.parity ? launch_moving<kExt, kRich, true>(a, stream)
+                  : launch_moving<kExt, kRich, false>(a, stream);
 }
 
 }  // namespace
@@ -175,8 +202,8 @@ extern "C" int srt_bounce(const BounceArgs* args, void* stream) {
   if (a.n <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (a.n_tris > 0)
-    return a.rich ? launch_moving<true, true>(a, s)
-                  : launch_moving<true, false>(a, s);
-  return a.rich ? launch_moving<false, true>(a, s)
-                : launch_moving<false, false>(a, s);
+    return a.rich ? launch_parity<true, true>(a, s)
+                  : launch_parity<true, false>(a, s);
+  return a.rich ? launch_parity<false, true>(a, s)
+                : launch_parity<false, false>(a, s);
 }

@@ -20,6 +20,10 @@
 // kMoving (B1, B2) puts each sphere at its centre at the ray's time, as
 // the JAX kernels' ``moving`` static does; the static instantiations do
 // not read the time. B6 always lerps, as the JAX sphere kernel does.
+// kParity (B2 only, float only) is the reference-parity estimator of
+// srt_tpu/pallas/bounce.py:930-1030 (diffuse_parity): light-only diffuse
+// lobes, the heap slot, bounded retries, the Beckmann frame of the raw
+// stored normal, the broken Erf and the as-implemented pdf and weight.
 //
 // The closest-hit sweep runs in float. Everything after it, the shading
 // (shade<T>), is written once over a scalar type T:
@@ -56,8 +60,8 @@ constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kInvPi = 0.318309886183790671538f;
 constexpr float kSqrtPiInv = 0.5641895835477563f;
 constexpr float kCoefMax = 3e37f;
-constexpr int kOrenNayar = 1, kBeckmann = 2, kMetal = 3, kDielectric = 4,
-              kDiffuseLight = 5, kIsotropic = 6;
+constexpr int kLambertian = 0, kOrenNayar = 1, kBeckmann = 2, kMetal = 3,
+              kDielectric = 4, kDiffuseLight = 5, kIsotropic = 6;
 constexpr int kTexChecker = 1, kTexNoise = 2, kTexImage = 3;
 constexpr int kLightSphere = 1;
 constexpr float kInv4Pi = 0.0795774715459476678f;
@@ -400,6 +404,18 @@ __device__ T erf_as(const T& x) {
   return s * y;
 }
 
+// The reference's Erf as implemented (common.h:40-44, core/approx.py:
+// erf_reference_buggy): the exponential is added, not multiplied in.
+template <class T>
+__device__ T erf_reference_buggy(const T& x) {
+  float s = signf(val(x));
+  T ax = xabs(x);
+  T t = 1.0f / (1.0f + 0.3275911f * ax);
+  T poly_t = (((((1.061405429f * t - 1.453152027f) * t) + 1.421413741f)
+               * t - 0.284496736f) * t + 0.254829592f) * t;
+  return s * (1.0f - poly_t + xexp(-ax * ax));
+}
+
 template <class T>
 __device__ T erfinv_giles(T x) {
   x = xclamp(x, -0.99999f, 0.99999f);
@@ -500,8 +516,9 @@ __device__ T beckmann_lambda(const V3T<T>& w, const T& ax, const T& ay) {
 
 // BeckmannSample11 (microfacet_distribution.h:34-107): a lane stops once
 // |value| < 1e-5, as the reference breaks out of its loop. The tangents
-// are those of the unrolled iteration, as jax.vjp takes them.
-template <class T>
+// are those of the unrolled iteration, as jax.vjp takes them. kBuggyErf
+// (parity) bounds the bisection with the reference's broken Erf.
+template <bool kBuggyErf = false, class T>
 __device__ void beckmann_sample11(const T& cos_theta_i, float u1, float u2,
                                   T& slope_x, T& slope_y) {
   if (val(cos_theta_i) > 0.9999f) {
@@ -516,7 +533,7 @@ __device__ void beckmann_sample11(const T& cos_theta_i, float u1, float u2,
   T tan_t = sin_t / xmax(cos_t, 1e-20f);
   T cot_t = 1.0f / xmax(tan_t, 1e-20f);
   T a = T(-1.0f);
-  T c = erf_as(cos_t);
+  T c = kBuggyErf ? erf_reference_buggy(cos_t) : erf_as(cos_t);
   float sample_x = fmaxf(u1, 1e-6f);
   T theta_i = acos_as(xclamp(cos_t, -0.999999f, 0.999999f));
   T fit = 1.0f + theta_i * (-0.876f + theta_i * (0.4265f - 0.0594f
@@ -542,7 +559,7 @@ __device__ void beckmann_sample11(const T& cos_theta_i, float u1, float u2,
   slope_y = erfinv_giles(T(2.0f * fmaxf(u2, 1e-6f) - 1.0f));
 }
 
-template <class T>
+template <bool kBuggyErf = false, class T>
 __device__ V3T<T> sample_wh_visible(const V3T<T>& wo, const T& ax,
                                     const T& ay, float u1, float u2) {
   bool flip = val(wo.z) < 0.0f;
@@ -552,7 +569,7 @@ __device__ V3T<T> sample_wh_visible(const V3T<T>& wo, const T& ax,
   // cosThetaI > 0.9999 normal-incidence branch
   st = divide(st, xmax(xsqrt(dot(st, st)), 1e-20f));
   T sx, sy;
-  beckmann_sample11(st.z, u1, u2, sx, sy);
+  beckmann_sample11<kBuggyErf>(st.z, u1, u2, sx, sy);
   T cp = cos_phi(st), sp = sin_phi(st);
   T tmp = cp * sx - sp * sy;
   sy = sp * sx + cp * sy;
@@ -1075,6 +1092,37 @@ __device__ inline T sphere_light_pdf(const float* l, const V3T<T>& p,
   return val(c) <= 0.0f ? T(kInv4Pi) : pdf;
 }
 
+// The lights' solid-angle pdfs at wi from p, summed (lights.py:
+// lights_pdf before its division by the count): a rect light's where wi
+// crosses it beyond 1e-3, with kRich a sphere light's
+template <bool kRich, class T>
+__device__ __forceinline__ T light_pdf_sum(const SceneView& s,
+                                           const V3T<T>& p,
+                                           const V3T<T>& wi) {
+  T lpdf = T(0.0f);
+  for (int k = 0; k < s.n_light; ++k) {
+    const float* l = s.light + 8 * k;
+    if constexpr (kRich) {
+      if (__ldg(s.light_kind + k) == kLightSphere) {
+        lpdf = lpdf + sphere_light_pdf(l, p, wi);
+        continue;
+      }
+    }
+    int na = (int)l[0], ua = (int)l[1], va = (int)l[2];
+    T d_n = comp(wi, na);
+    T t = (l[3] - comp(p, na))
+          / (fabsf(val(d_n)) < 1e-12f ? T(1e-12f) : d_n);
+    T hu = comp(p, ua) + t * comp(wi, ua);
+    T hv = comp(p, va) + t * comp(wi, va);
+    bool inside = val(t) > 1e-3f && val(hu) >= l[4] && val(hu) <= l[5]
+                  && val(hv) >= l[6] && val(hv) <= l[7];
+    float area = (l[5] - l[4]) * (l[7] - l[6]);
+    T pl = t * t / xmax(xabs(d_n) * area, 1e-12f);
+    lpdf = lpdf + (inside ? pl : T(0.0f));
+  }
+  return lpdf;
+}
+
 // The winner's t: the sweep's value in the forward; in the backward the
 // same formulas recomputed from (o, d), the same value bit for bit, with
 // tangents (bounce_bwd.py:155-177). With kRich a winner with W.tri >= 0
@@ -1158,13 +1206,156 @@ __device__ __forceinline__ bool scatter_to(const SceneView& s, uint32_t salt,
   return alive;
 }
 
+// ---- the reference-parity estimator (kParity, B2's float shade) -------
+// integrator.py:parity_draw and the parity forms of materials.py
+constexpr int kDimRetry = 17;        // resample rounds, 4 dimensions each
+constexpr int kDimSlot = 33;         // the heap slot's Bernoulli
+constexpr int kParityRetries = 4;
+constexpr float kParitySlotZeroP = 0.086f;
+constexpr float kParityKill = 1e30f;
+
+// The heap slot at the start of a bounce (integrator.py:parity_slot):
+// 0 with probability kParitySlotZeroP, else kParityKill; 0 under
+// parity_no_stale. ``salt`` is the bounce's salt.
+__device__ __forceinline__ float parity_slot(uint32_t salt, int no_stale) {
+  if (no_stale) return 0.0f;
+  return uniform(salt, kDimSlot) < kParitySlotZeroP ? 0.0f : kParityKill;
+}
+
+// A light sample's direction: the picked rect light's uniform point, or
+// with kRich the cone toward a sphere light (lights.py:sample_lights)
+template <bool kRich>
+__device__ __forceinline__ V3 light_dir(const SceneView& s, const V3& p,
+                                        float u_pick, float u1, float u2) {
+  const int pick = min((int)(u_pick * (float)s.n_light), s.n_light - 1);
+  const float* l = s.light + 8 * pick;
+  if constexpr (kRich) {
+    if (__ldg(s.light_kind + pick) == kLightSphere)
+      return sphere_light_dir(l, p, u1, u2);
+  }
+  V3 point;
+  set_comp(point, (int)l[0], l[3]);
+  set_comp(point, (int)l[1], l[4] + u1 * (l[5] - l[4]));
+  set_comp(point, (int)l[2], l[6] + u2 * (l[7] - l[6]));
+  return normalize(sub(point, p));
+}
+
+// A shading frame: the face frame (bu, bv, nw) about the viewer-side
+// normal, or the raw frame about the stored normal; wo is -d in it
+struct Frame {
+  V3 u, v, w, wo;
+};
+
+// The BSDF pdf under parity at the world direction ``wi`` (materials.py:
+// bsdf_pdf): Beckmann's stored D(wh) G(d_world, wi) / (4|cosI||cosO|) in
+// the raw frame ``r``, zeroed off its hemisphere; Oren-Nayar's full term
+// and the cosine lobe's cos/pi in the face frame ``f``.
+__device__ inline float parity_pdf(int m_type, float mp0, float mp1, float ax,
+                            float ay, const V3& wi, const V3& d,
+                            const Frame& f, const Frame& r) {
+  if (m_type == kBeckmann) {
+    const V3 wr = v3(dot(wi, r.u), dot(wi, r.v), dot(wi, r.w));
+    const V3 wh = safe_normalize(add(wr, r.wo));
+    const float g = 1.0f / (1.0f + beckmann_lambda(d, ax, ay)
+                            + beckmann_lambda(wr, ax, ay));
+    const float beck = beckmann_d(wh, ax, ay) * g
+                       / fmaxf(4.0f * fabsf(wr.z) * fabsf(r.wo.z), 1e-8f);
+    return r.wo.z * wr.z > 0.0f ? beck : 0.0f;
+  }
+  const V3 wl = v3(dot(wi, f.u), dot(wi, f.v), dot(wi, f.w));
+  if (m_type == kOrenNayar) return oren_nayar_term(wl, f.wo, mp0, mp1);
+  return fmaxf(wl.z, 0.0f) * kInvPi;
+}
+
+// The diffuse branch of a lane under parity (integrator.py:parity_draw,
+// srt_tpu/pallas/bounce.py:930-1030): up to 1 + kParityRetries rounds
+// on fresh dimensions while the mixture pdf is not positive, a lane that
+// drew a positive pdf skipping the rest. Lambertian and Oren-Nayar lanes
+// always take the light; a Beckmann lane that takes the light reads
+// ``slot`` as its BSDF pdf, and one that takes its VNDF sample (the raw
+// frame, the broken Erf) stores that sample's pdf there, the one pdf a
+// round evaluates. Then the as-implemented weight (cos/pi on the diffuse
+// lobes, D G1(wo) / (4|cosO|) on Beckmann, no hemisphere clamp), the
+// throughput update and roulette as shade's.
+template <bool kRich>
+__device__ bool diffuse_parity(const SceneView& s, uint32_t salt, int depth,
+                               int m_type, float mp0, float mp1, float ax,
+                               float ay, const V3& alb, const V3& normal,
+                               const V3& p, const V3& d, const Frame& f,
+                               float& slot, LaneT<float>& L) {
+  const bool is_beck = m_type == kBeckmann;
+  const bool light_only = m_type == kLambertian || m_type == kOrenNayar;
+  Frame r;
+  r.w = normalize(normal);
+  r.v = normalize(cross(r.w, fabsf(r.w.x) > 0.9f ? v3(0.0f, 1.0f, 0.0f)
+                                                 : v3(1.0f, 0.0f, 0.0f)));
+  r.u = cross(r.w, r.v);
+  const V3 md = neg(d);
+  r.wo = normalize(v3(dot(md, r.u), dot(md, r.v), dot(md, r.w)));
+  V3 wi = v3(0.0f, 0.0f, 1.0f);
+  float pdf = 0.0f;
+#pragma unroll 1
+  for (int rnd = 0; rnd <= kParityRetries; ++rnd) {
+    const uint32_t base = kDimRetry + 4 * (rnd - 1);
+    const uint32_t dim_mix = rnd ? base : 12u;
+    const uint32_t dim_pick = rnd ? base + 1 : 13u;
+    const uint32_t dim_s = rnd ? base + 2 : 14u;
+    const float u1 = uniform(salt, dim_s), u2 = uniform(salt, dim_s + 1);
+    const bool pick_light = s.n_light > 0
+                            && (uniform(salt, dim_mix) < 0.5f || light_only);
+    float bpdf;
+    if (pick_light) {
+      wi = light_dir<kRich>(s, p, uniform(salt, dim_pick), u1, u2);
+      bpdf = is_beck ? slot
+                     : parity_pdf(m_type, mp0, mp1, ax, ay, wi, d, f, r);
+    } else {
+      if (is_beck) {
+        const V3 wh = sample_wh_visible<true>(r.wo, ax, ay, u1, u2);
+        const float k2 = 2.0f * dot(r.wo, wh);
+        const V3 bw = v3(-r.wo.x + k2 * wh.x, -r.wo.y + k2 * wh.y,
+                         -r.wo.z + k2 * wh.z);
+        wi = normalize(add(add(scale(r.u, bw.x), scale(r.v, bw.y)),
+                           scale(r.w, bw.z)));
+      } else {
+        const float phi = kTwoPi * u1;
+        const float sq = sqrtf(u2);
+        const V3 cd = v3(cosf(phi) * sq, sinf(phi) * sq,
+                         sqrtf(fmaxf(1.0f - u2, 0.0f)));
+        wi = normalize(add(add(scale(f.u, cd.x), scale(f.v, cd.y)),
+                           scale(f.w, cd.z)));
+      }
+      bpdf = parity_pdf(m_type, mp0, mp1, ax, ay, wi, d, f, r);
+      if (is_beck && s.n_light > 0) slot = bpdf;   // the draw stores it
+    }
+    pdf = s.n_light > 0
+              ? 0.5f * (light_pdf_sum<kRich>(s, p, wi) / (float)s.n_light)
+                    + 0.5f * bpdf
+              : bpdf;
+    if (!(pdf <= 0.0f)) break;
+  }
+  float wgt = fmaxf(dot(wi, f.w), 0.0f) * kInvPi;
+  if (is_beck) {
+    const V3 wr = normalize(v3(dot(wi, r.u), dot(wi, r.v), dot(wi, r.w)));
+    const V3 wh = safe_normalize(add(wr, r.wo));
+    wgt = beckmann_d(wh, ax, ay) * (1.0f / (1.0f + beckmann_lambda(r.wo, ax,
+                                                                   ay)))
+          / fmaxf(4.0f * fabsf(r.wo.z), 1e-8f);
+  }
+  const bool ok = pdf > s.pdf_floor;
+  const float den = fmaxf(pdf, s.pdf_floor);
+  const V3 nb = v3(L.beta.x * (ok ? alb.x * wgt / den : 0.0f),
+                   L.beta.y * (ok ? alb.y * wgt / den : 0.0f),
+                   L.beta.z * (ok ? alb.z * wgt / den : 0.0f));
+  return scatter_to(s, salt, depth, p, wi, nb, L);
+}
+
 template <class T, bool kExt = false, bool kMoving = false,
-          bool kRich = false>
+          bool kRich = false, bool kParity = false>
 __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
                                       uint32_t salt, int depth, float time,
                                       const T& mp0, const T& mp1,
                                       const V3T<T>& mc, const V3T<T>& mc2,
-                                      LaneT<T>& L) {
+                                      LaneT<T>& L, float* slot = nullptr) {
   // W.tri >= 0 marks a winner whose normal and uv are given: a triangle
   // (kExt) or an in-scatter event of take_media (kRich)
   constexpr bool kGiven = kExt || kRich;
@@ -1237,6 +1428,11 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
   const bool is_beck = m_type == kBeckmann;
   const T ax = val(mp0) > 1e-4f ? mp0 : T(1e-4f);
   const T ay = val(mp1) > 1e-4f ? mp1 : T(1e-4f);
+  if constexpr (kParity) {
+    return diffuse_parity<kRich>(s, salt, depth, m_type, mp0, mp1, ax, ay,
+                                 alb, normal, p, d, Frame{bu, bv, nw, wo},
+                                 *slot, L);
+  }
 
   // BSDF sample: Beckmann VNDF or the cosine lobe
   const float u1 = uniform(salt, 14), u2 = uniform(salt, 15);
@@ -1297,30 +1493,9 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
     wgt = same ? dd * g / xmax(4.0f * xabs(wo.z), 1e-8f) : T(0.0f);
   }
   T pdf = bpdf;
-  if (s.n_light > 0) {
-    T lpdf = T(0.0f);
-    for (int k = 0; k < s.n_light; ++k) {
-      const float* l = s.light + 8 * k;
-      if constexpr (kRich) {
-        if (__ldg(s.light_kind + k) == kLightSphere) {
-          lpdf = lpdf + sphere_light_pdf(l, p, wi);
-          continue;
-        }
-      }
-      int na = (int)l[0], ua = (int)l[1], va = (int)l[2];
-      T d_n = comp(wi, na);
-      T t = (l[3] - comp(p, na))
-            / (fabsf(val(d_n)) < 1e-12f ? T(1e-12f) : d_n);
-      T hu = comp(p, ua) + t * comp(wi, ua);
-      T hv = comp(p, va) + t * comp(wi, va);
-      bool inside = val(t) > 1e-3f && val(hu) >= l[4] && val(hu) <= l[5]
-                    && val(hv) >= l[6] && val(hv) <= l[7];
-      float area = (l[5] - l[4]) * (l[7] - l[6]);
-      T pl = t * t / xmax(xabs(d_n) * area, 1e-12f);
-      lpdf = lpdf + (inside ? pl : T(0.0f));
-    }
-    pdf = 0.5f * (lpdf / (float)s.n_light) + 0.5f * bpdf;
-  }
+  if (s.n_light > 0)
+    pdf = 0.5f * (light_pdf_sum<kRich>(s, p, wi) / (float)s.n_light)
+          + 0.5f * bpdf;
 
   // throughput update: the albedo times the BSDF weight over the pdf
   const bool ok = val(pdf) > s.pdf_floor;
@@ -1336,19 +1511,23 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
 // external-hit mode) the external hit ``e`` takes part in the closest hit;
 // with kRich the media sweep follows (take_media) and the rich shading
 // runs; the lean instantiation is the bounce ball_scenes' B1 compiles.
-// kMoving: spheres at their centres at ``time`` (sphere_center).
-template <bool kExt = false, bool kMoving = false, bool kRich = false>
+// kMoving: spheres at their centres at ``time`` (sphere_center). kParity
+// (B2): the parity estimator, which updates the heap ``slot`` on lanes
+// that take the diffuse branch.
+template <bool kExt = false, bool kMoving = false, bool kRich = false,
+          bool kParity = false>
 __device__ __forceinline__ bool bounce(const SceneView& s, uint32_t salt,
                                        int depth, float time, LaneT<float>& L,
-                                       const ExtHit* e = nullptr) {
+                                       const ExtHit* e = nullptr,
+                                       float* slot = nullptr) {
   Winner W = closest_hit<kMoving>(s, L.o, L.d, time);
   const uint32_t bsalt = hash_combine(salt, (uint32_t)depth);
   if constexpr (kExt) take_external(W, *e);
   if constexpr (kRich) take_media(W, s.med, s.n_med, L.o, L.d, bsalt);
   const float* mt = s.mat + 14 * W.m;
-  return shade<float, kExt, kMoving, kRich>(
+  return shade<float, kExt, kMoving, kRich, kParity>(
       s, W, bsalt, depth, time, mt[1], mt[2], v3(mt[6], mt[7], mt[8]),
-      v3(mt[9], mt[10], mt[11]), L);
+      v3(mt[9], mt[10], mt[11]), L, slot);
 }
 
 }  // namespace srt

@@ -16,7 +16,8 @@ decisions are pure functions of ``(seed, pixel, sample, bounce,
 dimension)``; the gradient follows the JAX package's backward kernel,
 through the sampled direction and the pdfs (ROADMAP C2). The image atlas
 among the parameters raises (ROADMAP A13), and so does what the render
-side refuses (``scene.ir.require_trainable``: mesh media, parity, MERL).
+side refuses (``scene.ir.require_trainable``: mesh media, MERL). The
+train step never sets the parity estimator, as JAX's does not.
 """
 from __future__ import annotations
 

@@ -33,13 +33,20 @@ The wavefront is updated in place so one copy of it lives on the device.
 the bounce of the regeneration engine on triangle scenes: one bounce of an
 explicit state, out of place, no regeneration and no depth cap. Replaces
 ``_kernel`` in its per-bounce mode (launched by ``fused_bounce``,
-``bounce.py:1425-1552``) without the parity plane. On a triangle scene it
+``bounce.py:1425-1552``). On a triangle scene it
 takes each lane's closest triangle ``(t, u, v, idx)`` from kernel B3
 (``kernels/intersect.py``), or from B4 on a mesh beyond the single-level
 budget, and assembles the hit itself (the external-hit mode, ``has_ext``).
 :func:`bounce_step_ref` is its plain version and :func:`bounce_fwd` the
 wrapper; ``csrc/bounce.cu`` runs the same ``bounce()`` of
 ``csrc/bounce_core.cuh`` as B1.
+
+Under the reference-parity estimator (``SceneFlags.ref_parity``) B2 takes
+its ``kParity`` instantiation, which draws as
+:func:`render.integrator.parity_draw` and writes the ``stale`` plane, the
+heap slot after the bounce (the incoming plane is not read). B1 refuses
+parity, as ``fused_regen_available`` does (``bounce.py:1614-1615``): the
+regeneration engine runs it on the per-bounce loop.
 
 On a scene whose spheres move (``SceneFlags.moving``) both kernels take
 their ``kMoving`` instantiation, which puts each sphere at its centre at
@@ -71,6 +78,8 @@ from srt_tpu_torch.scene.ir import (LightKind, SceneFlags, TextureType,
 LAUNCHES = 0
 #: Kernel launches made by :func:`bounce_fwd` (the CUDA path only).
 LAUNCHES_FWD = 0
+#: of which the parity instantiation's (``kParity``)
+LAUNCHES_PARITY = 0
 
 BLOCK = 256                      # threads (lanes) per CUDA block
 DIM_LENS = 32                    # camera sampler dimensions (api.py)
@@ -278,9 +287,17 @@ def regenerate(inp: RegenInputs, spec: RegenSpec, st: dict,
     return state, take, torch.where(take, pixn, st["pix"].long())
 
 
+def _refuse_parity(flags: SceneFlags) -> None:
+    if flags.ref_parity:
+        raise ValueError("the regeneration kernel does not run the parity "
+                         "estimator (fused_regen_available refuses it); "
+                         "render_regen runs parity on the per-bounce loop")
+
+
 def regen_bounce_reference(inp: RegenInputs, st: dict,
                            spec: RegenSpec) -> None:
     """The plain PyTorch version of one launch; updates ``st`` in place."""
+    _refuse_parity(inp.flags)
     rows = {k: st[k].T for k in ("o", "d", "beta", "radiance")}
     state, take, pix = regenerate(
         inp, spec, dict(st, **rows, alive=st["alive"] != 0), st["cursor"])
@@ -356,6 +373,7 @@ def regen_args(inp: RegenInputs, st: dict, spec: RegenSpec) -> _Args:
     """The checked arguments of one ``csrc/regen_bounce.cu`` launch on
     the wavefront ``st`` (its ``dead``/``cursor`` in, ``dead_next``/
     ``cursor_next`` out)."""
+    _refuse_parity(inp.flags)
     n = st["alive"].shape[0]
     dev = st["alive"].device
     _check_state(st, n, dev)
@@ -442,7 +460,8 @@ def bounce_step_ref(scene: TorchScene, flags: SceneFlags,
     each lane's winning sphere ``(t, idx)`` as kernel B6 gives it, whose
     hit is then assembled differentiably; the plain sweep runs when None.
     Returns the next state with ``depth + 1`` and ``alive`` not yet capped
-    by depth."""
+    by depth, and under parity the ``stale`` plane (an incoming one is not
+    read)."""
     return bounce_step(material_view(scene, mat), state, spec.max_depth,
                        spec.rr_start, flags, spec.pdf_floor, tri, sph)
 
@@ -466,7 +485,9 @@ class _BounceArgs(ctypes.Structure):
         + [("n_tris", ctypes.c_int), ("med", ctypes.c_void_p),
            ("n_med", ctypes.c_int), ("time", ctypes.c_void_p),
            ("moving", ctypes.c_int)]
-        + _RICH_FIELDS)
+        + _RICH_FIELDS
+        + [("stale_out", ctypes.c_void_p), ("parity", ctypes.c_int),
+           ("parity_no_stale", ctypes.c_int)])
 
 
 def check_state(state: dict, tables: dict, device) -> int:
@@ -532,11 +553,17 @@ def fwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
              tri=None) -> tuple[_BounceArgs, dict]:
     """The checked arguments of one ``csrc/bounce.cu`` launch and the
     output tensors it writes; ``tri`` as in :func:`bounce_fwd`.
-    ``flags`` picks the instantiation (``kMoving``, ``kRich``)."""
+    ``flags`` picks the instantiation (``kMoving``, ``kRich``,
+    ``kParity``)."""
     dev = state["alive"].device
     n = check_state(state, tables, dev)
     ext = _tri_args(scene, tables, tri, n, dev)
     out = {k: torch.empty_like(state[k]) for k in _ROWS + ("depth", "alive")}
+    parity = {}
+    if flags.ref_parity:
+        out["stale"] = torch.empty((n,), dtype=_F32, device=dev)
+        parity = dict(stale_out=out["stale"].data_ptr(), parity=1,
+                      parity_no_stale=int(flags.parity_no_stale))
     args = _BounceArgs(
         **{k: state[k].data_ptr() for k in ("o", "d", "beta", "salt", "depth",
                                             "alive")},
@@ -547,16 +574,17 @@ def fwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
         n=n, max_depth=spec.max_depth,
         rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
         **ext, time=state["time"].data_ptr(), moving=int(flags.moving),
-        **rich_args(scene, flags, tables))
+        **rich_args(scene, flags, tables), **parity)
     return args, out
 
 
 def _launch_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
                 state: dict, spec: StepSpec, tri) -> dict:
-    global LAUNCHES_FWD
+    global LAUNCHES_FWD, LAUNCHES_PARITY
     args, out = fwd_args(scene, flags, tables, state, spec, tri)
     launch("srt_bounce", args, state["alive"].device)
     LAUNCHES_FWD += 1
+    LAUNCHES_PARITY += int(flags.ref_parity)
     return dict(out, time=state["time"], salt=state["salt"])
 
 
@@ -566,8 +594,9 @@ def bounce_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
     place: the plain version for CPU tensors, the CUDA kernel for CUDA
     tensors. On a triangle scene ``tri`` is each lane's closest triangle
     ``(t, u, v, idx)`` from :func:`kernels.intersect.intersect_tris`, which
-    the kernel requires. No autograd: :class:`kernels.bounce_vjp.BounceCore`
-    and :class:`kernels.bounce_vjp.BounceHybrid` wrap this."""
+    the kernel requires. Under parity the next state carries ``stale``.
+    No autograd: :class:`kernels.bounce_vjp.BounceCore` and
+    :class:`kernels.bounce_vjp.BounceHybrid` wrap this."""
     dev = state["alive"].device
     if dev.type == "cpu":
         with torch.no_grad():

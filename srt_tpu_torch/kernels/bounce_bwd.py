@@ -53,9 +53,10 @@ ROWS = ("o", "d", "beta", "radiance")
 
 def _bwd_kernel_gaps(scene: TorchScene, flags: SceneFlags) -> list[str]:
     """What this scene has that the backward kernel cannot differentiate:
-    JAX's gate (``bounce_bwd.py:58-73``) less parity, which
-    :func:`scene.ir.require_covered` refuses."""
+    JAX's gate (``bounce_bwd.py:58-73``)."""
     gaps = []
+    if flags.ref_parity:
+        gaps.append("the parity estimator: it replays the default one")
     if scene.n_tris:
         gaps.append("triangle scenes: it has no external-hit mode")
     if flags.moving:
@@ -69,8 +70,8 @@ def bwd_kernel_available(scene: TorchScene, flags: SceneFlags) -> bool:
     (``bounce_bwd.py:58-73``), reading no environment variable. Moving
     spheres go to the hybrid backward as there, and so do triangles (the
     kernel has no external-hit input, so it would differentiate a
-    triangle lane as if the triangle were not there). The parity
-    estimator the coverage gate refuses."""
+    triangle lane as if the triangle were not there), and so does the
+    parity estimator."""
     return not _bwd_kernel_gaps(scene, flags)
 
 

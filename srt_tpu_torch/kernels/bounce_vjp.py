@@ -24,7 +24,8 @@ kernel B2 and save only the bounce's inputs:
   ``intersect_tris_via_pallas`` detaches it (``intersect.py:379-403``). It
   gives the gradients of the scene's geometric tensors (sphere centres and
   radii, rect planes) and takes the scenes B5 does not cover: moving
-  spheres and triangles.
+  spheres, triangles and the parity estimator, whose ``stale`` plane it
+  passes on (no gradient).
 
 :func:`bounce_step_auto` chooses between them as ``bounce_vjp.py:120-138``
 does. On CPU tensors the kernels are their plain versions.
@@ -127,12 +128,13 @@ class BounceHybrid(torch.autograd.Function):
         ctx.save_for_backward(o, d, beta, radiance, mat, time, salt, depth,
                               alive, *geom)
         ctx.statics = statics
-        ctx.mark_non_differentiable(out["depth"], out["alive"])
+        extra = (out["stale"],) if "stale" in out else ()
+        ctx.mark_non_differentiable(out["depth"], out["alive"], *extra)
         return (out["o"], out["d"], out["beta"], out["radiance"],
-                out["depth"], out["alive"])
+                out["depth"], out["alive"], *extra)
 
     @staticmethod
-    def backward(ctx, g_o, g_d, g_beta, g_rad, _g_depth, _g_alive):
+    def backward(ctx, g_o, g_d, g_beta, g_rad, _g_depth, _g_alive, *_g):
         o, d, beta, radiance, mat, time, salt, depth, alive, *geom = \
             ctx.saved_tensors
         scene, flags, tables, spec, tri, names = ctx.statics
@@ -165,13 +167,16 @@ def bounce_hybrid(scene: TorchScene, flags: SceneFlags, tables: dict,
         with torch.no_grad():
             tri = ki.closest_tris(scene, walk, state["o"].detach(),
                                   state["d"].detach())
-    o, d, beta, radiance, depth, alive = BounceHybrid.apply(
+    o, d, beta, radiance, depth, alive, *stale = BounceHybrid.apply(
         state["o"], state["d"], state["beta"], state["radiance"],
         tables["mat"], state["time"], state["salt"], state["depth"],
         state["alive"], (scene, flags, tables, spec, tri, tuple(geom)),
         *geom.values())
-    return dict(o=o, d=d, beta=beta, radiance=radiance, depth=depth,
-                alive=alive, time=state["time"], salt=state["salt"])
+    out = dict(o=o, d=d, beta=beta, radiance=radiance, depth=depth,
+               alive=alive, time=state["time"], salt=state["salt"])
+    if stale:
+        out["stale"] = stale[0]
+    return out
 
 
 def bounce_step_auto(scene: TorchScene, flags: SceneFlags, tables: dict,

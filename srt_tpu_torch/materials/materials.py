@@ -11,10 +11,20 @@ face normal (the stored normal flipped toward the viewer), ``wo`` is the
 local direction back along the incoming ray, and the integrator
 multiplies throughput by ``bsdf_weight(wi) / pdf_mix(wi)`` with
 ``bsdf_weight`` = f·cosθi.
+
+Under ``SceneFlags.ref_parity`` the three BSDF functions take the
+reference's as-implemented forms (``srt_tpu/materials/materials.py:
+171-320``), which look like bugs and are reproduced, not fixed: Beckmann
+in the frame of the raw stored normal (:func:`raw_frame`), sampled with
+the broken Erf, its pdf ``D·G(d_world, wi)/(4|cosI||cosO|)`` with the
+Lambda of the *world* ray direction, its weight ``D·G1(wo)/(4|cosO|)``
+with no same-hemisphere clamp; Oren–Nayar with the plain cosine weight
+and its full term in the pdf.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -24,7 +34,8 @@ from srt_tpu_torch.core.gradsafe import grad_safe_sqrt, gsdiv
 from srt_tpu_torch.core.vecmath import (dot, normalize, onb_from_w,
                                         safe_normalize, to_local, to_world,
                                         where3)
-from srt_tpu_torch.materials.microfacet import (beckmann_d, g,
+from srt_tpu_torch.materials.microfacet import (beckmann_d,
+                                                beckmann_lambda, g, g1,
                                                 pdf_wh_visible,
                                                 sample_wh_visible)
 from srt_tpu_torch.materials.textures import texture_value
@@ -36,6 +47,7 @@ _BECK = int(MaterialType.BECKMANN)
 _METAL = int(MaterialType.METAL)
 _DIEL = int(MaterialType.DIELECTRIC)
 _ISO = int(MaterialType.ISOTROPIC)
+_ON = int(MaterialType.OREN_NAYAR)
 
 
 def _alphas(scene: TorchScene, mat):
@@ -146,6 +158,24 @@ def face_basis(normal, ray_dir):
     return onb_from_w(where3(dot(normal, ray_dir) > 0.0, -normal, normal))
 
 
+class RawFrame(NamedTuple):
+    """The parity estimator's Beckmann frame: the ONB about the raw stored
+    normal, with no face-forward flip (``pdf.h:122-124``), ``wo``
+    normalised in it, and the world ray direction ``d``, whose Lambda the
+    stored pdf takes."""
+    basis: tuple
+    wo: torch.Tensor
+    d: torch.Tensor
+
+
+def raw_frame(normal, ray_dir) -> RawFrame:
+    """:class:`RawFrame` of the stored ``normal`` (N, 3) and the incoming
+    ``ray_dir``. On front hits it is the face frame; on backfacing and
+    grazing hits it rotates the anisotropy ellipse, as the reference's."""
+    basis = onb_from_w(normal)
+    return RawFrame(basis, normalize(to_local(basis, -ray_dir)), ray_dir)
+
+
 def _oren_nayar_term(wi, wo, a, b):
     """cosI * (A + B*maxCos*sinAlpha*tanBeta) / pi (``pdf.h:64-101``)."""
     sin_ti, sin_to = frame.sin_theta(wi), frame.sin_theta(wo)
@@ -164,9 +194,10 @@ def _oren_nayar_term(wi, wo, a, b):
 
 
 def sample_bsdf(scene: TorchScene, mat, basis, wo, u1, u2,
-                flags: SceneFlags):
+                flags: SceneFlags, raw: RawFrame | None = None):
     """World direction from the cosine lobe, or Beckmann's VNDF on
-    Beckmann lanes (``pdf.h:30-59, 136-152``)."""
+    Beckmann lanes (``pdf.h:30-59, 136-152``); under parity the VNDF in
+    the ``raw`` frame with the broken Erf."""
     phi = 2.0 * math.pi * u1
     sq = torch.sqrt(u2)
     cos_dir = torch.stack([torch.cos(phi) * sq, torch.sin(phi) * sq,
@@ -174,40 +205,73 @@ def sample_bsdf(scene: TorchScene, mat, basis, wo, u1, u2,
     cos_world = normalize(to_world(basis, cos_dir))
     if _BECK not in flags.mat_kinds:
         return cos_world
+    parity = flags.ref_parity
+    b_basis, b_wo = (raw.basis, raw.wo) if parity else (basis, wo)
     ax, ay = _alphas(scene, mat)
-    wh = sample_wh_visible(wo, ax, ay, u1, u2)
-    beck_wi = -wo + 2.0 * dot(wo, wh)[:, None] * wh
-    beck_world = normalize(to_world(basis, beck_wi))
+    wh = sample_wh_visible(b_wo, ax, ay, u1, u2, parity)
+    beck_wi = -b_wo + 2.0 * dot(b_wo, wh)[:, None] * wh
+    beck_world = normalize(to_world(b_basis, beck_wi))
     return where3(scene.mat_type[mat] == _BECK, beck_world, cos_world)
 
 
 def bsdf_pdf(scene: TorchScene, mat, basis, wo, wi_world,
-             flags: SceneFlags):
-    """Density of :func:`sample_bsdf` at ``wi_world`` (for the mixture)."""
+             flags: SceneFlags, raw: RawFrame | None = None):
+    """Density of :func:`sample_bsdf` at ``wi_world`` (for the mixture);
+    under parity the value the reference stores: the full Oren–Nayar term
+    on Oren–Nayar lanes, on Beckmann lanes ``beckmann_pdf::generate``'s
+    ``D(wh)·G(d_world, wi)/(4|cosI||cosO|)`` in the ``raw`` frame,
+    zeroed off its hemisphere (``pdf.h:144``)."""
+    t = scene.mat_type[mat]
     wi = to_local(basis, wi_world)
     pdf = torch.clamp(wi[:, 2], min=0.0) * _INV_PI
+    parity = flags.ref_parity
+    if parity and _ON in flags.mat_kinds:
+        params = scene.mat_params[mat]
+        pdf = torch.where(t == _ON, _oren_nayar_term(wi, wo, params[:, 0],
+                                                     params[:, 1]), pdf)
     if _BECK not in flags.mat_kinds:
         return pdf
-    wh = safe_normalize(wi + wo)
     ax, ay = _alphas(scene, mat)
+    if parity:
+        wi_r = to_local(raw.basis, wi_world)
+        wh_r = safe_normalize(wi_r + raw.wo)
+        g_mixed = 1.0 / (1.0 + beckmann_lambda(raw.d, ax, ay)
+                         + beckmann_lambda(wi_r, ax, ay))
+        beck = (beckmann_d(wh_r, ax, ay) * g_mixed
+                / torch.clamp(4.0 * torch.abs(wi_r[:, 2])
+                              * torch.abs(raw.wo[:, 2]), min=1e-8))
+        beck = torch.where(frame.same_hemisphere(raw.wo, wi_r), beck, 0.0)
+        return torch.where(t == _BECK, beck, pdf)
+    wh = safe_normalize(wi + wo)
     beck = gsdiv(pdf_wh_visible(wo, wh, ax, ay),
                  torch.clamp(4.0 * torch.abs(dot(wo, wh)), min=1e-8))
     beck = torch.where(frame.same_hemisphere(wo, wi), beck, 0.0)
-    return torch.where(scene.mat_type[mat] == _BECK, beck, pdf)
+    return torch.where(t == _BECK, beck, pdf)
 
 
 def bsdf_weight(scene: TorchScene, mat, uv, p, basis, wo, wi_world,
-                flags: SceneFlags):
-    """f(wo, wi) * |cosθi| — the reference's attenuation*scattering_pdf."""
+                flags: SceneFlags, raw: RawFrame | None = None):
+    """f(wo, wi) * |cosθi| — the reference's attenuation*scattering_pdf;
+    under parity the plain cosine on Oren–Nayar lanes and, on Beckmann
+    lanes, the VNDF density ``D·G1(wo)/(4|cosO|)`` in the ``raw`` frame
+    with no same-hemisphere clamp (``material.h:134-138, 160-185``)."""
     t = scene.mat_type[mat]
     params = scene.mat_params[mat]
     alb = texture_value(scene, scene.mat_tex[mat], uv, p, flags)
     wi = to_local(basis, wi_world)
     w = torch.clamp(wi[:, 2], min=0.0) * _INV_PI         # Lambertian
-    if int(MaterialType.OREN_NAYAR) in flags.mat_kinds:
+    parity = flags.ref_parity
+    if _ON in flags.mat_kinds and not parity:
         w_on = _oren_nayar_term(wi, wo, params[:, 0], params[:, 1])
-        w = torch.where(t == int(MaterialType.OREN_NAYAR), w_on, w)
-    if _BECK in flags.mat_kinds:
+        w = torch.where(t == _ON, w_on, w)
+    if _BECK in flags.mat_kinds and parity:
+        wi_r = normalize(to_local(raw.basis, wi_world))
+        wh_r = safe_normalize(wi_r + raw.wo)
+        ax, ay = _alphas(scene, mat)
+        w_beck = (beckmann_d(wh_r, ax, ay) * g1(raw.wo, ax, ay)
+                  / torch.clamp(4.0 * torch.abs(raw.wo[:, 2]), min=1e-8))
+        w = torch.where(t == _BECK, w_beck, w)
+    elif _BECK in flags.mat_kinds:
         wh = safe_normalize(wi + wo)
         ax, ay = _alphas(scene, mat)
         w_beck = gsdiv(beckmann_d(wh, ax, ay) * g(wo, wi, ax, ay),

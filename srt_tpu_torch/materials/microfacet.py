@@ -9,7 +9,8 @@ import math
 import torch
 
 from srt_tpu_torch.core import frame
-from srt_tpu_torch.core.approx import acos_as, erf_as, erfinv_giles
+from srt_tpu_torch.core.approx import (acos_as, erf_as, erf_reference_buggy,
+                                      erfinv_giles)
 from srt_tpu_torch.core.gradsafe import grad_safe_sqrt, gsdiv, gsrecip
 
 _SQRT_PI_INV = 0.5641895835477563
@@ -48,11 +49,13 @@ def g(wo, wi, alphax, alphay):
                   + beckmann_lambda(wi, alphax, alphay))
 
 
-def _beckmann_sample11(cos_theta_i, u1, u2):
+def _beckmann_sample11(cos_theta_i, u1, u2, ref_parity: bool = False):
     """P22 slopes for the normal-incidence-stretched direction
     (``BeckmannSample11``, ``microfacet_distribution.h:34-107``): up to 9
     Newton-bisection steps in the erf domain; a lane freezes once
-    |value| < 1e-5, as the reference breaks out."""
+    |value| < 1e-5, as the reference breaks out. ``ref_parity`` bounds the
+    bisection with the reference's broken Erf
+    (:func:`erf_reference_buggy`), as its renders do."""
     r = torch.sqrt(-torch.log1p(-torch.clamp(u1, max=1.0 - 1e-7)))
     phi = 2.0 * math.pi * u2
     sx_normal = r * torch.cos(phi)
@@ -64,7 +67,7 @@ def _beckmann_sample11(cos_theta_i, u1, u2):
     cot_t = gsrecip(torch.clamp(tan_t, min=1e-20))
 
     a = torch.full_like(u1, -1.0)
-    c = erf_as(cos_t)
+    c = (erf_reference_buggy if ref_parity else erf_as)(cos_t)
     sample_x = torch.clamp(u1, min=1e-6)
     theta_i = acos_as(torch.clamp(cos_t, -0.999999, 0.999999))
     fit = 1.0 + theta_i * (-0.876 + theta_i * (0.4265 - 0.0594 * theta_i))
@@ -98,9 +101,10 @@ def _beckmann_sample11(cos_theta_i, u1, u2):
             torch.where(normal_inc, sy_normal, slope_y))
 
 
-def sample_wh_visible(wo, alphax, alphay, u1, u2):
+def sample_wh_visible(wo, alphax, alphay, u1, u2, ref_parity: bool = False):
     """Visible-normal Beckmann sampling: stretch, sample P22 slopes,
-    rotate, unstretch, renormalize."""
+    rotate, unstretch, renormalize (``ref_parity``: see
+    :func:`_beckmann_sample11`)."""
     flip = wo[..., 2] < 0.0
     wi = torch.where(flip[..., None], -wo, wo)
     st = torch.stack([alphax * wi[..., 0], alphay * wi[..., 1], wi[..., 2]],
@@ -110,7 +114,7 @@ def sample_wh_visible(wo, alphax, alphay, u1, u2):
     st = gsdiv(st, torch.clamp(torch.sqrt(
         st[..., 0] * st[..., 0] + st[..., 1] * st[..., 1]
         + st[..., 2] * st[..., 2]), min=1e-20)[..., None])
-    sx, sy = _beckmann_sample11(st[..., 2], u1, u2)
+    sx, sy = _beckmann_sample11(st[..., 2], u1, u2, ref_parity)
     cp, sp = frame.cos_phi(st), frame.sin_phi(st)
     tmp = cp * sx - sp * sy
     sy = sp * sx + cp * sy

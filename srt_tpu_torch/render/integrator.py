@@ -4,10 +4,11 @@
 
 Covers the port's slices: sphere and box media (:func:`apply_media`),
 the specular branch of metal, dielectric and isotropic materials,
-textures at the hit's uv and position, rect and sphere lights, no parity
-mode. The diffuse branch is the reference's 50/50 mixture of light
-sampling and BSDF sampling with its closed-form mixture pdf; Russian
-roulette is ours and off when ``rr_start >= max_depth``.
+textures at the hit's uv and position, rect and sphere lights, and the
+reference-parity estimator (:func:`parity_draw`). The diffuse branch is
+the reference's 50/50 mixture of light sampling and BSDF sampling with
+its closed-form mixture pdf; Russian roulette is ours and off when
+``rr_start >= max_depth``.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from srt_tpu_torch.core.vecmath import dot, to_local, where3
 from srt_tpu_torch.materials import materials as mats
 from srt_tpu_torch.render import lights
 from srt_tpu_torch.render.intersect import Hit, _ray_at, intersect_scene
-from srt_tpu_torch.scene.ir import SPECULAR_MATS, SceneFlags, TorchScene
+from srt_tpu_torch.scene.ir import (SPECULAR_MATS, MaterialType, SceneFlags,
+                                    TorchScene)
 
 # Static sampler dimension slots per bounce (one decision per slot).
 DIM_MEDIUM = 0        # free flight, one per medium (+ its index)
@@ -28,6 +30,15 @@ DIM_MIX = 12          # light-vs-bsdf pick
 DIM_LIGHT_PICK = 13
 DIM_SAMPLE = 14       # u1, u2 for light point / bsdf lobe
 DIM_RR = 16           # russian roulette
+DIM_RETRY = 17        # parity resample rounds (4 dims each: mix, pick, u1, u2)
+DIM_SLOT = 33         # parity heap-slot Bernoulli
+#: parity: resample rounds after the first draw (the JAX integrator reads
+#: ``SRT_TPU_PARITY_RETRIES``, default 4; the port fixes it)
+PARITY_RETRIES = 4
+#: parity: the share of heap-slot reads that see 0.0, and the garbage the
+#: others read (``srt_tpu/render/integrator.py:38-45``, GOLDEN.md r5)
+PARITY_SLOT_ZERO_P = 0.086
+PARITY_KILL = 1e30
 
 
 def apply_media(scene: TorchScene, o, d, salt, hit: Hit) -> Hit:
@@ -78,15 +89,93 @@ def apply_media(scene: TorchScene, o, d, salt, hit: Hit) -> Hit:
     return hit
 
 
+def parity_slot(salt, flags: SceneFlags):
+    """The heap slot's value at the start of a bounce: 0.0 with
+    probability :data:`PARITY_SLOT_ZERO_P`, else :data:`PARITY_KILL`, drawn
+    on dimension :data:`DIM_SLOT` of the bounce's ``salt``; 0.0 on every
+    lane under ``parity_no_stale``. The slot never carries across bounces:
+    ``free()`` overwrites the reference's slot between them."""
+    if flags.parity_no_stale:
+        return torch.zeros(salt.shape, dtype=torch.float32,
+                           device=salt.device)
+    return torch.where(rng.uniform(salt, DIM_SLOT) < PARITY_SLOT_ZERO_P,
+                       0.0, PARITY_KILL)
+
+
+def parity_draw(scene: TorchScene, flags: SceneFlags, mat, p, basis, wo,
+                raw, salt, slot, trace: list | None = None):
+    """The reference-parity mixture draw (``srt_tpu/render/integrator.py:
+    225-330``) -> ``(wi, pdf, slot)``. Lambertian and Oren–Nayar lanes
+    always take the light sample (the reference's BSDF lobe is flipped
+    into the surface, so its ``while (pdf == 0)`` loop retries until the
+    light is picked); Beckmann lanes that take the light read the heap
+    ``slot`` in place of their BSDF pdf, and a round that takes the
+    Beckmann BSDF stores its pdf there. Lanes whose pdf is not positive
+    redraw on fresh dimensions (``DIM_RETRY + 4(r-1)``) for up to
+    :data:`PARITY_RETRIES` rounds; a lane with a positive pdf keeps its
+    draw. ``trace``, if given, receives one dict a round of the lanes that
+    drew (``need``), took the light (``pick_light``) and the slot they
+    drew with (``slot``), for diagnostics."""
+    t = scene.mat_type[mat]
+    is_beck = t == int(MaterialType.BECKMANN)
+    light_only = ((t == int(MaterialType.LAMBERTIAN))
+                  | (t == int(MaterialType.OREN_NAYAR)))
+    need = torch.ones_like(is_beck)
+    wi, pdf = torch.zeros_like(p), torch.zeros_like(p[:, 0])
+    for rnd in range(1 + PARITY_RETRIES):
+        base = DIM_RETRY + 4 * (rnd - 1)
+        dim_mix, dim_pick, dim_s = ((DIM_MIX, DIM_LIGHT_PICK, DIM_SAMPLE)
+                                    if rnd == 0 else
+                                    (base, base + 1, base + 2))
+        u1 = rng.uniform(salt, dim_s)
+        u2 = rng.uniform(salt, dim_s + 1)
+        bsdf_dir = mats.sample_bsdf(scene, mat, basis, wo, u1, u2, flags,
+                                    raw)
+        if scene.n_lights:
+            light_dir = lights.sample_lights(
+                scene, p, rng.uniform(salt, dim_pick), u1, u2)
+            pick_light = (rng.uniform(salt, dim_mix) < 0.5) | light_only
+            wi_r = where3(pick_light, light_dir, bsdf_dir)
+            bpdf = mats.bsdf_pdf(scene, mat, basis, wo, wi_r, flags, raw)
+            # at the sampled direction the pdf is the one the BSDF draw
+            # stores in the slot
+            took_bsdf = is_beck & ~pick_light
+            slot_r = torch.where(took_bsdf, mats.bsdf_pdf(
+                scene, mat, basis, wo, bsdf_dir, flags, raw), slot)
+            bpdf = torch.where(is_beck & pick_light, slot, bpdf)
+            pdf_r = 0.5 * lights.lights_pdf(scene, p, wi_r) + 0.5 * bpdf
+        else:
+            pick_light = torch.zeros_like(need)
+            wi_r = bsdf_dir
+            pdf_r = mats.bsdf_pdf(scene, mat, basis, wo, wi_r, flags, raw)
+            slot_r = slot
+        if trace is not None:
+            trace.append(dict(need=need, pick_light=pick_light, slot=slot))
+        wi = where3(need, wi_r, wi)
+        pdf = torch.where(need, pdf_r, pdf)
+        slot = torch.where(need, slot_r, slot)
+        need = need & (pdf <= 0.0)
+    return wi, pdf, slot
+
+
 def bounce_step(scene: TorchScene, state: dict, max_depth: int,
                 rr_start: int, flags: SceneFlags,
-                pdf_floor: float = 1e-9, tri=None, sph=None) -> dict:
+                pdf_floor: float = 1e-9, tri=None, sph=None,
+                trace: list | None = None) -> dict:
     """``state`` keys: ``o d (N,3) f32, time (N,) f32, beta radiance (N,3)
     f32, alive (N,) bool, salt (N,) 32-bit words (any int dtype), depth
     (N,) int32``. ``tri``: the triangles' closest hit ``(t, u, v, tri)``,
     ``sph``: the spheres' winner ``(t, idx)``, if the caller has them (see
     ``intersect_scene``). Returns the next state (``alive`` does not yet
-    fold in the depth cap; the caller does)."""
+    fold in the depth cap; the caller does).
+
+    Under ``flags.ref_parity`` the diffuse branch is :func:`parity_draw`
+    with the reference's BSDF forms (``materials.RawFrame``), and the next
+    state has ``stale`` (N,) f32: the heap slot after the bounce's draw on
+    the lanes that drew (live diffuse hits), its starting value
+    (:func:`parity_slot`) on the others. An incoming ``stale`` is not
+    read, as in the JAX kernel (``pallas/bounce.py:966-970``). ``trace``
+    goes to :func:`parity_draw`."""
     depth = state["depth"]
     salt = rng.hash_combine(rng.as_word(state["salt"]), rng.as_word(depth))
     o, d = state["o"], state["d"]
@@ -112,18 +201,25 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
     # diffuse branch: mixture-pdf NEE (Raytracing_n.cpp:71-94)
     basis = mats.face_basis(normal, d)
     wo = to_local(basis, -d)
-    u1 = rng.uniform(salt, DIM_SAMPLE)
-    u2 = rng.uniform(salt, DIM_SAMPLE + 1)
-    wi = mats.sample_bsdf(scene, hit.mat, basis, wo, u1, u2, flags)
-    if scene.n_lights:
-        light_dir = lights.sample_lights(
-            scene, p, rng.uniform(salt, DIM_LIGHT_PICK), u1, u2)
-        wi = where3(rng.uniform(salt, DIM_MIX) < 0.5, light_dir, wi)
-    pdf = mats.bsdf_pdf(scene, hit.mat, basis, wo, wi, flags)
-    if scene.n_lights:
-        pdf = 0.5 * lights.lights_pdf(scene, p, wi) + 0.5 * pdf
+    raw = None
+    if flags.ref_parity:
+        raw = mats.raw_frame(normal, d)
+        slot0 = parity_slot(salt, flags)
+        wi, pdf, slot = parity_draw(scene, flags, hit.mat, p, basis, wo, raw,
+                                    salt, slot0, trace)
+    else:
+        u1 = rng.uniform(salt, DIM_SAMPLE)
+        u2 = rng.uniform(salt, DIM_SAMPLE + 1)
+        wi = mats.sample_bsdf(scene, hit.mat, basis, wo, u1, u2, flags)
+        if scene.n_lights:
+            light_dir = lights.sample_lights(
+                scene, p, rng.uniform(salt, DIM_LIGHT_PICK), u1, u2)
+            wi = where3(rng.uniform(salt, DIM_MIX) < 0.5, light_dir, wi)
+        pdf = mats.bsdf_pdf(scene, hit.mat, basis, wo, wi, flags)
+        if scene.n_lights:
+            pdf = 0.5 * lights.lights_pdf(scene, p, wi) + 0.5 * pdf
     weight = mats.bsdf_weight(scene, hit.mat, hit.uv, p, basis, wo, wi,
-                              flags)
+                              flags, raw)
     # below-floor pdfs contribute zero (the reference retries instead)
     diff_beta = torch.where((pdf > pdf_floor)[:, None],
                             gsdiv(weight,
@@ -131,6 +227,7 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
                             0.0)
 
     # specular branch (Raytracing_n.cpp:66-70), on the stored normal
+    specular = torch.zeros_like(scatters)
     if set(flags.mat_kinds) & SPECULAR_MATS:
         u_spec = [rng.uniform(salt, DIM_SPEC + i) for i in range(4)]
         spec_dir, spec_att = mats.scatter_specular(
@@ -150,8 +247,11 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
                                new_beta / q[:, None], new_beta)
 
     upd = (alive & scatters)[:, None]
-    return dict(o=torch.where(upd, p, o), d=torch.where(upd, wi, d),
-                time=state["time"],
-                beta=torch.where(alive[:, None], new_beta, beta),
-                radiance=radiance, alive=new_alive & alive,
-                salt=state["salt"], depth=depth + 1)
+    out = dict(o=torch.where(upd, p, o), d=torch.where(upd, wi, d),
+               time=state["time"],
+               beta=torch.where(alive[:, None], new_beta, beta),
+               radiance=radiance, alive=new_alive & alive,
+               salt=state["salt"], depth=depth + 1)
+    if flags.ref_parity:
+        out["stale"] = torch.where(alive & scatters & ~specular, slot, slot0)
+    return out

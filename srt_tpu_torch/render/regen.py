@@ -1,24 +1,28 @@
 """Path-regeneration render engine: a persistent full wavefront
 (counterpart of ``srt_tpu/render/regen.py``).
 
-Two loops, chosen by the scene as ``fused_regen_available`` chooses
-(``srt_tpu/pallas/bounce.py:1605-1618``):
+Two loops, chosen by the scene and the estimator as
+``fused_regen_available`` chooses (``srt_tpu/pallas/bounce.py:1605-1618``):
 
-* without triangles, one launch of
+* without triangles and parity, one launch of
   :func:`srt_tpu_torch.kernels.bounce.regen_bounce` (kernel B1) is one
   bounce of the whole wavefront plus the regeneration of its dead lanes
   from the ``(pixel, sample)`` work queue; the scene's families pick its
   instantiation (``RegenInputs.rich``: lean for ball_scenes, rich for the
   specular branch, media, checker and noise textures, image albedo and
   sphere lights);
-* with triangles (``regen.py:135-255``), each bounce regenerates the dead
-  lanes in torch (:func:`kernels.bounce.regenerate`), finds each lane's
-  closest triangle with the walk the JAX package's rule picks once a
-  render (:func:`render.intersect.two_level`: kernel B4, the two-level
-  walk, for a mesh beyond the single-level budget such as
-  ``teapot_scene``'s, else kernel B3) and runs the bounce with kernel B2
-  in its external-hit mode (:func:`kernels.bounce.bounce_fwd`, lean or
-  rich as above), then applies the depth cap.
+* with triangles or under the reference-parity estimator
+  (``regen.py:135-255``), the per-bounce loop: each bounce regenerates the
+  dead lanes in torch (:func:`kernels.bounce.regenerate`), on a triangle
+  scene finds each lane's closest triangle with the walk the JAX
+  package's rule picks once a render (:func:`render.intersect.two_level`:
+  kernel B4, the two-level walk, for a mesh beyond the single-level budget
+  such as ``teapot_scene``'s, else kernel B3), runs the bounce with kernel
+  B2 (:func:`kernels.bounce.bounce_fwd`: lean or rich as above, with the
+  external hit on a triangle scene, ``kParity`` under parity), then
+  applies the depth cap. Under parity the loop carries the ``stale``
+  plane across regeneration, as ``srt_tpu/render/regen.py:173-177``
+  does; the bounce does not read it.
 
 The host loop adds the finished lanes' radiance into the image,
 NaN-scrubbed and counted. Every random decision is a pure function of
@@ -42,7 +46,8 @@ from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import intersect as ki
 from srt_tpu_torch.render.intersect import (intersect_tris,
                                             intersect_tris_big, two_level)
-from srt_tpu_torch.scene.ir import SceneFlags, require_covered
+from srt_tpu_torch.render.api import scene_flags
+from srt_tpu_torch.scene.ir import require_covered
 from srt_tpu_torch.utils.metrics import RenderMetrics
 
 CHECK_EVERY = 8
@@ -95,10 +100,10 @@ def _regen_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
             return bounces
 
 
-def _tri_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
-              film: _Film, plain: bool) -> int:
-    """The loop for triangle scenes, B4 or B3 then B2 per bounce; returns
-    its bounces."""
+def _step_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
+               film: _Film, plain: bool) -> int:
+    """The per-bounce loop: the torch regeneration, the walk (B4 or B3) on
+    a triangle scene, then B2; returns its bounces."""
     scene, flags, tables = inp.scene, inp.flags, inp.tables
     dev = scene.device
     step = kb.StepSpec(max_depth=spec.max_depth, rr_start=spec.rr_start,
@@ -113,7 +118,7 @@ def _tri_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
             return kb.bounce_step_ref(scene, flags, tables["mat"], state,
                                       step, tri)
     else:
-        packed = ki.pack_walk(scene)
+        packed = ki.pack_walk(scene) if scene.n_tris else None
 
         def hits(o, d):
             return ki.closest_tris(scene, packed, o, d)
@@ -128,6 +133,8 @@ def _tri_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
               salt=zi, depth=zi, alive=torch.zeros((n,), dtype=torch.bool,
                                                    device=dev),
               pix=zi.long())
+    if flags.ref_parity:
+        st["stale"] = torch.zeros((n,), device=dev)
     cursor = torch.zeros((), dtype=torch.int64, device=dev)
     bounces = 0
     while True:
@@ -135,7 +142,10 @@ def _tri_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
             state, take, pix = kb.regenerate(inp, spec, st, cursor)
             cursor = cursor + take.sum()
             state["salt"] = state["salt"].to(torch.int32)  # the bit pattern
-            nxt = bounce(state, hits(state["o"], state["d"]))
+            if flags.ref_parity:
+                state["stale"] = st["stale"]   # across regeneration
+            tri = hits(state["o"], state["d"]) if scene.n_tris else None
+            nxt = bounce(state, tri)
             alive = nxt["alive"] & (nxt["depth"] < spec.max_depth)
             film.flush(pix, state["alive"] & ~alive, nxt["radiance"].T,
                        state["alive"])
@@ -150,11 +160,13 @@ def _tri_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
 def render_regen(scene, camera, config, metrics: bool = False,
                  plain: bool = False):
     """Render a linear-radiance image (H, W, 3) float32 on the scene's
-    device. Raises ``NotImplementedError`` for a scene outside the port's
-    coverage. ``plain=True`` runs the kernels' plain versions on any
-    device, which is how the kernels' image is checked on the card."""
-    flags = SceneFlags.of(scene)
-    require_covered(scene, flags, getattr(config, "ref_parity", False))
+    device. Raises ``NotImplementedError`` for a scene or a config outside
+    the port's coverage. ``config.ref_parity`` renders the reference's
+    as-implemented estimator (``parity_no_stale`` its diagnostic variant).
+    ``plain=True`` runs the kernels' plain versions on any device, which
+    is how the kernels' image is checked on the card."""
+    flags = scene_flags(scene, config)
+    require_covered(scene, flags)
     w, h, spp = config.width, config.height, config.spp
     if config.sobol_pixel_jitter:
         jitter = torch.from_numpy(
@@ -166,7 +178,8 @@ def render_regen(scene, camera, config, metrics: bool = False,
                         pdf_floor=config.pdf_floor, seed=config.seed)
     inp = kb.RegenInputs(scene, flags, camera, jitter)
     film = _Film(w * h, scene.device)
-    loop = _tri_loop if scene.n_tris else _regen_loop
+    loop = (_step_loop if scene.n_tris or flags.ref_parity
+            else _regen_loop)
     t0 = _time.time()
     with torch.no_grad():
         bounces = loop(inp, spec, min(config.wavefront, spec.total_work),

@@ -40,7 +40,9 @@ def trace_queue(scene: TorchScene, flags: SceneFlags, tables: dict, rays,
     path cut by the budget still counts, with its partial radiance), 0.0
     for rays never started. The bounce takes the backward kernel when no
     geometric tensor of the scene requires a gradient
-    (``regen_scan.py:118-125``)."""
+    (``regen_scan.py:118-125``). Under ``flags.ref_parity`` the wavefront
+    carries the ``stale`` plane across regeneration
+    (``regen_scan.py:72-141``); the train step never sets parity."""
     origin, direction, ray_time = rays
     n = origin.shape[0]
     m = min(wavefront, n)
@@ -53,6 +55,8 @@ def trace_queue(scene: TorchScene, flags: SceneFlags, tables: dict, rays,
               alive=torch.zeros((m,), dtype=torch.bool, device=dev),
               salt=torch.zeros((m,), dtype=torch.int32, device=dev),
               depth=torch.zeros((m,), dtype=torch.int32, device=dev))
+    if flags.ref_parity:
+        st["stale"] = torch.zeros((m,), dtype=_F32, device=dev)
     cursor = torch.zeros((), dtype=torch.int64, device=dev)
     rid = torch.zeros((m,), dtype=torch.int64, device=dev)
     rids, contribs, started_ids = [], [], []
@@ -74,7 +78,8 @@ def trace_queue(scene: TorchScene, flags: SceneFlags, tables: dict, rays,
                   radiance=torch.where(t3, 0.0, st["radiance"]),
                   alive=st["alive"] | take,
                   salt=torch.where(take, salts[src], st["salt"]),
-                  depth=torch.where(take, 0, st["depth"]))
+                  depth=torch.where(take, 0, st["depth"]),
+                  **({"stale": st["stale"]} if flags.ref_parity else {}))
         started_ids.append(torch.where(take, src, n))
 
         # one bounce, then the depth cap (regen_scan.py:113-126)

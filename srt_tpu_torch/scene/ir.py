@@ -154,7 +154,12 @@ class SceneFlags(NamedTuple):
     light kinds it uses, its widest BVH leaf, whether any sphere moves,
     whether the JAX package's fused-bounce kernel would take it, and
     whether a medium is bounded by a mesh (read once here, so the coverage
-    gate reads no device memory)."""
+    gate reads no device memory). ``ref_parity`` and ``parity_no_stale``
+    are the render's estimator switches, False from :meth:`of`; a render
+    sets them from its config (``render.api.scene_flags``), as the JAX
+    package's flags carry them (``srt_tpu/scene/ir.py:89-94``): the
+    reference's as-implemented estimator, and its diagnostic variant whose
+    heap slot reads 0."""
     tex_kinds: tuple
     mat_kinds: tuple
     bvh_leaf: int = 4
@@ -163,6 +168,8 @@ class SceneFlags(NamedTuple):
     moving: bool = False
     fused_deferred_albedo: bool = False
     mesh_media: bool = False
+    ref_parity: bool = False
+    parity_no_stale: bool = False
 
     @staticmethod
     def of(scene: TorchScene) -> "SceneFlags":
@@ -255,19 +262,16 @@ def _missing(what: str, item: str):
         f"srt_tpu_torch does not cover {what} yet (ROADMAP {item})")
 
 
-def require_covered(scene: TorchScene, flags: SceneFlags,
-                    ref_parity: bool = False) -> None:
+def require_covered(scene: TorchScene, flags: SceneFlags) -> None:
     """Raise ``NotImplementedError`` for a scene the port cannot render,
     naming the ROADMAP item that will port what it needs. Every family of
     the JAX package's fused bounce kernel is covered (``_kernel``,
-    ``srt_tpu/pallas/bounce.py:1067``, gated by ``_fused_bounce_eligible``)
-    except the parity estimator; mesh-bounded media and MERL materials lie
-    outside that kernel too. Reads the flags and the tables' shapes, no
+    ``srt_tpu/pallas/bounce.py:1067``, gated by ``_fused_bounce_eligible``),
+    the parity estimator included; mesh-bounded media and MERL materials
+    lie outside that kernel. Reads the flags and the tables' shapes, no
     device memory: the train step runs it before every backward launch."""
     if flags.mesh_media:
         _missing("mesh-bounded participating media", "A7")
-    if ref_parity:
-        _missing("the reference-parity estimator", "A9")
     if scene.merl.shape[0]:
         _missing("MERL measured BRDFs", "A12")
     if not set(flags.mat_kinds) <= _COVERED_MATS:
@@ -283,7 +287,8 @@ def require_covered(scene: TorchScene, flags: SceneFlags,
 def require_trainable(scene: TorchScene, flags: SceneFlags) -> None:
     """Raise ``NotImplementedError`` for a scene the train step cannot
     differentiate: exactly what :func:`require_covered` refuses (mesh
-    media, the parity estimator, MERL, atlases that are not 8-bit). Every
+    media, MERL, atlases that are not 8-bit). The train step never sets
+    the parity flags, as JAX's ``make_train_step`` never does. Every
     family the render kernels shade, the train step differentiates: kernel
     B5 (its lean or rich instantiation) under frozen geometry, the hybrid
     backward on triangles, moving spheres and geometric parameters."""

@@ -32,7 +32,10 @@ def _register(fn):
 def get_scene(name: str, aspect: float = 1.0, device="cuda", **kw):
     """Build a scene by name (alias ``balls``) on ``device`` (the card
     unless the caller asks for another). Scenes of the JAX library that
-    the port does not hold yet raise ``NotImplementedError``."""
+    the port does not hold yet raise ``NotImplementedError``.
+    ``first_mesh_only``, which the golden tool passes under parity, is
+    accepted as the JAX library accepts it: no scene here loads a mesh
+    file, and one whose mesh asset is present raises (ROADMAP A8)."""
     key = {"balls": "ball_scenes"}.get(name, name)
     if key not in SCENES:
         raise NotImplementedError(

@@ -43,3 +43,41 @@ def bounce_census(scene, o, d, time, salt, depth, alive, tri=None) -> dict:
         marble=on & (tt == int(TextureType.NOISE)),
         image=on & (tt == int(TextureType.IMAGE)),
         sphere_light_sample=sph_pick).items()}
+
+
+def parity_census(scene, flags, state: dict, tri=None) -> dict:
+    """What the parity draw of one bounce of ``state`` does, from the
+    plain bounce's per-round trace (``integrator.parity_draw``): the lanes
+    that drew (live diffuse hits), those that retried (round 0's pdf not
+    positive), the Beckmann light-branch reads of the heap slot by the
+    value read (0.0, the kill value 1e30, or a pdf this bounce stored),
+    and the rounds that took the Beckmann BSDF and stored its pdf."""
+    from srt_tpu_torch.render.integrator import PARITY_KILL, bounce_step
+    from srt_tpu_torch.render.intersect import intersect_scene
+    from srt_tpu_torch.scene.ir import MaterialType
+
+    rounds = []
+    nxt = bounce_step(scene, state, 1 << 30, 1 << 30, flags, tri=tri,
+                      trace=rounds)
+    hit = intersect_scene(scene, state["o"], state["d"], time=state["time"],
+                          tri=tri)
+    mt = scene.mat_type[hit.mat]
+    beck = mt == int(MaterialType.BECKMANN)
+    diffuse = (mt == int(MaterialType.LAMBERTIAN)) | beck \
+        | (mt == int(MaterialType.OREN_NAYAR))
+    drew = state["alive"] & hit.hit & diffuse
+    reads = [r["need"] & drew & beck & r["pick_light"] for r in rounds]
+    stores = [r["need"] & drew & beck & ~r["pick_light"] for r in rounds]
+    zero = sum(int((m & (r["slot"] == 0.0)).sum())
+               for m, r in zip(reads, rounds))
+    kill = sum(int((m & (r["slot"] == PARITY_KILL)).sum())
+               for m, r in zip(reads, rounds))
+    return {"drew": int(drew.sum()),
+            "retried": int((drew & rounds[1]["need"]).sum()),
+            "retry_rounds": sum(int((drew & r["need"]).sum())
+                                for r in rounds[1:]),
+            "slot_reads_0": zero, "slot_reads_1e30": kill,
+            "slot_reads_stored": sum(int(m.sum()) for m in reads) - zero
+            - kill,
+            "stores": sum(int(m.sum()) for m in stores),
+            "live_after": int(nxt["alive"].sum())}

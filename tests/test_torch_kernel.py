@@ -500,3 +500,57 @@ def test_sphere_winner_matches_plain_on_gpu(name, cuda_device):
     assert ks.LAUNCHES == launches + 1
     assert torch.equal(idx, pidx)
     assert torch.equal(t, pt)
+
+
+def _parity_inputs(device, n, name="ball_scenes", no_stale=False):
+    """``_train_inputs``' mid-flight state with the parity flags, and on a
+    triangle scene the plain walk's hit as B3 gives it."""
+    scene, flags, tables, st, spec, _ = _train_inputs(device, n, name)
+    flags = flags._replace(ref_parity=True, parity_no_stale=no_stale)
+    tri = None
+    if scene.n_tris:
+        t, u, v, idx = ki.intersect_tris(scene, ki.pack_tables(scene),
+                                         st["o"], st["d"])
+        tri = (t, u, v, idx.to(torch.int32))
+    return scene, flags, tables, st, spec, tri
+
+
+@pytest.mark.parametrize("no_stale", [0, 1])
+def test_parity_launch_arguments(no_stale):
+    """B2's arguments under parity, built on the CPU: the parity
+    instantiation, the diagnostic switch and the ``stale`` output; the
+    default flags leave them unset. The CPU wrapper takes the plain
+    version, which returns ``stale``, and launches nothing."""
+    scene, flags, tables, st, spec, _ = _parity_inputs("cpu", 300,
+                                                       no_stale=no_stale)
+    args, out = kb.fwd_args(scene, flags, tables, st, spec)
+    assert (args.parity, args.parity_no_stale) == (1, no_stale)
+    assert args.stale_out == out["stale"].data_ptr()
+    assert out["stale"].shape == (300,) and out["stale"].dtype == torch.float32
+    args, out = kb.fwd_args(scene, flags._replace(ref_parity=False), tables,
+                            st, spec)
+    assert args.parity == 0 and not args.stale_out and "stale" not in out
+    launches = kb.LAUNCHES_PARITY
+    got = kb.bounce_fwd(scene, flags, tables, st, spec)
+    assert kb.LAUNCHES_PARITY == launches and got["stale"].shape == (300,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,no_stale", [("ball_scenes", False),
+                                           ("ball_scenes", True),
+                                           ("cornell_boxes", False)])
+def test_parity_bounce_matches_plain_on_gpu(cuda_device, name, no_stale):
+    """One launch of B2's parity instantiation against the plain parity
+    step on 20,000 mid-flight lanes (a partial last block), the ``stale``
+    plane within its tolerance."""
+    scene, flags, tables, st, spec, tri = _parity_inputs(
+        cuda_device, 20000, name, no_stale)
+    launches = kb.LAUNCHES_PARITY
+    out = kb.bounce_fwd(scene, flags, tables, st, spec, tri)
+    ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec, tri)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES_PARITY == launches + 1
+    assert torch.equal(out["depth"], ref["depth"])
+    keys = ("alive", "d", "beta", "radiance", "stale")
+    contract.check_bounce({k: ref[k].cpu().numpy() for k in keys},
+                          {k: out[k].cpu().numpy() for k in keys})

@@ -132,12 +132,13 @@ def _merl(scene):
                                merl=torch.zeros((1, 3, 1)))
 
 
-@pytest.mark.parametrize("case,item", [("parity", "A9"), ("merl", "A12"),
+@pytest.mark.parametrize("case,item", [("parity", "A6"), ("merl", "A12"),
                                        ("mesh_medium", "A7"),
                                        ("train_mesh_medium", "A7")])
 def test_uncovered_scenes_raise(case, item):
     """What stays refused now that every family of the JAX fused bounce
-    renders and trains: the parity estimator, MERL materials and
+    renders and trains, the parity estimator included: its sequential
+    heap-slot mode (``seq_stale``, the scan engine's), MERL materials and
     mesh-bounded media, in the train step as in the render (random_scene,
     whose checker ground and specular spheres the train step refused
     before its backward had them, trains: ``test_torch_train_rich.py``)."""
@@ -146,7 +147,8 @@ def test_uncovered_scenes_raise(case, item):
     cfg = RenderConfig(width=4, height=4, spp=1)
     with pytest.raises(NotImplementedError, match=item):
         if case == "parity":
-            render_regen(scene, cam, dataclasses.replace(cfg, ref_parity=True))
+            render_regen(scene, cam, dataclasses.replace(
+                cfg, ref_parity=True, seq_stale=True))
         elif case == "merl":
             render_regen(_merl(scene), cam, cfg)
         elif case == "mesh_medium":
@@ -157,6 +159,9 @@ def test_uncovered_scenes_raise(case, item):
                             height=4, spp=1, max_depth=2, device="cpu")
     if case == "train_mesh_medium":
         assert render_regen(scene, cam, cfg).shape == (4, 4, 3)
+    if case == "parity":
+        assert render_regen(scene, cam, dataclasses.replace(
+            cfg, ref_parity=True)).shape == (4, 4, 3)
 
 
 def test_mesh_asset_scenes_not_registered():
@@ -168,13 +173,16 @@ def test_mesh_asset_scenes_not_registered():
 
 
 def test_media_and_parity_raise():
+    """Mesh-bounded media raise; of the parity estimator only its
+    sequential heap-slot mode does, which needs the scan engine (A6)."""
     scene, cam, _ = get_scene("ball_scenes", device="cpu")
     media = _mesh_medium(scene)
     with pytest.raises(NotImplementedError, match="media"):
         render_regen(media, cam, RenderConfig(width=4, height=4, spp=1))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A6"):
         render_regen(scene, cam, RenderConfig(width=4, height=4, spp=1,
-                                              ref_parity=True))
+                                              ref_parity=True,
+                                              seq_stale=True))
 
 
 def test_render_config_fields_match_jax():

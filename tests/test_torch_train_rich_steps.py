@@ -179,15 +179,20 @@ def _merl(scene: TorchScene) -> TorchScene:
 
 
 @pytest.mark.parametrize("case,item", [("mesh_medium", "A7"),
-                                       ("merl", "A12"), ("parity", "A9")])
+                                       ("merl", "A12"), ("parity", "A13")])
 def test_train_gate_still_refuses(case, item):
     """What the train step still refuses is what the render side refuses:
-    mesh-bounded media, MERL and the parity estimator, on a rich scene
-    as on any other."""
+    mesh-bounded media and MERL, on a rich scene as on any other. The
+    parity estimator renders, and the backward kernel refuses it, as
+    JAX's gate does (its bounce takes the hybrid backward); the train
+    step never sets it."""
     scene, cam = _scene("two_spheres")
     if case == "parity":
+        flags = SceneFlags.of(scene)._replace(ref_parity=True)
+        require_covered(scene, flags)
+        assert not kbb.bwd_kernel_available(scene, flags)
         with pytest.raises(NotImplementedError, match=item):
-            require_covered(scene, SceneFlags.of(scene), ref_parity=True)
+            kbb.require_bwd_kernel(scene, flags)
         return
     bad = _mesh_medium(scene) if case == "mesh_medium" else _merl(scene)
     with pytest.raises(NotImplementedError, match=item):

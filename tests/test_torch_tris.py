@@ -412,9 +412,16 @@ def test_gate_still_refuses(change, item):
 
 
 def test_gate_refuses_parity_on_triangles():
+    """The parity estimator renders triangle scenes (B3 then B2's parity
+    instantiation); what stays refused is its sequential heap-slot mode,
+    which needs the scan engine (A6)."""
+    from srt_tpu_torch.render.api import RenderConfig, scene_flags
     scene = _cornell()[2]
-    with pytest.raises(NotImplementedError, match="A9"):
-        require_covered(scene, SceneFlags.of(scene), ref_parity=True)
+    flags = scene_flags(scene, RenderConfig(ref_parity=True))
+    assert flags.ref_parity
+    require_covered(scene, flags)
+    with pytest.raises(NotImplementedError, match="A6"):
+        scene_flags(scene, RenderConfig(ref_parity=True, seq_stale=True))
 
 
 def test_builder_box_forms():
