@@ -22,7 +22,8 @@ of which raises on failure:
    plain bounces, a seeded half of the lanes dead): one launch of the
    forward kernel (B2) against the plain step, one launch of the backward
    kernel (B5) against ``torch.autograd`` of the plain step, and the time
-   per bounce of each;
+   per bounce of each; B5's width K, its passes P and ``ptxas``'
+   registers and spill stores;
 6. the train path: ``make_train_step`` on ball_scenes at 256x256, 4 spp,
    depth 50, a 16,384-lane wavefront, depth budget 4.0, drain 12,
    parameters ``{"tex_color"}``, Adam at 1e-2, a constant 0.3 target: one
@@ -46,9 +47,11 @@ of which raises on failure:
    wavefront at rows 448-455 (the teapots and the glass sphere) and the
    same wavefront after three plain bounces: hit and index equality, |dt|
    within 2e-5 and |du|, |dv| within 1e-4 on the hits, B4 against B3 on
-   the same rays, the time per launch of B4, B3 and the plain walk, and
-   the bound from the records the plain walk read; the kernels line takes
-   B4's numbers from the bounced input;
+   the same rays, the time per launch of B4 (and at 128, 256 and 512
+   threads a block, each equal to the bit), B3 and the plain walk beside
+   the longest walk's visits, B4's registers, and the bound from the
+   records the plain walk read; the kernels line takes B4's numbers from
+   the bounced input;
 11. B2's external-hit mode with the specular branch and the media sweep
    against its plain version on the post-bounce teapot wavefront;
 12. the teapot render path: ``render_regen`` on teapot_scene at 512x512,
@@ -103,7 +106,7 @@ of which raises on failure:
    ``torch.autograd`` of it, the state cotangents under ``check_grads``
    and the (M, 14) material sums within ``GRAD_RTOL``; the lanes of each
    family, each kernel's time per bare launch and its bound; ``ptxas``'
-   registers of both B5 instantiations;
+   registers, spill stores, K and P of the rich B5;
 20. the train step on the rich families at phase 6's settings: each of
    those four scenes through ``make_train_step`` (``{"tex_color"}``, the
    media room ``{"mat_params", "tex_color"}``), one step to warm up, three
@@ -143,9 +146,12 @@ Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 
 ``python3 chip_smoke.py --compare TREE [TREE ...]`` instead
-times B1, B3, B2's external hit, the ball_scenes render and three train
-steps from each checkout TREE in turns (see ``compare``), for example the
-parent commit unpacked with ``git archive`` under ``build/``.
+times B1, B3, B2's external hit, B4 on phase 10's bounced teapot rays, B5
+on phase 5's and phase 19's states, the ball_scenes and teapot renders and
+the train steps from each checkout TREE in turns (see ``compare``), for
+example the parent commit unpacked with ``git archive`` under ``build/``,
+and fails where two runs given the same inputs gave different outputs
+(SHA-256 digests of B4's and B5's inputs and outputs).
 """
 from __future__ import annotations
 
@@ -327,9 +333,10 @@ def bare_launch_ms(entry: str, size: int, call, reps: int) -> float:
 
 def kernel_registers(report: str, kernel: str, spills: bool = False) -> dict:
     """``ptxas``' registers of each instantiation of the CUDA kernel
-    ``kernel``, keyed by its template's bool arguments as digits (B1's
-    ``kMoving kRich``, B2's ``kExt kMoving kRich kParity``), from the
-    build's ``-Xptxas -v`` report; with ``spills`` each value is
+    ``kernel``, keyed by its template's int arguments, each followed by a
+    comma, then its bool arguments as digits (B1's ``kMoving kRich``, B2's
+    ``kExt kMoving kRich kParity``, B5's ``K,kRich``),
+    from the build's ``-Xptxas -v`` report; with ``spills`` each value is
     ``[registers, bytes of spill stores]``."""
     import re
     mangled = f"{len(kernel)}{kernel}"
@@ -344,7 +351,8 @@ def kernel_registers(report: str, kernel: str, spills: bool = False) -> dict:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry and mangled in entry:
-            key = "".join(re.findall(r"Lb(\d)E", entry)) or "-"
+            key = ("".join(k + "," for k in re.findall(r"Li(\d+)E", entry))
+                   + "".join(re.findall(r"Lb(\d)E", entry))) or "-"
             out[key] = [int(m.group(1)), spill] if spills else int(m.group(1))
             entry = None
     return out
@@ -541,6 +549,20 @@ def train_state(scene, cam, flags, tables, spec, dev,
     return {k: v.contiguous() for k, v in st.items()}
 
 
+def b5_shape(rich: bool) -> str:
+    """B5's width K and passes P for one instantiation, with ``ptxas``'
+    registers and bytes of spill stores."""
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.kernels import build
+
+    regs = kernel_registers(build.ptxas_report(), "bounce_bwd_kernel", True)
+    (key, shape), = [(k, v) for k, v in regs.items()
+                     if k.endswith(str(int(rich)))]
+    passes = build.load_library().srt_bounce_bwd_passes(int(rich))
+    return (f"K {key.split(',')[0]}, P {passes}, registers and spill stores "
+            f"{shape}")
+
+
 def phase_train_kernels(scene, cam, dev) -> list:
     """Phase 5: kernels B2 and B5 against their plain versions."""
     import numpy as np
@@ -602,8 +624,8 @@ def phase_train_kernels(scene, cam, dev) -> list:
     # wrapper's checks and allocations stay out of the timed loop
     from srt_tpu_torch.kernels.build import launch
     reps_k, reps_p = 200, 5
-    fargs, _ = kb.fwd_args(scene, flags, tables, st, spec)
-    bargs, _ = kbb.bwd_args(scene, flags, tables, st, ct, spec)
+    fargs, fargs_out = kb.fwd_args(scene, flags, tables, st, spec)
+    bargs, bargs_out = kbb.bwd_args(scene, flags, tables, st, ct, spec)
     fwd_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), reps_k)
               for _ in range(2)]
     fwd_plain = time_ms(lambda: kb.bounce_step_ref(
@@ -613,7 +635,8 @@ def phase_train_kernels(scene, cam, dev) -> list:
     bwd_plain = time_ms(lambda: kbb.bounce_bwd_reference(
         scene, flags, tables["mat"], st, ct, spec), reps_p)
     log(f"[train-kernels] ms per launch at {n} lanes: B2 {fwd_ms} (plain "
-        f"step {fwd_plain}), B5 {bwd_ms} (plain autograd {bwd_plain})")
+        f"step {fwd_plain}), B5 {bwd_ms} (plain autograd {bwd_plain}; "
+        f"{b5_shape(False)})")
 
     sweep = scene.n_spheres * OPS_SPHERE + scene.n_rects * OPS_RECT
     fwd_bound = bound(n * (57 + 53), n_live * (sweep + OPS_SHADE))
@@ -820,7 +843,7 @@ def check_tri_kernel(label: str, scene, o, d) -> dict:
     if err["t"] > TRI_T_ATOL or max(err["u"], err["v"]) > TRI_UV_ATOL:
         raise AssertionError(f"B3 {label}: hits beyond |dt| <= {TRI_T_ATOL}, "
                              f"|du|, |dv| <= {TRI_UV_ATOL}: {err}")
-    args, _ = ki.kernel_args(tables, o, d)
+    args, args_out = ki.kernel_args(tables, o, d)
     kern_ms = [time_ms(lambda: launch("srt_intersect_tris", args, o.device),
                        200) for _ in range(2)]
     plain_ms = time_ms(lambda: ki.intersect_tris_reference(scene, o, d), 3)
@@ -885,7 +908,7 @@ def check_b2(label: str, scene, flags, tables, st, step,
     n = st["o"].shape[0]
     n_live = int(st["alive"].sum())
     n_tri = 0 if tri is None else int((st["alive"] & (tri[0] < 3e38)).sum())
-    fargs, _ = kb.fwd_args(scene, flags, tables, st, step, tri)
+    fargs, fargs_out = kb.fwd_args(scene, flags, tables, st, step, tri)
     kern_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), 200)
                for _ in range(2)]
     plain_ms = time_ms(lambda: kb.bounce_step_ref(
@@ -1000,7 +1023,7 @@ def check_big_kernel(label: str, scene, big: dict, single: dict, o,
                      d) -> dict:
     """Phase 10 on one input: B4 against the plain two-level walk and
     against B3 (``big`` and ``single`` are their tables); the times of all
-    three and B4's bound."""
+    three, and B4's bound."""
     import torch
 
     from srt_tpu_torch.kernels import intersect as ki
@@ -1029,8 +1052,8 @@ def check_big_kernel(label: str, scene, big: dict, single: dict, o,
                              f"|du|, |dv| <= {TRI_UV_ATOL}: {err}")
     vs_b3 = max(float((a - b)[hit].abs().max())
                 for a, b in zip((t, u, v), b3[:3]))
-    args, _ = ki.big_kernel_args(big, o, d)
-    args3, _ = ki.kernel_args(single, o, d)
+    args, args_out = ki.big_kernel_args(big, o, d)
+    args3, args3_out = ki.kernel_args(single, o, d)
     kern_ms, b3_ms = [], []
     for _ in range(2):
         kern_ms.append(time_ms(lambda: launch("srt_intersect_big", args,
@@ -1039,26 +1062,37 @@ def check_big_kernel(label: str, scene, big: dict, single: dict, o,
                                             o.device), 50))
     plain_ms = time_ms(lambda: ki.intersect_tris_big_reference(scene, o, d),
                        2)
-    # bytes: the rays (o, d in; t, u, v, idx out) and each 36-byte record
-    # that some ray read (top-tree nodes, cluster nodes, triangles)
+    # bytes: the rays (o, d in; t, u, v, idx out) and each record that
+    # some ray read, at what the function needs of it: a node's box and
+    # two link words, 32 bytes (top tree and clusters; the plain walk's
+    # padding nodes hold no box of the mesh), a triangle's three corners,
+    # 36 bytes
     n, nc = o.shape[0], scene.cl_tris.shape[0]
-    n_read = [int(m.sum()) for m in seen]
+    node_cap = seen[1].shape[0] // nc
+    n_nodes = big["clusters"][:, 3].long()
+    real = (torch.arange(node_cap, device=o.device)[None]
+            < n_nodes[:, None]).reshape(-1)
+    n_read = [int(seen[0].sum()), int((seen[1] & real).sum()),
+              int(seen[2].sum())]
     entered = int(seen[1].view(nc, -1).any(1).sum())
-    n_bytes = n * (24 + 16) + 36 * sum(n_read)
+    n_bytes = n * (24 + 16) + 32 * (n_read[0] + n_read[1]) + 36 * n_read[2]
     ops = (n * OPS_RAY + int((top_v + cl_v).sum()) * OPS_SLAB
            + int(tests.sum()) * OPS_TRI)
     ms_bound, by = bound(n_bytes, ops)
+    longest = int((top_v + cl_v).max())
     log(f"[big-{label}] {n} rays, {scene.n_tris} triangles in {nc} clusters "
         f"({entered} entered): hits {int(hit.sum())} and indices equal, max "
         f"|dt| {err['t']:.3e} |du| {err['u']:.3e} |dv| {err['v']:.3e}; B3 on "
         f"the same rays: hits and indices equal, max |d(t,u,v)| "
-        f"{vs_b3:.3e}; per ray {float(top_v.float().mean()):.2f} top visits, "
+        f"{vs_b3:.3e}; per ray "
+        f"{float(top_v.float().mean()):.2f} top visits, "
         f"{float(cl_v.float().mean()):.2f} cluster-node visits, "
-        f"{float(tests.float().mean()):.2f} triangle tests (max "
-        f"{int((top_v + cl_v).max())} visits); records read: {n_read[0]} "
-        f"top nodes, {n_read[1]} cluster nodes, {n_read[2]} triangles, "
-        f"{n_bytes} bytes with the rays; ms per launch B4 {kern_ms}, B3 "
-        f"{b3_ms}, plain {plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
+        f"{float(tests.float().mean()):.2f} triangle tests (plain walk, "
+        f"padding included); records read: {n_read[0]} top nodes, "
+        f"{n_read[1]} cluster nodes, {n_read[2]} triangles, {n_bytes} bytes "
+        f"with the rays; ms per launch B4 {kern_ms} (longest walk {longest} "
+        f"visits), B3 {b3_ms}, plain {plain_ms:.3f}, bound {ms_bound:.6f} "
+        f"({by})")
     return {"max_abs_err": max(err.values()), "ms": min(kern_ms),
             "plain_ms": plain_ms, "bound_ms": ms_bound, "bound_by": by,
             "b3_ms": min(b3_ms)}
@@ -1074,6 +1108,7 @@ def phase_teapot_kernels(scene, cam, dev) -> tuple[dict, dict]:
 
     from srt_tpu_torch.core import rng
     from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import build
     from srt_tpu_torch.kernels import intersect as ki
     from srt_tpu_torch.kernels.build import launch
     from srt_tpu_torch.materials.materials import is_specular
@@ -1085,7 +1120,14 @@ def phase_teapot_kernels(scene, cam, dev) -> tuple[dict, dict]:
     # the record packing every render_regen on the scene does once
     pack_ms = time_ms(lambda: ki.pack_big_tables(scene), 3)
     big, single = ki.pack_big_tables(scene), ki.pack_tables(scene)
-    log(f"[teapot] pack_big_tables {pack_ms:.3f} ms a call")
+    report = build.ptxas_report()
+    b4_regs = kernel_registers(report, "intersect_big_kernel", True)
+    b3_regs = kernel_registers(report, "intersect_tris_kernel", True)
+    log(f"[teapot] pack_big_tables {pack_ms:.3f} ms a call; B4 tables: "
+        f"{big['top'].shape[0]} top records, {big['nodes'].shape[0]} cluster "
+        f"nodes, {big['tris'].shape[0]} triangles, count_bits "
+        f"{big['count_bits']}; ptxas registers and spill stores of B4 "
+        f"{json.dumps(b4_regs)}, of B3 {json.dumps(b3_regs)}")
     # rows 448-455: the teapots' lower edge and the glass sphere's top
     st, inp, step, first = step_wavefront(scene, cam, dev, row=TEAPOT_ROW)
     b4_cam = check_big_kernel("camera", scene, big, single, first["o"],
@@ -1115,7 +1157,7 @@ def phase_teapot_kernels(scene, cam, dev) -> tuple[dict, dict]:
     if not n_spec or not int(medium.sum()):
         raise AssertionError(f"teapot wavefront: {n_spec} specular lanes, "
                              f"{int(medium.sum())} medium events")
-    fargs, _ = kb.fwd_args(scene, flags, tables, st, step, tri)
+    fargs, fargs_out = kb.fwd_args(scene, flags, tables, st, step, tri)
     kern_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), 200)
                for _ in range(2)]
     plain_ms = time_ms(lambda: kb.bounce_step_ref(
@@ -1240,7 +1282,7 @@ def check_winner(label: str, scene, o, d, time) -> dict:
         raise AssertionError(f"B6 {label}: t differs on "
                              f"{int((t != pt).sum())} rays, max "
                              f"{float((t - pt).abs().max())}")
-    args, _ = ks.kernel_args(sph, o, d, time, 1e-3)
+    args, args_out = ks.kernel_args(sph, o, d, time, 1e-3)
     kern_ms = [time_ms(lambda: launch("srt_sphere_winner", args, o.device),
                        200) for _ in range(2)]
     plain_ms = time_ms(lambda: ks.sphere_winner_reference(scene, o, d, time),
@@ -1698,14 +1740,11 @@ def phase_rich_bwd(dev) -> dict:
 
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import bounce_bwd as kbb
-    from srt_tpu_torch.kernels import build
     from srt_tpu_torch.kernels.build import launch
     from srt_tpu_torch.scene.ir import SceneFlags
     from srt_tpu_torch.utils import contract
 
-    regs = kernel_registers(build.ptxas_report(), "bounce_bwd_kernel")
-    log(f"[rich-bwd] ptxas registers of B5 (lean 0, rich 1): "
-        f"{json.dumps(regs)}")
+    log(f"[rich-bwd] B5 rich: {b5_shape(True)}")
     spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
     n = TRAIN_LANES
     out = {"max_abs_err": 0.0, "cases": {}, "b2_err": 0.0, "b2_cases": {}}
@@ -1751,7 +1790,7 @@ def phase_rich_bwd(dev) -> dict:
                 b, a, rtol=contract.GRAD_RTOL, atol=1e-4 * scale):
             raise AssertionError(f"B5 {name}: material sums differ: max rel "
                                  f"{mat_rel}, scale {scale}")
-        bargs, _ = kbb.bwd_args(scene, flags, tables, st, ct, spec)
+        bargs, bargs_out = kbb.bwd_args(scene, flags, tables, st, ct, spec)
         kern_ms = [time_ms(lambda: launch("srt_bounce_bwd", bargs, dev), 200)
                    for _ in range(2)]
         plain_ms = time_ms(lambda: kbb.bounce_bwd_reference(
@@ -2086,11 +2125,21 @@ def cornell_times(dev) -> dict:
     return out
 
 
-def b5_bare_times(scene, cam, dev) -> list:
-    """``--measure``: the lean B5 as bare launches on phase 5's ball_scenes
-    train state, ``COMPARE_ROUNDS`` times, 200 launches each."""
-    import ctypes
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order (the first 16 hex digits)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
+
+def b5_states(dev):
+    """B5's inputs of phases 5 and 19: ``(name, scene, flags, tables,
+    state, cotangents, spec)`` of the 16,384-lane train state of
+    ball_scenes (lean) and of each scene of ``RICH_BWD_EXPECT`` (rich),
+    the cotangents of o, d and beta zero where the plain step ends the
+    path."""
     import numpy as np
     import torch
 
@@ -2098,25 +2147,93 @@ def b5_bare_times(scene, cam, dev) -> list:
     from srt_tpu_torch.kernels import bounce_bwd as kbb
     from srt_tpu_torch.scene.ir import SceneFlags
 
-    flags = SceneFlags.of(scene)
-    tables = kb.build_tables(scene, flags)
     spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
-    st = train_state(scene, cam, flags, tables, spec, dev)
-    r = np.random.default_rng(2)
-    ct = {k: torch.from_numpy(r.standard_normal((TRAIN_LANES, 3))
-                              .astype(np.float32)).to(dev) for k in kbb.ROWS}
-    return [bare_launch_ms("srt_bounce_bwd", ctypes.sizeof(kbb._BwdArgs),
-                           lambda: kbb.bounce_bwd(scene, flags, tables, st,
-                                                  ct, spec), 200)
-            for _ in range(COMPARE_ROUNDS)]
+    for name, seed in (("ball_scenes", 2),
+                       *((k, 5) for k in RICH_BWD_EXPECT)):
+        scene, cam = rich_scene(name, dev)
+        flags = SceneFlags.of(scene)
+        tables = kb.build_tables(scene, flags)
+        st = train_state(scene, cam, flags, tables, spec, dev)
+        with torch.no_grad():
+            ends = ~kb.bounce_step_ref(scene, flags, tables["mat"], st,
+                                       spec)["alive"]
+        r = np.random.default_rng(seed)
+        ct = {k: torch.from_numpy(r.standard_normal((TRAIN_LANES, 3))
+                                  .astype(np.float32)).to(dev)
+              for k in kbb.ROWS}
+        for k in ("o", "d", "beta"):
+            ct[k][ends] = 0.0
+        yield name, scene, flags, tables, st, ct, spec
+
+
+def b5_bare_times(dev) -> dict:
+    """``--measure``: B5 as bare launches on each state of
+    :func:`b5_states`, ``COMPARE_ROUNDS`` times, 200 launches each, with
+    the digests of its inputs (the state and the cotangents) and of its
+    per-lane outputs (``lane_cotangents``, before the segment sum)."""
+    import ctypes
+
+    import torch
+
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+
+    out = {"ms": {}, "digests": {}}
+    for name, scene, flags, tables, st, ct, spec in b5_states(dev):
+        g, g_mat, wmat = kbb.lane_cotangents(scene, flags, tables, st, ct,
+                                             spec)
+        torch.cuda.synchronize()
+        out["digests"][f"b5 {name}"] = [
+            digest(*(st[k] for k in ("o", "d", "beta", "radiance", "salt",
+                                     "depth", "alive")),
+                   *(ct[k] for k in kbb.ROWS)),
+            digest(*(g[k] for k in kbb.ROWS), g_mat, wmat)]
+        out["ms"][name] = [bare_launch_ms(
+            "srt_bounce_bwd", ctypes.sizeof(kbb._BwdArgs),
+            lambda: kbb.lane_cotangents(scene, flags, tables, st, ct, spec),
+            200) for _ in range(COMPARE_ROUNDS)]
+    return out
+
+
+def teapot_times(dev) -> dict:
+    """``--measure`` on teapot_scene (divs=100): B4 as bare launches on
+    phase 10's bounced rays, ``COMPARE_ROUNDS`` times, 50 launches each,
+    with the digests of its inputs (the rays) and outputs; then the teapot
+    render path (phase 12's settings), once to warm up and
+    ``TRI_MAIN_REPS`` times timed, its primary rays a second."""
+    import ctypes
+
+    import torch
+
+    from srt_tpu_torch import RenderConfig, render_regen
+    from srt_tpu_torch.kernels import intersect as ki
+
+    scene, cam = teapot(dev)
+    st = step_wavefront(scene, cam, dev, row=TEAPOT_ROW)[0]
+    o, d = st["o"], st["d"]
+    big = ki.pack_big_tables(scene)
+    hit = ki.intersect_tris_big(scene, big, o, d)
+    torch.cuda.synchronize()
+    out = {"digests": {"b4 bounced": [digest(o, d), digest(*hit)]}}
+    out["b4_bare_ms"] = [bare_launch_ms(
+        "srt_intersect_big", ctypes.sizeof(ki._BigArgs),
+        lambda: ki.intersect_tris_big(scene, big, o, d), 50)
+        for _ in range(COMPARE_ROUNDS)]
+    cfg = RenderConfig(**MAIN)
+    render_regen(scene, cam, cfg)
+    torch.cuda.synchronize()
+    out["render_rays_per_s"] = [
+        render_regen(scene, cam, cfg, metrics=True)[1].primary_rays_per_sec
+        for _ in range(TRI_MAIN_REPS)]
+    return out
 
 
 def measure_tree() -> dict:
     """``--measure``: what ``--compare`` times in one checkout, with the
     package found first on ``sys.path``: its build, ``ptxas``' registers
-    of B1, B2 and B5, B1 on phase 3's ball_scenes wavefront as bare
-    launches and through its wrapper (``COMPARE_ROUNDS`` times, 50
-    launches each), the lean B5 as bare launches (``b5_bare_times``), the
+    of B1, B2, B3, B4, B5 and B6, B1 on phase 3's ball_scenes wavefront as
+    bare launches and through its wrapper (``COMPARE_ROUNDS`` times, 50
+    launches each), B5 as bare launches (``b5_bare_times``), B4 and the
+    teapot render (``teapot_times``), the
     ball_scenes train step with ``{"tex_color"}`` (phase 6, three steps)
     and with the geometric parameters (phase 15, two steps), and
     ``cornell_times``. A measurement the checkout's package cannot make
@@ -2137,7 +2254,8 @@ def measure_tree() -> dict:
     report = build.ptxas_report()
     out["registers"] = {k: kernel_registers(report, k) for k in
                         ("regen_bounce_kernel", "bounce_kernel",
-                         "bounce_bwd_kernel")}
+                         "bounce_bwd_kernel", "intersect_tris_kernel",
+                         "intersect_big_kernel", "sphere_winner_kernel")}
     scene, cam, _ = get_scene("ball_scenes", device=dev)
     spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
                         rr_start=1 << 30, pdf_floor=1e-9, seed=0)
@@ -2149,7 +2267,8 @@ def measure_tree() -> dict:
     out["b1_wrapped_ms"] = [time_bounces(kb.regen_bounce, inp, mid, spec, 50)
                             for _ in range(COMPARE_ROUNDS)]
     for key, fn in (
-            ("b5_bare_ms", lambda: b5_bare_times(scene, cam, dev)),
+            ("b5", lambda: b5_bare_times(dev)),
+            ("teapot", lambda: teapot_times(dev)),
             ("train_s", lambda: train_walls(
                 scene, cam, {"tex_color": scene.tex_color}, TRAIN, dev,
                 TRAIN_STEPS)[3]),
@@ -2211,7 +2330,11 @@ def compare(trees: list) -> None:
     log("[compare] summary " + json.dumps({t: {
         "b1_bare_ms": extremes(rs, "b1_bare_ms"),
         "b1_wrapped_ms": extremes(rs, "b1_wrapped_ms"),
-        "b5_bare_ms": extremes(rs, "b5_bare_ms"),
+        "b5_bare_ms": {k: extremes(rs, "b5", "ms", k)
+                       for k in rs[0]["b5"]["ms"]}
+        if isinstance(rs[0].get("b5"), dict) else rs[0].get("b5"),
+        "b4_bare_ms": extremes(rs, "teapot", "b4_bare_ms"),
+        "teapot_rays_per_s": extremes(rs, "teapot", "render_rays_per_s"),
         "bench_rays_per_s": extremes(rs, "bench_rays_per_s"),
         "train_s": extremes(rs, "train_s"),
         "geom_train_s": extremes(rs, "geom_train_s"),
@@ -2219,6 +2342,23 @@ def compare(trees: list) -> None:
         "cornell_b3_ms": extremes(rs, "cornell", "b3_ms"),
         "cornell_b2_ext_ms": extremes(rs, "cornell", "b2_ext_ms"),
         "registers": rs[0]["registers"]} for t, rs in runs.items()}))
+    # the same inputs must give the same outputs in every run of every tree
+    outs = {}
+    for tree, rs in runs.items():
+        for r in rs:
+            for part in ("b5", "teapot"):
+                digests = (r[part].get("digests", {})
+                           if isinstance(r.get(part), dict) else {})
+                for k, (d_in, d_out) in digests.items():
+                    outs.setdefault((k, d_in), {}).setdefault(
+                        d_out, []).append(tree)
+    log("[compare] digests " + json.dumps(
+        {f"{k} in {d_in}": v for (k, d_in), v in outs.items()}))
+    split = {f"{k} in {d_in}": v for (k, d_in), v in outs.items()
+             if len(v) > 1}
+    if split:
+        raise SystemExit(f"--compare: the same inputs gave different outputs "
+                         f"{json.dumps(split)}")
 
 
 def main() -> None:
@@ -2226,9 +2366,9 @@ def main() -> None:
     ap.add_argument("--ppm", default=None,
                     help="also write the main-path image (sqrt gamma) here")
     ap.add_argument("--compare", nargs="+", metavar="TREE",
-                    help="instead of the smoke run, time B1, B5, B2, B3, the "
-                    "ball_scenes render and the train steps of each "
-                    "checkout in turns")
+                    help="instead of the smoke run, time B1, B2, B3, B4, "
+                    "B5, the ball_scenes and teapot renders and the train "
+                    "steps of each checkout in turns")
     ap.add_argument("--measure", action="store_true",
                     help=argparse.SUPPRESS)   # one run of --compare
     args = ap.parse_args()
@@ -2240,7 +2380,7 @@ def main() -> None:
         compare(args.compare)
         return
     if args.measure:    # the checkout in the working directory
-        sys.path.insert(0, os.getcwd())
+        sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "tests")]
         print("compare " + json.dumps(measure_tree()), flush=True)
         return
     root = os.path.dirname(os.path.abspath(__file__))

@@ -24,13 +24,11 @@
 //      material fields the shading reads, in forward-mode passes of K
 //      tangents, each Jacobian column contracted with the incoming
 //      cotangent. Radiance is added to, so its cotangent passes through.
-//      Lean: parameters 0 and 1 and the colour (5 inputs, 14 columns, two
-//      passes of K = 7); the second colour is read by no lean branch.
-//      Rich: those and the second colour (8 inputs, 17 columns, three
-//      passes of K = 6, which spill less than two of nine: the marble and
-//      the sphere light's basis keep many duals live). Parameters 2 and 3
-//      are read by no branch of the JAX kernel's _shade_core: their
-//      cotangents are 0. Textures follow what JAX's train step computes:
+//      Lean: parameters 0 and 1 and the colour (5 inputs, 14 columns);
+//      the second colour is read by no lean branch. Rich: those and the
+//      second colour (8 inputs, 17 columns). Parameters 2 and 3 are read
+//      by no branch of the JAX kernel's _shade_core: their cotangents are
+//      0. Textures follow what JAX's train step computes:
 //      the checker's colours take the cotangents of its two colours; the
 //      marble is differentiated in the hit point (JAX's epilogue
 //      differentiates it through out["o"], bounce.py:1555-1595); the image
@@ -43,16 +41,31 @@
 // Dead lanes and misses pass their cotangents through (the forward leaves
 // their o, d, beta, radiance as they were).
 //
-// Bound: registers and local memory. Each Dual<K> value is K + 1 floats
-// and the Beckmann chain keeps dozens live, so the passes spill; the design
-// takes that for a first kernel (128-thread blocks so 16,384 lanes still
-// give every SM a block). The rich instantiation stages the Perlin tables
-// in shared memory as B1 and B2 do (stage_rich) and reads the media and
-// the lights' kinds from global memory.
+// Each pass of K columns is a thread of its own: thread (lane i, pass p)
+// replays lane i's winner and runs the pass of columns p*K .. p*K + K - 1,
+// writing those columns and no other, so no two threads write one output
+// and there is no reduction. Pass 0 also writes what no column feeds (the
+// radiance's cotangent, the zero entries, the material id). Forward mode
+// computes each column from its own seed, and every branch reads values,
+// never tangents, so a column's operations, and its bits, are those of a
+// one-thread kernel running every pass in turn.
+//
+// Bound: registers and latency. Each Dual<K> value is K + 1 floats and the
+// Beckmann chain keeps dozens live; at K = 7 a thread takes 255 registers
+// and spills, and a 16,384-lane train state gave one 4-warp block per SM.
+// The passes on threads of their own give P times the threads, with a
+// Dual of fewer tangents each, so more warps hide each other's latency.
+// The price is the winner's sweep replayed by each of a lane's P threads.
+// The widths K are chosen by measurement; the column map, the widths and
+// the passes are bwd_columns.cuh's.
+// The rich instantiation stages the Perlin tables in shared memory as B1
+// and B2 do (stage_rich) and reads the media and the lights' kinds from
+// global memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bounce_core.cuh"
+#include "bwd_columns.cuh"
 
 extern "C" {
 
@@ -96,8 +109,6 @@ struct BounceBwdArgs {
 namespace {
 
 using namespace srt;
-
-constexpr int kBlock = 128;
 
 struct Rows {
   V3 o, d, beta, rad;
@@ -171,76 +182,138 @@ __device__ __noinline__ Contracted<K> vjp_pass(const SceneView& s,
   return c;
 }
 
+// Jacobian column col of the lane with no shading to differentiate (dead,
+// or a miss): the state cotangents pass through, the material columns are 0
+__device__ __forceinline__ float pass_through(const Rows& ct, int col) {
+  switch (col) {
+    case 0: return ct.o.x;
+    case 1: return ct.o.y;
+    case 2: return ct.o.z;
+    case 3: return ct.d.x;
+    case 4: return ct.d.y;
+    case 5: return ct.d.z;
+    case 6: return ct.beta.x;
+    case 7: return ct.beta.y;
+    case 8: return ct.beta.z;
+    default: return 0.0f;
+  }
+}
+
+using bwd::kPasses;
+
+// Lanes a block; each of a lane's passes is a warp of the block
+constexpr int kLanes = 32;
+
+// closest_hit's sphere sweep over spheres p, p + P, p + 2P, ...: the first
+// of the nearest among them (t kBig and index -1 when none is hit)
+__device__ __forceinline__ void sphere_share(const SceneView& s, V3 o, V3 d,
+                                             int p, int P, float& t_best,
+                                             int& k_best) {
+  t_best = kBig;
+  k_best = -1;
+  for (int k = p; k < s.n_sph; k += P) {
+    const float t = sphere_t<false>(s.sph + 12 * k, o, d, 0.0f, kTMin);
+    if (t < t_best) {
+      t_best = t;
+      k_best = k;
+    }
+  }
+}
+
+// closest_hit's winner, given its spheres' winner (t_sph, k_sph): the rect
+// sweep alone, whose best wins only when strictly nearer, as closest_hit's
+// strict < lets a rect win over the spheres before it
+__device__ __forceinline__ Winner finish_hit(SceneView s, V3 o, V3 d,
+                                             float t_sph, int k_sph) {
+  s.n_sph = 0;
+  Winner W = closest_hit(s, o, d);
+  if (!(W.hit && W.t < t_sph)) {
+    W.t = t_sph;
+    W.u = 0.0f;
+    W.v = 0.0f;
+    W.sph = k_sph;
+    W.rect = -1;
+    W.hit = t_sph < kBig;
+    W.m = W.hit ? (int)s.sph[12 * k_sph + 9] : 0;
+  }
+  return W;
+}
+
+// Thread (lane i, pass p): columns p*K .. p*K + K - 1 of lane i's Jacobian.
+// A lane's P threads share its closest-hit replay: each sweeps every P-th
+// sphere and they exchange their bests through shared memory.
 template <int K, bool kRich>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__((kLanes * kPasses<K, kRich>))
 bounce_bwd_kernel(const BounceBwdArgs a) {
-  // o(3) d(3) beta(3) p0 p1 colour(3), and the rich second colour(3)
-  constexpr int kCols = kRich ? 17 : 14;
+  constexpr int P = kPasses<K, kRich>;
   extern __shared__ float smem[];
+  __shared__ float share_t[P][kLanes];
+  __shared__ int share_k[P][kLanes];
   SceneView sv = scene_view(a, smem);
   if constexpr (kRich) stage_rich(sv, smem, a);
+  const int p = threadIdx.x / kLanes, l = threadIdx.x % kLanes;
+  const int i = blockIdx.x * kLanes + l;
+  const bool live = i < a.n && a.alive[i];
+  Rows in, ct;
+  if (i < a.n) {
+    in = load_rows(a.o, a.d, a.beta, a.rad, i);
+    ct = load_rows(a.ct_o, a.ct_d, a.ct_beta, a.ct_rad, i);
+  }
+  __syncthreads();   // the tables are staged
+  float t_sph = kBig;
+  int k_sph = -1;
+  if (live) sphere_share(sv, in.o, in.d, p, P, t_sph, k_sph);
+  share_t[p][l] = t_sph;
+  share_k[p][l] = k_sph;
   __syncthreads();
-  const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= a.n) return;
-  const Rows in = load_rows(a.o, a.d, a.beta, a.rad, i);
-  const Rows ct = load_rows(a.ct_o, a.ct_d, a.ct_beta, a.ct_rad, i);
+  const int base = p * K;
 
-  // the material columns start at 0 (aggregate initialisation)
-  float g[kCols] = {ct.o.x, ct.o.y, ct.o.z, ct.d.x, ct.d.y, ct.d.z,
-                    ct.beta.x, ct.beta.y, ct.beta.z};
+  Contracted<K> c;
+#pragma unroll
+  for (int k = 0; k < K; ++k) c.g[k] = pass_through(ct, base + k);
   int m = 0;
-  if (a.alive[i]) {
-    Winner W = closest_hit(sv, in.o, in.d);
+  if (live) {
+    // the nearest of the shares, the lowest index on a tie
+    for (int q = 0; q < P; ++q) {
+      const float t = share_t[q][l];
+      const int k = share_k[q][l];
+      if (t < t_sph || (t == t_sph && t < kBig && k < k_sph)) {
+        t_sph = t;
+        k_sph = k;
+      }
+    }
+    Winner W = finish_hit(sv, in.o, in.d, t_sph, k_sph);
     const int depth = a.depth[i];
     const uint32_t salt = hash_combine((uint32_t)a.salt[i],
                                        (uint32_t)depth);
     if constexpr (kRich) take_media(W, sv.med, sv.n_med, in.o, in.d, salt);
     if (W.hit) {
       m = W.m;
-#pragma unroll
-      for (int base = 0; base < kCols; base += K) {
-        const Contracted<K> c = vjp_pass<K, kRich>(sv, W, salt, depth, in,
-                                                   ct, base);
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          if (base + k < kCols) g[base + k] = c.g[k];
-      }
+      c = vjp_pass<K, kRich>(sv, W, salt, depth, in, ct, base);
     }
   }
-  store_row3(a.g_o, i, v3(g[0], g[1], g[2]));
-  store_row3(a.g_d, i, v3(g[3], g[4], g[5]));
-  store_row3(a.g_beta, i, v3(g[6], g[7], g[8]));
-  store_row3(a.g_rad, i, ct.rad);
-  float* gm = a.g_mat + 10 * i;
-  gm[0] = g[9];    // parameter 0 (table column 1)
-  gm[1] = g[10];   // parameter 1
-  gm[2] = 0.0f;    // parameters 2-3: read by no branch
-  gm[3] = 0.0f;
-  gm[4] = g[11];   // colour (columns 6-8)
-  gm[5] = g[12];
-  gm[6] = g[13];
-  if constexpr (kRich) {   // second colour (columns 9-11)
-    gm[7] = g[14];
-    gm[8] = g[15];
-    gm[9] = g[16];
-  } else {
-    gm[7] = 0.0f;
-    gm[8] = 0.0f;
-    gm[9] = 0.0f;
+  bwd::store_pass<K, kRich>(bwd::Grads{a.g_o, a.g_d, a.g_beta, a.g_mat}, i,
+                            p, c.g);
+  if (p == 0) {   // what no column feeds
+    store_row3(a.g_rad, i, ct.rad);
+    bwd::store_unfed<kRich>(a.g_mat, i);
+    a.wmat[i] = m;
   }
-  a.wmat[i] = m;
 }
 
-template <int K, bool kRich>
+template <bool kRich>
 int launch(const BounceBwdArgs& a, cudaStream_t stream) {
+  constexpr int K = bwd::kWidth<kRich>;
   size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light)
                 + (kRich ? srt::rich_smem_bytes(a.perlin) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       bounce_bwd_kernel<K, kRich>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int blocks = (a.n + kBlock - 1) / kBlock;
-  bounce_bwd_kernel<K, kRich><<<blocks, kBlock, smem, stream>>>(a);
+  constexpr int kThreads = kLanes * kPasses<K, kRich>;
+  const int blocks = (a.n + kLanes - 1) / kLanes;
+  bounce_bwd_kernel<K, kRich><<<blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -250,5 +323,12 @@ extern "C" int srt_bounce_bwd(const BounceBwdArgs* args, void* stream) {
   const BounceBwdArgs& a = *args;
   if (a.n <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  return a.rich ? launch<6, true>(a, s) : launch<7, false>(a, s);
+  return a.rich ? launch<true>(a, s) : launch<false>(a, s);
+}
+
+// The passes (threads a lane) of the lean (rich 0) or the rich
+// instantiation, as compiled
+extern "C" int srt_bounce_bwd_passes(int rich) {
+  using namespace srt::bwd;
+  return rich ? kPasses<kWidth<true>, true> : kPasses<kWidth<false>, false>;
 }

@@ -1,8 +1,9 @@
 // Closest hit over the triangle BVH for one ray: the stackless skip-link
 // walk of srt_tpu_torch/render/intersect.py:intersect_tris, as a device
-// function so a bounce kernel can call it in-line; and its two parts, the
-// slab test of one node and the Moller-Trumbore test of one triangle,
-// which the two-level walk (intersect_big.cu) runs on its own records.
+// function so a bounce kernel can call it in-line; and the arithmetic of
+// its two parts, the slab test of one box and the Moller-Trumbore test of
+// one triangle (slab_core, mt_core), which the two-level walk
+// (intersect_big.cu) runs on the values its own records hold.
 //
 // Tables (kernels/intersect.py:pack_tables), read through the read-only
 // path:
@@ -35,14 +36,10 @@ __device__ __forceinline__ V3 ldg3(const float* __restrict__ p) {
   return v3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
 }
 
-// Möller–Trumbore of triangle k (render/intersect.py:_tri_intersect); a
-// hit records the index base + k
-__device__ __forceinline__ void moller_trumbore(
-    const float* __restrict__ tris, int k, V3 o, V3 d, TriHit& h,
-    int base = 0) {
-  const float* p = tris + kTriWords * k;
-  const V3 p0 = ldg3(p), p1 = ldg3(p + 3), p2 = ldg3(p + 6);
-  const V3 e1 = sub(p1, p0), e2 = sub(p2, p0);
+// Möller–Trumbore of the triangle (p0, e1 = p1 - p0, e2 = p2 - p0)
+// (render/intersect.py:_tri_intersect); a hit records the index id
+__device__ __forceinline__ void mt_core(V3 p0, V3 e1, V3 e2, V3 o, V3 d,
+                                        TriHit& h, int id) {
   const V3 pv = cross(d, e2);
   const float det = dot(e1, pv);
   const float inv_det = 1.0f / (fabsf(det) < 1e-12f ? 1e-12f : det);
@@ -56,15 +53,23 @@ __device__ __forceinline__ void moller_trumbore(
     h.t = t;
     h.u = u;
     h.v = v;
-    h.idx = base + k;
+    h.idx = id;
   }
 }
 
-// The slab test of node record nd (lo xyz, hi xyz) against the ray with
-// reciprocal direction inv, pruned by the ray's best t
-__device__ __forceinline__ bool slab_test(const float* __restrict__ nd, V3 o,
-                                          V3 inv, float t_best) {
-  const V3 lo = ldg3(nd), hi = ldg3(nd + 3);
+// Möller–Trumbore of triangle record k; a hit records the index base + k
+__device__ __forceinline__ void moller_trumbore(
+    const float* __restrict__ tris, int k, V3 o, V3 d, TriHit& h,
+    int base = 0) {
+  const float* p = tris + kTriWords * k;
+  const V3 p0 = ldg3(p), p1 = ldg3(p + 3), p2 = ldg3(p + 6);
+  mt_core(p0, sub(p1, p0), sub(p2, p0), o, d, h, base + k);
+}
+
+// The slab test of the box (lo, hi) against the ray with reciprocal
+// direction inv, pruned by the ray's best t
+__device__ __forceinline__ bool slab_core(V3 lo, V3 hi, V3 o, V3 inv,
+                                          float t_best) {
   const float t0x = (lo.x - o.x) * inv.x, t1x = (hi.x - o.x) * inv.x;
   const float t0y = (lo.y - o.y) * inv.y, t1y = (hi.y - o.y) * inv.y;
   const float t0z = (lo.z - o.z) * inv.z, t1z = (hi.z - o.z) * inv.z;
@@ -73,6 +78,12 @@ __device__ __forceinline__ bool slab_test(const float* __restrict__ nd, V3 o,
   const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                          fmaxf(t0z, t1z));
   return tf >= fmaxf(tn, kTMin) && tn < t_best;
+}
+
+// The slab test of node record nd (lo xyz, hi xyz)
+__device__ __forceinline__ bool slab_test(const float* __restrict__ nd, V3 o,
+                                          V3 inv, float t_best) {
+  return slab_core(ldg3(nd), ldg3(nd + 3), o, inv, t_best);
 }
 
 __device__ inline TriHit walk_tri_bvh(const float* __restrict__ nodes,

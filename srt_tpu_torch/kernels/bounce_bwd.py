@@ -12,14 +12,16 @@ versions of the same function:
   backward (:mod:`kernels.bounce_vjp`) replays;
 * ``csrc/bounce_bwd.cu``: per lane, the forward's closest hit replayed in
   float, the winner's ``t`` recomputed with tangents, and the forward's
-  own shading code run in forward-mode dual numbers (two passes of seven
-  tangents), each Jacobian column contracted with the cotangent; on a
-  scene with any of :func:`scene.ir.rich_families` its rich
+  own shading code run in forward-mode dual numbers, each Jacobian column
+  contracted with the cotangent; the columns in passes of K tangents,
+  each pass a thread of its own (the widths and the column map are
+  ``csrc/bwd_columns.cuh``'s); on a scene with any of
+  :func:`scene.ir.rich_families` its rich
   instantiation (``kRich``), which also replays the media sweep and
   differentiates the specular branch, the media events, the checker's
-  colours, the marble and sphere lights (17 columns in passes of six
-  tangents). Per-lane material cotangents are segment-summed here
-  with ``index_add_`` into the (M, 14) table, as ``bounce_bwd.py:301-316``
+  colours, the marble and sphere lights (17 columns instead of 14).
+  Per-lane material cotangents are segment-summed here with
+  ``index_add_`` into the (M, 14) table, as ``bounce_bwd.py:301-316``
   does with ``.at[].add``.
 
 :func:`bounce_bwd` takes the plain version for CPU tensors and launches

@@ -16,10 +16,12 @@ same function:
 replaces ``srt_tpu/pallas/intersect_big.py:_kernel`` (launched by
 ``intersect_tris_pallas_big``): :func:`intersect_tris_big_reference`
 (:func:`srt_tpu_torch.render.intersect.intersect_tris_big`) and
-``csrc/intersect_big.cu``, one thread per ray over the top tree and each
-cluster it enters. The TPU kernel's per-tile scalar cursor, one-hot lane
-extracts and blocking DMA of a padded cluster into VMEM are not carried
-over.
+``csrc/intersect_big.cu``, one thread per ray walking the top tree and
+each cluster it enters in one loop, over the 16-byte aligned records of
+:func:`pack_big_tables` (the clusters back to back). The TPU
+kernel's per-tile scalar cursor, one-hot lane extracts and blocking DMA
+of a padded cluster into VMEM are not carried over, nor is the padding
+of each cluster to the TPU's block.
 
 :func:`intersect_tris` and :func:`intersect_tris_big` take the plain
 version for CPU tensors and launch their kernel for CUDA tensors; they
@@ -60,24 +62,69 @@ def pack_tables(scene: TorchScene) -> dict:
     return dict(nodes=nodes.contiguous(), tris=tris.contiguous())
 
 
-def _links(*cols: torch.Tensor) -> torch.Tensor:
-    return torch.stack(cols, 1).to(torch.int32).view(torch.float32)
+def _words(x: torch.Tensor) -> torch.Tensor:
+    """Integers as float32 bit patterns, one column."""
+    return x.to(torch.int32).view(torch.float32)[:, None]
+
+
+def link_words(first: torch.Tensor, count: torch.Tensor,
+               count_bits: int) -> torch.Tensor:
+    """B4's cluster-node link words: ``first << count_bits | count`` as
+    int32, negative on an inner node (``first == -1``). Raises if a first
+    triangle or a count does not fit its bits."""
+    first, count = first.long(), count.long()
+    if bool(((first < -1) | (first >= 1 << (31 - count_bits))
+             | (count < 0) | (count >= 1 << count_bits)).any()):
+        raise ValueError(f"cluster links do not fit {31 - count_bits} bits "
+                         f"of first triangle and {count_bits} of count")
+    return (first * (1 << count_bits) + count).to(torch.int32)
 
 
 def pack_big_tables(scene: TorchScene) -> dict:
-    """B4's tables, one record contiguous: the top tree (Bt, 9) as lo, hi,
-    then skip, cluster and tri_base as int32 bit patterns; the cluster
-    nodes (Nc*node_cap, 9) as lo, hi, then local skip, first and count;
-    the cluster triangles (Nc*tri_cap, 9) as p0, p1, p2; and the caps."""
+    """B4's tables, 16-byte aligned rows of float32 (int32 bit patterns
+    where noted):
+
+    * ``top`` (Bt, 8): lo, skip, hi, cluster (-1 on an inner node);
+    * ``nodes`` (N, 8): the clusters' nodes back to back, no padding: lo,
+      local skip, hi, link (:func:`link_words`, ``count_bits`` wide);
+    * ``tris`` (T, 12): the clusters' triangles back to back: p0, e1 = p1
+      - p0, e2 = p2 - p0, each padded to four words with 0;
+    * ``clusters`` (Nc, 4) int32: node base in ``nodes``, triangle base in
+      ``tris``, tri_base (the global index of the cluster's triangle 0)
+      and node count.
+
+    A cluster's node count is its root's local skip (past its last node);
+    its triangle count is the end of its last leaf."""
     rec = cluster_records(scene)
-    top = torch.cat([scene.top_lo, scene.top_hi,
-                     _links(scene.top_skip, scene.top_cluster,
-                            scene.top_tri_base)], 1)
-    nodes = torch.cat([rec["lo"], rec["hi"],
-                       _links(rec["skip"], rec["first"], rec["count"])], 1)
+    node_cap, tri_cap = rec["node_cap"], rec["tri_cap"]
+    nc, dev = scene.cl_tris.shape[0], scene.top_lo.device
+    skip = rec["skip"].view(nc, node_cap).long()
+    first = rec["first"].view(nc, node_cap).long()
+    count = rec["count"].view(nc, node_cap).long()
+    n_nodes = skip[:, 0]
+    real = torch.arange(node_cap, device=dev)[None] < n_nodes[:, None]
+    n_tris = torch.where(real & (first >= 0), first + count, 0).amax(1)
+    real_tri = torch.arange(tri_cap, device=dev)[None] < n_tris[:, None]
+    count_bits = max(int(count.max()), 1).bit_length()
+    links = link_words(rec["first"], rec["count"], count_bits)
+    keep = real.view(-1)
+    nodes = torch.cat([rec["lo"][keep], _words(rec["skip"][keep]),
+                       rec["hi"][keep], _words(links[keep])], 1)
+    p = rec["p"][real_tri.view(-1)]
+    p0, zero = p[:, 0:3], torch.zeros_like(p[:, :1])
+    tris = torch.cat([p0, zero, p[:, 3:6] - p0, zero, p[:, 6:9] - p0, zero],
+                     1)
+    leaf = scene.top_cluster >= 0
+    tri_base = torch.zeros((nc,), dtype=torch.long, device=dev)
+    tri_base[scene.top_cluster[leaf].long()] = scene.top_tri_base[leaf].long()
+    clusters = torch.stack([torch.cumsum(n_nodes, 0) - n_nodes,
+                            torch.cumsum(n_tris, 0) - n_tris, tri_base,
+                            n_nodes], 1).to(torch.int32)
+    top = torch.cat([scene.top_lo, _words(scene.top_skip), scene.top_hi,
+                     _words(scene.top_cluster)], 1)
     return dict(top=top.contiguous(), nodes=nodes.contiguous(),
-                tris=rec["p"].contiguous(), node_cap=rec["node_cap"],
-                tri_cap=rec["tri_cap"])
+                tris=tris.contiguous(), clusters=clusters.contiguous(),
+                count_bits=count_bits)
 
 
 class _Args(ctypes.Structure):
@@ -92,9 +139,9 @@ class _BigArgs(ctypes.Structure):
     """``IntersectBigArgs`` of ``csrc/intersect_big.cu``, field for
     field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "o", "d", "top", "nodes", "tris", "t", "u", "v", "idx")]
+        "o", "d", "top", "nodes", "tris", "clusters", "t", "u", "v", "idx")]
         + [(name, ctypes.c_int) for name in (
-            "n", "n_top", "node_cap", "tri_cap")])
+            "n", "n_top", "count_bits")])
 
 
 def _check_rays(o: torch.Tensor, d: torch.Tensor) -> None:
@@ -157,25 +204,24 @@ def big_kernel_args(tables: dict, o: torch.Tensor,
     the outputs ``(t, u, v, idx)`` it writes."""
     dev, n = o.device, o.shape[0]
     _check_rays(o, d)
-    for k in ("top", "nodes", "tris"):
+    for k, (dt, width) in (("top", (torch.float32, 8)),
+                           ("nodes", (torch.float32, 8)),
+                           ("tris", (torch.float32, 12)),
+                           ("clusters", (torch.int32, 4))):
         t = tables[k]
-        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 9
-                or t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"table {k!r} must be contiguous float32 "
-                             f"(*, 9) on {dev}")
-    node_cap, tri_cap = tables["node_cap"], tables["tri_cap"]
-    if (tables["nodes"].shape[0] % node_cap
-            or tables["tris"].shape[0] != tables["nodes"].shape[0]
-            // node_cap * tri_cap):
-        raise ValueError("cluster tables must hold whole padded blocks")
+        if (t.dtype != dt or t.dim() != 2 or t.shape[1] != width
+                or t.device != dev or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"table {k!r} must be 16-byte aligned "
+                             f"contiguous {dt} (*, {width}) on {dev}")
     out = _outputs(n, dev)
     args = _BigArgs(o=o.data_ptr(), d=d.data_ptr(),
-                    **{k: tables[k].data_ptr() for k in ("top", "nodes",
-                                                         "tris")},
+                    **{k: tables[k].data_ptr() for k in (
+                        "top", "nodes", "tris", "clusters")},
                     **{k: x.data_ptr() for k, x in zip(("t", "u", "v", "idx"),
                                                        out)},
-                    n=n, n_top=tables["top"].shape[0], node_cap=node_cap,
-                    tri_cap=tri_cap)
+                    n=n, n_top=tables["top"].shape[0],
+                    count_bits=tables["count_bits"])
     return args, out
 
 

@@ -42,3 +42,18 @@ def lit_room_media(b):
     texels = (np.arange(5 * 7 * 3).reshape(5, 7, 3) * 2 + 30).astype(np.uint8)
     b.sphere((1.0, 3.5, -1.0), 0.7, b.lambertian(b.image(texels)))
     return b
+
+
+def clustered_soup(builder_cls, n_rays: int):
+    """1,500 seeded triangles in a ``builder_cls`` builder clustered at caps
+    128/256 (dozens of clusters under a deep top tree), and ``n_rays``
+    seeded unit rays through them: ``(builder, o, d)``, the rays float32
+    numpy arrays."""
+    r = np.random.default_rng(8)
+    b = builder_cls(cluster_node_cap=128, cluster_tri_cap=256)
+    b.triangles(r.standard_normal((1500, 3, 3)).astype(np.float32),
+                b.lambertian(b.constant((0.5, 0.5, 0.5))))
+    o = (r.standard_normal((n_rays, 3)) * 3).astype(np.float32)
+    d = r.standard_normal((n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return b, o, d

@@ -56,3 +56,27 @@ def test_port_imports_no_jax():
     assert res["shape"] == [8, 8, 3] and res["finite"]
     for banned in ("jax", "jaxlib", "srt_tpu", "triton", "PIL"):
         assert banned not in res["modules"], banned
+
+
+def test_chip_smoke_holds_the_outputs_of_every_timed_launch():
+    """``chip_smoke.py`` times kernels by launching on arguments built
+    once. The outputs those arguments point at must stay alive while it
+    launches: an output dropped as ``_`` goes back to the caching
+    allocator, and the timed launches would write into whatever tensor
+    takes its memory next."""
+    import ast
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    dropped = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Call)
+                and isinstance(node.targets[0], ast.Tuple)):
+            fn = node.value.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            held = node.targets[0].elts[1:]
+            if name.endswith("args") and any(
+                    isinstance(e, ast.Name) and e.id == "_" for e in held):
+                dropped.append(node.lineno)
+    assert not dropped, f"outputs dropped at chip_smoke.py lines {dropped}"

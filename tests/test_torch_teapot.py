@@ -193,14 +193,20 @@ def test_teapot_tables_bit_equal():
         device="cpu").record()
     np.testing.assert_allclose(cam.record().numpy(), rec_j.numpy(),
                                rtol=1e-6, atol=1e-6)
-    # the kernel's records hold the clusters' planes row for row
+    # the kernel's records hold the clusters' planes row for row, without
+    # the padding to the caps
     tb = ki.pack_big_tables(scene)
-    assert tb["top"].shape == (scene.top_skip.shape[0], 9)
-    assert tb["nodes"].shape == (2 * 2048, 9) and tb["tris"].shape == (
-        2 * 4096, 9)
-    links = tb["nodes"][:, 6:].contiguous().view(torch.int32)
-    assert torch.equal(links[:2048, 0], scene.cl_nodes_i[0, 0].reshape(-1))
-    assert torch.equal(tb["tris"][4096:, 3], scene.cl_tris[1, 3].reshape(-1))
+    assert tb["top"].shape == (scene.top_skip.shape[0], 8)
+    nn = tb["clusters"][:, 3].tolist()
+    assert len(nn) == 2 and max(nn) < 2048
+    assert tb["nodes"].shape == (sum(nn), 8) and tb["tris"].shape == (
+        scene.n_tris, 12)
+    skips = tb["nodes"][:, 3].contiguous().view(torch.int32)
+    assert torch.equal(skips[:nn[0]],
+                       scene.cl_nodes_i[0, 0].reshape(-1)[:nn[0]])
+    k1 = int(tb["clusters"][1, 1])
+    assert torch.equal(tb["tris"][k1:, 0],
+                       scene.cl_tris[1, 0].reshape(-1)[:scene.n_tris - k1])
 
 
 def _camera_rays(n: int):
@@ -279,15 +285,15 @@ def test_two_level_walk_matches_jax(case):
     # every hit triangle, and no more records than the visits and tests
     assert (top_v >= 1).all() and (cl_v.numpy()[hit] >= 1).all()
     assert (tests.numpy()[hit] >= 1).all()
-    tables = ki.pack_big_tables(scene)
+    tables, rec = ki.pack_big_tables(scene), ri.cluster_records(scene)
     top_seen, node_seen, tri_seen = seen
     assert top_seen.shape == (tables["top"].shape[0],) and bool(top_seen[0])
-    assert node_seen.shape == (tables["nodes"].shape[0],)
-    assert tri_seen.shape == (tables["tris"].shape[0],)
+    assert node_seen.shape == (rec["skip"].shape[0],)
+    assert tri_seen.shape == (rec["p"].shape[0],)
     assert int(node_seen.sum()) <= int(cl_v.sum())
     assert int(tri_seen.sum()) <= int(tests.sum())
     # a hit's triangle is read: its record holds the hit's vertices
-    read = {tuple(r) for r in tables["tris"][tri_seen].tolist()}
+    read = {tuple(r) for r in rec["p"][tri_seen].tolist()}
     hit_tris = torch.cat([scene.tri_p0, scene.tri_p1, scene.tri_p2], 1)[
         idx[torch.from_numpy(hit)]]
     assert all(tuple(r) in read for r in hit_tris.tolist())
