@@ -11,19 +11,21 @@ of which raises on failure:
    card: one step of a mid-flight 65,536-lane ball_scenes wavefront lane
    by lane, a 64x64, 4 spp, depth 8 image, and the time per bounce of each
    (the kernel's as bare launches on fixed arguments, and through its
-   wrapper); ``ptxas``' registers of B1's four instantiations, lean and
-   rich, static and moving, and of B2's sixteen (with and without the
-   external hit, with and without parity);
+   wrapper); the same step at every G (threads a lane for the sphere
+   sweep, ``kernels/bounce.py:SHARES``), each equal to the bit to the
+   host's G, with its time; ``ptxas``' registers and spill stores of B1's
+   instantiations, lean and rich, static and moving, at each G, and of
+   B2's (with and without the external hit, with and without parity);
 4. the render path: ``render_regen`` on ball_scenes at 512x512, 16 spp,
    depth 50, a 65,536-lane wavefront and seed 0, through B1, once to warm
    up and five times timed;
 5. the train kernels against their plain versions on the card, on a
    16,384-lane ball_scenes state (``render_pixels``' camera rays, three
    plain bounces, a seeded half of the lanes dead): one launch of the
-   forward kernel (B2) against the plain step, one launch of the backward
-   kernel (B5) against ``torch.autograd`` of the plain step, and the time
-   per bounce of each; B5's width K, its passes P and ``ptxas``'
-   registers and spill stores;
+   forward kernel (B2) against the plain step (and at every G, equal to
+   the bit), one launch of the backward kernel (B5) against
+   ``torch.autograd`` of the plain step, and the time per bounce of each;
+   B5's width K, its passes P and ``ptxas``' registers and spill stores;
 6. the train path: ``make_train_step`` on ball_scenes at 256x256, 4 spp,
    depth 50, a 16,384-lane wavefront, depth budget 4.0, drain 12,
    parameters ``{"tex_color"}``, Adam at 1e-2, a constant 0.3 target: one
@@ -35,7 +37,9 @@ of which raises on failure:
    heights) under ``final``'s camera rays: hit and index equality, |dt|
    within 2e-5 and |du|, |dv| within 1e-4 on the hits, the time per
    launch and the bound;
-8. B2's external-hit mode against its plain version on input (a);
+8. B2's external-hit mode against its plain version on input (a) (every
+   B2 check, here and in phases 11, 16, 18, 19, 20 and 21, also launches
+   B2 at every G, each equal to the bit to the host's G, with its time);
 9. the triangle render path: ``render_regen`` on cornell_boxes at 512x512,
    16 spp, depth 50, a 65,536-lane wavefront and seed 0, first kernels
    against plain versions on a 64x64, 4 spp, depth 8 image, then once to
@@ -91,7 +95,7 @@ of which raises on failure:
    (``tests/_torch_scenes.py:lit_room_media``), and its lean one on
    ``final1``'s 1,000 spheres (48 KB of shared memory), under the
    per-bounce contract, with the families each step shaded, the time per
-   launch and the bound;
+   launch and the bound, and each step at every G as in phase 3;
 18. B2's external-hit mode with marble and image albedo against its plain
    version on a mid-flight 65,536-lane ``final`` wavefront (its 4,800
    triangles walked by B3); then the new path: ``render_regen`` on
@@ -146,16 +150,21 @@ Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 
 ``python3 chip_smoke.py --compare TREE [TREE ...]`` instead
-times B1, B3, B2's external hit, B4 on phase 10's bounced teapot rays, B5
-on phase 5's and phase 19's states, the ball_scenes and teapot renders and
-the train steps from each checkout TREE in turns (see ``compare``), for
+times B1 (phase 3's and phase 17's random_scene wavefronts), B2 (the train
+states of phases 5, 19 and 20, phase 21's parity wavefronts, the teapot's
+and cornell_boxes' external hits), B3, B4 on phase 10's bounced teapot
+rays, B5 on phase 5's and phase 19's states, the ball_scenes and teapot
+renders and the train steps from each checkout TREE in turns (see
+``compare``), B1 and B2 also at every G where the checkout picks one, for
 example the parent commit unpacked with ``git archive`` under ``build/``,
 and fails where two runs given the same inputs gave different outputs
-(SHA-256 digests of B4's and B5's inputs and outputs).
+(SHA-256 digests of B1's, B2's, B4's and B5's inputs and per-lane
+outputs).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -358,6 +367,79 @@ def kernel_registers(report: str, kernel: str, spills: bool = False) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def shares(g: int):
+    """B1 and B2 launched with ``g`` threads a lane for the sphere sweep:
+    the wrappers' pick (``kernels/bounce.py:sweep_shares``) replaced."""
+    from srt_tpu_torch.kernels import bounce as kb
+
+    pick = kb.sweep_shares
+    kb.sweep_shares = lambda n_lanes, n_sph, threads=None: g
+    try:
+        yield
+    finally:
+        kb.sweep_shares = pick
+
+
+def same_bits(a, b) -> bool:
+    """The two tensors hold the same bits (NaN included)."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def b1_shares(label: str, inp, mid, spec, st_ref: dict) -> None:
+    """B1 at every G of ``kernels/bounce.py:SHARES`` on the wavefront
+    ``mid``: each launch's wavefront equal to ``st_ref`` (the launch at the
+    host's G) to the bit, and the ms per bare launch at each G."""
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+
+    picked = kb.sweep_shares(mid["alive"].shape[0], inp.fields["n_sph"])
+    ms = {}
+    for g in kb.SHARES:
+        with shares(g):
+            st = clone(mid)
+            kb.regen_bounce(inp, st, spec)
+            torch.cuda.synchronize()
+            bad = [k for k in st_ref if not same_bits(st[k], st_ref[k])]
+            if bad:
+                raise AssertionError(f"B1 {label} at G={g}: {bad} differ "
+                                     f"from G={picked}")
+            ms[g] = min(b1_launch_ms(inp, mid, spec, 50) for _ in range(2))
+    log(f"[shares-{label}] B1 at G = {list(ms)}: every output equal to the "
+        f"bit; the host picks G={picked}; ms per bare launch by G "
+        f"{json.dumps(ms)}")
+
+
+def b2_shares(label: str, scene, flags, tables, st, step, tri,
+              out_ref: dict) -> None:
+    """B2 at every G of ``kernels/bounce.py:SHARES`` on the state ``st``:
+    each launch's outputs equal to ``out_ref`` (the launch at the host's
+    G) to the bit, and the ms per bare launch at each G."""
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+
+    picked = kb.fwd_args(scene, flags, tables, st, step, tri)[0].shares
+    ms = {}
+    for g in kb.SHARES:
+        with shares(g):
+            out = kb.bounce_fwd(scene, flags, tables, st, step, tri)
+            torch.cuda.synchronize()
+            bad = [k for k in out_ref if not same_bits(out[k], out_ref[k])]
+            if bad:
+                raise AssertionError(f"B2 {label} at G={g}: {bad} differ "
+                                     f"from G={picked}")
+            ms[g] = min(b2_launch_ms(scene, flags, tables, st, step, tri)
+                        for _ in range(2))
+    log(f"[shares-{label}] B2 at G = {list(ms)}: every output equal to the "
+        f"bit; the host picks G={picked}; ms per bare launch by G "
+        f"{json.dumps(ms)}")
+
+
 def b1_wavefront(inp, spec, dev, cursor: int) -> dict:
     """A mid-flight ``LANES``-lane B1 wavefront: the work cursor at
     ``cursor``, three plain bounces, then a seeded half of the lanes
@@ -386,6 +468,18 @@ def b1_launch_ms(inp, st0, spec, reps: int) -> float:
     st = clone(st0)
     return bare_launch_ms("srt_regen_bounce", ctypes.sizeof(kb._Args),
                           lambda: kb.regen_bounce(inp, st, spec), reps)
+
+
+def b2_launch_ms(scene, flags, tables, st, step, tri=None,
+                 reps: int = 200) -> float:
+    """Milliseconds per bare B2 launch on the state ``st``."""
+    import ctypes
+
+    from srt_tpu_torch.kernels import bounce as kb
+
+    return bare_launch_ms(
+        "srt_bounce", ctypes.sizeof(kb._BounceArgs),
+        lambda: kb.bounce_fwd(scene, flags, tables, st, step, tri), reps)
 
 
 def phase_regen_kernel(scene, cam, dev) -> dict:
@@ -421,6 +515,7 @@ def phase_regen_kernel(scene, cam, dev) -> dict:
                               contract.wavefront_arrays(st_k))
     log(f"[bounce] {LANES} lanes, {dead0:.3f} dead before the step: ints "
         f"exact, fin mismatch {fin_mismatch}, {json.dumps(m)}")
+    b1_shares("ball_scenes", inp, mid, spec, st_k)
 
     plain_ms = [time_bounces(kb.regen_bounce_reference, inp, mid, spec, 10)]
     kern_ms = [b1_launch_ms(inp, mid, spec, 50) for _ in range(2)]
@@ -432,10 +527,10 @@ def phase_regen_kernel(scene, cam, dev) -> dict:
         f"launches; {wrapped_ms} through regen_bounce), plain {plain_ms}")
     from srt_tpu_torch.kernels import build
     report = build.ptxas_report()
-    log(f"[bounce] ptxas registers of B1 by kMoving kRich "
-        f"{json.dumps(kernel_registers(report, 'regen_bounce_kernel'))}, of "
-        f"B2 by kExt kMoving kRich "
-        f"{json.dumps(kernel_registers(report, 'bounce_kernel'))}")
+    log(f"[bounce] ptxas [registers, spill stores] of B1 by G,kMoving kRich "
+        f"{json.dumps(kernel_registers(report, 'regen_bounce_kernel', True))}"
+        f", of B2 by G,kExt kMoving kRich kParity "
+        f"{json.dumps(kernel_registers(report, 'bounce_kernel', True))}")
 
     small = RenderConfig(width=64, height=64, spp=4, max_depth=8,
                          wavefront=LANES)
@@ -594,6 +689,7 @@ def phase_train_kernels(scene, cam, dev) -> list:
     err2 = max(m2[k]["max"] for k in ("d", "beta", "radiance"))
     log(f"[train-fwd] {n} lanes, {n_live} live: depth exact, "
         f"{json.dumps(m2)}")
+    b2_shares("train", scene, flags, tables, st, spec, None, out_k)
 
     # B5: one launch against torch.autograd of the plain step. The
     # cotangent of o, d and beta is zero where the step ends the path, as
@@ -624,9 +720,8 @@ def phase_train_kernels(scene, cam, dev) -> list:
     # wrapper's checks and allocations stay out of the timed loop
     from srt_tpu_torch.kernels.build import launch
     reps_k, reps_p = 200, 5
-    fargs, fargs_out = kb.fwd_args(scene, flags, tables, st, spec)
     bargs, bargs_out = kbb.bwd_args(scene, flags, tables, st, ct, spec)
-    fwd_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), reps_k)
+    fwd_ms = [b2_launch_ms(scene, flags, tables, st, spec, reps=reps_k)
               for _ in range(2)]
     fwd_plain = time_ms(lambda: kb.bounce_step_ref(
         scene, flags, tables["mat"], st, spec), reps_p)
@@ -892,7 +987,6 @@ def check_b2(label: str, scene, flags, tables, st, step,
     from _torch_census import bounce_census, parity_census
 
     from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels.build import launch
     from srt_tpu_torch.utils import contract
 
     dev = st["o"].device
@@ -908,8 +1002,7 @@ def check_b2(label: str, scene, flags, tables, st, step,
     n = st["o"].shape[0]
     n_live = int(st["alive"].sum())
     n_tri = 0 if tri is None else int((st["alive"] & (tri[0] < 3e38)).sum())
-    fargs, fargs_out = kb.fwd_args(scene, flags, tables, st, step, tri)
-    kern_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), 200)
+    kern_ms = [b2_launch_ms(scene, flags, tables, st, step, tri)
                for _ in range(2)]
     plain_ms = time_ms(lambda: kb.bounce_step_ref(
         scene, flags, tables["mat"], st, step, tri), 5)
@@ -930,6 +1023,7 @@ def check_b2(label: str, scene, flags, tables, st, step,
         f"triangle: depth exact, {json.dumps(m)}; shaded {json.dumps(c)}; "
         f"ms per launch {kern_ms}, plain {plain_ms:.3f}, bound "
         f"{ms_bound:.6f} ({by})")
+    b2_shares(label, scene, flags, tables, st, step, tri, out_k)
     return {"max_abs_err": max(m[k]["max"] for k in keys[1:]),
             "ms": min(kern_ms), "plain_ms": plain_ms, "bound_ms": ms_bound,
             "bound_by": by, "census": c}
@@ -1110,7 +1204,6 @@ def phase_teapot_kernels(scene, cam, dev) -> tuple[dict, dict]:
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import build
     from srt_tpu_torch.kernels import intersect as ki
-    from srt_tpu_torch.kernels.build import launch
     from srt_tpu_torch.materials.materials import is_specular
     from srt_tpu_torch.render.integrator import apply_media
     from srt_tpu_torch.render.intersect import intersect_scene
@@ -1157,8 +1250,8 @@ def phase_teapot_kernels(scene, cam, dev) -> tuple[dict, dict]:
     if not n_spec or not int(medium.sum()):
         raise AssertionError(f"teapot wavefront: {n_spec} specular lanes, "
                              f"{int(medium.sum())} medium events")
-    fargs, fargs_out = kb.fwd_args(scene, flags, tables, st, step, tri)
-    kern_ms = [time_ms(lambda: launch("srt_bounce", fargs, dev), 200)
+    b2_shares("teapot", scene, flags, tables, st, step, tri, out_k)
+    kern_ms = [b2_launch_ms(scene, flags, tables, st, step, tri)
                for _ in range(2)]
     plain_ms = time_ms(lambda: kb.bounce_step_ref(
         scene, flags, tables["mat"], st, step, tri), 5)
@@ -1638,6 +1731,7 @@ def phase_rich_kernel(dev) -> dict:
         if missing:
             raise AssertionError(f"B1 {name}: the step shades no {missing}: "
                                  f"{c}")
+        b1_shares(name, inp, mid, spec, st_k)
         kern_ms = [b1_launch_ms(inp, mid, spec, 50) for _ in range(2)]
         plain_ms = time_bounces(kb.regen_bounce_reference, inp, mid, spec, 3)
         n_new = int(take.sum())
@@ -1950,10 +2044,10 @@ def phase_parity_kernel(dev) -> dict:
     from srt_tpu_torch.kernels.build import ptxas_report
 
     report = ptxas_report()
-    log(f"[parity] ptxas [registers, spill stores] of B2 by kExt kMoving "
+    log(f"[parity] ptxas [registers, spill stores] of B2 by G,kExt kMoving "
         f"kRich kParity "
         f"{json.dumps(kernel_registers(report, 'bounce_kernel', True))}; "
-        f"of B1 by kMoving kRich "
+        f"of B1 by G,kMoving kRich "
         f"{json.dumps(kernel_registers(report, 'regen_bounce_kernel', True))}")
     cases = {}
     for name, no_stale in PARITY_CASES:
@@ -2097,12 +2191,12 @@ def phase_golden(root: str, dev) -> None:
 
 def cornell_times(dev) -> dict:
     """``--measure`` on cornell_boxes: B3 and B2's external hit as bare
-    launches on phase 7's render wavefront, ``COMPARE_ROUNDS`` times, and two
-    steps of phase 16's train cell."""
+    launches on phase 7's render wavefront, ``COMPARE_ROUNDS`` times (with
+    the digests of B2's inputs and per-lane outputs), and two steps of
+    phase 16's train cell."""
     import ctypes
 
     from srt_tpu_torch import get_scene
-    from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import intersect as ki
     from srt_tpu_torch.scene.ir import SceneFlags
 
@@ -2111,15 +2205,15 @@ def cornell_times(dev) -> dict:
     st, inp, step, _ = step_wavefront(scene, cam, dev)
     packed = ki.pack_tables(scene)
     tri = ki.intersect_tris(scene, packed, st["o"], st["d"])
-    out = {"b3_ms": [], "b2_ext_ms": []}
+    out = {"b3_ms": [], "b2_ext_ms": [],
+           "digests": {"b2 ext cornell": b2_digests(
+               scene, flags, inp.tables, st, step, tri)}}
     for _ in range(COMPARE_ROUNDS):
         out["b3_ms"].append(bare_launch_ms(
             "srt_intersect_tris", ctypes.sizeof(ki._Args),
             lambda: ki.intersect_tris(scene, packed, st["o"], st["d"]), 200))
-        out["b2_ext_ms"].append(bare_launch_ms(
-            "srt_bounce", ctypes.sizeof(kb._BounceArgs),
-            lambda: kb.bounce_fwd(scene, flags, inp.tables, st, step, tri),
-            200))
+        out["b2_ext_ms"].append(b2_launch_ms(scene, flags, inp.tables, st,
+                                             step, tri))
     out["train_s"] = train_walls(scene, cam, {"tex_color": scene.tex_color},
                                  CORNELL_TRAIN, dev, 2)[3]
     return out
@@ -2132,6 +2226,140 @@ def digest(*tensors) -> str:
     for t in tensors:
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+# the wavefront planes B1 reads and writes per lane, and the cursor (the
+# per-block dead counts follow the kernel's lanes a block, and stay out)
+B1_PLANES = ("o", "d", "time", "beta", "radiance", "salt", "depth", "alive",
+             "pix", "fin", "cursor")
+# B2's per-lane inputs and outputs (parity adds the stale plane)
+B2_IN = ("o", "d", "time", "beta", "radiance", "salt", "depth", "alive")
+B2_OUT = ("o", "d", "beta", "radiance", "depth", "alive")
+
+
+def b2_digests(scene, flags, tables, st, step, tri=None) -> list:
+    """The digests of one B2 launch's inputs (the state, the triangle hit)
+    and of its per-lane outputs."""
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+
+    out = kb.bounce_fwd(scene, flags, tables, st, step, tri)
+    torch.cuda.synchronize()
+    keys = B2_OUT + (("stale",) if flags.ref_parity else ())
+    return [digest(*(st[k] for k in B2_IN), *(tri or ())),
+            digest(*(out[k] for k in keys))]
+
+
+def b1_states(dev):
+    """B1's inputs that ``--compare`` times: ``(label, inputs, wavefront,
+    spec)`` of phase 3's ball_scenes wavefront (lean) and phase 17's
+    random_scene one (rich, 484 moving spheres)."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.core.sobol import sobol_points
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
+                        rr_start=1 << 30, pdf_floor=1e-9, seed=0)
+    jitter = torch.from_numpy(sobol_points(16, 2).astype(np.float32))
+    for name, cursor in (("ball_scenes", spec.total_work // 2),
+                         ("random_scene", dict(RICH_CASES)["random_scene"]
+                          * spec.width * spec.spp)):
+        scene, cam = rich_scene(name, dev)
+        inp = kb.RegenInputs(scene, SceneFlags.of(scene), cam, jitter)
+        yield f"b1 {name}", inp, b1_wavefront(inp, spec, dev, cursor), spec
+
+
+def b2_states(dev):
+    """B2's inputs that ``--compare`` times: ``(label, scene, flags,
+    tables, state, spec, triangle hit)`` of the train states of phases 5
+    and 19 (the states B5 reads, ``b5_states``), phase 20 (random_scene,
+    moving spheres) and phase 16 (cornell_boxes, B3's hit as the external
+    hit), and phase 21's ball_scenes parity wavefronts with and without
+    ``parity_no_stale``."""
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    for name, scene, flags, tables, st, _, spec in b5_states(dev):
+        yield f"b2 {name} train", scene, flags, tables, st, spec, None
+    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    for name, size in (("random_scene", TRAIN),
+                       ("cornell_boxes", CORNELL_TRAIN)):
+        scene, cam = rich_scene(name, dev)
+        flags = SceneFlags.of(scene)
+        tables = kb.build_tables(scene, flags)
+        st = train_state(scene, cam, flags, tables, spec, dev, size=size)
+        tri = (ki.closest_tris(scene, ki.pack_walk(scene), st["o"], st["d"])
+               if scene.n_tris else None)
+        yield f"b2 {name} train", scene, flags, tables, st, spec, tri
+    for no_stale in (False, True):
+        scene, cam, flags = parity_scene("ball_scenes", dev, no_stale)
+        st, inp, step, _ = step_wavefront(scene, cam, dev, flags=flags)
+        yield (f"b2 parity{'_no_stale' if no_stale else ''} ball_scenes",
+               scene, flags, inp.tables, st, step, None)
+
+
+def shares_times(fn) -> dict | None:
+    """``fn()`` with B1 and B2 at each G of the checkout's
+    ``kernels/bounce.py:SHARES``; None where its wrapper picks no G."""
+    from srt_tpu_torch.kernels import bounce as kb
+    if not hasattr(kb, "sweep_shares"):
+        return None
+    out = {}
+    for g in kb.SHARES:
+        with shares(g):
+            out[g] = fn()
+    return out
+
+
+def bounce_times(dev) -> dict:
+    """``--measure``: B1 on each state of :func:`b1_states` (50 launches a
+    round) and B2 on each of :func:`b2_states` (200) as bare launches,
+    ``COMPARE_ROUNDS`` rounds at the wrapper's G and one at each G
+    (``shares_times``), and B6 on the ball_scenes and random_scene train
+    states' rays, with the digests of each launch's inputs and per-lane
+    outputs."""
+    import ctypes
+
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import spheres as ks
+
+    out = {"ms": {}, "shares_ms": {}, "digests": {}}
+    for label, inp, mid, spec in b1_states(dev):
+        st = clone(mid)
+        kb.regen_bounce(inp, st, spec)
+        torch.cuda.synchronize()
+        out["digests"][label] = [digest(*(mid[k] for k in B1_PLANES)),
+                                 digest(*(st[k] for k in B1_PLANES))]
+        out["ms"][label] = [b1_launch_ms(inp, mid, spec, 50)
+                            for _ in range(COMPARE_ROUNDS)]
+        out["shares_ms"][label] = shares_times(
+            lambda: b1_launch_ms(inp, mid, spec, 50))
+    for label, scene, flags, tables, st, step, tri in b2_states(dev):
+        out["digests"][label] = b2_digests(scene, flags, tables, st, step,
+                                           tri)
+
+        def bare():
+            return b2_launch_ms(scene, flags, tables, st, step, tri)
+        out["ms"][label] = [bare() for _ in range(COMPARE_ROUNDS)]
+        out["shares_ms"][label] = shares_times(bare)
+        if label in ("b2 ball_scenes train", "b2 random_scene train"):
+            # B6 on the same rays: the sphere test it shares with B1 and B2
+            b6 = "b6" + label[2:]
+            ray = (st["o"], st["d"], st["time"])
+            out["digests"][b6] = [digest(tables["sph"], *ray), digest(
+                *ks.sphere_winner(scene, tables["sph"], *ray))]
+            out["ms"][b6] = [bare_launch_ms(
+                "srt_sphere_winner", ctypes.sizeof(ks._Args),
+                lambda: ks.sphere_winner(scene, tables["sph"], *ray), 200)
+                for _ in range(COMPARE_ROUNDS)]
+    return out
 
 
 def b5_states(dev):
@@ -2197,7 +2425,8 @@ def b5_bare_times(dev) -> dict:
 def teapot_times(dev) -> dict:
     """``--measure`` on teapot_scene (divs=100): B4 as bare launches on
     phase 10's bounced rays, ``COMPARE_ROUNDS`` times, 50 launches each,
-    with the digests of its inputs (the rays) and outputs; then the teapot
+    and B2's external hit on that wavefront (200 launches each), with the
+    digests of their inputs and per-lane outputs; then the teapot
     render path (phase 12's settings), once to warm up and
     ``TRI_MAIN_REPS`` times timed, its primary rays a second."""
     import ctypes
@@ -2206,18 +2435,24 @@ def teapot_times(dev) -> dict:
 
     from srt_tpu_torch import RenderConfig, render_regen
     from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.scene.ir import SceneFlags
 
     scene, cam = teapot(dev)
-    st = step_wavefront(scene, cam, dev, row=TEAPOT_ROW)[0]
+    st, inp, step, _ = step_wavefront(scene, cam, dev, row=TEAPOT_ROW)
     o, d = st["o"], st["d"]
     big = ki.pack_big_tables(scene)
     hit = ki.intersect_tris_big(scene, big, o, d)
     torch.cuda.synchronize()
-    out = {"digests": {"b4 bounced": [digest(o, d), digest(*hit)]}}
+    flags = SceneFlags.of(scene)
+    out = {"digests": {"b4 bounced": [digest(o, d), digest(*hit)],
+                       "b2 ext teapot": b2_digests(scene, flags, inp.tables,
+                                                   st, step, hit)}}
     out["b4_bare_ms"] = [bare_launch_ms(
         "srt_intersect_big", ctypes.sizeof(ki._BigArgs),
         lambda: ki.intersect_tris_big(scene, big, o, d), 50)
         for _ in range(COMPARE_ROUNDS)]
+    out["b2_ext_ms"] = [b2_launch_ms(scene, flags, inp.tables, st, step, hit)
+                        for _ in range(COMPARE_ROUNDS)]
     cfg = RenderConfig(**MAIN)
     render_regen(scene, cam, cfg)
     torch.cuda.synchronize()
@@ -2230,10 +2465,11 @@ def teapot_times(dev) -> dict:
 def measure_tree() -> dict:
     """``--measure``: what ``--compare`` times in one checkout, with the
     package found first on ``sys.path``: its build, ``ptxas``' registers
-    of B1, B2, B3, B4, B5 and B6, B1 on phase 3's ball_scenes wavefront as
-    bare launches and through its wrapper (``COMPARE_ROUNDS`` times, 50
-    launches each), B5 as bare launches (``b5_bare_times``), B4 and the
-    teapot render (``teapot_times``), the
+    and spill stores of B1, B2, B3, B4, B5 and B6, B1 on phase 3's
+    ball_scenes wavefront as bare launches and through its wrapper
+    (``COMPARE_ROUNDS`` times, 50 launches each), B1 and B2 on their other
+    states (``bounce_times``), B5 as bare launches (``b5_bare_times``), B4,
+    B2's external hit and the teapot render (``teapot_times``), the
     ball_scenes train step with ``{"tex_color"}`` (phase 6, three steps)
     and with the geometric parameters (phase 15, two steps), and
     ``cornell_times``. A measurement the checkout's package cannot make
@@ -2252,7 +2488,7 @@ def measure_tree() -> dict:
     build.load_library()
     out = {"build_s": time.time() - t0}
     report = build.ptxas_report()
-    out["registers"] = {k: kernel_registers(report, k) for k in
+    out["registers"] = {k: kernel_registers(report, k, True) for k in
                         ("regen_bounce_kernel", "bounce_kernel",
                          "bounce_bwd_kernel", "intersect_tris_kernel",
                          "intersect_big_kernel", "sphere_winner_kernel")}
@@ -2267,6 +2503,7 @@ def measure_tree() -> dict:
     out["b1_wrapped_ms"] = [time_bounces(kb.regen_bounce, inp, mid, spec, 50)
                             for _ in range(COMPARE_ROUNDS)]
     for key, fn in (
+            ("bounce", lambda: bounce_times(dev)),
             ("b5", lambda: b5_bare_times(dev)),
             ("teapot", lambda: teapot_times(dev)),
             ("train_s", lambda: train_walls(
@@ -2333,7 +2570,15 @@ def compare(trees: list) -> None:
         "b5_bare_ms": {k: extremes(rs, "b5", "ms", k)
                        for k in rs[0]["b5"]["ms"]}
         if isinstance(rs[0].get("b5"), dict) else rs[0].get("b5"),
+        "bounce_ms": {k: extremes(rs, "bounce", "ms", k)
+                      for k in rs[0]["bounce"]["ms"]}
+        if isinstance(rs[0].get("bounce"), dict) else rs[0].get("bounce"),
+        "bounce_shares_ms": {k: {g: extremes(rs, "bounce", "shares_ms", k, g)
+                                 for g in (v or {})}
+                             for k, v in rs[0]["bounce"]["shares_ms"].items()}
+        if isinstance(rs[0].get("bounce"), dict) else None,
         "b4_bare_ms": extremes(rs, "teapot", "b4_bare_ms"),
+        "teapot_b2_ext_ms": extremes(rs, "teapot", "b2_ext_ms"),
         "teapot_rays_per_s": extremes(rs, "teapot", "render_rays_per_s"),
         "bench_rays_per_s": extremes(rs, "bench_rays_per_s"),
         "train_s": extremes(rs, "train_s"),
@@ -2346,7 +2591,7 @@ def compare(trees: list) -> None:
     outs = {}
     for tree, rs in runs.items():
         for r in rs:
-            for part in ("b5", "teapot"):
+            for part in ("bounce", "b5", "teapot", "cornell"):
                 digests = (r[part].get("digests", {})
                            if isinstance(r.get(part), dict) else {})
                 for k, (d_in, d_out) in digests.items():

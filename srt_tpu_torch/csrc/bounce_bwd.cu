@@ -204,49 +204,15 @@ using bwd::kPasses;
 // Lanes a block; each of a lane's passes is a warp of the block
 constexpr int kLanes = 32;
 
-// closest_hit's sphere sweep over spheres p, p + P, p + 2P, ...: the first
-// of the nearest among them (t kBig and index -1 when none is hit)
-__device__ __forceinline__ void sphere_share(const SceneView& s, V3 o, V3 d,
-                                             int p, int P, float& t_best,
-                                             int& k_best) {
-  t_best = kBig;
-  k_best = -1;
-  for (int k = p; k < s.n_sph; k += P) {
-    const float t = sphere_t<false>(s.sph + 12 * k, o, d, 0.0f, kTMin);
-    if (t < t_best) {
-      t_best = t;
-      k_best = k;
-    }
-  }
-}
-
-// closest_hit's winner, given its spheres' winner (t_sph, k_sph): the rect
-// sweep alone, whose best wins only when strictly nearer, as closest_hit's
-// strict < lets a rect win over the spheres before it
-__device__ __forceinline__ Winner finish_hit(SceneView s, V3 o, V3 d,
-                                             float t_sph, int k_sph) {
-  s.n_sph = 0;
-  Winner W = closest_hit(s, o, d);
-  if (!(W.hit && W.t < t_sph)) {
-    W.t = t_sph;
-    W.u = 0.0f;
-    W.v = 0.0f;
-    W.sph = k_sph;
-    W.rect = -1;
-    W.hit = t_sph < kBig;
-    W.m = W.hit ? (int)s.sph[12 * k_sph + 9] : 0;
-  }
-  return W;
-}
-
 // Thread (lane i, pass p): columns p*K .. p*K + K - 1 of lane i's Jacobian.
 // A lane's P threads share its closest-hit replay: each sweeps every P-th
-// sphere and they exchange their bests through shared memory.
+// sphere (bounce_core.cuh:sphere_share, as B1 and B2 split theirs) and
+// they exchange their bests through shared memory.
 template <int K, bool kRich>
 __global__ void __launch_bounds__((kLanes * kPasses<K, kRich>))
 bounce_bwd_kernel(const BounceBwdArgs a) {
   constexpr int P = kPasses<K, kRich>;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ float share_t[P][kLanes];
   __shared__ int share_k[P][kLanes];
   SceneView sv = scene_view(a, smem);
@@ -262,7 +228,7 @@ bounce_bwd_kernel(const BounceBwdArgs a) {
   __syncthreads();   // the tables are staged
   float t_sph = kBig;
   int k_sph = -1;
-  if (live) sphere_share(sv, in.o, in.d, p, P, t_sph, k_sph);
+  if (live) sphere_share<false>(sv, in.o, in.d, 0.0f, p, P, t_sph, k_sph);
   share_t[p][l] = t_sph;
   share_k[p][l] = k_sph;
   __syncthreads();
@@ -275,14 +241,8 @@ bounce_bwd_kernel(const BounceBwdArgs a) {
   int m = 0;
   if (live) {
     // the nearest of the shares, the lowest index on a tie
-    for (int q = 0; q < P; ++q) {
-      const float t = share_t[q][l];
-      const int k = share_k[q][l];
-      if (t < t_sph || (t == t_sph && t < kBig && k < k_sph)) {
-        t_sph = t;
-        k_sph = k;
-      }
-    }
+    for (int q = 0; q < P; ++q)
+      nearest_share(share_t[q][l], share_k[q][l], t_sph, k_sph);
     Winner W = finish_hit(sv, in.o, in.d, t_sph, k_sph);
     const int depth = a.depth[i];
     const uint32_t salt = hash_combine((uint32_t)a.salt[i],

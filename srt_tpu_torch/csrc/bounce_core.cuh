@@ -25,7 +25,11 @@
 // lobes, the heap slot, bounded retries, the Beckmann frame of the raw
 // stored normal, the broken Erf and the as-implemented pdf and weight.
 //
-// The closest-hit sweep runs in float. Everything after it, the shading
+// The closest-hit sweep runs in float, over sphere records staged in
+// shared memory as three float4s (stage_spheres): one test, sphere_t, for
+// B1, B2, B5 and B6. B1, B2 and B5 split a lane's sphere sweep over
+// threads of their own (sphere_share), which meet in nearest_share and
+// finish_hit with closest_hit's winner. Everything after it, the shading
 // (shade<T>), is written once over a scalar type T:
 //   * T = float for the forward kernels;
 //   * T = Dual<K>, a value with K forward-mode tangents, for the backward
@@ -596,6 +600,23 @@ __device__ T oren_nayar_term(const V3T<T>& wi, const V3T<T>& wo, const T& a,
   return cos_i * (a + b * max_cos * sin_alpha * tan_beta) * kInvPi;
 }
 
+// Stage the (S, 12) sphere table as the sweep reads it, three float4s a
+// sphere (the layout is set out at the sphere test below); ``dst`` is
+// 16-byte aligned.
+constexpr int kSphWords = 3;   // float4s a staged sphere
+
+__device__ __forceinline__ void stage_spheres(float4* dst, const float* src,
+                                              int n) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const float* r = src + 12 * k;
+    const float rr = r[8] * r[8];
+    dst[kSphWords * k] = make_float4(r[0], r[1], r[2],
+                                     r[11] > 0.0f ? -rr : rr);
+    dst[kSphWords * k + 1] = make_float4(r[3], r[4], r[5], r[6]);
+    dst[kSphWords * k + 2] = make_float4(r[7], r[8], r[9], r[10]);
+  }
+}
+
 // ---- the scene a bounce reads -----------------------------------------
 // Tables entries-major (kernels/bounce.py:build_tables): spheres (S, 12),
 // rects (R, 10), materials (M, 14), lights (L, 8) -- staged in shared
@@ -604,7 +625,7 @@ __device__ T oren_nayar_term(const V3T<T>& wi, const V3T<T>& wo, const T& a,
 // kinds (L,) from global memory and the Perlin tables, gradients (256, 3)
 // and permutations (3, 256), from shared memory (stage_rich).
 struct SceneView {
-  const float* sph;
+  const float4* sph;       // staged sphere records (stage_spheres)
   const float* rect;
   const float* mat;
   const float* light;
@@ -627,12 +648,11 @@ __device__ __forceinline__ void stage_tables(SceneView& s, float* smem,
                                              const float* rect,
                                              const float* mat,
                                              const float* light) {
-  float* s_sph = smem;
-  float* s_rect = s_sph + 12 * s.n_sph;
+  float4* s_sph = reinterpret_cast<float4*>(smem);
+  float* s_rect = smem + 12 * s.n_sph;
   float* s_mat = s_rect + 10 * s.n_rect;
   float* s_light = s_mat + 14 * s.n_mat;
-  for (int k = threadIdx.x; k < 12 * s.n_sph; k += blockDim.x)
-    s_sph[k] = sph[k];
+  stage_spheres(s_sph, sph, s.n_sph);
   for (int k = threadIdx.x; k < 10 * s.n_rect; k += blockDim.x)
     s_rect[k] = rect[k];
   for (int k = threadIdx.x; k < 14 * s.n_mat; k += blockDim.x)
@@ -789,42 +809,74 @@ struct Winner {
   bool hit;
 };
 
-// ---- the sphere test ------------------------------------------------------
-// A record of the (S, 12) sphere table: centre0 xyz, centre1 - centre0
-// xyz, t0, 1 / max(t1 - t0, 1e-20), radius, material, flip sign, env flag.
+// ---- the sphere records and the sphere test ------------------------------
+// A record of the (S, 12) sphere table (kernels/bounce.py:build_tables):
+// centre0 xyz, centre1 - centre0 xyz, t0, 1 / max(t1 - t0, 1e-20), radius,
+// material, flip sign, env flag. The kernels stage it in shared memory as
+// three float4s a sphere, in the order the sweep reads them:
+//   [0] centre0 xyz, the radius squared (negated for an env dome),
+//   [1] centre1 - centre0 xyz, t0,
+//   [2] 1 / max(t1 - t0, 1e-20), radius, material, flip sign,
+// so a static sphere's test reads one 16-byte word and a moving one's two
+// and a float. The radius squared is the product the test took in its
+// loop, taken once at staging (stage_spheres): the same IEEE product,
+// the same bits.
+__device__ __forceinline__ bool sphere_env(const float4* r) {
+  return __float_as_int(r[0].w) < 0;
+}
+__device__ __forceinline__ float sphere_radius(const float4* r) {
+  return r[2].y;
+}
+__device__ __forceinline__ int sphere_material(const float4* r) {
+  return (int)r[2].z;
+}
+__device__ __forceinline__ float sphere_flip(const float4* r) {
+  return r[2].w;
+}
+
 // With kMoving the centre at ``time`` (moving_sphere.h:19-21), the lerp
 // factor taken with the table's reciprocal as the JAX kernels take it
 // (pallas/bounce.py:393-396, pallas/spheres.py:150-154); else centre0.
 template <bool kMoving>
-__device__ __forceinline__ V3 sphere_center(const float* r, float time) {
+__device__ __forceinline__ V3 sphere_center(const float4* r, float time) {
+  const float4 c = r[0];
   if constexpr (kMoving) {
-    const float f = (time - r[6]) * r[7];
-    return v3(r[0] + f * r[3], r[1] + f * r[4], r[2] + f * r[5]);
+    const float4 m = r[1];
+    const float f = (time - m.w) * r[2].x;
+    return v3(c.x + f * m.x, c.y + f * m.y, c.z + f * m.z);
   } else {
-    return v3(r[0], r[1], r[2]);
+    return v3(c.x, c.y, c.z);
   }
 }
 
-// The ray's distance to sphere record r: the near root, else the far root,
-// beyond t_min; an env dome always at its far root; kBig on a miss. The
-// bounce's sweep (closest_hit) and the sphere-winner kernel (B6) both call
-// this, so B6's winner is the sphere the bounce shades, bit for bit.
+// The ray's distance to the staged sphere ``r``: the near root, else the
+// far root, beyond t_min; an env dome always at its far root; kBig on a
+// miss. The bounce's sweep (sphere_share, closest_hit) and the
+// sphere-winner kernel (B6) all call this, so B6's winner is the sphere
+// the bounce shades, bit for bit. Where the discriminant is not positive
+// both roots are -b (the square root taken as 0), so the test skips the
+// square root and the root choice: only an env dome can take -b there.
 template <bool kMoving>
-__device__ __forceinline__ float sphere_t(const float* r, V3 o, V3 d,
+__device__ __forceinline__ float sphere_t(const float4* r, V3 o, V3 d,
                                           float time, float t_min) {
+  const float4 c0 = r[0];
   const V3 oc = sub(o, sphere_center<kMoving>(r, time));
   const float b = dot(oc, d);
-  const float c = dot(oc, oc) - r[8] * r[8];
+  const float c = dot(oc, oc) - fabsf(c0.w);
   const float disc = b * b - c;
-  const float sq = disc > 0.0f ? sqrtf(disc) : 0.0f;
+  const bool env = __float_as_int(c0.w) < 0;
+  if (!(disc > 0.0f)) return env && -b > t_min ? -b : kBig;
+  const float sq = sqrtf(disc);
   const float t0 = -b - sq, t1 = -b + sq;
-  if (r[11] > 0.0f) return t1 > t_min ? t1 : kBig;   // env dome: far root
-  if (disc > 0.0f && t0 > t_min && t0 < kBig) return t0;
-  if (disc > 0.0f && t1 > t_min && t1 < kBig) return t1;
+  if (env) return t1 > t_min ? t1 : kBig;   // env dome: far root
+  if (t0 > t_min && t0 < kBig) return t0;
+  if (t1 > t_min && t1 < kBig) return t1;
   return kBig;
 }
 
-// Spheres, then rects; strict < keeps the lowest index.
+// Spheres, then rects; strict < keeps the lowest index. The one-thread
+// sweep: the kernels run its sphere part split over shares (sphere_share,
+// nearest_share) and its rect part in finish_hit, which give its winner.
 template <bool kMoving = false>
 __device__ inline Winner closest_hit(const SceneView& s, V3 o, V3 d,
                                      float time = 0.0f) {
@@ -833,7 +885,8 @@ __device__ inline Winner closest_hit(const SceneView& s, V3 o, V3 d,
   int w_sph = -1, w_rect = -1;
   float w_u = 0.0f, w_v = 0.0f;
   for (int k = 0; k < s.n_sph; ++k) {
-    const float t = sphere_t<kMoving>(s.sph + 12 * k, o, d, time, kTMin);
+    const float t = sphere_t<kMoving>(s.sph + kSphWords * k, o, d, time,
+                                      kTMin);
     if (t < t_best) {
       t_best = t;
       w_sph = k;
@@ -864,7 +917,61 @@ __device__ inline Winner closest_hit(const SceneView& s, V3 o, V3 d,
   W.n = v3(0.0f, 0.0f, 0.0f);
   W.hit = t_best < kBig;
   W.m = !W.hit ? 0 : (w_rect >= 0 ? (int)s.rect[10 * w_rect + 8]
-                                   : (int)s.sph[12 * w_sph + 9]);
+                                   : sphere_material(s.sph
+                                                     + kSphWords * w_sph));
+  return W;
+}
+
+// ---- the sweep split over a lane's threads ------------------------------
+// A lane's sphere sweep may run on G threads, its shares: share p of G
+// tests spheres p, p + G, p + 2G, ... and keeps the first of the nearest
+// among them (t kBig and index -1 when none is hit). The shares meet in
+// nearest_share, the nearest t first and the lowest index on a tie, which
+// is the first of the nearest over all spheres, closest_hit's sphere
+// winner; finish_hit then runs closest_hit's rect sweep against it.
+template <bool kMoving>
+__device__ __forceinline__ void sphere_share(const SceneView& s, V3 o, V3 d,
+                                             float time, int p, int G,
+                                             float& t_best, int& k_best) {
+  t_best = kBig;
+  k_best = -1;
+#pragma unroll 4
+  for (int k = p; k < s.n_sph; k += G) {
+    const float t = sphere_t<kMoving>(s.sph + kSphWords * k, o, d, time,
+                                      kTMin);
+    if (t < t_best) {
+      t_best = t;
+      k_best = k;
+    }
+  }
+}
+
+// Folds a share's (t, k) into (t_best, k_best): the nearer, the lower
+// index on a tie
+__device__ __forceinline__ void nearest_share(float t, int k, float& t_best,
+                                              int& k_best) {
+  if (t < t_best || (t == t_best && t < kBig && k < k_best)) {
+    t_best = t;
+    k_best = k;
+  }
+}
+
+// closest_hit's winner, given its spheres' winner (t_sph, k_sph): the rect
+// sweep alone, whose best wins only when strictly nearer, as closest_hit's
+// strict < lets a rect win over the spheres before it
+__device__ __forceinline__ Winner finish_hit(SceneView s, V3 o, V3 d,
+                                             float t_sph, int k_sph) {
+  s.n_sph = 0;
+  Winner W = closest_hit(s, o, d);
+  W.sph = k_sph;
+  if (!(W.hit && W.t < t_sph)) {
+    W.t = t_sph;
+    W.u = 0.0f;
+    W.v = 0.0f;
+    W.rect = -1;
+    W.hit = t_sph < kBig;
+    W.m = W.hit ? sphere_material(s.sph + kSphWords * k_sph) : 0;
+  }
   return W;
 }
 
@@ -1155,14 +1262,14 @@ __device__ Dual<K> hit_t(const SceneView& s, const Winner& W,
     D d_n = comp(d, na);
     return (r[3] - comp(o, na)) / (fabsf(d_n.v) < 1e-20f ? D(1e-20f) : d_n);
   }
-  const float* r = s.sph + 12 * W.sph;
-  V3T<D> oc = sub(o, lift3<D>(v3(r[0], r[1], r[2])));
+  const float4* r = s.sph + kSphWords * W.sph;
+  V3T<D> oc = sub(o, lift3<D>(sphere_center<false>(r, 0.0f)));
   D b = dot(oc, d);
-  D c = dot(oc, oc) - r[8] * r[8];
+  D c = dot(oc, oc) - fabsf(r[0].w);
   D disc = b * b - c;
   D sq = disc.v > 0.0f ? xsqrt(disc) : D(0.0f);
   D t0 = -b - sq, t1 = -b + sq;
-  if (r[11] > 0.0f) return t1;           // env dome: the far root
+  if (sphere_env(r)) return t1;          // env dome: the far root
   return (disc.v > 0.0f && t0.v > kTMin && t0.v < kBig) ? t0 : t1;
 }
 
@@ -1374,9 +1481,10 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
     } else if (kGiven && W.tri >= 0) {
       n_st = lift3<T>(W.n);
     } else {
-      const float* r = s.sph + 12 * W.sph;
-      unit = divide(sub(p, lift3<T>(sphere_center<kMoving>(r, time))), r[8]);
-      n_st = scale(unit, r[10]);
+      const float4* r = s.sph + kSphWords * W.sph;
+      unit = divide(sub(p, lift3<T>(sphere_center<kMoving>(r, time))),
+                    sphere_radius(r));
+      n_st = scale(unit, sphere_flip(r));
     }
     if (val(dot(n_st, n_st)) > 1e-12f) normal = n_st;
   }
@@ -1506,21 +1614,23 @@ __device__ __forceinline__ bool shade(const SceneView& s, const Winner& W,
   return scatter_to(s, salt, depth, p, wi, nb, L);
 }
 
-// The forward bounce of one live lane (B1, B2) at ray time ``time``: returns
-// alive-after-bounce (before the depth cap) and updates L. With kExt (B2's
-// external-hit mode) the external hit ``e`` takes part in the closest hit;
-// with kRich the media sweep follows (take_media) and the rich shading
-// runs; the lean instantiation is the bounce ball_scenes' B1 compiles.
-// kMoving: spheres at their centres at ``time`` (sphere_center). kParity
-// (B2): the parity estimator, which updates the heap ``slot`` on lanes
-// that take the diffuse branch.
+// The forward bounce of one live lane (B1, B2) at ray time ``time``, given
+// its spheres' winner (t_sph, k_sph) from sphere_share and nearest_share:
+// returns alive-after-bounce (before the depth cap) and updates L. With
+// kExt (B2's external-hit mode) the external hit ``e`` takes part in the
+// closest hit; with kRich the media sweep follows (take_media) and the
+// rich shading runs; the lean instantiation is the bounce ball_scenes' B1
+// compiles. kMoving: spheres at their centres at ``time``
+// (sphere_center). kParity (B2): the parity estimator, which updates the
+// heap ``slot`` on lanes that take the diffuse branch.
 template <bool kExt = false, bool kMoving = false, bool kRich = false,
           bool kParity = false>
 __device__ __forceinline__ bool bounce(const SceneView& s, uint32_t salt,
                                        int depth, float time, LaneT<float>& L,
+                                       float t_sph, int k_sph,
                                        const ExtHit* e = nullptr,
                                        float* slot = nullptr) {
-  Winner W = closest_hit<kMoving>(s, L.o, L.d, time);
+  Winner W = finish_hit(s, L.o, L.d, t_sph, k_sph);
   const uint32_t bsalt = hash_combine(salt, (uint32_t)depth);
   if constexpr (kExt) take_external(W, *e);
   if constexpr (kRich) take_media(W, s.med, s.n_med, L.o, L.d, bsalt);

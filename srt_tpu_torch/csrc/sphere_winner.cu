@@ -5,11 +5,12 @@
 // (rows, 128) planes and fetches each sphere's fields by a one-hot lane
 // sum -- a layout for the TPU's vector memory. Here the (S, 12) sphere
 // records of kernels/bounce.py:build_tables are staged in shared memory
-// (S <= 4096 under B2's table cap: 192 KiB, above the 48 KiB default, so
-// the launch raises the dynamic shared-memory limit) and each thread
-// sweeps them for its own ray with bounce_core.cuh's sphere_t, the test
-// the bounce kernels' sweep runs: the winner is the sphere B2 shaded, bit
-// for bit. Ties keep the lowest index (strict <).
+// as three float4s a sphere (bounce_core.cuh:stage_spheres; S <= 4096:
+// 192 KiB, above the 48 KiB default, so the launch raises the dynamic
+// shared-memory limit) and each thread sweeps them for its own ray with
+// bounce_core.cuh's sphere_t, the test the bounce kernels' sweep runs: the
+// winner is the sphere B2 shaded, bit for bit. Ties keep the lowest index
+// (strict <).
 //
 // It returns only (t, idx) per ray, idx -1 on a miss; the caller re-derives
 // the hit differentiably from the winner alone (render/intersect.py:
@@ -51,9 +52,8 @@ constexpr int kBlock = 256;
 
 __global__ void __launch_bounds__(kBlock)
 sphere_winner_kernel(const SphereWinnerArgs a) {
-  extern __shared__ float s_sph[];
-  for (int k = threadIdx.x; k < 12 * a.n_sph; k += kBlock)
-    s_sph[k] = a.sph[k];
+  extern __shared__ float4 s_sph[];
+  stage_spheres(s_sph, a.sph, a.n_sph);
   __syncthreads();
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= a.n) return;
@@ -62,7 +62,8 @@ sphere_winner_kernel(const SphereWinnerArgs a) {
   float t_best = kBig;
   int w = -1;
   for (int k = 0; k < a.n_sph; ++k) {
-    const float t = sphere_t<true>(s_sph + 12 * k, o, d, time, a.t_min);
+    const float t = sphere_t<true>(s_sph + kSphWords * k, o, d, time,
+                                   a.t_min);
     if (t < t_best) {
       t_best = t;
       w = k;

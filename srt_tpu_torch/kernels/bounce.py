@@ -12,20 +12,22 @@ same step live here:
   evaluates the environment dome's image texture inside the bounce's
   emission term, which is the math of the JAX package's deferred-texture
   epilogue (``bounce.py:1555-1595``, ``textures._image_value``).
-* ``csrc/regen_bounce.cu``, hand-written CUDA for ``sm_90a``: one thread
-  per lane, scene tables staged in shared memory, the image lookup folded
-  in, so a bounce is one launch.
+* ``csrc/regen_bounce.cu``, hand-written CUDA for ``sm_90a``: blocks of
+  ``BLOCK`` lanes, each lane's sphere sweep split over G threads (its
+  shares, :func:`sweep_shares`), scene tables staged in shared memory, the
+  image lookup folded in, so a bounce is one launch.
 
 :func:`regen_bounce` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; it never falls back.
 
 What bounds the kernel on an H100: not bytes (a lane reads and writes
-about 80 bytes of state per bounce) but registers and divergence in the
-shading chain: Beckmann VNDF sampling runs up to nine Newton–bisection
-rounds of ``erfinv`` next to Oren–Nayar and emitter lanes in the same
-warp, and the 122-sphere sweep keeps a dozen winner registers live. The
-simple design takes that as it is: one thread per lane, no splitting of
-the shading core, emitter and dead lanes skip the shading work.
+about 80 bytes of state per bounce) but instructions and latency. The
+sphere sweep is most of a lane's operations (122 spheres on ball_scenes,
+484 on random_scene), one dependent chain a lane: G threads a lane split
+it, so the card holds G times the warps while it runs. The shading chain that
+follows runs on one thread a lane (full warps): Beckmann VNDF sampling
+runs up to nine Newton–bisection rounds of ``erfinv`` next to Oren–Nayar
+and emitter lanes in the same warp; emitter and dead lanes skip it.
 
 The wavefront is updated in place so one copy of it lives on the device.
 
@@ -81,7 +83,20 @@ LAUNCHES_FWD = 0
 #: of which the parity instantiation's (``kParity``)
 LAUNCHES_PARITY = 0
 
-BLOCK = 256                      # threads (lanes) per CUDA block
+BLOCK = 128                      # lanes per B1 block (csrc kLanes)
+#: the threads a lane may take for its sphere sweep (the kernels' template
+#: G); :func:`sweep_shares` picks one
+SHARES = (1, 2, 4, 8)
+#: threads that about fill an H100 at the bounce kernels' 56-64 registers
+#: (132 SMs of 32 resident warps: 135,168)
+FULL_THREADS = 1 << 17
+#: spheres past which a longer sweep is worth more threads than fill the
+#: card (the sweep then outweighs the shading)
+LONG_SWEEP = 256
+#: the threads B2's parity instantiation holds resident at its 86-92
+#: registers, about half of FULL_THREADS: past them a launch takes a
+#: second wave
+PARITY_THREADS = FULL_THREADS // 2
 DIM_LENS = 32                    # camera sampler dimensions (api.py)
 DIM_TIME = 34
 
@@ -317,6 +332,21 @@ def regen_bounce_reference(inp: RegenInputs, st: dict,
     st["dead"].copy_(count_dead(st["alive"]))
 
 
+def sweep_shares(n_lanes: int, n_sph: int,
+                 threads: int = FULL_THREADS) -> int:
+    """G, the threads each lane's sphere sweep is split over in B1 and B2:
+    the most of :data:`SHARES` with ``n_lanes * G`` within ``threads``
+    (scaled up by ``n_sph / LONG_SWEEP`` past :data:`LONG_SWEEP` spheres)
+    and a sphere for each share. The winner, and so every output, is the
+    same for every G; this rule follows the times ``chip_smoke.py``
+    measures at each G (PERF.md §6)."""
+    want = threads * max(1.0, n_sph / LONG_SWEEP)
+    g = 1
+    while g * 2 in SHARES and n_lanes * g * 2 <= want and n_sph >= g * 2:
+        g *= 2
+    return g
+
+
 def count_dead(alive: torch.Tensor) -> torch.Tensor:
     """Dead lanes per block of ``BLOCK`` lanes, as the kernel counts them."""
     pad = -alive.shape[0] % BLOCK
@@ -343,7 +373,7 @@ class _Args(ctypes.Structure):
         + [("pdf_floor", ctypes.c_float), ("seed", ctypes.c_uint32),
            ("moving", ctypes.c_int), ("med", ctypes.c_void_p),
            ("n_med", ctypes.c_int)]
-        + _RICH_FIELDS)
+        + _RICH_FIELDS + [("shares", ctypes.c_int)])
 
 
 _STATE_F32 = {"o": 3, "d": 3, "time": 1, "beta": 3, "radiance": 3}
@@ -393,7 +423,8 @@ def regen_args(inp: RegenInputs, st: dict, spec: RegenSpec) -> _Args:
         width=spec.width, height=spec.height, spp=spec.spp,
         total_work=spec.total_work, max_depth=spec.max_depth,
         rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
-        seed=spec.seed & rng.MASK32)
+        seed=spec.seed & rng.MASK32, shares=sweep_shares(n, inp.fields[
+            "n_sph"]))
 
 
 def _launch(inp: RegenInputs, st: dict, spec: RegenSpec) -> None:
@@ -487,7 +518,7 @@ class _BounceArgs(ctypes.Structure):
            ("moving", ctypes.c_int)]
         + _RICH_FIELDS
         + [("stale_out", ctypes.c_void_p), ("parity", ctypes.c_int),
-           ("parity_no_stale", ctypes.c_int)])
+           ("parity_no_stale", ctypes.c_int), ("shares", ctypes.c_int)])
 
 
 def check_state(state: dict, tables: dict, device) -> int:
@@ -574,7 +605,9 @@ def fwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
         n=n, max_depth=spec.max_depth,
         rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
         **ext, time=state["time"].data_ptr(), moving=int(flags.moving),
-        **rich_args(scene, flags, tables), **parity)
+        **rich_args(scene, flags, tables), **parity,
+        shares=sweep_shares(n, tables["sph"].shape[0], PARITY_THREADS
+                            if flags.ref_parity else FULL_THREADS))
     return args, out
 
 

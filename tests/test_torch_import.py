@@ -2,7 +2,9 @@
 cornell_boxes and teapot_scene (its native BVH builder, clusters, the
 two-level walk, specular materials and a medium) and taking a train step
 on the CPU pull in neither JAX nor the JAX package, nor anything the GPU
-machine lacks."""
+machine lacks. No module of the port imports ``triton``: PyTorch itself
+may (on a machine that has it, its optimisers reach ``torch._dynamo``),
+so the script records the frame that first imports it."""
 from __future__ import annotations
 
 import json
@@ -11,8 +13,45 @@ import subprocess
 import sys
 
 _SCRIPT = """
-import json, sys, warnings
+import importlib.abc, json, sys, traceback, warnings
 warnings.simplefilter("ignore")
+
+
+class TritonWatch(importlib.abc.MetaPathFinder):
+    \"\"\"Records the stack (file:line, importer last) of triton's first
+    import; a lookup that does not import it records nothing.\"\"\"
+    stack = None
+
+    def find_spec(self, name, path, target=None):
+        if name != "triton":
+            return None
+        for finder in sys.meta_path:
+            spec = (finder.find_spec(name, path, target)
+                    if finder is not self and hasattr(finder, "find_spec")
+                    else None)
+            if spec is not None:
+                break
+        else:
+            return None
+        real = spec.loader
+
+        class Loader(importlib.abc.Loader):
+            def create_module(self, spec):
+                return real.create_module(spec)
+
+            def exec_module(self, module):
+                if TritonWatch.stack is None:
+                    TritonWatch.stack = [
+                        f"{f.filename}:{f.lineno}"
+                        for f in traceback.extract_stack()[:-1]
+                        if not f.filename.startswith("<frozen")
+                        and "/importlib/" not in f.filename]
+                real.exec_module(module)
+        spec.loader = Loader()
+        return spec
+
+
+sys.meta_path.insert(0, TritonWatch())
 import torch
 import srt_tpu_torch
 from srt_tpu_torch import (RenderConfig, get_scene, make_train_step,
@@ -42,7 +81,8 @@ print(json.dumps({"shape": list(img.shape),
                                  and pot_img.isfinite().all()
                                  and pot_img.mean() > 0
                                  and loss.isfinite()),
-                  "modules": sorted(m.split(".")[0] for m in sys.modules)}))
+                  "modules": sorted(m.split(".")[0] for m in sys.modules),
+                  "triton_importer": TritonWatch.stack}))
 """
 
 
@@ -54,8 +94,18 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["shape"] == [8, 8, 3] and res["finite"]
-    for banned in ("jax", "jaxlib", "srt_tpu", "triton", "PIL"):
+    for banned in ("jax", "jaxlib", "srt_tpu", "PIL"):
         assert banned not in res["modules"], banned
+    # triton only where PyTorch imports it: the frame that first imported
+    # it lies outside the port and chip_smoke.py
+    stack = res["triton_importer"]
+    assert ("triton" in res["modules"]) == bool(stack), stack
+    if stack:
+        importer = os.path.realpath(stack[-1].rsplit(":", 1)[0])
+        real = os.path.realpath(root)
+        port = (os.path.join(real, "srt_tpu_torch") + os.sep,
+                os.path.join(real, "chip_smoke.py"))
+        assert not importer.startswith(port), stack
 
 
 def test_chip_smoke_holds_the_outputs_of_every_timed_launch():

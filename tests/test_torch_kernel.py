@@ -97,9 +97,12 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     for k in ("o", "d", "beta", "radiance", "salt", "pix", "depth", "alive",
               "fin", "dead", "cursor"):
         assert torch.equal(st[k], ref[k]), k
-    # 300 lanes = one full block and one of 44; all lanes were dead
+    # 300 lanes = two full blocks of kb.BLOCK = 128 lanes and one of 44;
+    # all lanes were dead
     assert int(ref["cursor"][0]) == 2048 + 300
-    assert ref["dead"].tolist() == [int((ref["alive"][:256] == 0).sum()),
+    assert kb.BLOCK == 128
+    assert ref["dead"].tolist() == [int((ref["alive"][:128] == 0).sum()),
+                                    int((ref["alive"][128:256] == 0).sum()),
                                     int((ref["alive"][256:] == 0).sum())]
 
 
