@@ -37,6 +37,10 @@ of which raises on failure:
    heights) under ``final``'s camera rays: hit and index equality, |dt|
    within 2e-5 and |du|, |dv| within 1e-4 on the hits, the time per
    launch and the bound;
+   B3 at every G (threads a ray for its walk,
+   ``kernels/intersect.py:WALK_SHARES``), each equal to the bit to the
+   host's G, with its time; ``ptxas``' registers and spill stores of B3
+   and B6 at each G (again in phases 13 and 16);
 8. B2's external-hit mode against its plain version on input (a) (every
    B2 check, here and in phases 11, 16, 18, 19, 20 and 21, also launches
    B2 at every G, each equal to the bit to the host's G, with its time);
@@ -67,8 +71,9 @@ of which raises on failure:
    inputs: the 16,384-lane ball_scenes train wavefront after two bounces,
    65,536 ball_scenes camera rays, and a 20-sphere scene of moving,
    flipped and plain spheres in an env dome under 65,536 random rays:
-   index equal and ``t`` equal to the bit; the time per launch and the
-   bound;
+   index equal and ``t`` equal to the bit; B6 at every G of
+   ``kernels/bounce.py:SHARES``, each equal to the bit to the host's G;
+   the time per launch (at each G) and the bound;
 14. B1 and B2 with moving spheres (``kMoving``) against their plain
    versions under the per-bounce contract: ball_scenes with every ball's
    ``center1 = center0 + (0, 10, 0)``, one step of a mid-flight
@@ -83,8 +88,8 @@ of which raises on failure:
    bounce one B2 and one B6 launch and no B5; the losses and the three
    gradients finite, the gradients nonzero;
 16. the cornell_boxes train step with ``{"tex_color"}`` at 128x128, 4 spp,
-   depth 50 on phase 6's engine: first B3 against its plain walk (as in
-   phase 7) and B2's external-hit mode against its plain version (as in
+   depth 50 on phase 6's engine: first B3 against its plain walk and at
+   every G (as in phase 7) and B2's external-hit mode against its plain version (as in
    phase 8) on a 16,384-lane cornell_boxes train state, with their times
    at that shape; then one step to warm up and one counted, every bounce
    one B3 and one B2 launch and no B6 or B5; the loss and the gradient
@@ -118,7 +123,7 @@ of which raises on failure:
    B2 and one rich B5 launch and no B6; then, on a 16,384-lane
    ``random_scene`` train state, B2's rich ``kMoving`` instantiation
    against the plain step and B6 against its plain version on its 484
-   moving spheres (as in phase 13), and the hybrid on
+   moving spheres (as in phase 13, at every G), and the hybrid on
    ``random_scene`` (moving spheres) with ``{"tex_color"}`` at 64x64, 4
    spp, depth 50, one step (the width cut because the hybrid's torch
    replay takes about 0.1 s a bounce), every bounce one B2 and one B6
@@ -152,14 +157,15 @@ Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
 ``python3 chip_smoke.py --compare TREE [TREE ...]`` instead
 times B1 (phase 3's and phase 17's random_scene wavefronts), B2 (the train
 states of phases 5, 19 and 20, phase 21's parity wavefronts, the teapot's
-and cornell_boxes' external hits), B3, B4 on phase 10's bounced teapot
-rays, B5 on phase 5's and phase 19's states, the ball_scenes and teapot
+and cornell_boxes' external hits), B3 (phase 7's cornell render wavefront
+and ``final`` ground, phase 16's cornell train state), B4 on phase 10's
+bounced teapot rays, B5 on phase 5's and phase 19's states, B6 on the
+ball_scenes and random_scene train states, the ball_scenes and teapot
 renders and the train steps from each checkout TREE in turns (see
-``compare``), B1 and B2 also at every G where the checkout picks one, for
-example the parent commit unpacked with ``git archive`` under ``build/``,
-and fails where two runs given the same inputs gave different outputs
-(SHA-256 digests of B1's, B2's, B4's and B5's inputs and per-lane
-outputs).
+``compare``), B1, B2, B3 and B6 also at every G where the checkout picks
+one, for example the parent commit unpacked with ``git archive`` under ``build/``, and fails
+where two runs given the same inputs gave different outputs (SHA-256
+digests of every kernel's inputs and per-lane outputs).
 """
 from __future__ import annotations
 
@@ -367,18 +373,65 @@ def kernel_registers(report: str, kernel: str, spills: bool = False) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def shares(g: int):
-    """B1 and B2 launched with ``g`` threads a lane for the sphere sweep:
-    the wrappers' pick (``kernels/bounce.py:sweep_shares``) replaced."""
-    from srt_tpu_torch.kernels import bounce as kb
+# Where the host picks a kernel's G: the module of srt_tpu_torch.kernels,
+# its picking function and its tuple of Gs. SWEEP is the threads a lane's
+# (a ray's) sphere sweep runs on in B1, B2 and B6; WALK the threads a
+# ray's triangle walk runs on in B3.
+SWEEP = ("bounce", "sweep_shares", "SHARES")
+WALK = ("intersect", "walk_shares", "WALK_SHARES")
 
-    pick = kb.sweep_shares
-    kb.sweep_shares = lambda n_lanes, n_sph, threads=None: g
+
+def picker(kind: tuple):
+    """``(module, picking function's name, its Gs)`` of ``kind``, from the
+    checkout's package; the Gs are () where the module has none."""
+    import importlib
+
+    mod = importlib.import_module(f"srt_tpu_torch.kernels.{kind[0]}")
+    return mod, kind[1], getattr(mod, kind[2], ())
+
+
+@contextlib.contextmanager
+def shares(g: int, kind: tuple = SWEEP):
+    """The kernels of ``kind`` launched with ``g`` threads a lane or a
+    ray: the wrappers' pick replaced."""
+    mod, name, _ = picker(kind)
+    pick = getattr(mod, name)
+    setattr(mod, name, lambda *a, **k: g)
     try:
         yield
     finally:
-        kb.sweep_shares = pick
+        setattr(mod, name, pick)
+
+
+def b3_b6_registers(label: str) -> None:
+    """Logs ``ptxas``' [registers, spill stores] of B3 and B6 by G."""
+    from srt_tpu_torch.kernels import build
+
+    report = build.ptxas_report()
+    log(f"[{label}] ptxas [registers, spill stores] of B3 by G "
+        f"{json.dumps(kernel_registers(report, 'intersect_tris_kernel', True))}"
+        f", of B6 by G "
+        f"{json.dumps(kernel_registers(report, 'sphere_winner_kernel', True))}")
+
+
+def at_every_g(name: str, kind: tuple, call, out_ref, time_g) -> dict:
+    """``call()`` at each G of ``kind``, each output equal to ``out_ref``
+    (the launch at the host's G) to the bit; returns ``time_g()``'s ms at
+    each G."""
+    import torch
+
+    ms = {}
+    for g in picker(kind)[2]:
+        with shares(g, kind):
+            out = call()
+            torch.cuda.synchronize()
+            bad = [k for k, (a, b) in enumerate(zip(out, out_ref))
+                   if not same_bits(a, b)]
+            if bad:
+                raise AssertionError(f"{name} at G={g}: outputs {bad} "
+                                     f"differ from the host's G")
+            ms[g] = min(time_g() for _ in range(2))
+    return ms
 
 
 def same_bits(a, b) -> bool:
@@ -913,14 +966,15 @@ def ground_field(dev) -> tuple:
 
 
 def check_tri_kernel(label: str, scene, o, d) -> dict:
-    """Phase 7 on one input: B3 against the plain walk; times and bound."""
+    """Phase 7 on one input: B3 against the plain walk, and at every G
+    equal to the bit to the host's G; times (at each G) and bound."""
     import torch
 
     from srt_tpu_torch.kernels import intersect as ki
     from srt_tpu_torch.kernels.build import launch
 
     tables = ki.pack_tables(scene)
-    t, u, v, idx = ki.intersect_tris(scene, tables, o, d)
+    t, u, v, idx = out = ki.intersect_tris(scene, tables, o, d)
     pt, pu, pv, pidx, visits, tests = ki.intersect_tris_reference(
         scene, o, d, stats=True)
     torch.cuda.synchronize()
@@ -938,23 +992,33 @@ def check_tri_kernel(label: str, scene, o, d) -> dict:
     if err["t"] > TRI_T_ATOL or max(err["u"], err["v"]) > TRI_UV_ATOL:
         raise AssertionError(f"B3 {label}: hits beyond |dt| <= {TRI_T_ATOL}, "
                              f"|du|, |dv| <= {TRI_UV_ATOL}: {err}")
-    args, args_out = ki.kernel_args(tables, o, d)
-    kern_ms = [time_ms(lambda: launch("srt_intersect_tris", args, o.device),
-                       200) for _ in range(2)]
+    def launch_ms():
+        args, args_out = ki.kernel_args(tables, o, d)
+        return time_ms(lambda: launch("srt_intersect_tris", args, o.device),
+                       200)
+    kern_ms = [launch_ms() for _ in range(2)]
+    shares_ms = at_every_g(
+        f"B3 {label}", WALK, lambda: ki.intersect_tris(scene, tables, o, d),
+        out, launch_ms)
     plain_ms = time_ms(lambda: ki.intersect_tris_reference(scene, o, d), 3)
     n = o.shape[0]
-    n_bytes = n * (24 + 16) + 4 * (tables["nodes"].numel()
-                                   + tables["tris"].numel())
+    # bytes: the rays (o, d in; t, u, v, idx out) and the tables at what
+    # the function needs of them: a node's box and its skip, first and
+    # count, a triangle's three corners, 36 B each (the records' padding
+    # and the kernel's edges do not count)
+    n_bytes = n * (24 + 16) + 36 * (scene.n_bvh_nodes + scene.n_tris)
     ops = (n * OPS_RAY + int(visits.sum()) * OPS_SLAB
            + int(tests.sum()) * OPS_TRI)
     ms_bound, by = bound(n_bytes, ops)
+    picked = ki.kernel_args(tables, o, d)[0].shares
     log(f"[tris-{label}] {n} rays, {scene.n_tris} triangles, "
         f"{scene.n_bvh_nodes} nodes: hits {int(hit.sum())} and indices "
         f"equal, max |dt| {err['t']:.3e} |du| {err['u']:.3e} |dv| "
         f"{err['v']:.3e}; per ray {float(visits.float().mean()):.2f} node "
         f"visits, {float(tests.float().mean()):.2f} triangle tests; ms per "
-        f"launch {kern_ms}, plain {plain_ms:.3f}, bound {ms_bound:.6f} "
-        f"({by})")
+        f"launch {kern_ms} at the host's G={picked}, plain {plain_ms:.3f}, "
+        f"bound {ms_bound:.6f} ({by}); at G = {list(shares_ms)} every "
+        f"output equal to the bit, ms by G {json.dumps(shares_ms)}")
     return {"max_abs_err": max(err.values()), "ms": min(kern_ms),
             "plain_ms": plain_ms, "bound_ms": ms_bound, "bound_by": by}
 
@@ -965,8 +1029,10 @@ def phase_tri_kernels(scene, cam, dev) -> tuple[dict, dict]:
     from srt_tpu_torch.scene.ir import SceneFlags
 
     st, inp, step, _ = step_wavefront(scene, cam, dev)
+    b3_b6_registers("tris")
     b3 = check_tri_kernel("cornell", scene, st["o"], st["d"])
-    check_tri_kernel("final-ground", *ground_field(dev))
+    ground = check_tri_kernel("final-ground", *ground_field(dev))
+    b3["max_abs_err"] = max(b3["max_abs_err"], ground["max_abs_err"])
 
     tri = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"], st["d"])
     b2 = check_b2("cornell", scene, SceneFlags.of(scene),
@@ -1352,8 +1418,9 @@ def moving_spheres_scene(dev):
 
 def check_winner(label: str, scene, o, d, time) -> dict:
     """Phase 13 on one input: B6 against its plain version, index equal
-    and ``t`` equal to the bit; its time per launch, the plain version's
-    and the bound."""
+    and ``t`` equal to the bit, and at every G equal to the bit to the
+    host's G; its time per launch (at each G), the plain version's and
+    the bound."""
     import torch
 
     from srt_tpu_torch.kernels import spheres as ks
@@ -1366,7 +1433,7 @@ def check_winner(label: str, scene, o, d, time) -> dict:
     hits = int((pidx >= 0).sum())
     if not hits:
         raise AssertionError(f"B6 {label}: no ray hits a sphere")
-    t, idx = ks.sphere_winner(scene, sph, o, d, time)
+    t, idx = out = ks.sphere_winner(scene, sph, o, d, time)
     torch.cuda.synchronize()
     if not torch.equal(idx, pidx):
         raise AssertionError(f"B6 {label}: index differs on "
@@ -1375,16 +1442,24 @@ def check_winner(label: str, scene, o, d, time) -> dict:
         raise AssertionError(f"B6 {label}: t differs on "
                              f"{int((t != pt).sum())} rays, max "
                              f"{float((t - pt).abs().max())}")
-    args, args_out = ks.kernel_args(sph, o, d, time, 1e-3)
-    kern_ms = [time_ms(lambda: launch("srt_sphere_winner", args, o.device),
-                       200) for _ in range(2)]
+    def launch_ms():
+        args, args_out = ks.kernel_args(sph, o, d, time, 1e-3)
+        return time_ms(lambda: launch("srt_sphere_winner", args, o.device),
+                       200)
+    kern_ms = [launch_ms() for _ in range(2)]
+    shares_ms = at_every_g(
+        f"B6 {label}", SWEEP,
+        lambda: ks.sphere_winner(scene, sph, o, d, time), out, launch_ms)
     plain_ms = time_ms(lambda: ks.sphere_winner_reference(scene, o, d, time),
                        5)
     n, s = o.shape[0], scene.n_spheres
     ms_bound, by = bound(n * (28 + 8) + 48 * s, n * s * OPS_SPHERE_MOVING)
+    picked = ks.kernel_args(sph, o, d, time, 1e-3)[0].shares
     log(f"[winner-{label}] {n} rays, {s} spheres, {hits} hits: indices and "
-        f"t equal to the bit; ms per launch {kern_ms}, plain "
-        f"{plain_ms:.3f}, bound {ms_bound:.6f} ({by})")
+        f"t equal to the bit; ms per launch {kern_ms} at the host's "
+        f"G={picked}, plain {plain_ms:.3f}, bound {ms_bound:.6f} ({by}); at "
+        f"G = {list(shares_ms)} every output equal to the bit, ms by G "
+        f"{json.dumps(shares_ms)}")
     return {"max_abs_err": 0.0, "ms": min(kern_ms), "plain_ms": plain_ms,
             "bound_ms": ms_bound, "bound_by": by}
 
@@ -1402,6 +1477,7 @@ def phase_winner(scene, cam, dev) -> dict:
     spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
     st = train_state(scene, cam, flags, kb.build_tables(scene, flags), spec,
                      dev, bounces=2)
+    b3_b6_registers("winner")
     b6 = check_winner("train", scene, st["o"], st["d"], st["time"])
     w = TRAIN["width"]
     (o, d, t), _ = camera_rays(cam, torch.arange(w * w, device=dev), 1,
@@ -1606,6 +1682,7 @@ def phase_cornell_train(dev) -> tuple[int, int, dict, dict]:
     walk = ki.pack_walk(scene)
     if walk["big"]:
         raise AssertionError("cornell_boxes' train step walks B4, not B3")
+    b3_b6_registers("cornell-train")
     b3_train = check_tri_kernel("cornell-train", scene, st["o"], st["d"])
     b2_train = check_b2("cornell-train", scene, flags, tables, st,
                                 spec, ki.closest_tris(scene, walk, st["o"],
@@ -2189,31 +2266,64 @@ def phase_golden(root: str, dev) -> None:
         raise AssertionError(f"cornell_boxes parity not darker: {recs}")
 
 
+def b3_states(dev):
+    """B3's inputs that ``--compare`` times: ``(label, scene, o, d)`` of
+    phase 7's cornell_boxes render wavefront, phase 16's cornell_boxes
+    train state and phase 7's ``final`` ground field."""
+    from srt_tpu_torch import get_scene
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    scene, cam, _ = get_scene("cornell_boxes", device=dev)
+    st = step_wavefront(scene, cam, dev)[0]
+    yield "b3 cornell render", scene, st["o"], st["d"]
+    flags = SceneFlags.of(scene)
+    spec = kb.StepSpec(max_depth=CORNELL_TRAIN["max_depth"])
+    st = train_state(scene, cam, flags, kb.build_tables(scene, flags), spec,
+                     dev, size=CORNELL_TRAIN)
+    yield "b3 cornell train", scene, st["o"], st["d"]
+    yield "b3 final ground", *ground_field(dev)
+
+
 def cornell_times(dev) -> dict:
-    """``--measure`` on cornell_boxes: B3 and B2's external hit as bare
-    launches on phase 7's render wavefront, ``COMPARE_ROUNDS`` times (with
-    the digests of B2's inputs and per-lane outputs), and two steps of
-    phase 16's train cell."""
+    """``--measure`` on the triangle walk: B3 as bare launches on each
+    state of :func:`b3_states`, ``COMPARE_ROUNDS`` times at the wrapper's
+    G and once at each G where the checkout picks one, with the digests
+    of its inputs (the triangles and the rays) and per-ray outputs; B2's
+    external hit on phase 7's render wavefront (with the digests of its
+    inputs and per-lane outputs); and two steps of phase 16's train
+    cell."""
     import ctypes
+
+    import torch
 
     from srt_tpu_torch import get_scene
     from srt_tpu_torch.kernels import intersect as ki
     from srt_tpu_torch.scene.ir import SceneFlags
 
+    out = {"b3_ms": {}, "b3_shares_ms": {}, "b2_ext_ms": [],
+           "digests": {}}
+    for label, scene, o, d in b3_states(dev):
+        packed = ki.pack_tables(scene)
+        hit = ki.intersect_tris(scene, packed, o, d)
+        torch.cuda.synchronize()
+        out["digests"][label] = [digest(scene.tri_p0, scene.tri_p1,
+                                        scene.tri_p2, o, d), digest(*hit)]
+
+        def bare():
+            return bare_launch_ms(
+                "srt_intersect_tris", ctypes.sizeof(ki._Args),
+                lambda: ki.intersect_tris(scene, packed, o, d), 200)
+        out["b3_ms"][label] = [bare() for _ in range(COMPARE_ROUNDS)]
+        out["b3_shares_ms"][label] = shares_times(bare, WALK)
     scene, cam, _ = get_scene("cornell_boxes", device=dev)
     flags = SceneFlags.of(scene)
     st, inp, step, _ = step_wavefront(scene, cam, dev)
-    packed = ki.pack_tables(scene)
-    tri = ki.intersect_tris(scene, packed, st["o"], st["d"])
-    out = {"b3_ms": [], "b2_ext_ms": [],
-           "digests": {"b2 ext cornell": b2_digests(
-               scene, flags, inp.tables, st, step, tri)}}
-    for _ in range(COMPARE_ROUNDS):
-        out["b3_ms"].append(bare_launch_ms(
-            "srt_intersect_tris", ctypes.sizeof(ki._Args),
-            lambda: ki.intersect_tris(scene, packed, st["o"], st["d"]), 200))
-        out["b2_ext_ms"].append(b2_launch_ms(scene, flags, inp.tables, st,
-                                             step, tri))
+    tri = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"], st["d"])
+    out["digests"]["b2 ext cornell"] = b2_digests(scene, flags, inp.tables,
+                                                  st, step, tri)
+    out["b2_ext_ms"] = [b2_launch_ms(scene, flags, inp.tables, st, step,
+                                     tri) for _ in range(COMPARE_ROUNDS)]
     out["train_s"] = train_walls(scene, cam, {"tex_color": scene.tex_color},
                                  CORNELL_TRAIN, dev, 2)[3]
     return out
@@ -2303,15 +2413,15 @@ def b2_states(dev):
                scene, flags, inp.tables, st, step, None)
 
 
-def shares_times(fn) -> dict | None:
-    """``fn()`` with B1 and B2 at each G of the checkout's
-    ``kernels/bounce.py:SHARES``; None where its wrapper picks no G."""
-    from srt_tpu_torch.kernels import bounce as kb
-    if not hasattr(kb, "sweep_shares"):
+def shares_times(fn, kind: tuple = SWEEP) -> dict | None:
+    """``fn()`` with the kernels of ``kind`` at each of the checkout's Gs;
+    None where its wrapper picks no G."""
+    mod, name, gs = picker(kind)
+    if not hasattr(mod, name):
         return None
     out = {}
-    for g in kb.SHARES:
-        with shares(g):
+    for g in gs:
+        with shares(g, kind):
             out[g] = fn()
     return out
 
@@ -2321,8 +2431,8 @@ def bounce_times(dev) -> dict:
     round) and B2 on each of :func:`b2_states` (200) as bare launches,
     ``COMPARE_ROUNDS`` rounds at the wrapper's G and one at each G
     (``shares_times``), and B6 on the ball_scenes and random_scene train
-    states' rays, with the digests of each launch's inputs and per-lane
-    outputs."""
+    states' rays the same way (200), with the digests of each launch's
+    inputs and per-lane outputs."""
     import ctypes
 
     import torch
@@ -2355,10 +2465,17 @@ def bounce_times(dev) -> dict:
             ray = (st["o"], st["d"], st["time"])
             out["digests"][b6] = [digest(tables["sph"], *ray), digest(
                 *ks.sphere_winner(scene, tables["sph"], *ray))]
-            out["ms"][b6] = [bare_launch_ms(
-                "srt_sphere_winner", ctypes.sizeof(ks._Args),
-                lambda: ks.sphere_winner(scene, tables["sph"], *ray), 200)
-                for _ in range(COMPARE_ROUNDS)]
+
+            def b6_bare():
+                return bare_launch_ms(
+                    "srt_sphere_winner", ctypes.sizeof(ks._Args),
+                    lambda: ks.sphere_winner(scene, tables["sph"], *ray),
+                    200)
+            out["ms"][b6] = [b6_bare() for _ in range(COMPARE_ROUNDS)]
+            # where the checkout's B6 takes G (a launch field)
+            out["shares_ms"][b6] = (
+                shares_times(b6_bare)
+                if "shares" in dict(ks._Args._fields_) else None)
     return out
 
 
@@ -2584,7 +2701,13 @@ def compare(trees: list) -> None:
         "train_s": extremes(rs, "train_s"),
         "geom_train_s": extremes(rs, "geom_train_s"),
         "cornell_train_s": extremes(rs, "cornell", "train_s"),
-        "cornell_b3_ms": extremes(rs, "cornell", "b3_ms"),
+        "b3_ms": {k: extremes(rs, "cornell", "b3_ms", k)
+                  for k in rs[0]["cornell"]["b3_ms"]}
+        if isinstance(rs[0].get("cornell"), dict) else rs[0].get("cornell"),
+        "b3_shares_ms": {k: {g: extremes(rs, "cornell", "b3_shares_ms", k, g)
+                             for g in (v or {})}
+                         for k, v in rs[0]["cornell"]["b3_shares_ms"].items()}
+        if isinstance(rs[0].get("cornell"), dict) else None,
         "cornell_b2_ext_ms": extremes(rs, "cornell", "b2_ext_ms"),
         "registers": rs[0]["registers"]} for t, rs in runs.items()}))
     # the same inputs must give the same outputs in every run of every tree

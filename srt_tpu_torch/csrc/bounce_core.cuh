@@ -928,17 +928,19 @@ __device__ inline Winner closest_hit(const SceneView& s, V3 o, V3 d,
 // among them (t kBig and index -1 when none is hit). The shares meet in
 // nearest_share, the nearest t first and the lowest index on a tie, which
 // is the first of the nearest over all spheres, closest_hit's sphere
-// winner; finish_hit then runs closest_hit's rect sweep against it.
+// winner; finish_hit then runs closest_hit's rect sweep against it. The
+// bounces sweep beyond kTMin; the sphere winner (B6) passes its own t_min.
 template <bool kMoving>
 __device__ __forceinline__ void sphere_share(const SceneView& s, V3 o, V3 d,
                                              float time, int p, int G,
-                                             float& t_best, int& k_best) {
+                                             float& t_best, int& k_best,
+                                             float t_min = kTMin) {
   t_best = kBig;
   k_best = -1;
 #pragma unroll 4
   for (int k = p; k < s.n_sph; k += G) {
     const float t = sphere_t<kMoving>(s.sph + kSphWords * k, o, d, time,
-                                      kTMin);
+                                      t_min);
     if (t < t_best) {
       t_best = t;
       k_best = k;
@@ -975,7 +977,7 @@ __device__ __forceinline__ Winner finish_hit(SceneView s, V3 o, V3 d,
   return W;
 }
 
-// An external closest hit (a triangle found by the BVH walk, tri_bvh.cuh,
+// An external closest hit (a triangle found by a BVH walk, B3 or B4,
 // assembled by the caller): t (kBig on a miss), uv, the normalised
 // interpolated shading normal, the material and the triangle's index.
 struct ExtHit {

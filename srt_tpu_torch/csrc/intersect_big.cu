@@ -34,8 +34,9 @@
 //     teapot's 1,131 records take 36 KB) and stays cached. Staging it in
 //     shared memory per block (cp.async) measured slower on the H100, the
 //     carve-out taking L1 from the cluster records (PERF.md, B4).
-// The slab and Möller–Trumbore arithmetic is tri_bvh.cuh's (slab_core,
-// mt_core), which the single-level walk (B3) runs too.
+// The slab and Möller–Trumbore arithmetic and the triangle record's test
+// are tri_bvh.cuh's (slab_core, mt_core, tri_test), which the single-level
+// walk (B3) runs on the same records.
 //
 // Tables (kernels/intersect.py:pack_big_tables):
 //   top      (n_top, 2) float4:  lo xyz + skip, hi xyz + cluster (-1 inner);
@@ -81,17 +82,6 @@ using namespace srt;
 // threads a block: of 128, 256 and 512, 256 was the fastest on the
 // teapot's bounced rays on one H100 (PERF.md, B4)
 constexpr int kBlock = 256;
-
-__device__ __forceinline__ V3 xyz(float4 a) { return v3(a.x, a.y, a.z); }
-
-// Möller–Trumbore of the 48-byte triangle record k (p0, e1, e2); a hit
-// records the index id
-__device__ __forceinline__ void tri_test(const float4* __restrict__ tris,
-                                         int k, V3 o, V3 d, TriHit& h,
-                                         int id) {
-  const float4* r = tris + 3 * (size_t)k;
-  mt_core(xyz(__ldg(r)), xyz(__ldg(r + 1)), xyz(__ldg(r + 2)), o, d, h, id);
-}
 
 __global__ void __launch_bounds__(kBlock)
 intersect_big_kernel(const IntersectBigArgs a) {

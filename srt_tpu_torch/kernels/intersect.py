@@ -7,10 +7,11 @@ same function:
 
 * :func:`intersect_tris_reference`, the plain version: the lockstep
   skip-link walk of :func:`srt_tpu_torch.render.intersect.intersect_tris`;
-* ``csrc/intersect_tris.cu``, hand-written CUDA for ``sm_90a``: one thread
-  per ray on the same walk (``csrc/tri_bvh.cuh``), where the TPU kernel
-  walks one scalar cursor per 1024-ray tile over the union of its rays'
-  nodes.
+* ``csrc/intersect_tris.cu``, hand-written CUDA for ``sm_90a``: the same
+  walk over B4's 16-byte records (:func:`pack_tables`), each ray on G
+  threads (:func:`walk_shares`) that take one node path and split a
+  leaf's triangle tests, where the TPU kernel walks one scalar cursor per
+  1024-ray tile over the union of its rays' nodes.
 
 **B4**, the two-level walk for meshes beyond the single-level budget,
 replaces ``srt_tpu/pallas/intersect_big.py:_kernel`` (launched by
@@ -50,21 +51,57 @@ LAUNCHES = 0
 #: Kernel launches made by :func:`intersect_tris_big` (the CUDA path only).
 LAUNCHES_BIG = 0
 
-
-def pack_tables(scene: TorchScene) -> dict:
-    """The kernel's tables: nodes as (B, 9) float32 records (lo, hi, then
-    skip, first and count as int32 bit patterns) and triangles as (T, 9)
-    float32 records (p0, p1, p2), one record contiguous."""
-    links = torch.stack([scene.bvh_skip, scene.bvh_first, scene.bvh_count],
-                        1).to(torch.int32).view(torch.float32)
-    nodes = torch.cat([scene.bvh_lo, scene.bvh_hi, links], 1)
-    tris = torch.cat([scene.tri_p0, scene.tri_p1, scene.tri_p2], 1)
-    return dict(nodes=nodes.contiguous(), tris=tris.contiguous())
+#: the threads a ray may take for B3's walk (the kernel's template G)
+WALK_SHARES = (1, 2, 4)
+#: B3's rays times G up to this many threads (:func:`walk_shares`)
+WALK_THREADS = 1 << 17
 
 
 def _words(x: torch.Tensor) -> torch.Tensor:
     """Integers as float32 bit patterns, one column."""
     return x.to(torch.int32).view(torch.float32)[:, None]
+
+
+def _tri_records(p0: torch.Tensor, p1: torch.Tensor,
+                 p2: torch.Tensor) -> torch.Tensor:
+    """(T, 12) triangle records: p0, e1 = p1 - p0, e2 = p2 - p0, each
+    padded to four words with 0."""
+    zero = torch.zeros_like(p0[:, :1])
+    return torch.cat([p0, zero, p1 - p0, zero, p2 - p0, zero], 1)
+
+
+def pack_tables(scene: TorchScene) -> dict:
+    """B3's tables, B4's 16-byte aligned rows of float32 (int32 bit
+    patterns where noted):
+
+    * ``nodes`` (B, 8): lo, skip, hi, link (:func:`link_words` of the
+      node's first triangle and count, ``count_bits`` wide; negative on an
+      inner node);
+    * ``tris`` (T, 12): p0, e1 = p1 - p0, e2 = p2 - p0, each padded to four
+      words with 0, in BVH order.
+
+    ``count_bits`` holds the widest leaf's count."""
+    count_bits = max(int(scene.bvh_count.max()), 1).bit_length()
+    links = link_words(scene.bvh_first, scene.bvh_count, count_bits)
+    nodes = torch.cat([scene.bvh_lo, _words(scene.bvh_skip), scene.bvh_hi,
+                       _words(links)], 1)
+    tris = _tri_records(scene.tri_p0, scene.tri_p1, scene.tri_p2)
+    return dict(nodes=nodes.contiguous(), tris=tris.contiguous(),
+                count_bits=count_bits)
+
+
+def walk_shares(n_rays: int, count_bits: int) -> int:
+    """G, the threads each ray's walk takes in B3: the most of
+    :data:`WALK_SHARES` with ``n_rays * G`` within :data:`WALK_THREADS`
+    and no more shares than the widest leaf has triangles (``1 <<
+    (count_bits - 1)`` bounds it). The outputs are the same at every G;
+    the rule follows the times ``chip_smoke.py`` measures at each G
+    (PERF.md §6)."""
+    g = 1
+    while (g * 2 in WALK_SHARES and n_rays * g * 2 <= WALK_THREADS
+           and g * 2 <= 1 << (count_bits - 1)):
+        g *= 2
+    return g
 
 
 def link_words(first: torch.Tensor, count: torch.Tensor,
@@ -111,9 +148,7 @@ def pack_big_tables(scene: TorchScene) -> dict:
     nodes = torch.cat([rec["lo"][keep], _words(rec["skip"][keep]),
                        rec["hi"][keep], _words(links[keep])], 1)
     p = rec["p"][real_tri.view(-1)]
-    p0, zero = p[:, 0:3], torch.zeros_like(p[:, :1])
-    tris = torch.cat([p0, zero, p[:, 3:6] - p0, zero, p[:, 6:9] - p0, zero],
-                     1)
+    tris = _tri_records(p[:, 0:3], p[:, 3:6], p[:, 6:9])
     leaf = scene.top_cluster >= 0
     tri_base = torch.zeros((nc,), dtype=torch.long, device=dev)
     tri_base[scene.top_cluster[leaf].long()] = scene.top_tri_base[leaf].long()
@@ -132,7 +167,8 @@ class _Args(ctypes.Structure):
     field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "o", "d", "nodes", "tris", "t", "u", "v", "idx")]
-        + [("n", ctypes.c_int), ("n_nodes", ctypes.c_int)])
+        + [(name, ctypes.c_int) for name in (
+            "n", "n_nodes", "count_bits", "shares")])
 
 
 class _BigArgs(ctypes.Structure):
@@ -159,25 +195,35 @@ def _outputs(n: int, dev) -> tuple:
                  (torch.float32,) * 3 + (torch.int32,))
 
 
+def _check_tables(tables: dict, widths: dict, dev) -> None:
+    """Each table ``k`` of ``widths`` a 16-byte aligned contiguous
+    ``(*, width)`` tensor of its dtype on ``dev``."""
+    for k, (dt, width) in widths.items():
+        t = tables[k]
+        if (t.dtype != dt or t.dim() != 2 or t.shape[1] != width
+                or t.device != dev or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"table {k!r} must be 16-byte aligned "
+                             f"contiguous {dt} (*, {width}) on {dev}")
+
+
 def kernel_args(tables: dict, o: torch.Tensor,
                 d: torch.Tensor) -> tuple[_Args, tuple]:
     """The checked arguments of one ``csrc/intersect_tris.cu`` launch and
     the outputs ``(t, u, v, idx)`` it writes."""
     dev, n = o.device, o.shape[0]
     _check_rays(o, d)
-    for k in ("nodes", "tris"):
-        t = tables[k]
-        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 9
-                or t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"table {k!r} must be contiguous float32 "
-                             f"(*, 9) on {dev}")
+    _check_tables(tables, {"nodes": (torch.float32, 8),
+                           "tris": (torch.float32, 12)}, dev)
     out = _outputs(n, dev)
     args = _Args(o=o.data_ptr(), d=d.data_ptr(),
                  nodes=tables["nodes"].data_ptr(),
                  tris=tables["tris"].data_ptr(),
                  **{k: x.data_ptr() for k, x in zip(("t", "u", "v", "idx"),
                                                     out)},
-                 n=n, n_nodes=tables["nodes"].shape[0])
+                 n=n, n_nodes=tables["nodes"].shape[0],
+                 count_bits=tables["count_bits"],
+                 shares=walk_shares(n, tables["count_bits"]))
     return args, out
 
 
@@ -204,16 +250,10 @@ def big_kernel_args(tables: dict, o: torch.Tensor,
     the outputs ``(t, u, v, idx)`` it writes."""
     dev, n = o.device, o.shape[0]
     _check_rays(o, d)
-    for k, (dt, width) in (("top", (torch.float32, 8)),
-                           ("nodes", (torch.float32, 8)),
-                           ("tris", (torch.float32, 12)),
-                           ("clusters", (torch.int32, 4))):
-        t = tables[k]
-        if (t.dtype != dt or t.dim() != 2 or t.shape[1] != width
-                or t.device != dev or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"table {k!r} must be 16-byte aligned "
-                             f"contiguous {dt} (*, {width}) on {dev}")
+    _check_tables(tables, {"top": (torch.float32, 8),
+                           "nodes": (torch.float32, 8),
+                           "tris": (torch.float32, 12),
+                           "clusters": (torch.int32, 4)}, dev)
     out = _outputs(n, dev)
     args = _BigArgs(o=o.data_ptr(), d=d.data_ptr(),
                     **{k: tables[k].data_ptr() for k in (

@@ -7,13 +7,15 @@ function:
 * :func:`sphere_winner_reference`, the plain version
   (:func:`srt_tpu_torch.render.intersect.sphere_winner`): the chunked
   sweep, the first minimum on ties;
-* ``csrc/sphere_winner.cu``, hand-written CUDA for ``sm_90a``: one thread
-  per ray over the (S, 12) sphere records of
-  :func:`kernels.bounce.build_tables`, staged in shared memory, each tested
-  by the bounce kernels' own ``sphere_t`` at the ray's time, so its winner
-  is the sphere kernel B2 shaded, bit for bit. It always lerps the centres,
-  as the TPU kernel does (``spheres.py:150-154``): a static sphere's
-  ``c0 + f * 0`` is ``c0`` exactly.
+* ``csrc/sphere_winner.cu``, hand-written CUDA for ``sm_90a``: the (S, 12)
+  sphere records of :func:`kernels.bounce.build_tables`, staged in shared
+  memory, each tested by the bounce kernels' own ``sphere_t`` at the ray's
+  time, so its winner is the sphere kernel B2 shaded, bit for bit; each
+  ray's sweep split over G threads as B1's and B2's is (64 rays a block,
+  G from :func:`kernels.bounce.sweep_shares`; the winner is the same at
+  every G). It always lerps the centres, as the TPU kernel does
+  (``spheres.py:150-154``): a static sphere's ``c0 + f * 0`` is ``c0``
+  exactly.
 
 :func:`sphere_winner` takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors; it never falls back. Both return ``(t, idx)``:
@@ -31,6 +33,7 @@ import ctypes
 
 import torch
 
+from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels.build import launch
 from srt_tpu_torch.render.intersect import \
     sphere_winner as sphere_winner_reference
@@ -50,7 +53,7 @@ class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "o", "d", "time", "sph", "t", "idx")]
         + [(name, ctypes.c_int) for name in ("n", "n_sph")]
-        + [("t_min", ctypes.c_float)])
+        + [("t_min", ctypes.c_float), ("shares", ctypes.c_int)])
 
 
 def kernel_args(sph: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
@@ -76,7 +79,8 @@ def kernel_args(sph: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     args = _Args(o=o.data_ptr(), d=d.data_ptr(), time=time.data_ptr(),
                  sph=sph.data_ptr(), t=t.data_ptr(), idx=idx.data_ptr(),
-                 n=n, n_sph=sph.shape[0], t_min=float(t_min))
+                 n=n, n_sph=sph.shape[0], t_min=float(t_min),
+                 shares=kb.sweep_shares(n, sph.shape[0]))
     return args, (t, idx)
 
 

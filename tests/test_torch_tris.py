@@ -211,15 +211,21 @@ def test_walk_matches_jax(case):
 
 
 def test_pack_tables_layout():
+    """B3's 16-byte records: a node is lo, skip, hi and the link
+    ``first << count_bits | count``; a triangle is p0, p1 - p0, p2 - p0,
+    each padded to four words."""
     scene = _cornell()[2]
     tb = ki.pack_tables(scene)
-    assert tb["nodes"].shape == (scene.n_bvh_nodes, 9)
-    assert tb["tris"].shape == (24, 9)
-    links = tb["nodes"][:, 6:].contiguous().view(torch.int32)
-    assert torch.equal(links[:, 0], scene.bvh_skip)
-    assert torch.equal(links[:, 1], scene.bvh_first)
-    assert torch.equal(links[:, 2], scene.bvh_count)
-    assert torch.equal(tb["tris"][:, 3:6], scene.tri_p1)
+    assert tb["nodes"].shape == (scene.n_bvh_nodes, 8)
+    assert tb["tris"].shape == (24, 12)
+    words = tb["nodes"].view(torch.int32)
+    bits = tb["count_bits"]
+    assert torch.equal(words[:, 3], scene.bvh_skip)
+    assert torch.equal(words[:, 7] >> bits, scene.bvh_first)
+    assert torch.equal(words[:, 7] & ((1 << bits) - 1), scene.bvh_count)
+    assert torch.equal(tb["tris"][:, 0:3], scene.tri_p0)
+    assert torch.equal(tb["tris"][:, 4:7], scene.tri_p1 - scene.tri_p0)
+    assert torch.equal(tb["tris"][:, 8:11], scene.tri_p2 - scene.tri_p0)
 
 
 def _cornell_state(n: int = 4096) -> dict:
