@@ -149,9 +149,42 @@ of which raises on failure:
    the golden's tonemapped scale (diffuse surfaces lit by NEE only), and
    ball_scenes under
    parity at 16 spp against ``goldens/ball_parity_4096avg.png``, a record
-   (the environment dome is the 8x8 stand-in).
+   (the environment dome is the 8x8 stand-in);
+24. the scan engine (``render``) on ball_scenes at 512x512, 16 spp, depth
+   50, sample chunks of 8 and pixel chunks of 65,536 (a 524,288-lane
+   wavefront a chunk): kernels against plain versions on a 64x64, 4 spp,
+   depth 8 image; B2 against the plain step on the first chunk's
+   wavefront two bounces in (as in phase 5, at every G, with its time and
+   bound); one render to warm up and three timed, every bounce one B2
+   launch (50 a chunk) and no B1; no NaN; the image against
+   ``render_regen``'s at the same settings under the image contract;
+25. the same on cornell_boxes, B3 against its plain walk and B2 with its
+   hit on that wavefront, every bounce one B3 and one B2 launch;
+26. the sequential parity render (``seq_stale``) on ball_scenes at phase
+   24's settings: one lane a pixel, every bounce one B2 parity launch and
+   nothing else, the early exit, the image equal to the bit to the parity
+   scan render at one sample a chunk;
+27. ``render_resumable`` on ball_scenes at phase 24's settings with a
+   checkpoint every 8 samples, stopped after its first checkpoint and run
+   again: equal to phase 24's uninterrupted render to the bit;
+28. the command line (``python -m srt_tpu_torch``) in a subprocess on
+   cornell_boxes at 512x512, 16 spp, depth 50 with ``--engine regen``,
+   ``--engine scan`` and ``--checkpoint``: each PNG against the
+   in-process render's 8-bit values, the JSON metrics line parsed;
+29. the scan engine's train step on ball_scenes at phase 6's size,
+   ``{"tex_color"}``, Adam 1e-2: B2 and B5 against their plain versions
+   (as in phase 5) on the step's 262,144-lane wavefront three bounces
+   in, B5's time and bound there; one step to warm up and three timed,
+   every bounce one B2 and one B5 launch, finite losses and gradient, the
+   peak memory;
+30. the scenes the kernels' gate refuses, at 256x256, 16 spp, depth 50
+   through both engines: the mesh-medium box and cornell_boxes with its
+   back wall tiled into 64 rects, the bounce plain (and the walk B3), no
+   NaN, the tiled Cornell against cornell_boxes' own.
 
-Prints one JSON line about the kernels, then the ``nvidia-smi`` line, then
+Prints each phase's seconds, then one JSON line about the kernels, one
+about the paths phases 24-30 drive (``paths``: each path's launches per
+kernel and its wall), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
 ``python3 chip_smoke.py --compare TREE [TREE ...]`` instead
@@ -273,6 +306,14 @@ COMPARE_ROUNDS = 5
 
 def log(*a):
     print(*a, flush=True)
+
+
+def timed(phase: int, fn, *args):
+    """``fn(*args)``, its seconds logged as phase ``phase``'s."""
+    t0 = time.time()
+    out = fn(*args)
+    log(f"[phase {phase}] {time.time() - t0:.1f} s")
+    return out
 
 
 def clone(st: dict) -> dict:
@@ -700,7 +741,6 @@ def train_state(scene, cam, flags, tables, spec, dev,
 def b5_shape(rich: bool) -> str:
     """B5's width K and passes P for one instantiation, with ``ptxas``'
     registers and bytes of spill stores."""
-    from srt_tpu_torch.kernels import bounce_bwd as kbb
     from srt_tpu_torch.kernels import build
 
     regs = kernel_registers(build.ptxas_report(), "bounce_bwd_kernel", True)
@@ -711,9 +751,48 @@ def b5_shape(rich: bool) -> str:
             f"{shape}")
 
 
+def check_b5(label: str, scene, flags, tables, st, spec,
+             alive_after) -> tuple[dict, dict]:
+    """One launch of B5 against torch.autograd of the plain step on the
+    state ``st``, under the gradient contract, with seeded cotangents;
+    the (M, 14) material sums against the plain ones. The cotangent of o,
+    d and beta is zero where the step ends the path (``alive_after``
+    false), as in the engine: a finished lane's o, d, beta are never read
+    again (the kernels leave them as they were, the plain step overwrites
+    beta). Returns the per-lane gradients' metrics and the cotangents."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.utils import contract
+
+    n = st["o"].shape[0]
+    r = np.random.default_rng(2)
+    keep = alive_after[:, None].float()
+    ct = {k: torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32))
+          .to(st["o"].device) for k in kbb.ROWS}
+    for k in ("o", "d", "beta"):
+        ct[k] = ct[k] * keep
+    g_k, dmat_k = kbb.bounce_bwd(scene, flags, tables, st, ct, spec)
+    g_p, dmat_p = kbb.bounce_bwd_reference(scene, flags, tables["mat"], st,
+                                           ct, spec)
+    torch.cuda.synchronize()
+    m5 = contract.check_grads({k: g_p[k].cpu().numpy() for k in kbb.ROWS},
+                              {k: g_k[k].cpu().numpy() for k in kbb.ROWS})
+    a, b = dmat_p.cpu().numpy(), dmat_k.cpu().numpy()
+    scale = float(np.abs(a).max())
+    mat_rel = float(np.abs(a - b).max() / max(scale, 1e-30))
+    if not np.isfinite(b).all() or not np.allclose(
+            b, a, rtol=contract.GRAD_RTOL, atol=1e-4 * scale):
+        raise AssertionError(f"B5 {label} material sums differ: max rel "
+                             f"{mat_rel}")
+    log(f"[{label}-bwd] {n} lanes, {int(st['alive'].sum())} live: d_state "
+        f"{json.dumps(m5)}, (M,14) sums max |d| / max|ref| {mat_rel:.3e}")
+    return m5, ct
+
+
 def phase_train_kernels(scene, cam, dev) -> list:
     """Phase 5: kernels B2 and B5 against their plain versions."""
-    import numpy as np
     import torch
 
     from srt_tpu_torch.kernels import bounce as kb
@@ -744,30 +823,8 @@ def phase_train_kernels(scene, cam, dev) -> list:
         f"{json.dumps(m2)}")
     b2_shares("train", scene, flags, tables, st, spec, None, out_k)
 
-    # B5: one launch against torch.autograd of the plain step. The
-    # cotangent of o, d and beta is zero where the step ends the path, as
-    # in the engine: a finished lane's o, d, beta are never read again
-    # (the kernels leave them as they were, the plain step overwrites beta)
-    r = np.random.default_rng(2)
-    keep = out_p["alive"][:, None].float()
-    ct = {k: torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32))
-          .to(dev) for k in kbb.ROWS}
-    for k in ("o", "d", "beta"):
-        ct[k] = ct[k] * keep
-    g_k, dmat_k = kbb.bounce_bwd(scene, flags, tables, st, ct, spec)
-    g_p, dmat_p = kbb.bounce_bwd_reference(scene, flags, tables["mat"], st,
-                                           ct, spec)
-    torch.cuda.synchronize()
-    m5 = contract.check_grads({k: g_p[k].cpu().numpy() for k in kbb.ROWS},
-                              {k: g_k[k].cpu().numpy() for k in kbb.ROWS})
-    a, b = dmat_p.cpu().numpy(), dmat_k.cpu().numpy()
-    scale = float(np.abs(a).max())
-    mat_rel = float(np.abs(a - b).max() / max(scale, 1e-30))
-    if not np.isfinite(b).all() or not np.allclose(
-            b, a, rtol=contract.GRAD_RTOL, atol=1e-4 * scale):
-        raise AssertionError(f"B5 material sums differ: max rel {mat_rel}")
-    log(f"[train-bwd] {n} lanes: d_state {json.dumps(m5)}, (M,14) sums max "
-        f"|d| / max|ref| {mat_rel:.3e}")
+    m5, ct = check_b5("train", scene, flags, tables, st, spec,
+                      out_p["alive"])
 
     # kernel times: the bare launch on arguments built once, so the
     # wrapper's checks and allocations stay out of the timed loop
@@ -804,12 +861,13 @@ def phase_train_kernels(scene, cam, dev) -> list:
 
 
 def train_walls(scene, cam, params: dict, size: dict, dev, steps: int,
-                reset=None) -> tuple:
+                reset=None, engine: str = "regen") -> tuple:
     """``make_train_step`` on ``scene`` at ``size`` (width, spp, depth)
-    with phase 6's engine, optimiser and target: one step (seed 0) to warm
-    up, then ``reset()`` when given, then ``steps`` timed steps with seeds
-    1, 2, ... Returns the step, the warm-up seconds, the losses (the
-    warm-up's first) and the step walls in seconds."""
+    with phase 6's engine (or the scan engine), optimiser and target: one
+    step (seed 0) to warm up, then ``reset()`` when given, then ``steps``
+    timed steps with seeds 1, 2, ... Returns the step, the warm-up
+    seconds, the losses (the warm-up's first) and the step walls in
+    seconds."""
     import torch
 
     from srt_tpu_torch import make_train_step
@@ -817,7 +875,9 @@ def train_walls(scene, cam, params: dict, size: dict, dev, steps: int,
     w = size["width"]
     step = make_train_step(scene, cam, params, width=w, height=w,
                            spp=size["spp"], max_depth=size["max_depth"],
-                           lr=TRAIN_LR, engine_kw=TRAIN_ENGINE, device=dev)
+                           lr=TRAIN_LR, engine=engine,
+                           engine_kw=TRAIN_ENGINE if engine == "regen"
+                           else None, device=dev)
     target = torch.full((w, w, 3), TRAIN_TARGET, device=dev)
     t0 = time.time()
     losses = [float(step(target, 0))]
@@ -2266,6 +2326,460 @@ def phase_golden(root: str, dev) -> None:
         raise AssertionError(f"cornell_boxes parity not darker: {recs}")
 
 
+# --- phases 24-30: the scan engine, checkpoints, the command line, A7 ---
+
+#: the scan engine at the main cell: pixel chunks of 65,536 and sample
+#: chunks of 8, so a chunk is a 524,288-lane wavefront
+SCAN = dict(MAIN, sample_chunk=8, pixel_chunk=LANES)
+SCAN_REPS = 3
+#: phase 30: the A7 scenes, the width cut to 256 because the plain torch
+#: bounce paces them
+A7 = dict(SCAN, width=256, height=256)
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from srt_tpu_torch.kernels import reset_launch_counts
+    reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since :func:`reset_counts`, B2's default and
+    parity instantiations apart."""
+    from srt_tpu_torch.kernels import launch_counts
+    return launch_counts()
+
+
+def scan_chunks(cfg) -> int:
+    """The scan engine's chunks of one render: pixel chunks × sample
+    chunks."""
+    n = cfg.width * cfg.height
+    chunk = 1 if cfg.seq_stale and cfg.ref_parity else min(cfg.sample_chunk,
+                                                            cfg.spp)
+    return -(-n // cfg.pixel_chunk) * -(-cfg.spp // chunk)
+
+
+def scan_state(scene, cam, cfg, bounces: int) -> dict:
+    """The first chunk's wavefront of the scan engine (its pixel chunk ×
+    sample chunk, 524,288 lanes at :data:`SCAN`) after ``bounces`` kernel
+    bounces."""
+    import torch
+
+    from srt_tpu_torch.render.api import chunk_rays, render_setup
+    from srt_tpu_torch.render.integrator import initial_state
+
+    dev = scene.device
+    _, jitter, route = render_setup(scene, cfg)
+    rays, salt = chunk_rays(
+        cam, torch.arange(min(cfg.pixel_chunk, cfg.width * cfg.height),
+                          device=dev), 0, jitter, cfg.seed, width=cfg.width,
+        height=cfg.height, n_samples=min(cfg.sample_chunk, cfg.spp))
+    st = initial_state(rays, salt)
+    with torch.no_grad():
+        for _ in range(bounces):
+            st = route(st)
+    return st
+
+
+def scan_runs(label: str, fn, scene, cam, cfg, reps: int) -> tuple:
+    """``fn`` (``render`` or ``render_regen``) once to warm up, then
+    ``reps`` times with metrics from counts of 0; checks the images
+    (finite, no NaN, a sane mean). Returns the images (on the card), the
+    metrics, the launches and the warm-up seconds."""
+    import numpy as np
+    import torch
+
+    t0 = time.time()
+    fn(scene, cam, cfg)
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    reset_counts()
+    runs = [fn(scene, cam, cfg, metrics=True) for _ in range(reps)]
+    counts = read_counts()
+    for img, met in runs:
+        a = img.cpu().numpy()
+        if (not np.isfinite(a).all() or met.nan_scrubbed
+                or not 0.0 < float(a.mean()) < 1.0):
+            raise AssertionError(f"{label}: mean {a.mean()}, nan "
+                                 f"{int(np.isnan(a).sum())}, scrubbed "
+                                 f"{met.nan_scrubbed}")
+    rates = sorted(m.primary_rays_per_sec for _, m in runs)
+    walls = sorted(m.wall_s for _, m in runs)
+    log(f"[{label}] {cfg.width}x{cfg.height}x{cfg.spp} depth "
+        f"{cfg.max_depth}, {reps} renders: median "
+        f"{rates[len(rates) // 2]:.1f} primary rays/s (all {rates}), walls "
+        f"{walls} s, first render {warmup_s:.3f} s, launches "
+        f"{json.dumps(counts)}, {json.dumps(runs[-1][1].to_dict())}")
+    return [img for img, _ in runs], [m for _, m in runs], counts, warmup_s
+
+
+def path_record(name: str, counts: dict, metrics: list) -> dict:
+    """A path's entry in the ``paths`` line: its launches per kernel and
+    its median wall."""
+    walls = sorted(m.wall_s for m in metrics)
+    return {"name": name, "launches": {k: v for k, v in counts.items() if v},
+            "wall_s": walls[len(walls) // 2]}
+
+
+def check_scan_path(label: str, scene, cam, reps: int) -> dict:
+    """Phases 24-25: the scan engine on a library scene at :data:`SCAN`:
+    kernels against plain versions on a 64x64, 4 spp, depth 8 image; the
+    kernels against their plain versions on the first chunk's 524,288-lane
+    wavefront two bounces in (B3, then B2 with its hit, on a triangle
+    scene); one render to warm up and ``reps`` timed, every bounce one B2
+    launch (and one B3 on a triangle scene), no B1; the image against
+    ``render_regen``'s at the same settings."""
+    import torch
+
+    from srt_tpu_torch import RenderConfig, render, render_regen
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import intersect as ki
+    from srt_tpu_torch.kernels.bounce import StepSpec
+    from srt_tpu_torch.render.api import scene_flags
+    from srt_tpu_torch.utils import contract
+
+    small = RenderConfig(width=64, height=64, spp=4, max_depth=8)
+    mi = contract.check_image(render(scene, cam, small).cpu().numpy(),
+                              render(scene, cam, small,
+                                     plain=True).cpu().numpy())
+    log(f"[{label}-image] 64x64x4 depth 8 kernels vs plain: "
+        f"{json.dumps(mi)}")
+    cfg = RenderConfig(**SCAN)
+    st = scan_state(scene, cam, cfg, 2)
+    flags = scene_flags(scene, cfg)
+    tri, b3 = None, None
+    if scene.n_tris:
+        b3 = check_tri_kernel(f"{label}-wavefront", scene, st["o"], st["d"])
+        tri = ki.closest_tris(scene, ki.pack_walk(scene), st["o"], st["d"])
+    b2 = check_b2(label, scene, flags, kb.build_tables(scene, flags), st,
+                  StepSpec(max_depth=cfg.max_depth), tri)
+    del st, tri
+    imgs, mets, counts, warmup_s = scan_runs(label, render, scene, cam, cfg,
+                                             reps)
+    want = reps * scan_chunks(cfg) * cfg.max_depth
+    if (counts["B2"] != want or counts["B3"] != (want if scene.n_tris else 0)
+            or counts["B1"] or counts["B4"] or counts["B2 parity"]
+            or any(m.bounces != want // reps for m in mets)):
+        raise AssertionError(f"{label}: launches {counts} for {want} "
+                             f"bounces")
+    regen = render_regen(scene, cam, cfg).cpu().numpy()
+    mr = contract.check_image(imgs[0].cpu().numpy(), regen)
+    log(f"[{label}] scan against render_regen at the same settings: "
+        f"{json.dumps(mr)}")
+    torch.cuda.synchronize()
+    return {"img": imgs[0], "counts": counts, "b2": b2, "b3": b3,
+            "path": path_record(label, counts, mets)}
+
+
+def phase_seq_stale(dev) -> dict:
+    """Phase 26: the sequential parity render (``seq_stale``) on
+    ball_scenes at :data:`SCAN`: one lane a pixel, the heap-slot plane
+    carried over each pixel's 16 samples, every bounce one B2 parity
+    launch and nothing else; the image equal to the bit to the parity
+    scan render at one sample a chunk (the carried plane is inert)."""
+    import torch
+
+    from srt_tpu_torch import RenderConfig, render
+
+    scene, cam, _ = parity_scene("ball_scenes", dev)
+    cfg = RenderConfig(**SCAN, ref_parity=True, seq_stale=True)
+    imgs, mets, counts, _ = scan_runs("seq-stale", render, scene, cam, cfg,
+                                      1)
+    if (counts["B2 parity"] != mets[0].bounces or not mets[0].bounces
+            or counts["B2"] or counts["B1"] or counts["B3"]):
+        raise AssertionError(f"seq_stale: launches {counts} for "
+                             f"{mets[0].bounces} bounces")
+    if mets[0].bounces >= scan_chunks(cfg) * cfg.max_depth:
+        raise AssertionError(f"seq_stale took every bounce: {mets[0]}")
+    same = render(scene, cam, RenderConfig(**dict(SCAN, sample_chunk=1),
+                                           ref_parity=True))
+    if not torch.equal(same, imgs[0]):
+        raise AssertionError("seq_stale differs from the parity scan render")
+    log(f"[seq-stale] equal to the bit to the parity scan render at one "
+        f"sample a chunk; {mets[0].bounces} of "
+        f"{scan_chunks(cfg) * cfg.max_depth} bounces (the early exit)")
+    return {"counts": counts, "path": path_record("seq_stale ball_scenes",
+                                                  counts, mets)}
+
+
+def phase_resumable(scene, cam, full) -> dict:
+    """Phase 27: ``render_resumable`` on ball_scenes at :data:`SCAN` with a
+    checkpoint every 8 samples, stopped right after its first checkpoint
+    and run again: it resumes from the file and equals the uninterrupted
+    ``render`` (phase 24's image ``full``) to the bit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from srt_tpu_torch import RenderConfig
+    from srt_tpu_torch.utils import checkpoint as ck
+
+    cfg = RenderConfig(**SCAN)
+    work = tempfile.mkdtemp()
+    path = os.path.join(work, "ball.npz")
+    save = ck.save_render_ckpt
+
+    class Stop(Exception):
+        pass
+
+    def save_then_stop(*args, **kw):
+        save(*args, **kw)
+        raise Stop
+    reset_counts()
+    t0 = time.time()
+    ck.save_render_ckpt = save_then_stop
+    try:
+        ck.render_resumable(scene, cam, cfg, path, ckpt_every_spp=8)
+        raise AssertionError("render_resumable saved no checkpoint")
+    except Stop:
+        pass
+    finally:
+        ck.save_render_ckpt = save
+    try:
+        done = ck.load_render_ckpt(path, cfg)[1]
+        img, met = ck.render_resumable(scene, cam, cfg, path,
+                                       ckpt_every_spp=8, metrics=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        left = os.path.exists(path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if done != 8 or left or not torch.equal(img, full):
+        raise AssertionError(f"resumable: {done} samples in the checkpoint, "
+                             f"file left {left}, equal "
+                             f"{torch.equal(img, full)}")
+    want = scan_chunks(cfg) * cfg.max_depth
+    if counts["B2"] != want or counts["B1"]:
+        raise AssertionError(f"resumable: launches {counts}, want {want}")
+    met.wall_s = wall
+    log(f"[resumable] stopped after the checkpoint at {done} of {cfg.spp} "
+        f"samples, resumed: equal to the uninterrupted render to the bit; "
+        f"{json.dumps(counts)} over both runs, {wall:.3f} s")
+    return {"counts": counts, "path": path_record(
+        "render_resumable ball_scenes", counts, [met])}
+
+
+def phase_cli(root: str, scene, cam, scan_img) -> list:
+    """Phase 28: ``python -m srt_tpu_torch`` in a subprocess on
+    cornell_boxes at 512x512, 16 spp, depth 50 with ``--engine regen``,
+    ``--engine scan`` and ``--checkpoint``, each ``--metrics``: the PNG,
+    read back with ``read_png``, against the in-process tonemapped
+    render's 8-bit values (the scan engine's, phase 25's image, to the
+    bit; the regeneration engine's, whose film adds with ``index_add_``
+    and so in an order the card's atomics choose, within one 8-bit step
+    on at most 1e-4 of the values), the JSON line parsed with its route
+    and the launches the subprocess read from the kernels' counters: one
+    B3 and one B2 a bounce, nothing else."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import RenderConfig, render_regen
+    from srt_tpu_torch.io.image import read_png
+    from srt_tpu_torch.render import film
+
+    def eight_bit(img):
+        return film.to_uint8(film.tonemap(img)).cpu().numpy()
+
+    scan8 = eight_bit(scan_img)
+    regen8 = eight_bit(render_regen(scene, cam, RenderConfig(**MAIN)))
+    work = tempfile.mkdtemp()
+    env = dict(os.environ, PYTHONPATH=root)
+    base = [sys.executable, "-m", "srt_tpu_torch", "--scene",
+            "cornell_boxes", "--width", str(MAIN["width"]), "--spp",
+            str(MAIN["spp"]), "--max-depth", str(MAIN["max_depth"]),
+            "--sample-chunk", str(SCAN["sample_chunk"]), "--device",
+            str(scene.device), "--metrics"]
+    records = []
+    try:
+        for label, extra, want in (
+                ("regen", ["--engine", "regen"], regen8),
+                ("scan", ["--engine", "scan"], scan8),
+                ("checkpoint", ["--checkpoint",
+                                os.path.join(work, "ck.npz")], scan8)):
+            out = os.path.join(work, f"{label}.png")
+            t0 = time.time()
+            proc = subprocess.run(base + extra + ["--out", out], cwd=root,
+                                  env=env, capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.time() - t0
+            if proc.returncode:
+                raise AssertionError(f"cli {label}: {proc.stderr[-3000:]}")
+            line = json.loads(proc.stderr.strip().splitlines()[-1])
+            png = read_png(out)
+            diff = np.abs(png.astype(np.int32) - want.astype(np.int32))
+            off = float((diff > 0).mean())
+            exact = label != "regen"
+            if (png.shape != want.shape or (exact and diff.any())
+                    or diff.max() > 1 or off > 1e-4
+                    or line["nan_pixels"] or line["bounce"] != "B2"
+                    or line["walk"] != "B3" or not line["bounces"]
+                    or line["launches"] != {"B2": line["bounces"],
+                                            "B3": line["bounces"]}):
+                raise AssertionError(f"cli {label}: {off} of the 8-bit "
+                                     f"values off (max {diff.max()}), "
+                                     f"{line}")
+            log(f"[cli] {label}: {wall:.1f} s in the subprocess, PNG "
+                f"{'equal to' if not diff.any() else 'within one step of'}"
+                f" the in-process render ({off} of values off); "
+                f"{json.dumps(line)}")
+            records.append({"name": f"cli {label} cornell_boxes",
+                            "launches": line["launches"],
+                            "wall_s": line["wall_s"],
+                            "process_s": round(wall, 3)})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    return records
+
+
+def scan_train_kernels(scene, cam, dev, bounces: int = 3) -> dict:
+    """B2 and B5 against their plain versions at the scan train step's
+    shape: its wavefront of all 262,144 rays (256x256, 4 spp, the step's
+    camera rays for seed 1) after ``bounces`` B2 bounces, as the step
+    saves it for B5; B5's time per launch beside its bound."""
+    import torch
+
+    from srt_tpu_torch.diff.inverse import camera_rays
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.kernels.build import launch
+    from srt_tpu_torch.render.integrator import initial_state
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    w, spp = TRAIN["width"], TRAIN["spp"]
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    rays, salt = camera_rays(cam, torch.arange(w * w, device=dev), spp,
+                             width=w, height=w, seed=1)
+    st = initial_state(rays, salt)
+    with torch.no_grad():
+        for _ in range(bounces):
+            st = kb.bounce_fwd(scene, flags, tables, st, spec)
+        st = {k: v.contiguous() for k, v in st.items()}
+        b2 = check_b2("scan-train", scene, flags, tables, st, spec)
+        alive_after = kb.bounce_step_ref(scene, flags, tables["mat"], st,
+                                         spec)["alive"]
+    m5, ct = check_b5("scan-train", scene, flags, tables, st, spec,
+                      alive_after)
+    n, n_live = st["o"].shape[0], int(st["alive"].sum())
+    bargs, bargs_out = kbb.bwd_args(scene, flags, tables, st, ct, spec)
+    bwd_ms = [time_ms(lambda: launch("srt_bounce_bwd", bargs, dev), 50)
+              for _ in range(2)]
+    sweep = scene.n_spheres * OPS_SPHERE + scene.n_rects * OPS_RECT
+    ms_bound, by = bound(n * (105 + 92),
+                         n_live * (sweep + VJP_SHADE * OPS_SHADE))
+    log(f"[scan-train-bwd] ms per launch at {n} lanes, {n_live} live: B5 "
+        f"{bwd_ms}, bound {ms_bound:.6f} ({by})")
+    torch.cuda.synchronize()
+    del st, ct, bargs, bargs_out
+    return {"b2": {k: b2[k] for k in ("max_abs_err", "ms", "bound_ms")},
+            "b5": {"max_abs_err": m5["max_abs"], "ms": min(bwd_ms),
+                   "bound_ms": ms_bound}}
+
+
+def phase_scan_train(scene, cam, dev) -> dict:
+    """Phase 29: the scan engine's train step (``make_train_step(engine=
+    "scan")``) on ball_scenes at 256x256, 4 spp, depth 50, ``{"tex_color"}``,
+    Adam 1e-2: B2 and B5 against their plain versions on the step's
+    262,144-lane wavefront (:func:`scan_train_kernels`); one step to warm
+    up, three timed, every bounce one B2 and one B5 launch, the losses
+    and the gradient finite, the peak memory."""
+    import numpy as np
+    import torch
+
+    w, spp, depth = TRAIN["width"], TRAIN["spp"], TRAIN["max_depth"]
+    rays = w * w * spp
+    kernels = scan_train_kernels(scene, cam, dev)
+
+    def reset():
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+    step, warmup_s, (loss0, *losses), walls = train_walls(
+        scene, cam, {"tex_color": scene.tex_color}, TRAIN, dev, TRAIN_STEPS,
+        reset, engine="scan")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = depth * TRAIN_STEPS
+    if (counts["B2"] != want or counts["B5"] != want or counts["B6"]
+            or counts["B1"]):
+        raise AssertionError(f"scan train: launches {counts}, want {want} "
+                             f"B2 and B5")
+    grad = step.params["tex_color"].grad.cpu().numpy()
+    if not (np.isfinite([loss0] + losses).all() and np.isfinite(grad).all()
+            and np.abs(grad).sum() > 0):
+        raise AssertionError(f"scan train: losses {[loss0] + losses}")
+    med = sorted(walls)[len(walls) // 2]
+    log(f"[scan-train] ball_scenes {w}x{w}x{spp} depth {depth}, {depth} "
+        f"bounces a step over all {rays} rays: median {rays / med:.1f} "
+        f"train-step rays/s (step walls {walls} s), warm-up step "
+        f"{warmup_s:.3f} s, losses {[loss0] + losses}, launches "
+        f"{json.dumps(counts)}, peak memory {peak} B")
+    return {"counts": counts, "peak_bytes": peak,
+            "path": {"name": "scan train ball_scenes",
+                     "launches": {k: v for k, v in counts.items() if v},
+                     "wall_s": med, "peak_bytes": peak, **kernels}}
+
+
+def phase_a7(dev) -> dict:
+    """Phase 30: the rest of the render gate on the card at :data:`A7`,
+    through both engines: the mesh-medium box (``tests/test_render.py:
+    192-220``) and cornell_boxes with its back wall tiled into 64 rects
+    (69 rects, past the kernels' 64): the bounce ``plain``, on the tiled
+    Cornell the walk B3, as the metrics report; no NaN; the tiled
+    Cornell's image within the image contract of cornell_boxes' own."""
+    import warnings
+
+    from _torch_scenes import (CORNELL_CAMERA, MEDIUM_CAMERA, cornell_tiled,
+                               medium_room)
+
+    from srt_tpu_torch import RenderConfig, get_scene, render, render_regen
+    from srt_tpu_torch.render.camera import Camera
+    from srt_tpu_torch.scene.build import SceneBuilder
+    from srt_tpu_torch.utils import contract
+
+    cfg = RenderConfig(**A7)
+    mesh = medium_room(SceneBuilder(), "mesh").build(dev)
+    mesh_cam = Camera.look_at(**MEDIUM_CAMERA, device=dev)
+    tiled = cornell_tiled(SceneBuilder()).build(dev)
+    tiled_cam = Camera.look_at(**CORNELL_CAMERA, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        boxes, boxes_cam, _ = get_scene("cornell_boxes", device=dev)
+    out = {"paths": [], "counts": []}
+    for engine, fn in (("scan", render), ("regen", render_regen)):
+        _, mets, counts, _ = scan_runs(f"a7-mesh-medium-{engine}", fn, mesh,
+                                       mesh_cam, cfg, 1)
+        if (mets[0].bounce, mets[0].walk) != ("plain", None) or any(
+                counts.values()):
+            raise AssertionError(f"mesh medium {engine}: {mets[0]}, "
+                                 f"{counts}")
+        out["paths"].append(path_record(f"{engine} mesh medium", counts,
+                                        mets))
+        imgs, mets, counts, _ = scan_runs(f"a7-tiled-cornell-{engine}", fn,
+                                          tiled, tiled_cam, cfg, 1)
+        if ((mets[0].bounce, mets[0].walk) != ("plain", "B3")
+                or counts["B3"] != mets[0].bounces or counts["B2"]
+                or counts["B1"]):
+            raise AssertionError(f"tiled cornell {engine}: {mets[0]}, "
+                                 f"{counts}")
+        ref = fn(boxes, boxes_cam, cfg)
+        m = contract.check_image(imgs[0].cpu().numpy(), ref.cpu().numpy())
+        log(f"[a7-tiled-cornell-{engine}] against cornell_boxes' own "
+            f"({tiled.n_rects} rects against {boxes.n_rects}): "
+            f"{json.dumps(m)}")
+        out["paths"].append(path_record(f"{engine} tiled cornell", counts,
+                                        mets))
+        out["counts"].append(counts)
+    return out
+
+
 def b3_states(dev):
     """B3's inputs that ``--compare`` times: ``(label, scene, o, d)`` of
     phase 7's cornell_boxes render wavefront, phase 16's cornell_boxes
@@ -2776,30 +3290,52 @@ def main() -> None:
             log(f"[build] {line.strip()}")
 
     scene, cam, _ = get_scene("ball_scenes", device=dev)
-    b1 = phase_regen_kernel(scene, cam, dev)                  # 3
-    b1["launches"] = phase_render(scene, cam, args.ppm)       # 4
-    b2, b5 = phase_train_kernels(scene, cam, dev)             # 5
-    b2_train, b5["launches"] = phase_train(scene, cam, dev)   # 6
+    b1 = timed(3, phase_regen_kernel, scene, cam, dev)
+    b1["launches"] = timed(4, phase_render, scene, cam, args.ppm)
+    b2, b5 = timed(5, phase_train_kernels, scene, cam, dev)
+    b2_train, b5["launches"] = timed(6, phase_train, scene, cam, dev)
     tri_scene, tri_cam, _ = get_scene("cornell_boxes", device=dev)
-    b3, b2_ext = phase_tri_kernels(tri_scene, tri_cam, dev)   # 7, 8
-    b3["launches"], b2_render = phase_tri_render(tri_scene, tri_cam)   # 9
-    del tri_scene
+    b3, b2_ext = timed(7, phase_tri_kernels, tri_scene, tri_cam, dev)  # + 8
+    b3["launches"], b2_render = timed(9, phase_tri_render, tri_scene,
+                                      tri_cam)
     pot, pot_cam = teapot(dev)
-    b4, b2_pot = phase_teapot_kernels(pot, pot_cam, dev)      # 10, 11
-    b4["launches"], b2_pot_render = phase_teapot_render(pot, pot_cam)  # 12
+    b4, b2_pot = timed(10, phase_teapot_kernels, pot, pot_cam, dev)  # + 11
+    b4["launches"], b2_pot_render = timed(12, phase_teapot_render, pot,
+                                          pot_cam)
     del pot
-    b6 = phase_winner(scene, cam, dev)                        # 13
-    phase_moving_bounces(scene, cam, dev)                     # 14
-    b2_geom, b6["launches"] = phase_geom_train(scene, cam, dev)   # 15
-    b3_train, b2_cornell, b3_ct, b2_ct = phase_cornell_train(dev)   # 16
-    rich = phase_rich_kernel(dev)                             # 17
-    b2_final = phase_final_ext(dev)                           # 18
-    b1_rich = phase_rich_render(dev)
-    rich_bwd = phase_rich_bwd(dev)                            # 19
-    rich_train = phase_rich_train(dev)                        # 20
-    b2_parity = phase_parity_kernel(dev)                      # 21
-    b2_parity["launches"], b3_parity = phase_parity_render(dev)   # 22
-    phase_golden(root, dev)                                   # 23
+    b6 = timed(13, phase_winner, scene, cam, dev)
+    timed(14, phase_moving_bounces, scene, cam, dev)
+    b2_geom, b6["launches"] = timed(15, phase_geom_train, scene, cam, dev)
+    b3_train, b2_cornell, b3_ct, b2_ct = timed(16, phase_cornell_train, dev)
+    rich = timed(17, phase_rich_kernel, dev)
+    b2_final = timed(18, phase_final_ext, dev)
+    b1_rich = timed(18, phase_rich_render, dev)
+    rich_bwd = timed(19, phase_rich_bwd, dev)
+    rich_train = timed(20, phase_rich_train, dev)
+    b2_parity = timed(21, phase_parity_kernel, dev)
+    b2_parity["launches"], b3_parity = timed(22, phase_parity_render, dev)
+    timed(23, phase_golden, root, dev)
+    scan = timed(24, check_scan_path, "scan-ball_scenes", scene, cam,
+                 SCAN_REPS)
+    scan_tri = timed(25, check_scan_path, "scan-cornell_boxes", tri_scene,
+                     tri_cam, SCAN_REPS)
+    seq = timed(26, phase_seq_stale, dev)
+    resumable = timed(27, phase_resumable, scene, cam, scan["img"])
+    cli_paths = timed(28, phase_cli, root, tri_scene, tri_cam,
+                      scan_tri["img"])
+    del tri_scene
+    scan_train = timed(29, phase_scan_train, scene, cam, dev)
+    a7 = timed(30, phase_a7, dev)
+    new_paths = ([scan["path"], scan_tri["path"], seq["path"],
+                  resumable["path"]] + cli_paths + [scan_train["path"]]
+                 + a7["paths"])
+    log(f"[kernels] B2 at the scan engine's 524,288 lanes: ball_scenes "
+        f"{scan['b2']['ms']} ms (plain {scan['b2']['plain_ms']}, bound "
+        f"{scan['b2']['bound_ms']}, {scan['b2']['bound_by']}), "
+        f"cornell_boxes with B3's hit {scan_tri['b2']['ms']} ms (plain "
+        f"{scan_tri['b2']['plain_ms']}, bound {scan_tri['b2']['bound_ms']}"
+        f"); B3 there {scan_tri['b3']['ms']} ms (plain "
+        f"{scan_tri['b3']['plain_ms']}, bound {scan_tri['b3']['bound_ms']})")
     log(f"[kernels] B2 parity launches: {b2_parity['launches']} on the "
         f"ball_scenes and cornell_boxes parity render paths ({b3_parity} "
         f"B3 on cornell_boxes'); ms per launch "
@@ -2824,21 +3360,37 @@ def main() -> None:
         f"{json.dumps(rich['cases'])}; B2 on final {b2_final['ms']} ms "
         f"(plain {b2_final['plain_ms']}, bound {b2_final['bound_ms']})")
     b1["launches"] += b1_rich
-    b3["launches"] += b3_train + b3_parity
-    b3["max_abs_err"] = max(b3["max_abs_err"], b3_ct["max_abs_err"])
+    b3_cornell = b3["launches"]
+    b3_a7 = sum(c["B3"] for c in a7["counts"])
+    b3["launches"] += (b3_train + b3_parity + scan_tri["counts"]["B3"]
+                       + b3_a7)
+    b3["max_abs_err"] = max(b3["max_abs_err"], b3_ct["max_abs_err"],
+                            scan_tri["b3"]["max_abs_err"])
     b2["launches"] = (b2_train + b2_render + b2_pot_render + b2_geom
-                      + b2_cornell + rich_train["b2"])
+                      + b2_cornell + rich_train["b2"]
+                      + scan["counts"]["B2"] + scan_tri["counts"]["B2"]
+                      + resumable["counts"]["B2"]
+                      + scan_train["counts"]["B2"])
     b2["max_abs_err"] = max(b2["max_abs_err"], b2_ext["max_abs_err"],
                             b2_pot["max_abs_err"], b2_ct["max_abs_err"],
                             b2_final["max_abs_err"], rich_bwd["b2_err"],
-                            rich_train["b2_moving"]["max_abs_err"])
+                            rich_train["b2_moving"]["max_abs_err"],
+                            scan["b2"]["max_abs_err"],
+                            scan_tri["b2"]["max_abs_err"])
+    b2_parity["launches"] += seq["counts"]["B2 parity"]
+    b5["launches"] += scan_train["counts"]["B5"]
     log(f"[kernels] B2 launches: {b2_train} on the train path, {b2_render} "
         f"in external-hit mode on the cornell render path, {b2_pot_render} "
         f"on the teapot render path, {b2_geom} on the geometry train path, "
-        f"{b2_cornell} on the cornell train path; B3 launches "
-        f"{b3['launches'] - b3_train - b3_parity} on the cornell render "
-        f"path, {b3_train} on the cornell train path and {b3_parity} on "
-        f"the cornell parity render path; B2 ms per launch "
+        f"{b2_cornell} on the cornell train path, {scan['counts']['B2']} "
+        f"and {scan_tri['counts']['B2']} on the scan ball_scenes and "
+        f"cornell_boxes paths, {resumable['counts']['B2']} on the "
+        f"resumable path, {scan_train['counts']['B2']} on the scan train "
+        f"path; B3 launches {b3_cornell} on the cornell render path, "
+        f"{b3_train} on the cornell train path, {b3_parity} on the cornell "
+        f"parity render path, {scan_tri['counts']['B3']} on the scan "
+        f"cornell_boxes path and {b3_a7} on the tiled Cornell paths; B2 ms "
+        f"per launch "
         f"{b2['ms']} (train state, 16,384 lanes), {b2_ext['ms']} (cornell external hit, "
         f"65,536 lanes), {b2_ct['ms']} (cornell train state, external hit, "
         f"16,384 lanes; plain {b2_ct['plain_ms']}, bound "
@@ -2855,6 +3407,7 @@ def main() -> None:
                                   for kern in (b1, b2, b2_parity, b3, b4,
                                                b5, b6)]}),
           flush=True)
+    print(json.dumps({"paths": new_paths}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

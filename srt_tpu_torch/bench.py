@@ -3,7 +3,9 @@
 The counterpart of the repository's ``bench.py``, with the same keys plus
 ``"backend": "torch-cuda"``: primary rays per second on the reference's
 default workload, ``ball_scenes`` at 512x512, 16 spp, depth 50, no
-roulette, through the regeneration engine and its CUDA kernels
+roulette, through the regeneration engine and its CUDA kernels, or with
+``--engine scan`` through the scan engine (``render``: chunks of 65,536
+pixels × 8 samples, 50 lockstep bounces, one B2 launch a bounce)
 (``--scene cornell_boxes`` takes the triangle path with the single-level
 walk, ``--scene teapot_scene`` the 1,278,400-triangle teapots through the
 two-level walk; ``--scene`` takes any scene of ``scene.library``, e.g.
@@ -11,8 +13,8 @@ two-level walk; ``--scene`` takes any scene of ``scene.library``, e.g.
 ``vs_baseline`` divides by the reference C++ renderer's rate recorded in
 ``BASELINE_MEASURED.json`` (measured on another machine's CPU).
 
-Usage: ``python -m srt_tpu_torch.bench [--scene NAME] [--width 512]
-[--spp 16] [--profile DIR]``.
+Usage: ``python -m srt_tpu_torch.bench [--scene NAME] [--engine scan]
+[--width 512] [--spp 16] [--profile DIR]``.
 Diagnostics go to stderr; stdout carries exactly one JSON line.
 """
 from __future__ import annotations
@@ -26,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from srt_tpu_torch import RenderConfig, get_scene, render_regen
+from srt_tpu_torch import RenderConfig, get_scene, render, render_regen
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,8 +42,9 @@ def baseline_rays_per_sec() -> float:
         return float(json.load(f)["primary_rays_per_sec"])
 
 
-def profile_one(out_dir: str, scene, camera, config) -> None:
-    """One render under torch.profiler: a chrome trace in ``out_dir``, and
+def profile_one(out_dir: str, fn, scene, camera, config) -> None:
+    """One render by ``fn`` under torch.profiler: a chrome trace in
+    ``out_dir``, and
     on stderr the device's kernel time by kernel, its sum (device busy),
     kernel launches per bounce, and the busy share of the wall. Only the
     profiler's device rows are summed: a CPU operator's row repeats the
@@ -51,7 +54,7 @@ def profile_one(out_dir: str, scene, camera, config) -> None:
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, met = render_regen(scene, camera, config, metrics=True)
+        _, met = fn(scene, camera, config, metrics=True)
         torch.cuda.synchronize()
     wall = time.time() - t0
     os.makedirs(out_dir, exist_ok=True)
@@ -79,6 +82,7 @@ def main() -> None:
     ap.add_argument("--max-depth", type=int, default=50)
     ap.add_argument("--min-seconds", type=float, default=3.0)
     ap.add_argument("--wavefront", type=int, default=1 << 16)
+    ap.add_argument("--engine", default="regen", choices=["regen", "scan"])
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one rep to DIR "
                          "and log device time by kernel")
@@ -95,15 +99,16 @@ def main() -> None:
     config = RenderConfig(width=args.width, height=height, spp=args.spp,
                           max_depth=args.max_depth, rr_start=1 << 30,
                           wavefront=args.wavefront)
+    fn = render_regen if args.engine == "regen" else render
     t0 = time.time()
-    img = render_regen(scene, camera, config).cpu().numpy()
+    img = fn(scene, camera, config).cpu().numpy()
     warmup = round(time.time() - t0, 3)
-    log(f"[regen] warmup (build + first render): {warmup}s")
+    log(f"[{args.engine}] warmup (build + first render): {warmup}s")
     reps, total = 0, 0.0
     while total < args.min_seconds and reps < 50:
         cfg = RenderConfig(**{**config.__dict__, "seed": reps + 1})
         t0 = time.time()
-        img = render_regen(scene, camera, cfg).cpu().numpy()
+        img = fn(scene, camera, cfg).cpu().numpy()
         total += time.time() - t0
         reps += 1
     nan = int(np.isnan(img).sum())
@@ -114,7 +119,7 @@ def main() -> None:
     if args.profile:
         log(f"[profile] wall per render with the profiler off: "
             f"{total / reps:.4f}s")
-        profile_one(args.profile, scene, camera, config)
+        profile_one(args.profile, fn, scene, camera, config)
 
     ref = baseline_rays_per_sec()
     print(json.dumps({
@@ -124,14 +129,14 @@ def main() -> None:
         "vs_baseline": round(rays_per_sec / ref, 3),
         "baseline_rays_per_sec": ref,
         "scene": args.scene,
-        "engine": "regen",
-        "engines": {"regen": {"reps": reps, "wall_s": round(total, 3),
-                              "rays_per_sec": round(rays_per_sec, 1)}},
+        "engine": args.engine,
+        "engines": {args.engine: {"reps": reps, "wall_s": round(total, 3),
+                                  "rays_per_sec": round(rays_per_sec, 1)}},
         "config": {"width": args.width, "height": height, "spp": args.spp,
                    "max_depth": args.max_depth, "reps": reps},
         "device": f"cuda:{kind}",
         "wall_s": round(total, 3),
-        "warmup_s": {"regen": warmup},
+        "warmup_s": {args.engine: warmup},
         "nan_pixels": nan,
         "backend": "torch-cuda",
     }), flush=True)

@@ -5,18 +5,21 @@ Gradients of an image loss with respect to scene parameters -- material
 parameters (Beckmann roughness, Oren-Nayar A/B), texture colours (albedo,
 emission) and geometry (sphere centres and radii, rect planes such as a
 light's height) -- straight through the wavefront estimator: the
-regeneration engine :mod:`srt_tpu_torch.render.regen_scan`, whose bounce
-is kernel B2 forward and, on the card, kernel B5 backward under frozen
-geometry -- its lean instantiation, or its rich one on the specular
-branch, media, checker, noise and image textures and sphere lights -- or
-the hybrid backward (the plain bounce replayed under autograd with kernel
+regeneration engine :mod:`srt_tpu_torch.render.regen_scan` or the
+lockstep scan engine (:func:`render.integrator.trace`, ``engine="scan"``),
+whose bounce is kernel B2 forward and, on the card, kernel B5 backward
+under frozen geometry -- its lean instantiation, or its rich one on the
+specular branch, media, checker, noise and image textures and sphere
+lights -- or the hybrid backward (the plain bounce replayed under autograd with kernel
 B6's sphere winner) for geometry and for the scenes B5 does not cover
-(triangles, moving spheres), as the JAX package's gate sends them. Random
+(triangles, moving spheres), as the JAX package's gate sends them; a
+scene that gate keeps off the bounce kernel (mesh-bounded media, past its
+table caps) differentiates the plain bounce under autograd. Random
 decisions are pure functions of ``(seed, pixel, sample, bounce,
 dimension)``; the gradient follows the JAX package's backward kernel,
 through the sampled direction and the pdfs (ROADMAP C2). The image atlas
 among the parameters raises (ROADMAP A13), and so does what the render
-side refuses (``scene.ir.require_trainable``: mesh media, MERL). The
+side refuses (``scene.ir.require_trainable``: MERL). The
 train step never sets the parity estimator, as JAX's does not.
 """
 from __future__ import annotations
@@ -29,7 +32,10 @@ import torch
 from srt_tpu_torch.core import rng
 from srt_tpu_torch.kernels.bounce import (DIM_LENS, DIM_TIME, StepSpec,
                                           build_tables)
+from srt_tpu_torch.kernels.bounce_vjp import bounce_step_auto
+from srt_tpu_torch.kernels.intersect import pack_walk
 from srt_tpu_torch.render.camera import Camera
+from srt_tpu_torch.render.integrator import trace
 from srt_tpu_torch.render.regen_scan import steps_for, trace_queue
 from srt_tpu_torch.scene.ir import (CENTRE_FIELDS, SceneFlags, TorchScene,
                                     require_trainable)
@@ -75,24 +81,32 @@ def render_pixels(scene: TorchScene, camera: Camera, pixel_ids, *,
     require a gradient (the bounce takes kernel B5's backward when no
     geometric tensor does, ``bounce_vjp.bounce_step_auto``). Pixel
     jitter, lens and time samples come from the counter RNG (dimensions
-    30-34), as ``inverse.py:97-111`` draws them. Runs on the scene's
+    30-34), as ``inverse.py:97-111`` draws them. ``engine="regen"``
+    traces the rays through the regeneration scan (``wavefront``,
+    ``depth_budget`` and ``drain`` size it), ``engine="scan"`` all at once
+    through ``max_depth`` lockstep bounces (``inverse.py:128-130``), which
+    keeps every bounce's state for the backward. Runs on the scene's
     device."""
-    if engine != "regen":
-        raise NotImplementedError(
-            f"engine {engine!r}: the port has the regeneration engine; the "
-            "lockstep scan engine is ROADMAP A6")
+    if engine not in ("regen", "scan"):
+        raise ValueError(f"engine {engine!r}: 'regen' or 'scan'")
     flags = flags if flags is not None else SceneFlags.of(scene)
     require_trainable(scene, flags)
     pixel_ids = torch.as_tensor(pixel_ids, device=scene.device).long()
     p = pixel_ids.shape[0]
     rays, salt = camera_rays(camera, pixel_ids, spp, width=width,
                              height=height, seed=seed)
+    spec = StepSpec(max_depth=max_depth)
+    tables = build_tables(scene, flags)
+    if engine == "scan":
+        walk = pack_walk(scene) if scene.n_tris else None
+        radiance = trace(
+            lambda st: bounce_step_auto(scene, flags, tables, st, spec, walk),
+            rays, salt, max_depth=max_depth)
+        return radiance.reshape(p, spp, 3).mean(1)
     steps = steps_for(p * spp, wavefront, depth_budget, max_depth,
                       drain=drain)
-    spec = StepSpec(max_depth=max_depth)
-    radiance, _ = trace_queue(scene, flags, build_tables(scene, flags), rays,
-                              salt, n_steps=steps, wavefront=wavefront,
-                              spec=spec)
+    radiance, _ = trace_queue(scene, flags, tables, rays, salt,
+                              n_steps=steps, wavefront=wavefront, spec=spec)
     return radiance.reshape(p, spp, 3).mean(1)
 
 

@@ -1,14 +1,16 @@
 """Golden-image PSNR of a render (counterpart of ``tools/golden.py``).
 
-Renders a library scene with the regeneration engine, writes its
-tonemapped image as an ASCII PPM, and compares it with a golden: an ASCII
+Renders a library scene with the regeneration engine, or with the scan
+engine under ``--engine scan`` or ``--seq-stale`` (the JAX tool's choice,
+``tools/golden.py:80``), writes its tonemapped image as an ASCII PPM, and
+compares it with a golden: an ASCII
 PPM or an 8-bit RGB PNG such as the asset-free ``goldens/cornell_boxes_512
 .png`` (read with numpy and ``zlib``, no Pillow). ``--ref-parity`` renders
 the reference's as-implemented estimator, the one its own goldens bake in
 (``GOLDEN.md``), and asks the scene for first-mesh-only loading, as the
 JAX tool does (no scene of the port loads a mesh file yet: one that would
-raises, ROADMAP A8). ``--engine scan`` and ``--seq-stale`` need the scan
-engine and raise ``NotImplementedError`` (ROADMAP A6).
+raises, ROADMAP A8). ``--seq-stale`` with ``--ref-parity`` renders each
+pixel's samples one after another, carrying the heap-slot plane.
 
 Usage::
 
@@ -48,7 +50,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="mixture-pdf cutoff; 1e-4 suppresses fireflies")
     ap.add_argument("--seq-stale", action="store_true",
                     help="carry the heap slot across a pixel's samples "
-                         "(scan engine; not ported, ROADMAP A6)")
+                         "(scan engine)")
     ap.add_argument("--parity-no-stale", action="store_true",
                     help="diagnostic: the heap slot reads 0")
     ap.add_argument("--save-linear", action="store_true",
@@ -65,15 +67,11 @@ def run(args: argparse.Namespace) -> dict:
     """Render and compare as the arguments say; returns the JSON record."""
     import numpy as np
 
-    from srt_tpu_torch import RenderConfig, get_scene, render_regen
+    from srt_tpu_torch import RenderConfig, get_scene, render, render_regen
     from srt_tpu_torch.io.image import read_image, write_ppm
     from srt_tpu_torch.render import film
     from srt_tpu_torch.utils.compare import golden_psnr
 
-    if args.engine == "scan" or args.seq_stale:
-        raise NotImplementedError(
-            "srt_tpu_torch does not cover the scan engine (--engine scan, "
-            "--seq-stale) yet (ROADMAP A6)")
     kw = {"first_mesh_only": True} if args.ref_parity else {}
     scene, camera, info = get_scene(args.scene, aspect=1.0,
                                     device=args.device, **kw)
@@ -82,9 +80,12 @@ def run(args: argparse.Namespace) -> dict:
     cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp,
                        max_depth=args.max_depth, rr_start=1 << 30,
                        pdf_floor=args.pdf_floor, ref_parity=args.ref_parity,
-                       seed=args.seed, parity_no_stale=args.parity_no_stale)
+                       seed=args.seed, seq_stale=args.seq_stale,
+                       parity_no_stale=args.parity_no_stale)
+    fn = (render_regen if args.engine == "regen" and not args.seq_stale
+          else render)
     t0 = time.time()
-    img = render_regen(scene, camera, cfg)
+    img = fn(scene, camera, cfg)
     tm = film.tonemap(img).cpu().numpy()
     wall = time.time() - t0
 

@@ -1,8 +1,9 @@
 """Image I/O (counterpart of ``srt_tpu/io/image.py``): decode textures
 with Pillow, imported only when a texture file is decoded; write the
-reference's ASCII PPM; read the goldens, ASCII PPMs and 8-bit RGB PNGs,
-with numpy and ``zlib`` alone (:func:`read_png`), so the golden tool runs
-where Pillow is not installed."""
+reference's ASCII PPM and 8-bit RGB PNGs (:func:`write_png`); read the
+goldens, ASCII PPMs and 8-bit RGB PNGs (:func:`read_png`). PNGs are
+written and read with numpy, ``zlib`` and ``struct`` alone, so the
+command line and the golden tool run where Pillow is not installed."""
 from __future__ import annotations
 
 import struct
@@ -22,9 +23,8 @@ def load_image(path: str) -> np.ndarray:
 
 def write_ppm(path: str, img01) -> None:
     """ASCII ``P3`` PPM (``Raytracing_n.cpp:886`` header, 255.99 scale)."""
-    arr = np.asarray(img01)
-    h, w, _ = arr.shape
-    q = np.clip(255.99 * arr, 0, 255).astype(np.int32)
+    q = _quantize(img01)
+    h, w, _ = q.shape
     with open(path, "w") as f:
         f.write(f"P3\n{w} {h}\n255\n")
         f.write("\n".join(f"{r} {g} {b}" for r, g, b in q.reshape(-1, 3)))
@@ -40,6 +40,32 @@ def read_ppm(path: str) -> np.ndarray:
     w, h, maxv = int(tokens[1]), int(tokens[2]), int(tokens[3])
     data = np.asarray(tokens[4:4 + w * h * 3], np.int32).reshape(h, w, 3)
     return np.clip(data * 255 // maxv, 0, 255).astype(np.uint8)
+
+
+def _quantize(img01) -> np.ndarray:
+    """The reference's 8-bit values of an image in [0, 1]: ``255.99 x``
+    clipped to [0, 255] and truncated (``Raytracing_n.cpp:853-855``)."""
+    return np.clip(255.99 * np.asarray(img01), 0, 255).astype(np.uint8)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img01) -> None:
+    """An 8-bit RGB, non-interlaced PNG of an (h, w, 3) image in [0, 1],
+    with the values JAX's ``write_png`` gives (``srt_tpu/io/image.py:
+    45-48``); every scanline unfiltered."""
+    q = _quantize(img01)
+    h, w, _ = q.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), q.reshape(h, 3 * w)],
+                          axis=1)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _chunk(b"IEND", b""))
 
 
 def _unfilter(data: np.ndarray, h: int, w: int) -> np.ndarray:

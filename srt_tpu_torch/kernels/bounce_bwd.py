@@ -57,6 +57,9 @@ def _bwd_kernel_gaps(scene: TorchScene, flags: SceneFlags) -> list[str]:
     """What this scene has that the backward kernel cannot differentiate:
     JAX's gate (``bounce_bwd.py:58-73``)."""
     gaps = []
+    if not flags.fused_bounce:
+        gaps.append("a scene the bounce kernels' gate refuses (mesh-bounded "
+                    "media, past their table caps): it replays their bounce")
     if flags.ref_parity:
         gaps.append("the parity estimator: it replays the default one")
     if scene.n_tris:
@@ -73,7 +76,8 @@ def bwd_kernel_available(scene: TorchScene, flags: SceneFlags) -> bool:
     spheres go to the hybrid backward as there, and so do triangles (the
     kernel has no external-hit input, so it would differentiate a
     triangle lane as if the triangle were not there), and so does the
-    parity estimator."""
+    parity estimator; a scene the bounce kernels' gate refuses takes
+    autograd of the plain bounce."""
     return not _bwd_kernel_gaps(scene, flags)
 
 
@@ -86,7 +90,8 @@ def require_bwd_kernel(scene: TorchScene, flags: SceneFlags) -> None:
     if gaps:
         raise NotImplementedError(
             f"the backward kernel cannot differentiate {gaps[0]}; the train "
-            "step takes the hybrid backward for it (ROADMAP A13)")
+            "step takes the hybrid backward or autograd of the plain bounce "
+            "for it (ROADMAP A13)")
     require_trainable(scene, flags)
 
 

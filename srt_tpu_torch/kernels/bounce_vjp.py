@@ -28,7 +28,11 @@ kernel B2 and save only the bounce's inputs:
   passes on (no gradient).
 
 :func:`bounce_step_auto` chooses between them as ``bounce_vjp.py:120-138``
-does. On CPU tensors the kernels are their plain versions.
+does. A scene the bounce kernel's gate refuses (mesh-bounded media, past
+its table caps: ``SceneFlags.fused_bounce`` false) takes neither:
+its bounce is the plain bounce under autograd (:func:`bounce_plain`), as
+the JAX package differentiates its XLA bounce there. On CPU tensors the
+kernels are their plain versions.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ import torch
 
 from srt_tpu_torch.kernels import intersect as ki
 from srt_tpu_torch.kernels import spheres
-from srt_tpu_torch.kernels.bounce import StepSpec, bounce_fwd
+from srt_tpu_torch.kernels.bounce import (StepSpec, bounce_fwd,
+                                          bounce_step_ref)
 from srt_tpu_torch.kernels.bounce_bwd import (ROWS, bounce_bwd,
                                               bwd_kernel_available,
                                               replay_vjp)
@@ -162,11 +167,7 @@ def bounce_hybrid(scene: TorchScene, flags: SceneFlags, tables: dict,
     """One bounce of ``state`` through :class:`BounceHybrid`. On a triangle
     scene ``walk`` is :func:`kernels.intersect.pack_walk` of it: each
     lane's closest triangle comes from B3 or B4 before the forward."""
-    tri = None
-    if scene.n_tris:
-        with torch.no_grad():
-            tri = ki.closest_tris(scene, walk, state["o"].detach(),
-                                  state["d"].detach())
+    tri = _closest_tris(scene, walk, state)
     o, d, beta, radiance, depth, alive, *stale = BounceHybrid.apply(
         state["o"], state["d"], state["beta"], state["radiance"],
         tables["mat"], state["time"], state["salt"], state["depth"],
@@ -179,6 +180,27 @@ def bounce_hybrid(scene: TorchScene, flags: SceneFlags, tables: dict,
     return out
 
 
+def _closest_tris(scene: TorchScene, walk: dict | None, state: dict):
+    """Each lane's closest triangle from B3 or B4, detached (None without
+    triangles)."""
+    if not scene.n_tris:
+        return None
+    with torch.no_grad():
+        return ki.closest_tris(scene, walk, state["o"].detach(),
+                               state["d"].detach())
+
+
+def bounce_plain(scene: TorchScene, flags: SceneFlags, tables: dict,
+                 state: dict, spec: StepSpec,
+                 walk: dict | None = None) -> dict:
+    """One bounce of ``state`` as the plain bounce under autograd
+    (:func:`kernels.bounce.bounce_step_ref`), for the scenes the bounce
+    kernel's gate refuses; on a triangle scene the hit comes from B3 or B4
+    (``walk``), detached."""
+    return bounce_step_ref(scene, flags, tables["mat"], state, spec,
+                           _closest_tris(scene, walk, state))
+
+
 def bounce_step_auto(scene: TorchScene, flags: SceneFlags, tables: dict,
                      state: dict, spec: StepSpec,
                      walk: dict | None = None) -> dict:
@@ -188,7 +210,10 @@ def bounce_step_auto(scene: TorchScene, flags: SceneFlags, tables: dict,
     covers the scene), else the hybrid, which differentiates the scene's
     geometric tensors that require one. The JAX package passes that
     choice in as ``frozen_geometry``, since a traced tensor cannot say
-    whether it is differentiated; here ``requires_grad`` says it."""
+    whether it is differentiated; here ``requires_grad`` says it. Where
+    the bounce kernel's gate refuses the scene, :func:`bounce_plain`."""
+    if not flags.fused_bounce:
+        return bounce_plain(scene, flags, tables, state, spec, walk)
     geom = geometric_params(scene)
     if not geom and bwd_kernel_available(scene, flags):
         return bounce_core(scene, flags, tables, state, spec)

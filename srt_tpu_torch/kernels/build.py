@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles each ``srt_tpu_torch/csrc/*.cu`` for ``sm_90a`` into an
 object, all sources at once in parallel, and links them into one shared
-library with a plain C interface, at first use, under
-``build/srt_tpu_torch/`` in the repository (a directory git ignores). The
+library with a plain C interface, at first use, under the cache directory
+(:func:`srt_tpu_torch.utils.cache.build_dir`, by default
+``build/srt_tpu_torch/`` in the repository, a directory git ignores). The
 file name carries a hash of the sources, the headers (``csrc/*.cuh``) and
 the flags, so an edit to any of them rebuilds. The library is loaded with
 ``ctypes``; every pointer and the stream are ``c_void_p``.
@@ -25,10 +26,11 @@ import tempfile
 
 import torch
 
+from srt_tpu_torch.utils import cache
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
 HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "srt_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -61,7 +63,8 @@ def library_path() -> str:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libsrt_tpu_torch_{h.hexdigest()[:16]}.so")
+    return os.path.join(cache.build_dir(),
+                        f"libsrt_tpu_torch_{h.hexdigest()[:16]}.so")
 
 
 def _report_path() -> str:
@@ -80,8 +83,8 @@ def build() -> str:
     path = library_path()
     if os.path.isfile(path):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    work = tempfile.mkdtemp(dir=os.path.dirname(path))
     try:
         nvcc = _nvcc()
         objs = [os.path.join(work, os.path.basename(s)[:-3] + ".o")

@@ -1,9 +1,10 @@
 """The native BVH builder (``bvh_builder.cpp``), compiled at first use and
 loaded with ``ctypes``.
 
-``g++ -O3 -std=c++17 -shared -fPIC`` builds the source into
-``build/srt_tpu_torch/native/`` in the repository (a directory git
-ignores), under a file name that carries a hash of the source and the
+``g++ -O3 -std=c++17 -shared -fPIC`` builds the source into ``native/``
+under the cache directory (:func:`srt_tpu_torch.utils.cache.build_dir`,
+by default ``build/srt_tpu_torch/`` in the repository, which git ignores),
+under a file name that carries a hash of the source and the
 flags, so an edit rebuilds. A failed compile raises with the compiler's
 output: the caller never falls back to the numpy builder, which takes
 minutes at mesh scale.
@@ -17,10 +18,10 @@ import subprocess
 import tempfile
 import threading
 
+from srt_tpu_torch.utils import cache
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "bvh_builder.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
-                         "srt_tpu_torch", "native")
 FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
@@ -31,7 +32,8 @@ def library_path() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
     with open(SOURCE, "rb") as f:
         h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libsrt_bvh_{h.hexdigest()[:16]}.so")
+    return os.path.join(cache.build_dir(), "native",
+                        f"libsrt_bvh_{h.hexdigest()[:16]}.so")
 
 
 def build() -> str:
@@ -40,8 +42,8 @@ def build() -> str:
     path = library_path()
     if os.path.isfile(path):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
     os.close(fd)
     try:
         try:

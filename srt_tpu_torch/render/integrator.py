@@ -2,7 +2,8 @@
 ``srt_tpu/render/integrator.py:167-368``; reference recursive estimator
 ``Raytracing_n.cpp:55-106``).
 
-Covers the port's slices: sphere and box media (:func:`apply_media`),
+Covers the port's slices: sphere, box and mesh-bounded media
+(:func:`apply_media`),
 the specular branch of metal, dielectric and isotropic materials,
 textures at the hit's uv and position, rect and sphere lights, and the
 reference-parity estimator (:func:`parity_draw`). The diffuse branch is
@@ -16,10 +17,11 @@ import torch
 
 from srt_tpu_torch.core import rng
 from srt_tpu_torch.core.gradsafe import grad_safe_sqrt, gsdiv
-from srt_tpu_torch.core.vecmath import dot, to_local, where3
+from srt_tpu_torch.core.vecmath import cross, dot, to_local, where3
 from srt_tpu_torch.materials import materials as mats
 from srt_tpu_torch.render import lights
-from srt_tpu_torch.render.intersect import Hit, _ray_at, intersect_scene
+from srt_tpu_torch.render.intersect import (BIG, Hit, _ray_at,
+                                            intersect_scene)
 from srt_tpu_torch.scene.ir import (SPECULAR_MATS, MaterialType, SceneFlags,
                                     TorchScene)
 
@@ -39,6 +41,72 @@ PARITY_RETRIES = 4
 #: others read (``srt_tpu/render/integrator.py:38-45``, GOLDEN.md r5)
 PARITY_SLOT_ZERO_P = 0.086
 PARITY_KILL = 1e30
+#: a mesh medium's boundary triangles are tested in chunks of this many
+#: (``srt_tpu/render/integrator.py:61``; the pair of nearest crossings is
+#: merged chunk by chunk, so the chunking is part of the result) ...
+MESH_TRI_CHUNK = 512
+#: ... against at most this many (lane, triangle) pairs at a time: the
+#: scan engine's 524,288 lanes against one 512-triangle chunk would be
+#: over 1 GB a temporary
+MESH_PAIRS = 1 << 22
+#: the host reads "any lane alive" from the device once every this many
+#: bounces, in the regeneration loops and the sequential parity mode
+CHECK_EVERY = 8
+
+
+def _mesh_crossings_chunk(scene: TorchScene, o, d, m: int):
+    """:func:`mesh_medium_crossings` for one chunk of lanes."""
+    n = o.shape[0]
+    t1 = torch.full((n,), BIG, dtype=o.dtype, device=o.device)
+    t2 = t1.clone()
+    k = scene.med_tri_p0.shape[0]
+    chunk = min(MESH_TRI_CHUNK, k)
+    for c0 in range(0, k, chunk):
+        p0 = scene.med_tri_p0[c0:c0 + chunk]
+        e1 = scene.med_tri_p1[c0:c0 + chunk] - p0
+        e2 = scene.med_tri_p2[c0:c0 + chunk] - p0
+        mine = scene.med_tri_mid[c0:c0 + chunk] == m
+        dv = d[:, None, :]
+        pv = cross(dv, e2[None])
+        det = dot(e1[None], pv)
+        inv = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+        tv = o[:, None, :] - p0[None]
+        u = dot(tv, pv) * inv
+        qv = cross(tv, e1[None])
+        v = dot(dv, qv) * inv
+        t = dot(e2[None], qv) * inv
+        # two-sided, any sign of t: a ray that starts inside clamps its
+        # entry to 0 in apply_media
+        valid = (mine[None] & (torch.abs(det) > 1e-10) & (u >= 0.0)
+                 & (v >= 0.0) & (u + v <= 1.0) & (t > -1e30))
+        tt = torch.where(valid, t, BIG)
+        # merge this chunk's two smallest into the running (t1, t2)
+        c_min = tt.min(1).values
+        c_second = torch.where(tt <= c_min[:, None] + 1e-4, BIG,
+                               tt).min(1).values
+        all4 = torch.stack([t1, t2, c_min, c_second], 1)
+        t1 = all4.min(1).values
+        t2 = torch.where(all4 <= t1[:, None] + 1e-4, BIG, all4).min(1).values
+    return t1, t2
+
+
+def mesh_medium_crossings(scene: TorchScene, o, d, m: int):
+    """``(t_in, t_out, ok)`` of medium ``m``'s triangle boundary
+    (``srt_tpu/render/integrator.py:48-106``): the smallest and
+    second-smallest signed crossing, which for a convex boundary are the
+    reference's first crossing from -FLT_MAX and the next after it
+    (``constant_medium.h:23-27``, ``triangle.h:108-115``). The triangles
+    go in :data:`MESH_TRI_CHUNK` chunks, the lanes in chunks of at most
+    :data:`MESH_PAIRS` pairs with a triangle chunk; a lane's result does
+    not depend on the lane chunking."""
+    k = scene.med_tri_p0.shape[0]
+    lanes = max(1, MESH_PAIRS // min(MESH_TRI_CHUNK, k))
+    parts = [_mesh_crossings_chunk(scene, o[l0:l0 + lanes],
+                                   d[l0:l0 + lanes], m)
+             for l0 in range(0, o.shape[0], lanes)]
+    t1 = torch.cat([p[0] for p in parts])
+    t2 = torch.cat([p[1] for p in parts])
+    return t1, t2, (t1 < BIG) & (t2 < BIG)
 
 
 def apply_media(scene: TorchScene, o, d, salt, hit: Hit) -> Hit:
@@ -50,7 +118,9 @@ def apply_media(scene: TorchScene, o, d, salt, hit: Hit) -> Hit:
     and uv 0. The root and the slabs' reciprocals take the kernel
     backward's ``safe_ad`` forms (:func:`grad_safe_sqrt`, :func:`gsdiv`):
     the same values, and no NaN gradient on a lane that misses the medium.
-    Mesh-bounded media are outside the coverage gate."""
+    A mesh-bounded medium takes its crossings from
+    :func:`mesh_medium_crossings` when the scene has boundary triangles;
+    without them it takes the sphere's, as the JAX integrator does."""
     g = torch.where(torch.abs(d) < 1e-20, 1e-20, d)
     inv = gsdiv(1.0, g)
     n = o.shape[0]
@@ -67,8 +137,11 @@ def apply_media(scene: TorchScene, o, d, salt, hit: Hit) -> Hit:
         lo, hi = torch.minimum(tt0, tt1), torch.maximum(tt0, tt1)
         b_in = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
         b_out = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
-        if int(scene.med_kind[m]) == 1:
+        kind = int(scene.med_kind[m])
+        if kind == 1:
             t_in, t_out, ok = b_in, b_out, b_out > b_in
+        elif kind == 2 and scene.med_tri_p0 is not None:
+            t_in, t_out, ok = mesh_medium_crossings(scene, o, d, m)
         else:
             t_in, t_out, ok = -bq - sq, -bq + sq, disc > 0.0
         # maximum, not clamp: half the gradient on a tie (a ray that
@@ -255,3 +328,74 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
     if flags.ref_parity:
         out["stale"] = torch.where(alive & scatters & ~specular, slot, slot0)
     return out
+
+
+def scrub_nan(radiance: torch.Tensor) -> torch.Tensor:
+    """NaN radiance channels set to 0 (de_nan, ``Raytracing_n.cpp:47-53``)."""
+    return torch.where(torch.isnan(radiance), 0.0, radiance)
+
+
+def initial_state(rays, salt: torch.Tensor, parity: bool = False,
+                  stale0=None) -> dict:
+    """The wavefront state of fresh primary rays ``(origin, direction,
+    time)`` with sampler salts: unit throughput, no radiance, every lane
+    alive at depth 0; under ``parity`` the ``stale`` plane ``stale0``
+    (zeros when None)."""
+    o, d, time = rays
+    n = o.shape[0]
+    dev = o.device
+    state = dict(o=o, d=d, time=time,
+                 beta=torch.ones((n, 3), dtype=torch.float32, device=dev),
+                 radiance=torch.zeros((n, 3), dtype=torch.float32,
+                                      device=dev),
+                 alive=torch.ones((n,), dtype=torch.bool, device=dev),
+                 salt=salt.to(torch.int32),     # the words' bit patterns
+                 depth=torch.zeros((n,), dtype=torch.int32, device=dev))
+    if parity:
+        state["stale"] = (stale0 if stale0 is not None else
+                          torch.zeros((n,), dtype=torch.float32, device=dev))
+    return state
+
+
+def trace(step, rays, salt: torch.Tensor, *, max_depth: int,
+          parity: bool = False, with_aux: bool = False, stale0=None,
+          return_stale: bool = False):
+    """Estimate radiance for a wavefront of primary rays ``(origin (N,3),
+    direction (N,3), time (N,))`` with sampler salts (N,) -> (N, 3), the
+    scan engine (counterpart of ``srt_tpu/render/integrator.py:371-455``):
+    ``max_depth`` bounces of ``step`` (state -> next state, e.g. a
+    :class:`render.route.Route`) with every lane in depth lockstep, then
+    the NaN scrub. The bounce count is the depth cap, so lanes still
+    alive after it keep the radiance they gathered.
+
+    ``with_aux`` also returns the device-side counters ``alive_per_bounce``
+    (max_depth,), ``path_vertices`` and ``nan_scrubbed``. Under ``parity``
+    the state carries the ``stale`` plane from ``stale0`` (zeros when
+    None); ``return_stale`` returns it beside the radiance (the sequential
+    parity mode, ``RenderConfig.seq_stale``) and stops once no lane is
+    alive, read from the device every :data:`CHECK_EVERY` bounces (a bounce of
+    an all-dead wavefront changes no radiance)."""
+    state = initial_state(rays, salt, parity, stale0)
+    if return_stale:
+        if with_aux:
+            raise ValueError("return_stale and with_aux are exclusive")
+        done = 0
+        while done < max_depth:
+            for _ in range(min(CHECK_EVERY, max_depth - done)):
+                state = step(state)
+            done = min(done + CHECK_EVERY, max_depth)
+            if done < max_depth and not bool(state["alive"].any()):
+                break
+        return scrub_nan(state["radiance"]), state.get("stale")
+    alive_hist = []
+    for _ in range(max_depth):
+        if with_aux:
+            alive_hist.append(state["alive"].sum())
+        state = step(state)
+    radiance = state["radiance"]
+    if not with_aux:
+        return scrub_nan(radiance)
+    hist = torch.stack(alive_hist)
+    return scrub_nan(radiance), dict(
+        alive_per_bounce=hist, path_vertices=hist.sum(),
+        nan_scrubbed=torch.isnan(radiance).sum())

@@ -2,11 +2,12 @@
 
 Covers what the port's slices render: spheres (static, moving and env
 domes), axis-aligned rects, boxes, triangles and triangle meshes with
-their BVH and its two-level clustering, sphere and box media, constant,
-checker, noise and image textures, Lambertian, Oren–Nayar, Beckmann,
-metal, dielectric, isotropic and diffuse-light materials, and rect and
-sphere lights. The tables, the Perlin tables among them, are packed in
-numpy exactly as the JAX builder packs them, then moved to one device.
+their BVH and its two-level clustering, sphere, box and mesh-bounded
+media, constant, checker, noise and image textures, Lambertian,
+Oren–Nayar, Beckmann, metal, dielectric, isotropic and diffuse-light
+materials, and rect and sphere lights. The tables, the Perlin tables
+among them, are packed in numpy exactly as the JAX builder packs them,
+then moved to one device.
 """
 from __future__ import annotations
 
@@ -75,6 +76,7 @@ class SceneBuilder:
     _rect: list = field(default_factory=list)
     _tris: list = field(default_factory=list)   # (p, uv, n, mat) chunks
     _med: list = field(default_factory=list)
+    _med_tris: list = field(default_factory=list)  # (world tris, medium)
     _lights: list = field(default_factory=list)
 
     # ------------------------------------------------------------------ tex
@@ -246,6 +248,23 @@ class SceneBuilder:
         self._med.append((1, 0.5 * (p0 + p1), 0.0, np.abs(0.5 * (p1 - p0)),
                           float(density), mat))
 
+    def medium_mesh(self, tri_verts: np.ndarray, density, albedo_tex: int,
+                    scale=(1.0, 1.0, 1.0), rotate: np.ndarray | None = None,
+                    translate=(0.0, 0.0, 0.0)) -> None:
+        """A constant medium bounded by a convex triangle mesh, the
+        reference's ``constant_medium`` over a model
+        (``srt_tpu/scene/build.py:307-323``; ``triangle.h:108-115``'s
+        two-sided path). ``tri_verts``: (T, 3, 3) in object space, scaled,
+        rotated and translated into the world as :meth:`trimesh` does."""
+        mat = self.isotropic(albedo_tex)
+        self._med.append((2, np.zeros(3, np.float32), 0.0,
+                          np.zeros(3, np.float32), float(density), mat))
+        p = np.asarray(tri_verts, np.float32) * np.asarray(scale, np.float32)
+        if rotate is not None:
+            p = p @ np.asarray(rotate, np.float32).T
+        p = p + np.asarray(translate, np.float32)
+        self._med_tris.append((p, len(self._med) - 1))
+
     def light_rect(self, rect_id: int) -> None:
         """NEE light registration (the reference's hlist)."""
         self._lights.append((LightKind.RECT, rect_id))
@@ -301,6 +320,13 @@ class SceneBuilder:
         pv = prng.uniform(-1.0, 1.0, (256, 3)).astype(f32)
         pv /= np.maximum(np.linalg.norm(pv, axis=1, keepdims=True), 1e-9)
         perm = np.stack([prng.permutation(256) for _ in range(3)]).astype(i32)
+        med_tris = {}
+        if self._med_tris:
+            mp = np.concatenate([t[0] for t in self._med_tris])
+            med_tris = dict(
+                med_tri_p0=mp[:, 0], med_tri_p1=mp[:, 1], med_tri_p2=mp[:, 2],
+                med_tri_mid=np.concatenate([np.full(len(t[0]), t[1], i32)
+                                            for t in self._med_tris]))
         tables = dict(
             sph_center0=s_c0,
             sph_center1=arr([s[5] for s in self._sph], f32, (3,)),
@@ -335,7 +361,7 @@ class SceneBuilder:
             merl=np.zeros((0, 3, 1), f32),
             light_kind=arr([int(li[0]) for li in self._lights], i32, ()),
             light_index=arr([li[1] for li in self._lights], i32, ()),
-            atlas_u32=atlas_u32, **clusters)
+            atlas_u32=atlas_u32, **clusters, **med_tris)
         t3 = time.perf_counter()
         scene = TorchScene(**{
             k: None if v is None else

@@ -115,6 +115,12 @@ class TorchScene:
     cl_nodes_f: torch.Tensor | None = None    # (Nc, 6, rows, 128) f32
     cl_nodes_i: torch.Tensor | None = None    # (Nc, 3, rows, 128) i32
     cl_tris: torch.Tensor | None = None       # (Nc, 9, rows, 128) f32
+    # the boundary triangles of mesh-bounded media (``medium_mesh``), None
+    # without: corners and the medium each belongs to
+    med_tri_p0: torch.Tensor | None = None    # (K, 3) f32
+    med_tri_p1: torch.Tensor | None = None    # (K, 3) f32
+    med_tri_p2: torch.Tensor | None = None    # (K, 3) f32
+    med_tri_mid: torch.Tensor | None = None   # (K,) i32 medium index
 
     @property
     def n_spheres(self) -> int:
@@ -264,32 +270,33 @@ def _missing(what: str, item: str):
 
 def require_covered(scene: TorchScene, flags: SceneFlags) -> None:
     """Raise ``NotImplementedError`` for a scene the port cannot render,
-    naming the ROADMAP item that will port what it needs. Every family of
-    the JAX package's fused bounce kernel is covered (``_kernel``,
-    ``srt_tpu/pallas/bounce.py:1067``, gated by ``_fused_bounce_eligible``),
-    the parity estimator included; mesh-bounded media and MERL materials
-    lie outside that kernel. Reads the flags and the tables' shapes, no
-    device memory: the train step runs it before every backward launch."""
-    if flags.mesh_media:
-        _missing("mesh-bounded participating media", "A7")
+    naming the ROADMAP item that will port what it needs: MERL materials
+    (A12) and image atlases that are not 8-bit (A13). Every other scene
+    renders: the families of the JAX package's fused bounce kernel
+    (``_kernel``, ``srt_tpu/pallas/bounce.py:1067``) through the bounce
+    kernels, and what that kernel's gate (``_fused_bounce_eligible``)
+    refuses -- mesh-bounded media, scenes past its table caps -- through
+    the plain bounce, as the JAX package sends them to its XLA bounce.
+    Reads the flags and the tables' shapes, no device memory: the train
+    step runs it before every backward launch."""
     if scene.merl.shape[0]:
         _missing("MERL measured BRDFs", "A12")
     if not set(flags.mat_kinds) <= _COVERED_MATS:
         names = sorted(MaterialType(m).name for m in
                        set(flags.mat_kinds) - _COVERED_MATS)
-        _missing(f"materials {names}", "A7")
+        _missing(f"materials {names}", "A12")
     if scene.atlas.shape[0] and scene.atlas_u32 is None:
-        _missing("image atlases that are not 8-bit", "A7")
-    if not flags.fused_bounce:
-        _missing("scenes beyond the bounce kernel's table caps", "A7")
+        _missing("image atlases that are not 8-bit", "A13")
 
 
 def require_trainable(scene: TorchScene, flags: SceneFlags) -> None:
     """Raise ``NotImplementedError`` for a scene the train step cannot
-    differentiate: exactly what :func:`require_covered` refuses (mesh
-    media, MERL, atlases that are not 8-bit). The train step never sets
+    differentiate: exactly what :func:`require_covered` refuses (MERL,
+    atlases that are not 8-bit). The train step never sets
     the parity flags, as JAX's ``make_train_step`` never does. Every
     family the render kernels shade, the train step differentiates: kernel
     B5 (its lean or rich instantiation) under frozen geometry, the hybrid
-    backward on triangles, moving spheres and geometric parameters."""
+    backward on triangles, moving spheres and geometric parameters, and
+    autograd of the plain bounce where the bounce kernel's gate refuses
+    the scene."""
     require_covered(scene, flags)

@@ -29,18 +29,37 @@ def _register(fn):
     return fn
 
 
+#: the JAX library's aliases (``srt_tpu/scene/library.py:57-60``)
+ALIASES = {"cornell": "cornell_box", "teapot": "teapot_scene",
+           "balls": "ball_scenes", "orennayar": "ball_orennayar_scenes",
+           "jade": "jadebunny_scene", "soldier": "soldier_scene",
+           "flatnormal": "flatnormal_bunny", "boxes": "cornell_boxes"}
+#: the JAX library's scenes of scanned meshes, which wait for the mesh
+#: loaders
+MESH_SCENES = ("jadebunny_scene", "soldier_scene", "flatnormal_bunny")
+
+
+def list_scenes() -> list[str]:
+    """All registered scene names (library order)."""
+    return list(SCENES)
+
+
 def get_scene(name: str, aspect: float = 1.0, device="cuda", **kw):
-    """Build a scene by name (alias ``balls``) on ``device`` (the card
-    unless the caller asks for another). Scenes of the JAX library that
-    the port does not hold yet raise ``NotImplementedError``.
-    ``first_mesh_only``, which the golden tool passes under parity, is
-    accepted as the JAX library accepts it: no scene here loads a mesh
-    file, and one whose mesh asset is present raises (ROADMAP A8)."""
-    key = {"balls": "ball_scenes"}.get(name, name)
-    if key not in SCENES:
+    """Build a scene by name or alias (:data:`ALIASES`) on ``device`` (the
+    card unless the caller asks for another). The JAX library's scenes of
+    scanned meshes raise ``NotImplementedError`` (ROADMAP A8), another
+    unknown name ``KeyError``, as in the JAX library. ``max_tex``
+    downsamples image textures, ``first_mesh_only``, which the golden tool
+    passes under parity, is accepted as the JAX library accepts it: no
+    scene here loads a mesh file, and one whose mesh asset is present
+    raises (ROADMAP A8)."""
+    key = ALIASES.get(name, name)
+    if key in MESH_SCENES:
         raise NotImplementedError(
-            f"scene {name!r} is not in srt_tpu_torch yet (have "
-            f"{sorted(SCENES)}; ROADMAP queue A, items A7-A8)")
+            f"scene {name!r} is not in srt_tpu_torch yet: it needs the mesh "
+            "loaders (ROADMAP A8)")
+    if key not in SCENES:
+        raise KeyError(f"unknown scene {name!r}; have {sorted(SCENES)}")
     return SCENES[key](aspect=aspect, device=device, **kw)
 
 
@@ -55,24 +74,36 @@ def _mesh_asset(rel: str, info: dict) -> None:
         f"srt_tpu_torch cannot load mesh assets ({rel}) yet (ROADMAP A8)")
 
 
-def _image(b: SceneBuilder, rel: str, info: dict, fallback) -> int:
+def _maybe_downsample(img: np.ndarray, max_tex: int | None) -> np.ndarray:
+    """Stride-downsample an image texture to at most ``max_tex`` pixels a
+    side (``srt_tpu/scene/library.py:67-73``)."""
+    if max_tex is None:
+        return img
+    step = max(1, int(np.ceil(max(img.shape[:2]) / max_tex)))
+    return img[::step, ::step]
+
+
+def _image(b: SceneBuilder, rel: str, info: dict, fallback,
+           max_tex: int | None = None) -> int:
     """An image texture from asset ``rel``, its stand-in when absent (named
     in ``info["skipped"]``)."""
     if find_asset(rel) is None:
         info.setdefault("skipped", []).append(rel)
-    return b.image(load_image_asset(rel, fallback_color=fallback))
+    return b.image(_maybe_downsample(
+        load_image_asset(rel, fallback_color=fallback), max_tex))
 
 
 def _env_dome(b: SceneBuilder, lookfrom, image_rel: str, info: dict,
-              fallback=(0.6, 0.7, 0.9)) -> None:
+              max_tex: int | None = None, fallback=(0.6, 0.7, 0.9)) -> None:
     """The reference's IBL dome: ``flip_normals(sphere(lookfrom, 10000,
     diffuse_light(image)))`` (e.g. ``Raytracing_n.cpp:269-270``)."""
-    b.sphere(lookfrom, 10000.0, b.diffuse_light(_image(b, image_rel, info,
-                                                       fallback)), flip=True)
+    b.sphere(lookfrom, 10000.0, b.diffuse_light(
+        _image(b, image_rel, info, fallback, max_tex)), flip=True)
 
 
 @_register
-def ball_scenes(aspect: float = 1.0, device="cuda", **_kw):
+def ball_scenes(aspect: float = 1.0, max_tex: int | None = None,
+                device="cuda", **_kw):
     """Reference scene 2, the default (``Raytracing_n.cpp:379-425``):
     11x11 spheres sweeping anisotropic Beckmann roughness."""
     lookfrom = (300.0, 600.0, -100.0)
@@ -84,7 +115,7 @@ def ball_scenes(aspect: float = 1.0, device="cuda", **_kw):
 
     lid = b.xz_rect(203, 353, 217, 343, 800, light, flip=True)   # :396
     b.xz_rect(-100, 655, -100, 655, 0, on_brown)                 # :397
-    _env_dome(b, lookfrom, "environment_map/sky_2.png", info)
+    _env_dome(b, lookfrom, "environment_map/sky_2.png", info, max_tex)
 
     white = b.constant((1.0, 1.0, 1.0))
     for j in range(121):                                          # :404-411
@@ -129,8 +160,8 @@ def cornell_boxes(aspect: float = 1.0, device="cuda", **_kw):
 
 
 @_register
-def teapot_scene(aspect: float = 1.0, divs: int = 100, device="cuda",
-                 **_kw):
+def teapot_scene(aspect: float = 1.0, divs: int = 100,
+                 max_tex: int | None = None, device="cuda", **_kw):
     """Reference scene 1 (``Raytracing_n.cpp:306-377``), line for line as
     ``srt_tpu/scene/library.py:296-349``: a mirror teapot and a gold
     Beckmann teapot (``divs`` sets the tessellation, ``teapot.h:77``; 100
@@ -154,7 +185,7 @@ def teapot_scene(aspect: float = 1.0, divs: int = 100, device="cuda",
 
     lid = b.xz_rect(3, 153, 217, 343, 800, light, flip=True)     # :336
     b.xz_rect(0, 555, 0, 555, 0, lam_brown)                      # :338
-    _env_dome(b, lookfrom, "environment_map/sky_2.png", info)
+    _env_dome(b, lookfrom, "environment_map/sky_2.png", info, max_tex)
 
     t0 = time.perf_counter()
     pot = create_teapot(scale=40.0, divs=divs)                   # :348-354
@@ -182,7 +213,8 @@ def teapot_scene(aspect: float = 1.0, divs: int = 100, device="cuda",
 
 
 @_register
-def ball_orennayar_scenes(aspect: float = 1.0, device="cuda", **_kw):
+def ball_orennayar_scenes(aspect: float = 1.0, max_tex: int | None = None,
+                          device="cuda", **_kw):
     """Reference scene 3 (``Raytracing_n.cpp:427-473``): an Oren–Nayar
     sigma sweep of 0 to 20 degrees over 21 spheres."""
     lookfrom = (300.0, 800.0, -100.0)
@@ -194,7 +226,7 @@ def ball_orennayar_scenes(aspect: float = 1.0, device="cuda", **_kw):
 
     lid = b.xz_rect(203, 353, 217, 343, 800, light, flip=True)   # :444
     b.xz_rect(-100, 655, -100, 655, 0, on_brown)                 # :445
-    _env_dome(b, lookfrom, "environment_map/sky_2.png", info)
+    _env_dome(b, lookfrom, "environment_map/sky_2.png", info, max_tex)
 
     white = b.constant((1.0, 1.0, 1.0))
     for j in range(21):                                           # :452-459
@@ -211,7 +243,8 @@ def ball_orennayar_scenes(aspect: float = 1.0, device="cuda", **_kw):
 
 
 @_register
-def cornell_box(aspect: float = 1.0, device="cuda", **_kw):
+def cornell_box(aspect: float = 1.0, max_tex: int | None = None,
+                device="cuda", **_kw):
     """Reference scene 0 (``Raytracing_n.cpp:216-304``): an Oren–Nayar
     floor, a rect light, the sky_2 dome and the bunny. The bunny is an
     absent asset here, skipped and named in ``info["skipped"]`` as the JAX
@@ -226,7 +259,7 @@ def cornell_box(aspect: float = 1.0, device="cuda", **_kw):
 
     lid = b.xz_rect(203, 353, 217, 343, 800, light, flip=True)   # :261
     b.xz_rect(0, 555, 0, 555, 0, on_white_0)                     # :264
-    _env_dome(b, lookfrom, "environment_map/sky_2.png", info)
+    _env_dome(b, lookfrom, "environment_map/sky_2.png", info, max_tex)
     _mesh_asset("models/bunny.ply", info)                        # :273-274
     b.light_rect(lid)                                             # :285,303
 
@@ -239,7 +272,7 @@ def cornell_box(aspect: float = 1.0, device="cuda", **_kw):
 
 @_register
 def random_scene(aspect: float = 1.0, n_grid: int = 11, seed: int = 7,
-                 device="cuda", **_kw):
+                 max_tex: int | None = None, device="cuda", **_kw):
     """The reference's ``random_scene`` (``Raytracing_n.cpp:108-176``), the
     RTiOW cover, as ``srt_tpu/scene/library.py:88-159`` builds it: a
     checker ground, a 22x22 grid of drifting Lambertian, metal and
@@ -286,7 +319,8 @@ def random_scene(aspect: float = 1.0, n_grid: int = 11, seed: int = 7,
         path = f"environment_map/sky_1/{rel}.jpg"
         if find_asset(path) is None:
             info.setdefault("skipped", []).append(f"sky_1/{rel}")
-        tex = b.image(load_image_asset(path, fallback_color=(0.6, 0.7, 0.9)))
+        tex = b.image(_maybe_downsample(
+            load_image_asset(path, fallback_color=(0.6, 0.7, 0.9)), max_tex))
         b.light_rect(add(b.diffuse_light(tex)))
 
     e = 100.0
@@ -349,13 +383,15 @@ def two_perlin_spheres(aspect: float = 1.0, ambient: float = 1.0,
 
 
 @_register
-def earth_sphere(aspect: float = 1.0, device="cuda", **_kw):
+def earth_sphere(aspect: float = 1.0, max_tex: int | None = None,
+                 device="cuda", **_kw):
     """The reference's fixture ``earth_shpere`` (``Raytracing_n.cpp:196-205``):
     an emissive earth-map sphere, the scene's light, over a white
     ground."""
     b = SceneBuilder()
     info: dict = {"lights": 1}
-    earth = _image(b, "textures/earthmap.jpg", info, (0.2, 0.4, 0.8))
+    earth = _image(b, "textures/earthmap.jpg", info, (0.2, 0.4, 0.8),
+                   max_tex)
     b.sphere((0, -1000, 0), 1000.0,
              b.lambertian(b.constant((0.9, 0.9, 0.9))))
     b.light_sphere(b.sphere((0, 2, 0), 2.0, b.diffuse_light(earth)))
@@ -396,7 +432,7 @@ def _tnw_cam(aspect: float, device) -> Camera:
 
 @_register
 def final(aspect: float = 1.0, seed: int = 1, n_cluster: int = 1000,
-          device="cuda", **_kw):
+          max_tex: int | None = None, device="cuda", **_kw):
     """Reference scene 5 (``Raytracing_n.cpp:475-533``), *The Next Week*'s
     final scene: 400 ground boxes of seeded heights as 4,800 BVH
     triangles, a rect light, a moving sphere, glass and metal spheres, a
@@ -430,7 +466,8 @@ def final(aspect: float = 1.0, seed: int = 1, n_cluster: int = 1000,
     b.medium_sphere((0, 0, 0), 5000.0, 0.0001,
                     b.constant((1.0, 1.0, 1.0)))                  # :506-507
 
-    earth = _image(b, "textures/earthmap.jpg", info, (0.2, 0.4, 0.8))
+    earth = _image(b, "textures/earthmap.jpg", info, (0.2, 0.4, 0.8),
+                   max_tex)
     b.sphere((400, 200, 400), 100.0, b.lambertian(earth))         # :511
     b.sphere((220, 280, 300), 80.0, b.lambertian(b.noise(0.1)))   # :512-513
     _sphere_cube(b, rng, n_cluster, white)                        # :514-518

@@ -15,9 +15,13 @@ cornell_boxes`` (triangles) or ``random_scene`` (moving spheres) the
 bounce is kernel B3 then B2 forward, or B2 alone, and the hybrid backward
 (the plain bounce replayed under autograd with B6's sphere winner,
 ``kernels/bounce_vjp.py``). Geometric parameters are timed by
-``chip_smoke.py`` phase 15. There is no ``scan`` engine (ROADMAP A6).
+``chip_smoke.py`` phase 15. ``--engines regen scan`` also times the
+lockstep scan engine's step (``make_train_step(engine="scan")``, every
+bounce of every ray kept for the backward), as ``tools/trainbench.py``
+times both.
 
-Usage: ``python -m srt_tpu_torch.trainbench [--width 256] [--profile DIR]``.
+Usage: ``python -m srt_tpu_torch.trainbench [--width 256] [--engines regen
+scan] [--profile DIR]``.
 ``--profile`` adds one step timed phase by phase (forward, backward, Adam)
 and one step under ``torch.profiler``. Diagnostics go to stderr; stdout
 carries exactly one JSON line.
@@ -110,6 +114,8 @@ def main() -> None:
     ap.add_argument("--depth-budget", type=float, default=4.0)
     ap.add_argument("--drain", type=int, default=12)
     ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--engines", nargs="+", default=["regen"],
+                    choices=["regen", "scan"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one step to DIR "
@@ -129,36 +135,44 @@ def main() -> None:
     w = args.width
     rays = w * w * args.spp
     target = torch.full((w, w, 3), 0.3, device=dev)
-    step = make_train_step(
-        scene, camera, {"tex_color": scene.tex_color}, width=w, height=w,
-        spp=args.spp, max_depth=args.max_depth, lr=args.lr,
-        engine_kw=dict(wavefront=args.wavefront,
-                       depth_budget=args.depth_budget, drain=args.drain),
-        device=dev)
-    t0 = time.time()
-    loss = float(step(target, 0))
-    sync()
-    warm = time.time() - t0
-    walls = []
-    for r in range(args.reps):
+    engines = {}
+    for engine in args.engines:
+        step = make_train_step(
+            scene, camera, {"tex_color": scene.tex_color}, width=w,
+            height=w, spp=args.spp, max_depth=args.max_depth, lr=args.lr,
+            engine=engine,
+            engine_kw=(dict(wavefront=args.wavefront,
+                            depth_budget=args.depth_budget, drain=args.drain)
+                       if engine == "regen" else None),
+            device=dev)
         t0 = time.time()
-        loss = float(step(target, r + 1))
+        loss = float(step(target, 0))
         sync()
-        walls.append(time.time() - t0)
-    dt = sorted(walls)[len(walls) // 2]
-    regen = {"rays_per_sec": round(rays / dt, 1), "step_wall_s": round(dt, 4),
-             "step_walls_s": [round(x, 4) for x in walls],
-             "warmup_s": round(warm, 3), "loss": round(loss, 5)}
-    log(f"[trainbench] regen: {regen}")
-    if args.profile and on_card:
-        regen["phases"] = phase_walls(step, target, args.reps + 1)
-        log(f"[trainbench] phases: {regen['phases']}")
-        regen["profile"] = profile_step(args.profile, step, target,
-                                        args.reps + 2)
+        warm = time.time() - t0
+        walls = []
+        for r in range(args.reps):
+            t0 = time.time()
+            loss = float(step(target, r + 1))
+            sync()
+            walls.append(time.time() - t0)
+        dt = sorted(walls)[len(walls) // 2]
+        rec = {"rays_per_sec": round(rays / dt, 1),
+               "step_wall_s": round(dt, 4),
+               "step_walls_s": [round(x, 4) for x in walls],
+               "warmup_s": round(warm, 3), "loss": round(loss, 5)}
+        log(f"[trainbench] {engine}: {rec}")
+        if args.profile and on_card:
+            rec["phases"] = phase_walls(step, target, args.reps + 1)
+            log(f"[trainbench] phases: {rec['phases']}")
+            rec["profile"] = profile_step(
+                os.path.join(args.profile, engine), step, target,
+                args.reps + 2)
+        engines[engine] = rec
+        del step
     print(json.dumps({
         "metric": "train_step_rays_per_sec", "scene": args.scene,
         "width": w, "spp": args.spp, "max_depth": args.max_depth,
-        "device": kind, "engines": {"regen": regen},
+        "device": kind, "engines": engines,
         "backend": "torch-cuda" if on_card else "torch-cpu"}), flush=True)
 
 

@@ -3,7 +3,12 @@ package's SceneBuilder. ``lit_room``: two rect lights (one
 image-textured), no environment dome (so rays miss), a flipped-normal
 sphere, Beckmann spheres from near-mirror to rough, an Oren–Nayar floor.
 ``lit_room_media``: the same room with a sphere medium and a box medium,
-a metal and a glass sphere, and an image-textured Lambertian sphere."""
+a metal and a glass sphere, and an image-textured Lambertian sphere.
+Two scenes the bounce kernels' gate refuses, so both engines shade them
+with the plain bounce: ``medium_room``, a rect light seen through a
+constant medium bounded by a box or by the same box as 12 triangles
+(``tests/test_render.py:192-220``), and ``cornell_tiled``, cornell_boxes
+with its back wall tiled into rects, past the kernels' 64 rects."""
 from __future__ import annotations
 
 import numpy as np
@@ -57,3 +62,68 @@ def clustered_soup(builder_cls, n_rays: int):
     d = r.standard_normal((n_rays, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return b, o, d
+
+
+#: ``medium_room``'s box and its cameras: outside the medium, and inside
+#: it (a camera ray's entry clamps to 0, ``constant_medium.h:23``)
+MEDIUM_BOX = ((-4.0, -4.0, -14.0), (4.0, 4.0, -6.0))
+MEDIUM_CAMERA = dict(lookfrom=(0, 0, 0), lookat=(0, 0, -1), vfov=40.0,
+                     aspect=1.0)
+MEDIUM_CAMERA_INSIDE = dict(lookfrom=(0, 0, -10), lookat=(0, 0, -20),
+                            vfov=40.0, aspect=1.0)
+
+
+def box_tris(lo, hi) -> np.ndarray:
+    """The 12 triangles (12, 3, 3) of the box ``lo``-``hi``."""
+    x0, y0, z0 = lo
+    x1, y1, z1 = hi
+    c = np.array([[x0, y0, z0], [x1, y0, z0], [x0, y1, z0],
+                  [x1, y1, z0], [x0, y0, z1], [x1, y0, z1],
+                  [x0, y1, z1], [x1, y1, z1]], np.float32)
+    quads = np.array([[0, 2, 3, 1], [4, 5, 7, 6], [0, 1, 5, 4],
+                      [2, 6, 7, 3], [0, 4, 6, 2], [1, 3, 7, 5]])
+    return c[np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])]
+
+
+def medium_room(b, kind: str):
+    """A rect light behind a density-0.5 grey medium bounded by
+    :data:`MEDIUM_BOX` as a box (``kind`` "box") or as its triangles
+    ("mesh"); returns the builder."""
+    lid = b.xy_rect(-5, 5, -5, 5, -20, b.diffuse_light(b.constant((4, 4, 4))))
+    albedo = b.constant((0.2, 0.2, 0.2))
+    if kind == "box":
+        b.medium_box(*MEDIUM_BOX, 0.5, albedo)
+    else:
+        b.medium_mesh(box_tris(*MEDIUM_BOX), 0.5, albedo)
+    b.light_rect(lid)
+    return b
+
+
+#: cornell_boxes' camera (``srt_tpu/scene/library.py:258-259``)
+CORNELL_CAMERA = dict(lookfrom=(278, 278, -800), lookat=(278, 278, 0),
+                      vfov=40.0, aspect=1.0, aperture=0.0, focus_dist=10.0)
+
+
+def cornell_tiled(b, tiles: int = 8):
+    """cornell_boxes (``srt_tpu/scene/library.py:234-260``) with its back
+    wall as ``tiles`` x ``tiles`` rects that cover it exactly: 5 + 64
+    rects at the default, past the bounce kernels' cap of 64. Returns
+    the builder."""
+    red = b.lambertian(b.constant((0.65, 0.05, 0.05)))
+    white = b.lambertian(b.constant((0.73, 0.73, 0.73)))
+    green = b.lambertian(b.constant((0.12, 0.45, 0.15)))
+    light = b.diffuse_light(b.constant((15.0, 15.0, 15.0)))
+    b.yz_rect(0, 555, 0, 555, 555, green, flip=True)
+    b.yz_rect(0, 555, 0, 555, 0, red)
+    lid = b.xz_rect(213, 343, 227, 332, 554, light, flip=True)
+    b.xz_rect(0, 555, 0, 555, 0, white)
+    b.xz_rect(0, 555, 0, 555, 555, white, flip=True)
+    edges = np.linspace(0.0, 555.0, tiles + 1)
+    for i in range(tiles):
+        for j in range(tiles):
+            b.xy_rect(edges[i], edges[i + 1], edges[j], edges[j + 1], 555,
+                      white, flip=True)
+    b.box((130, 0, 65), (295, 165, 230), white, as_tris=True)
+    b.box((265, 0, 295), (430, 330, 460), white, as_tris=True)
+    b.light_rect(lid)
+    return b

@@ -86,6 +86,6 @@ def test_sobol_points_equal(n, d):
 def test_rng_pixel_jitter_equal(seed):
     """``RenderConfig(sobol_pixel_jitter=False)``: the sampler-stream jitter."""
     from srt_tpu.render.api import _rng_jitter as jax_rng_jitter
-    from srt_tpu_torch.render.regen import _rng_jitter
+    from srt_tpu_torch.render.api import _rng_jitter
     np.testing.assert_array_equal(_rng_jitter(16, seed).numpy(),
                                   np.asarray(jax_rng_jitter(16, seed)))

@@ -1,8 +1,10 @@
-"""srt_tpu_torch stands alone: importing it, rendering ball_scenes,
-cornell_boxes and teapot_scene (its native BVH builder, clusters, the
-two-level walk, specular materials and a medium) and taking a train step
-on the CPU pull in neither JAX nor the JAX package, nor anything the GPU
-machine lacks. No module of the port imports ``triton``: PyTorch itself
+"""srt_tpu_torch stands alone: importing it (the command line, its
+``__main__``, the checkpoint and cache utilities among its modules),
+rendering ball_scenes, cornell_boxes and teapot_scene (its native BVH
+builder, clusters, the two-level walk, specular materials and a medium)
+with either engine, running the command line into a PNG and taking a
+train step on the CPU pull in neither JAX nor the JAX package, nor
+anything the GPU machine lacks. No module of the port imports ``triton``: PyTorch itself
 may (on a machine that has it, its optimisers reach ``torch._dynamo``),
 so the script records the frame that first imports it."""
 from __future__ import annotations
@@ -59,6 +61,9 @@ from srt_tpu_torch import (RenderConfig, get_scene, make_train_step,
 import srt_tpu_torch.kernels.build, srt_tpu_torch.convert
 import srt_tpu_torch.diff, srt_tpu_torch.render.regen_scan
 import srt_tpu_torch.trainbench
+import srt_tpu_torch.cli, srt_tpu_torch.__main__
+import srt_tpu_torch.utils.checkpoint, srt_tpu_torch.utils.cache
+import os, tempfile
 scene, cam, _ = get_scene("ball_scenes", device="cpu")
 img = render_regen(scene, cam, RenderConfig(width=8, height=8, spp=1,
                                             max_depth=3))
@@ -66,7 +71,7 @@ tri_scene, tri_cam, _ = get_scene("cornell_boxes", device="cpu")
 tri_img = render_regen(tri_scene, tri_cam,
                        RenderConfig(width=8, height=8, spp=2, max_depth=4))
 import srt_tpu_torch.kernels.intersect, srt_tpu_torch.accel.bvh
-import srt_tpu_torch.render.intersect as ri
+from srt_tpu_torch.render import intersect as ri
 ri.SINGLE_LEVEL_BUDGET = 0          # the two-level walk on a small mesh
 pot, pot_cam, _ = get_scene("teapot_scene", device="cpu", divs=3)
 pot_img = render_regen(pot, pot_cam,
@@ -74,13 +79,22 @@ pot_img = render_regen(pot, pot_cam,
 step = make_train_step(scene, cam, {"tex_color": scene.tex_color}, width=4,
                        height=4, spp=1, max_depth=2, device="cpu")
 loss = step(torch.full((4, 4, 3), 0.3), 0)
+scan_img = srt_tpu_torch.render(tri_scene, tri_cam, RenderConfig(
+    width=8, height=8, spp=2, max_depth=4))
+png = os.path.join(tempfile.mkdtemp(), "out.png")
+cli_rc = srt_tpu_torch.cli.main(["--scene", "balls", "--width", "8", "--spp",
+                                 "1", "--max-depth", "2", "--device", "cpu",
+                                 "--no-compile-cache", "--out", png])
 print(json.dumps({"shape": list(img.shape),
                   "finite": bool(img.isfinite().all()
                                  and tri_img.isfinite().all()
                                  and tri_img.mean() > 0
                                  and pot_img.isfinite().all()
                                  and pot_img.mean() > 0
-                                 and loss.isfinite()),
+                                 and loss.isfinite()
+                                 and scan_img.isfinite().all()
+                                 and scan_img.mean() > 0
+                                 and cli_rc == 0 and os.path.isfile(png)),
                   "modules": sorted(m.split(".")[0] for m in sys.modules),
                   "triton_importer": TritonWatch.stack}))
 """

@@ -35,7 +35,7 @@ from srt_tpu_torch.kernels import spheres as ks
 from srt_tpu_torch.render.camera import Camera
 from srt_tpu_torch.scene.build import SceneBuilder
 from srt_tpu_torch.scene.ir import SceneFlags
-from srt_tpu_torch.utils import contract
+from srt_tpu_torch.utils import cache, contract
 
 torch.set_num_threads(1)
 
@@ -149,7 +149,7 @@ def test_build_targets_sm90a_without_fast_math():
         assert any(s.endswith("/" + h) for s in build.HEADERS), h
     assert "srt_intersect_tris" in build.ENTRY_POINTS
     assert "srt_sphere_winner" in build.ENTRY_POINTS
-    assert build.library_path().startswith(build.BUILD_DIR)
+    assert build.library_path().startswith(cache.build_dir())
 
 
 def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):

@@ -17,6 +17,7 @@ images).
 """
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -34,15 +35,15 @@ from srt_tpu.scene.build import SceneBuilder as JaxSceneBuilder
 from srt_tpu.scene.ir import SceneFlags as JaxSceneFlags
 from srt_tpu.utils.compare import golden_psnr as jax_golden_psnr
 from srt_tpu_torch import (RenderConfig, convert, get_scene,
-                           make_train_step, render_regen)
+                           make_train_step, render, render_regen)
 from srt_tpu_torch import golden
 from srt_tpu_torch.core.approx import erf_reference_buggy
 from srt_tpu_torch.core.vecmath import to_local
-from srt_tpu_torch.io.image import read_image, read_png, write_ppm
+from srt_tpu_torch.io.image import read_image, read_png, read_ppm, write_ppm
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.materials import materials as mats
-from srt_tpu_torch.render import regen_scan
+from srt_tpu_torch.render import film, regen_scan
 from srt_tpu_torch.render.api import scene_flags
 from srt_tpu_torch.scene.ir import SceneFlags, require_covered
 from srt_tpu_torch.utils.compare import golden_psnr
@@ -158,17 +159,30 @@ def test_require_covered_accepts_parity():
 
 
 def test_scan_engine_modes_raise_a6(tmp_path):
+    """The scan engine's modes, which raised naming A6 until it was
+    ported, render: ``seq_stale`` through ``render_regen`` is the default
+    regeneration render (JAX's regen ignores it too), and the golden tool
+    takes the scan engine for ``--engine scan`` and ``--seq-stale``, as
+    ``tools/golden.py:80`` chooses, its image the library's."""
     scene, cam, _ = get_scene("ball_scenes", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        render_regen(scene, cam, RenderConfig(width=4, height=4, spp=1,
-                                              ref_parity=True,
-                                              seq_stale=True))
-    for extra in (["--engine", "scan"], ["--seq-stale", "--ref-parity"]):
+    cfg = RenderConfig(width=4, height=4, spp=1, ref_parity=True)
+    assert torch.equal(render_regen(scene, cam, dataclasses.replace(
+        cfg, seq_stale=True)), render_regen(scene, cam, cfg))
+    tri, tri_cam, _ = get_scene("cornell_boxes", device="cpu")
+    for extra, cfg in (
+            (["--engine", "scan"], RenderConfig(width=8, height=8, spp=1)),
+            (["--seq-stale", "--ref-parity"],
+             RenderConfig(width=8, height=8, spp=1, ref_parity=True,
+                          seq_stale=True))):
         args = golden.parse_args(["--scene", "cornell_boxes", "--size", "8",
                                   "--spp", "1", "--device", "cpu",
                                   "--out-dir", str(tmp_path)] + extra)
-        with pytest.raises(NotImplementedError, match="A6"):
-            golden.run(args)
+        out = golden.run(args)
+        want = film.tonemap(render(tri, tri_cam, dataclasses.replace(
+            cfg, max_depth=50)))
+        np.testing.assert_array_equal(
+            read_ppm(out["ours"]),
+            np.clip(255.99 * want.numpy(), 0, 255).astype(np.uint8))
 
 
 def test_regen_kernel_refuses_parity():

@@ -15,7 +15,7 @@ from srt_tpu.scene import library as jlib
 from srt_tpu.scene.build import SceneBuilder as JaxSceneBuilder
 from srt_tpu.scene.ir import SceneFlags as JaxSceneFlags
 from srt_tpu_torch import (RenderConfig, convert, get_scene, make_train_step,
-                           render_regen)
+                           render, render_regen)
 from srt_tpu_torch.core import rng
 from srt_tpu_torch.scene.build import SceneBuilder
 from srt_tpu_torch.scene.ir import PORT_FLAGS, SceneFlags, TorchScene
@@ -136,32 +136,38 @@ def _merl(scene):
                                        ("mesh_medium", "A7"),
                                        ("train_mesh_medium", "A7")])
 def test_uncovered_scenes_raise(case, item):
-    """What stays refused now that every family of the JAX fused bounce
-    renders and trains, the parity estimator included: its sequential
-    heap-slot mode (``seq_stale``, the scan engine's), MERL materials and
-    mesh-bounded media, in the train step as in the render (random_scene,
+    """Of the scenes the port once refused, ``item`` names the ROADMAP item
+    that covered it or still will: MERL materials (A12) still raise, in
+    the render as in the train step. Parity's sequential heap-slot mode
+    (``seq_stale``, A6) renders on the scan engine, and mesh-bounded media
+    (A7) render through the plain bounce and train through it (random_scene,
     whose checker ground and specular spheres the train step refused
-    before its backward had them, trains: ``test_torch_train_rich.py``)."""
+    before its backward had them, trains: ``test_torch_train_rich.py``).
+    A medium of kind 2 without boundary triangles crosses as a sphere,
+    as in the JAX integrator."""
     name = "random_scene" if case == "train_mesh_medium" else "ball_scenes"
     scene, cam, _ = get_scene(name, device="cpu")
     cfg = RenderConfig(width=4, height=4, spp=1)
-    with pytest.raises(NotImplementedError, match=item):
-        if case == "parity":
-            render_regen(scene, cam, dataclasses.replace(
-                cfg, ref_parity=True, seq_stale=True))
-        elif case == "merl":
+    if case == "merl":
+        with pytest.raises(NotImplementedError, match=item):
             render_regen(_merl(scene), cam, cfg)
-        elif case == "mesh_medium":
-            render_regen(_mesh_medium(scene), cam, cfg)
-        else:
-            make_train_step(_mesh_medium(scene), cam,
-                            {"tex_color": scene.tex_color}, width=4,
-                            height=4, spp=1, max_depth=2, device="cpu")
+        with pytest.raises(NotImplementedError, match=item):
+            make_train_step(_merl(scene), cam, {"tex_color": scene.tex_color},
+                            width=4, height=4, spp=1, max_depth=2,
+                            device="cpu")
+        return
     if case == "train_mesh_medium":
-        assert render_regen(scene, cam, cfg).shape == (4, 4, 3)
+        step = make_train_step(_mesh_medium(scene), cam,
+                               {"tex_color": scene.tex_color}, width=4,
+                               height=4, spp=1, max_depth=2, device="cpu")
+        assert torch.isfinite(step(torch.full((4, 4, 3), 0.3), 0))
+        return
     if case == "parity":
-        assert render_regen(scene, cam, dataclasses.replace(
-            cfg, ref_parity=True)).shape == (4, 4, 3)
+        img = render(scene, cam, dataclasses.replace(
+            cfg, ref_parity=True, seq_stale=True))
+    else:
+        img = render_regen(_mesh_medium(scene), cam, cfg)
+    assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
 
 
 def test_mesh_asset_scenes_not_registered():
@@ -173,16 +179,19 @@ def test_mesh_asset_scenes_not_registered():
 
 
 def test_media_and_parity_raise():
-    """Mesh-bounded media raise; of the parity estimator only its
-    sequential heap-slot mode does, which needs the scan engine (A6)."""
+    """Neither raises any longer: a mesh-bounded medium renders through
+    the plain bounce, parity's sequential heap-slot mode on the scan
+    engine (its image is the parity scan render's at one sample a chunk,
+    the carried plane being inert)."""
     scene, cam, _ = get_scene("ball_scenes", device="cpu")
     media = _mesh_medium(scene)
-    with pytest.raises(NotImplementedError, match="media"):
-        render_regen(media, cam, RenderConfig(width=4, height=4, spp=1))
-    with pytest.raises(NotImplementedError, match="A6"):
-        render_regen(scene, cam, RenderConfig(width=4, height=4, spp=1,
-                                              ref_parity=True,
-                                              seq_stale=True))
+    img, m = render_regen(media, cam, RenderConfig(width=4, height=4, spp=1),
+                          metrics=True)
+    assert m.bounce == "plain" and torch.isfinite(img).all()
+    cfg = RenderConfig(width=4, height=4, spp=2, max_depth=4,
+                       ref_parity=True, sample_chunk=1)
+    assert torch.equal(render(scene, cam, dataclasses.replace(
+        cfg, seq_stale=True)), render(scene, cam, cfg))
 
 
 def test_render_config_fields_match_jax():

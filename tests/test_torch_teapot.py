@@ -501,7 +501,8 @@ def test_triangle_free_scenes_still_raise(make):
     """Without triangles the bounce is kernel B1, whose rich instantiation
     holds the specular branch and the media sweep: the render gate admits
     them, and so does the train step, whose backward is B5's rich
-    instantiation. Both still raise on a medium bounded by a mesh (A7)."""
+    instantiation. A medium bounded by a mesh (A7) trains through
+    autograd of the plain bounce; B5 refuses it."""
     scene = make()
     flags = SceneFlags.of(scene)
     require_covered(scene, flags)
@@ -512,23 +513,24 @@ def test_triangle_free_scenes_still_raise(make):
                            device="cpu")
     assert np.isfinite(float(step(torch.full((4, 4, 3), 0.3), 0)))
     mesh = dataclasses.replace(scene, **_one_medium(2))
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_train_step(mesh, cam, {"tex_color": mesh.tex_color}, width=4,
-                        height=4, spp=1, max_depth=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    step = make_train_step(mesh, cam, {"tex_color": mesh.tex_color}, width=4,
+                           height=4, spp=1, max_depth=2, device="cpu")
+    assert np.isfinite(float(step(torch.full((4, 4, 3), 0.3), 0)))
+    with pytest.raises(NotImplementedError, match="mesh-bounded media"):
         kbb.require_bwd_kernel(mesh, SceneFlags.of(mesh))
 
 
 def test_gates_on_the_teapot():
-    """The teapot is covered; a mesh-bounded medium is not; the backward
-    kernel refuses it (triangles, media and specular materials alike), and
-    the train step gives it the hybrid backward instead."""
+    """The teapot is covered, and so is a mesh-bounded medium in it, which
+    the bounce kernels' gate sends to the plain bounce (A7); the backward
+    kernel refuses the teapot (triangles, media and specular materials
+    alike), and the train step gives it the hybrid backward instead."""
     scene, cam = _teapot()[3:5]
     require_covered(scene, SceneFlags.of(scene))
     mesh_med = dataclasses.replace(
         scene, med_kind=torch.full_like(scene.med_kind, 2))
-    with pytest.raises(NotImplementedError, match="A7"):
-        require_covered(mesh_med, SceneFlags.of(mesh_med))
+    require_covered(mesh_med, SceneFlags.of(mesh_med))
+    assert not SceneFlags.of(mesh_med).fused_bounce
     with pytest.raises(NotImplementedError, match="A13"):
         kbb.require_bwd_kernel(scene, SceneFlags.of(scene))
     assert not kbb.bwd_kernel_available(scene, SceneFlags.of(scene))

@@ -169,9 +169,10 @@ def test_inverse_recovers_albedo():
 
 
 def test_splice_refuses_geometry_and_the_atlas():
-    """The image atlas is still refused (A13), and so are the sharded step
-    (A11) and the scan engine (A6); geometric fields are accepted: splice
-    sets them, the train step optimises them, and a sphere-centre
+    """The image atlas is still refused (A13), and so is the sharded step
+    (A11); the scan engine (A6, refused before it was ported) renders the
+    pixels, and an unknown engine raises; geometric fields are accepted:
+    splice sets them, the train step optimises them, and a sphere-centre
     parameter makes the spheres moving for the forward kernel."""
     scene, cam = _lit_room()
     with pytest.raises(NotImplementedError, match="A13"):
@@ -189,9 +190,12 @@ def test_splice_refuses_geometry_and_the_atlas():
     with pytest.raises(NotImplementedError, match="A11"):
         make_train_step(scene, cam, {"tex_color": scene.tex_color},
                         mesh=object(), device="cpu", **LOSS)
-    with pytest.raises(NotImplementedError, match="A6"):
-        render_pixels(scene, cam, torch.arange(4), engine="scan", seed=0,
-                      **LOSS)
+    px = render_pixels(scene, cam, torch.arange(4), engine="scan", seed=0,
+                       **LOSS)
+    assert px.shape == (4, 3) and torch.isfinite(px).all()
+    with pytest.raises(ValueError, match="engine"):
+        render_pixels(scene, cam, torch.arange(4), engine="lockstep",
+                      seed=0, **LOSS)
 
 
 def test_trace_queue_matches_a_full_trace():

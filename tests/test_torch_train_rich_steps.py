@@ -182,10 +182,11 @@ def _merl(scene: TorchScene) -> TorchScene:
                                        ("merl", "A12"), ("parity", "A13")])
 def test_train_gate_still_refuses(case, item):
     """What the train step still refuses is what the render side refuses:
-    mesh-bounded media and MERL, on a rich scene as on any other. The
-    parity estimator renders, and the backward kernel refuses it, as
-    JAX's gate does (its bounce takes the hybrid backward); the train
-    step never sets it."""
+    MERL (A12), on a rich scene as on any other. Mesh-bounded media, which
+    A7 covered, train through the plain bounce under autograd, the route
+    the bounce kernels' gate gives them. The parity estimator renders, and
+    the backward kernel refuses it, as JAX's gate does (its bounce takes
+    the hybrid backward); the train step never sets it."""
     scene, cam = _scene("two_spheres")
     if case == "parity":
         flags = SceneFlags.of(scene)._replace(ref_parity=True)
@@ -194,7 +195,15 @@ def test_train_gate_still_refuses(case, item):
         with pytest.raises(NotImplementedError, match=item):
             kbb.require_bwd_kernel(scene, flags)
         return
-    bad = _mesh_medium(scene) if case == "mesh_medium" else _merl(scene)
+    if case == "mesh_medium":
+        media = _mesh_medium(scene)
+        require_trainable(media, SceneFlags.of(media))
+        step = make_train_step(media, cam, {"tex_color": media.tex_color},
+                               width=4, height=4, spp=1, max_depth=2,
+                               device="cpu")
+        assert torch.isfinite(step(torch.full((4, 4, 3), 0.3), 0))
+        return
+    bad = _merl(scene)
     with pytest.raises(NotImplementedError, match=item):
         require_trainable(bad, SceneFlags.of(bad))
     with pytest.raises(NotImplementedError, match=item):
@@ -206,8 +215,8 @@ def test_coverage_gate_reads_no_device_memory():
     """The mesh-medium fact is read once, into ``SceneFlags``: the gate
     the train step runs before every backward launch reads the flags and
     the tables' shapes only, so it holds with the media table on the meta
-    device (whose values cannot be read), and still refuses a mesh-bounded
-    medium from the flags."""
+    device (whose values cannot be read), and it admits a mesh-bounded
+    medium, which the flags send to the plain bounce."""
     scene, _ = _scene("lit_room_media")
     flags = SceneFlags.of(scene)
     assert not flags.mesh_media
@@ -217,10 +226,9 @@ def test_coverage_gate_reads_no_device_memory():
     kbb.require_bwd_kernel(meta, flags)
     mesh = _mesh_medium(scene)
     mflags = SceneFlags.of(mesh)
-    assert mflags.mesh_media
-    with pytest.raises(NotImplementedError, match="A7"):
-        require_covered(dataclasses.replace(
-            mesh, med_kind=mesh.med_kind.to("meta")), mflags)
+    assert mflags.mesh_media and not mflags.fused_bounce
+    require_covered(dataclasses.replace(
+        mesh, med_kind=mesh.med_kind.to("meta")), mflags)
 
 
 @pytest.mark.parametrize("name,perlin", [

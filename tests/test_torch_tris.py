@@ -389,7 +389,8 @@ def _mesh_medium(scene: TorchScene) -> TorchScene:
 # the render gate covers metal, dielectric, checker textures and sphere
 # or box media on every scene (kernel B1's and B2's rich instantiation),
 # and so does the train gate (B5's rich instantiation without triangles,
-# the hybrid with them); both still refuse mesh-bounded media
+# the hybrid with them); both admit mesh-bounded media (A7), which the
+# bounce kernels' gate sends to the plain bounce
 @pytest.mark.parametrize("change,item", [
     pytest.param(_mesh_medium, "A7", id="media"),
     pytest.param(lambda s: _rects_only(
@@ -403,31 +404,35 @@ def _mesh_medium(scene: TorchScene) -> TorchScene:
 def test_gate_still_refuses(change, item):
     scene = change(_cornell()[2])
     flags = SceneFlags.of(scene)
-    if item == "A7":
-        with pytest.raises(NotImplementedError, match=item):
-            require_covered(scene, flags)
-        with pytest.raises(NotImplementedError, match=item):
-            require_trainable(scene, flags)
-        return
     require_covered(scene, flags)
     require_trainable(scene, flags)
+    if item == "A7":
+        assert flags.mesh_media and not flags.fused_bounce
+        assert not kbb.bwd_kernel_available(scene, flags)
+        return
     assert kbb.bwd_kernel_available(scene, flags) == (not scene.n_tris)
     mesh = _mesh_medium(scene)
-    with pytest.raises(NotImplementedError, match="A7"):
-        require_trainable(mesh, SceneFlags.of(mesh))
+    mflags = SceneFlags.of(mesh)
+    require_trainable(mesh, mflags)
+    assert not mflags.fused_bounce
+    assert not kbb.bwd_kernel_available(mesh, mflags)
 
 
 def test_gate_refuses_parity_on_triangles():
     """The parity estimator renders triangle scenes (B3 then B2's parity
-    instantiation); what stays refused is its sequential heap-slot mode,
-    which needs the scan engine (A6)."""
-    from srt_tpu_torch.render.api import RenderConfig, scene_flags
-    scene = _cornell()[2]
+    instantiation), and so does its sequential heap-slot mode on the scan
+    engine (A6, which the gate refused before the scan engine was
+    ported); ``seq_stale`` sets no flag of its own."""
+    from srt_tpu_torch.render.api import RenderConfig, render, scene_flags
+    scene, cam = _cornell()[2:4]
     flags = scene_flags(scene, RenderConfig(ref_parity=True))
     assert flags.ref_parity
     require_covered(scene, flags)
-    with pytest.raises(NotImplementedError, match="A6"):
-        scene_flags(scene, RenderConfig(ref_parity=True, seq_stale=True))
+    cfg = RenderConfig(width=4, height=4, spp=2, max_depth=3,
+                       ref_parity=True, seq_stale=True)
+    assert scene_flags(scene, cfg) == flags
+    img, m = render(scene, cam, cfg, metrics=True)
+    assert torch.isfinite(img).all() and (m.bounce, m.walk) == ("B2", "B3")
 
 
 def test_builder_box_forms():
