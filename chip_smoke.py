@@ -180,10 +180,29 @@ of which raises on failure:
 30. the scenes the kernels' gate refuses, at 256x256, 16 spp, depth 50
    through both engines: the mesh-medium box and cornell_boxes with its
    back wall tiled into 64 rects, the bounce plain (and the walk B3), no
-   NaN, the tiled Cornell against cornell_boxes' own.
+   NaN, the tiled Cornell against cornell_boxes' own;
+31. the float image atlas (A13): earth_sphere's atlas spliced to float
+   (its values u8/255), B1, B2 and B5 on phases 17's and 19's wavefronts
+   equal to the bit to the packed atlas's launches; the float atlas's
+   render through B1 and its scan image equal to the packed one's; a
+   ``{"tex_color"}`` step on the float atlas (B2, B5) and the
+   ``{"atlas"}`` step at phase 6's settings (B2, the hybrid with B6);
+32. MERL (A12): a seeded table through ``write_merl``/``read_merl`` on a
+   70,200-triangle PLY blob in ``cornell_box``'s layout, ``lookup`` on
+   the card against the CPU, the render at 512x512x16x50 through both
+   engines (walk B3, bounce plain);
+33. the mesh assets (A8): a bunny-sized PLY and a dragon under a
+   temporary ``SRT_ASSETS``, ``cornell_box`` (B3 against its plain walk,
+   the render) and ``teapot_scene`` with both (B4 against its plain walk,
+   the render), the host's load and build seconds;
+34. distribution (A11): ``render_sharded`` on a one-process NCCL group
+   equal to ``render`` to the bit, the sharded train step of one NCCL
+   process and of two gloo processes on the one card against the
+   unsharded one, and ``python -m srt_tpu_torch.dist.multihost`` as two
+   gloo processes on the one card against one process, to the bit.
 
 Prints each phase's seconds, then one JSON line about the kernels, one
-about the paths phases 24-30 drive (``paths``: each path's launches per
+about the paths phases 24-34 drive (``paths``: each path's launches per
 kernel and its wall), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -2780,6 +2799,536 @@ def phase_a7(dev) -> dict:
     return out
 
 
+# --- phases 31-34: the last modules (A13, A12, A8, A11) ----------------
+#: phases 32-33: seeded blobs standing in for the scanned meshes, written
+#: as PLY files (``tests/_torch_scenes.py:write_blob_ply``): the bunny's
+#: size (70,200 triangles; the Stanford bunny has 69,451) and a dragon of
+#: 100,000
+BUNNY_MESH = dict(n_lat=151, n_lon=234, seed=0)
+DRAGON_MESH = dict(n_lat=201, n_lon=250, seed=1, radius=0.09)
+MERL_SEED = 3
+LOOKUP_LANES = 1 << 20      # phase 32: directions of the lookup check
+DIST_TIMEOUT = 600          # phase 34: seconds a process may take
+
+
+def dist_train_worker(rank: int, init: str, out: str) -> None:
+    """Phase 34: rank ``rank`` of two gloo processes on the one card, each
+    building ball_scenes and taking the sharded ``{"tex_color"}`` step at
+    phase 6's settings on its half of the pixels; rank 1 starts from other
+    colours, which rank 0's replace. Saves the loss, the parameters, the
+    step's launches and its wall under ``out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from srt_tpu_torch import get_scene, make_train_step
+    from srt_tpu_torch.dist import make_mesh
+
+    dist.init_process_group("gloo", init_method=init, world_size=2,
+                            rank=rank)
+    try:
+        mesh = make_mesh()
+        scene, cam, _ = get_scene("ball_scenes", device=mesh.device)
+        if rank:
+            scene.tex_color.mul_(0.5)
+        w = TRAIN["width"]
+        step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
+                               width=w, height=w, spp=TRAIN["spp"],
+                               max_depth=TRAIN["max_depth"], lr=TRAIN_LR,
+                               engine_kw=TRAIN_ENGINE, mesh=mesh)
+        target = torch.full((w, w, 3), TRAIN_TARGET, device=mesh.device)
+        reset_counts()
+        t0 = time.time()
+        loss = float(step(target, 0))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        np.savez(os.path.join(out, f"rank{rank}.npz"), loss=loss, wall=wall,
+                 tex_color=step.params["tex_color"].detach().cpu().numpy(),
+                 counts=json.dumps(read_counts()))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_atlas(dev) -> dict:
+    """Phase 31 (A13): earth_sphere with its atlas spliced to float (its
+    values are u8/255, so they are the packed twin's): B1 on phase 17's
+    wavefront, B2 and B5 on phase 19's train state, each equal to the bit
+    to the packed atlas's launch, and B2 on the float atlas against its
+    plain version; the render path (``render_regen`` at the main path's
+    settings, B1 rich) and the scan engine's image, equal to the bit to
+    the packed scene's; a ``{"tex_color"}`` step on the float atlas (B2
+    and B5 rich) and the ``{"atlas"}`` step at the train cell's settings
+    (B2 forward, the hybrid backward with B6): finite losses, a finite
+    atlas gradient, nonzero on the texels the camera sees."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import RenderConfig, render, render_regen
+    from srt_tpu_torch.core.sobol import sobol_points
+    from srt_tpu_torch.diff import splice
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.render.regen_scan import steps_for
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    packed, cam = rich_scene("earth_sphere", dev)
+    flt = splice(packed, {"atlas": packed.atlas})
+    flags = SceneFlags.of(packed)
+    if flt.atlas_u32 is not None or SceneFlags.of(flt) != flags:
+        raise AssertionError("splice kept the packed atlas or moved flags")
+    spec = kb.RegenSpec(width=512, height=512, spp=16, max_depth=50,
+                        rr_start=1 << 30, pdf_floor=1e-9, seed=0)
+    jitter = torch.from_numpy(sobol_points(16, 2).astype(np.float32))
+    inp_p = kb.RegenInputs(packed, flags, cam, jitter)
+    inp_f = kb.RegenInputs(flt, flags, cam, jitter)
+    if inp_p.fields["atlas_f32"] or not inp_f.fields["atlas_f32"]:
+        raise AssertionError("the atlas tables' kinds are wrong")
+    row = dict(RICH_CASES)["earth_sphere"]
+    mid = b1_wavefront(inp_p, spec, dev, row * spec.width * spec.spp)
+    st_p, st_f = clone(mid), clone(mid)
+    kb.regen_bounce(inp_p, st_p, spec)
+    kb.regen_bounce(inp_f, st_f, spec)
+    torch.cuda.synchronize()
+    bad = [k for k in st_p if not same_bits(st_p[k], st_f[k])]
+    if bad:
+        raise AssertionError(f"B1 float atlas: {bad} differ from packed")
+    b1_ms = {k: min(b1_launch_ms(inp, mid, spec, 50) for _ in range(2))
+             for k, inp in (("packed", inp_p), ("float", inp_f))}
+
+    step = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    tab_p = kb.build_tables(packed, flags)
+    tab_f = kb.build_tables(flt, flags)
+    st = train_state(packed, cam, flags, tab_p, step, dev)
+    out_p = kb.bounce_fwd(packed, flags, tab_p, st, step)
+    out_f = kb.bounce_fwd(flt, flags, tab_f, st, step)
+    r = np.random.default_rng(5)
+    ct = {k: torch.from_numpy(r.standard_normal((TRAIN_LANES, 3))
+                              .astype(np.float32)).to(dev)
+          for k in kbb.ROWS}
+    for k in ("o", "d", "beta"):
+        ct[k][~out_p["alive"]] = 0.0
+    g_p, gm_p, w_p = kbb.lane_cotangents(packed, flags, tab_p, st, ct, step)
+    g_f, gm_f, w_f = kbb.lane_cotangents(flt, flags, tab_f, st, ct, step)
+    torch.cuda.synchronize()
+    bad = [k for k in out_p if not same_bits(out_p[k], out_f[k])]
+    bad += [f"d_{k}" for k in kbb.ROWS if not same_bits(g_p[k], g_f[k])]
+    if not (same_bits(gm_p, gm_f) and torch.equal(w_p, w_f)):
+        bad.append("material cotangents")
+    if bad:
+        raise AssertionError(f"B2/B5 float atlas: {bad} differ from packed")
+    b2 = check_b2("atlas-float-train", flt, flags, tab_f, st, step)
+    log(f"[atlas] earth_sphere atlas {packed.atlas.shape[0]} floats "
+        f"({flt.atlas.shape[0] // 3} texels): B1 ({LANES} lanes, row {row}), "
+        f"B2 and B5 ({TRAIN_LANES} lanes) on the float atlas equal to the "
+        f"packed atlas's to the bit; B1 ms per bare launch {b1_ms}")
+
+    cfg = RenderConfig(**MAIN)
+    imgs, mets, counts, _ = scan_runs("atlas-render-float", render_regen,
+                                      flt, cam, cfg, 1)
+    if counts["B1"] != mets[0].bounces or counts["B2"] or mets[0].bounce != \
+            "B1":
+        raise AssertionError(f"atlas render: {counts}, {mets[0].bounce}")
+    paths = [path_record("regen earth_sphere float atlas", counts, mets)]
+    scan_cfg = RenderConfig(**SCAN)
+    if not same_bits(render(flt, cam, scan_cfg), render(packed, cam,
+                                                        scan_cfg)):
+        raise AssertionError("the float atlas's scan image differs from the "
+                             "packed atlas's")
+    b1_launches = counts["B1"]
+
+    w, spp = TRAIN["width"], TRAIN["spp"]
+    n_steps = steps_for(w * w * spp, TRAIN_ENGINE["wavefront"],
+                        TRAIN_ENGINE["depth_budget"], TRAIN["max_depth"],
+                        drain=TRAIN_ENGINE["drain"])
+    totals = {"B1": b1_launches, "B2": 0, "B5": 0, "B6": 0}
+    for label, scene, params, want in (
+            ("tex_color float atlas", flt, {"tex_color": flt.tex_color},
+             ("B2", "B5")),
+            ("atlas", packed, {"atlas": packed.atlas}, ("B2", "B6"))):
+        stp, warm, losses, walls = train_walls(scene, cam, params, TRAIN,
+                                               dev, 1, reset_counts)
+        counts = read_counts()
+        if any(counts[k] != (n_steps if k in want else 0) for k in counts):
+            raise AssertionError(f"{label} step: {counts} for {n_steps} "
+                                 "bounces")
+        for k in want:
+            totals[k] += counts[k]
+        g = next(iter(stp.params.values())).grad
+        if not (np.isfinite(losses).all() and torch.isfinite(g).all()):
+            raise AssertionError(f"{label} step: losses {losses}")
+        nonzero = int((g.reshape(-1, 3).abs().sum(1) > 0).sum())
+        if not nonzero:
+            raise AssertionError(f"{label} step: a zero gradient")
+        paths.append({"name": f"train {label}", "launches": {
+            k: v for k, v in counts.items() if v}, "wall_s": walls[0]})
+        log(f"[atlas-train] {label}: {w}x{w}x{spp} depth "
+            f"{TRAIN['max_depth']}, {n_steps} bounces: step wall "
+            f"{walls[0]:.3f} s ({w * w * spp / walls[0]:.1f} train-step "
+            f"rays/s), warm-up {warm:.3f} s, losses {losses}, launches "
+            f"{json.dumps(counts)}, gradient finite, {nonzero} of "
+            f"{g.reshape(-1, 3).shape[0]} rows nonzero")
+    return {"b2": b2, "paths": paths, "counts": totals}
+
+
+def merl_scene(dev, mesh_path: str, table):
+    """``cornell_box``'s layout (``srt_tpu/scene/library.py:264-294``: an
+    Oren–Nayar floor, the rect light, the sky dome as its stand-in) with
+    the mesh at ``mesh_path`` placed as the bunny is, in a MERL material of
+    ``table``. Returns the scene and the camera."""
+    import numpy as np
+
+    from srt_tpu_torch.io.mesh import load_mesh
+    from srt_tpu_torch.render.camera import Camera
+    from srt_tpu_torch.scene.build import SceneBuilder, rotation_y
+
+    lookfrom = (300.0, 500.0, -800.0)
+    b = SceneBuilder()
+    light = b.diffuse_light(b.constant((45.0, 45.0, 45.0)))
+    floor = b.oren_nayar(b.constant((0.7, 0.7, 0.7)), 0.0)
+    measured = b.merl(table, (1.0, 1.0, 1.0))
+    lid = b.xz_rect(203, 353, 217, 343, 800, light, flip=True)
+    b.xz_rect(0, 555, 0, 555, 0, floor)
+    sky = np.full((8, 8, 3), (153, 178, 229), np.uint8)
+    b.sphere(lookfrom, 10000.0, b.diffuse_light(b.image(sky)), flip=True)
+    b.trimesh(load_mesh(mesh_path), measured, scale=2000.0,
+              rotate=rotation_y(180.0), translate=(250, -70, 400),
+              flip_winding=True)
+    b.light_rect(lid)
+    return b.build(dev), Camera.look_at(
+        lookfrom, (300, 278, 200), vfov=40.0, aspect=1.0, aperture=0.0,
+        focus_dist=10.0, device=dev)
+
+
+def phase_merl(dev) -> dict:
+    """Phase 32 (A12): a seeded smooth MERL table written with
+    ``write_merl`` and read back with ``read_merl`` (17.5 MB), on a
+    70,200-triangle blob loaded by ``load_mesh`` from a PLY the phase
+    writes, in ``cornell_box``'s layout; ``lookup`` on the card against
+    its CPU run on 2^20 seeded direction pairs (indices within
+    ``contract.MERL_INDEX_MISMATCH``, values equal where they agree); the
+    render at the main path's settings through both engines, the route
+    the walk B3 and the plain bounce, no NaN."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from _torch_scenes import merl_table, write_blob_ply
+
+    from srt_tpu_torch import RenderConfig, render, render_regen
+    from srt_tpu_torch.io.merl import read_merl, write_merl
+    from srt_tpu_torch.materials import merl
+    from srt_tpu_torch.utils import contract
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        write_merl(os.path.join(tmp, "smooth.binary"), merl_table(MERL_SEED))
+        table = read_merl(os.path.join(tmp, "smooth.binary"))
+        io_s = time.time() - t0
+        n_tris = write_blob_ply(os.path.join(tmp, "blob.ply"), **BUNNY_MESH)
+        scene, cam = merl_scene(dev, os.path.join(tmp, "blob.ply"), table)
+    r = np.random.default_rng(7)
+    dirs = r.standard_normal((2, LOOKUP_LANES, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    dirs[..., 2] = np.abs(dirs[..., 2])
+    wo, wi = (torch.from_numpy(x) for x in dirs)
+    tid = torch.zeros(LOOKUP_LANES, dtype=torch.int32)
+    idx_c = merl.half_diff_indices(wo, wi)
+    idx_g = merl.half_diff_indices(wo.to(dev), wi.to(dev)).cpu()
+    f_c = merl.lookup(scene.merl.cpu(), tid, wo, wi)
+    f_g = merl.lookup(scene.merl, tid.to(dev), wo.to(dev), wi.to(dev)).cpu()
+    same = idx_c == idx_g
+    share = float((~same).float().mean())
+    if share > contract.MERL_INDEX_MISMATCH or not torch.equal(
+            f_c[same], f_g[same]):
+        raise AssertionError(f"MERL lookup: {share} of indices differ, or "
+                             "values at equal indices")
+    log(f"[merl] table {tuple(table.shape)} ({table.nbytes} B) written and "
+        f"read in {io_s:.3f} s; mesh {n_tris} triangles; lookup on "
+        f"{LOOKUP_LANES} direction pairs: {int((~same).sum())} indices "
+        f"differ from the CPU's (share {share}, limit "
+        f"{contract.MERL_INDEX_MISMATCH}), values equal where they agree")
+    cfg = RenderConfig(**SCAN)
+    paths, counts_all = [], []
+    for engine, fn in (("scan", render), ("regen", render_regen)):
+        _, mets, counts, _ = scan_runs(f"merl-{engine}", fn, scene, cam, cfg,
+                                       1)
+        if ((mets[0].bounce, mets[0].walk) != ("plain", "B3")
+                or counts["B3"] != mets[0].bounces or counts["B2"]
+                or counts["B1"]):
+            raise AssertionError(f"merl {engine}: {mets[0]}, {counts}")
+        paths.append(path_record(f"{engine} merl", counts, mets))
+        counts_all.append(counts)
+    return {"paths": paths, "B3": sum(c["B3"] for c in counts_all)}
+
+
+def phase_mesh_scenes(dev) -> dict:
+    """Phase 33 (A8): a binary PLY of 70,200 triangles (the Stanford
+    bunny's size) and a 100,000-triangle dragon, written as
+    ``models/bunny.ply`` and ``models/dragon.ply`` under a temporary
+    ``SRT_ASSETS`` root; ``cornell_box`` with its bunny (the host's load
+    and build seconds), B3 against the plain walk on a 65,536-lane
+    wavefront of its render, the render at the main path's settings (one
+    B3 and one B2 a bounce); ``teapot_scene`` at divs=100 with the bunny
+    and the dragon, B4 against its plain walk on its bounced wavefront,
+    and its render (one B4 and one B2 a bounce)."""
+    import tempfile
+    import warnings
+
+    import torch
+    from _torch_scenes import write_blob_ply
+
+    from srt_tpu_torch import RenderConfig, get_scene, render_regen
+    from srt_tpu_torch.kernels import intersect as ki
+
+    cfg = RenderConfig(**MAIN)
+    out = {"paths": []}
+    old = os.environ.get("SRT_ASSETS")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "models"))
+        n_bunny = write_blob_ply(os.path.join(tmp, "models", "bunny.ply"),
+                                 **BUNNY_MESH)
+        n_dragon = write_blob_ply(os.path.join(tmp, "models", "dragon.ply"),
+                                  **DRAGON_MESH)
+        os.environ["SRT_ASSETS"] = tmp
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                t0 = time.time()
+                box, box_cam, info = get_scene("cornell_box", device=dev)
+                box_s = time.time() - t0
+                t0 = time.time()
+                pot, pot_cam, pot_info = get_scene(
+                    "teapot_scene", device=dev, divs=TEAPOT_DIVS)
+                pot_s = time.time() - t0
+        finally:
+            if old is None:
+                del os.environ["SRT_ASSETS"]
+            else:
+                os.environ["SRT_ASSETS"] = old
+    if "models/bunny.ply" in info.get("skipped", []) or box.n_tris != n_bunny:
+        raise AssertionError(f"cornell_box: {box.n_tris} triangles, "
+                             f"skipped {info.get('skipped')}")
+    if pot.n_tris <= n_bunny + n_dragon or any(
+            m in pot_info.get("skipped", []) for m in
+            ("models/bunny.ply", "models/dragon.ply")):
+        raise AssertionError(f"teapot_scene: {pot.n_tris} triangles, "
+                             f"skipped {pot_info.get('skipped')}")
+    log(f"[meshes] cornell_box: {box.n_tris} triangles, get_scene "
+        f"{box_s:.3f} s (PLY read {info['mesh_s']:.3f} s); teapot_scene: "
+        f"{pot.n_tris} triangles ({n_bunny} bunny, {n_dragon} dragon), "
+        f"get_scene {pot_s:.3f} s (PLY reads {pot_info['mesh_s']:.3f} s), "
+        f"host seconds {json.dumps(pot_info['host_s'])}")
+    st = step_wavefront(box, box_cam, dev)[0]
+    out["b3"] = check_tri_kernel("cornell_box-bunny", box, st["o"], st["d"])
+    del st
+    _, mets, counts, _ = scan_runs("cornell_box-bunny", render_regen, box,
+                                   box_cam, cfg, 1)
+    if ((mets[0].bounce, mets[0].walk) != ("B2", "B3")
+            or not counts["B3"] == mets[0].bounces == counts["B2"]):
+        raise AssertionError(f"cornell_box: {mets[0]}, {counts}")
+    out["paths"].append(path_record("regen cornell_box bunny", counts, mets))
+    out["B3"], out["B2"] = counts["B3"], counts["B2"]
+    del box
+    st = step_wavefront(pot, pot_cam, dev, row=TEAPOT_ROW)[0]
+    out["b4"] = check_big_kernel("teapot-meshes", pot, ki.pack_big_tables(
+        pot), ki.pack_tables(pot), st["o"], st["d"])
+    del st
+    _, mets, counts, _ = scan_runs("teapot-meshes", render_regen, pot,
+                                   pot_cam, cfg, 1)
+    if ((mets[0].bounce, mets[0].walk) != ("B2", "B4")
+            or not counts["B4"] == mets[0].bounces == counts["B2"]
+            or counts["B3"]):
+        raise AssertionError(f"teapot_scene: {mets[0]}, {counts}")
+    out["paths"].append(path_record("regen teapot bunny dragon", counts,
+                                    mets))
+    out["B4"] = counts["B4"]
+    out["B2"] += counts["B2"]
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_dist(root: str, scene, cam, dev) -> dict:
+    """Phase 34 (A11): ``render_sharded`` on a one-process NCCL group
+    against ``render`` at the scan engine's settings on ball_scenes (to
+    the bit); whether a gloo group takes the card's tensors in
+    ``all_gather``; the sharded train step on that group against the
+    unsharded one (at world size 1 no collective runs); the sharded step
+    of two gloo processes on the one card, whose ``all_reduce`` of the
+    loss and gradients runs on the card's tensors, against the unsharded
+    one (loss within 1e-6, parameters within 1e-5, JAX's
+    ``tests/test_dist.py`` bounds); then ``python -m
+    srt_tpu_torch.dist.multihost`` as two gloo processes on the one card
+    and as one process, the linear images equal to the bit. Every group
+    meets through a file in a fresh temporary directory, so no TCP port
+    is taken. No scaling is measured: both processes share one card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from srt_tpu_torch import RenderConfig, make_train_step, render
+    from srt_tpu_torch.dist import make_mesh, render_sharded
+
+    cfg = RenderConfig(**SCAN)
+    out = {"paths": []}
+    tmp = tempfile.mkdtemp(prefix="srt_dist_")
+    dist.init_process_group("nccl", init_method="file://"
+                            + os.path.join(tmp, "nccl"), world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        reset_counts()
+        t0 = time.time()
+        img_s = render_sharded(scene, cam, cfg, mesh)
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        counts = read_counts()
+        t0 = time.time()
+        img_r = render(scene, cam, cfg)
+        torch.cuda.synchronize()
+        wall_r = time.time() - t0
+        if not same_bits(img_s, img_r):
+            raise AssertionError("render_sharded differs from render")
+        if counts["B2"] != scan_chunks(cfg) * cfg.max_depth:
+            raise AssertionError(f"render_sharded launches {counts}")
+        out["paths"].append({"name": "render_sharded nccl 1", "launches": {
+            k: v for k, v in counts.items() if v}, "wall_s": wall_s})
+        out["B2"] = counts["B2"]
+        gloo = dist.new_group(backend="gloo")
+        x = torch.arange(4.0, device=dev)
+        parts = [torch.empty_like(x)]
+        try:
+            dist.all_gather(parts, x, group=gloo)
+            gloo_cuda = bool(torch.equal(parts[0], x))
+        except RuntimeError as e:
+            gloo_cuda = f"refused: {str(e).splitlines()[0][:160]}"
+        w = TRAIN["width"]
+        target = torch.full((w, w, 3), TRAIN_TARGET, device=dev)
+        steps = [make_train_step(scene, cam, {"tex_color": scene.tex_color},
+                                 width=w, height=w, spp=TRAIN["spp"],
+                                 max_depth=TRAIN["max_depth"], lr=TRAIN_LR,
+                                 engine_kw=TRAIN_ENGINE, device=dev,
+                                 mesh=m) for m in (None, mesh)]
+        losses, walls = [], []
+        for stp in steps:
+            t0 = time.time()
+            losses.append(float(stp(target, 0)))
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+        dp = float((steps[0].params["tex_color"]
+                    - steps[1].params["tex_color"]).detach().abs().max())
+        if abs(losses[0] - losses[1]) > 1e-6 or dp > 1e-5:
+            raise AssertionError(f"sharded step: losses {losses}, params "
+                                 f"max |d| {dp}")
+    finally:
+        dist.destroy_process_group()
+    log(f"[dist] nccl world 1: render_sharded {wall_s:.3f} s, render "
+        f"{wall_r:.3f} s, equal to the bit, launches {json.dumps(counts)}; "
+        f"gloo all_gather of the card's tensors: {gloo_cuda}; sharded train "
+        f"step (no collective at world size 1) {walls[1]:.3f} s against "
+        f"{walls[0]:.3f} s, losses {losses}, params max |d| {dp}")
+
+    t0 = time.time()
+    ctx = mp.start_processes(dist_train_worker, nprocs=2, join=False,
+                             args=("file://" + os.path.join(tmp, "train"),
+                                   tmp), start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.time() - t0 > DIST_TIMEOUT:
+                raise AssertionError(f"sharded train step: two processes "
+                                     f"still running after {DIST_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall_two = time.time() - t0
+    ranks = [np.load(os.path.join(tmp, f"rank{r}.npz")) for r in (0, 1)]
+    want = steps[0].params["tex_color"].detach().cpu().numpy()
+    dl = abs(float(ranks[0]["loss"]) - losses[0])
+    dp2 = float(np.abs(ranks[0]["tex_color"] - want).max())
+    if (dl > 1e-6 or dp2 > 1e-5
+            or not np.array_equal(ranks[0]["tex_color"],
+                                  ranks[1]["tex_color"])):
+        raise AssertionError(f"two-process sharded step: loss "
+                             f"{float(ranks[0]['loss'])} against {losses[0]}"
+                             f", params max |d| {dp2}, ranks equal "
+                             f"{np.array_equal(*(r['tex_color'] for r in ranks))}")
+    step_counts = json.loads(str(ranks[0]["counts"]))
+    if not step_counts["B2"] or not step_counts["B5"]:
+        raise AssertionError(f"two-process sharded step: launches "
+                             f"{step_counts}")
+    step_walls = [float(r["wall"]) for r in ranks]
+    log(f"[dist] sharded train step, two gloo processes on one card "
+        f"(all_reduce of the card's loss and gradients): step "
+        f"{step_walls[0]:.3f} s and {step_walls[1]:.3f} s against the "
+        f"unsharded {walls[0]:.3f} s, {wall_two:.1f} s from process start; "
+        f"loss |d| {dl}, params max |d| {dp2}, the ranks equal; rank 0's "
+        f"launches {json.dumps(step_counts)}")
+    out["paths"].append({"name": "sharded train step gloo 2 processes",
+                         "launches": {k: v for k, v in step_counts.items()
+                                      if v}, "wall_s": step_walls[0]})
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    env = dict(os.environ, PYTHONPATH=root)
+    base = [sys.executable, "-m", "srt_tpu_torch.dist.multihost", "--scene",
+            "ball_scenes", "--width", str(MAIN["width"]), "--spp",
+            str(MAIN["spp"]), "--max-depth", str(MAIN["max_depth"]),
+            "--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            base + ["--num-processes", "2", "--process-id", str(i),
+                    "--coordinator", "file://" + os.path.join(tmp, "pg"),
+                    "--backend", "gloo",
+                    "--out", os.path.join(tmp, "two.npy")],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(2)]
+        try:
+            logs = [p.communicate(timeout=DIST_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        runs["two"] = time.time() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"multihost, two processes: "
+                                 f"{[p.returncode for p in procs]} "
+                                 f"{[lg[-2000:] for lg in logs]}")
+        t0 = time.time()
+        one = subprocess.run(base + ["--out", os.path.join(tmp, "one.npy")],
+                             cwd=root, env=env, capture_output=True,
+                             text=True, timeout=DIST_TIMEOUT)
+        runs["one"] = time.time() - t0
+        if one.returncode:
+            raise AssertionError(f"multihost, one process: {one.stderr[-2000:]}")
+        a = np.load(os.path.join(tmp, "two.npy"))
+        b = np.load(os.path.join(tmp, "one.npy"))
+    if a.shape != b.shape or not np.array_equal(a.view(np.int32),
+                                                b.view(np.int32)):
+        raise AssertionError("multihost: two processes' image differs from "
+                             "one process's")
+    if not np.array_equal(b, img_r.cpu().numpy()):
+        raise AssertionError("multihost: one process's image differs from "
+                             "render's")
+    log(f"[dist] python -m srt_tpu_torch.dist.multihost on ball_scenes "
+        f"{MAIN['width']}x{MAIN['width']}x{MAIN['spp']} depth "
+        f"{MAIN['max_depth']}: two gloo processes on one card "
+        f"{runs['two']:.1f} s, one process {runs['one']:.1f} s (each wall "
+        f"from process start: interpreter, library load, scene, render), "
+        f"the images equal to the bit and to render's; "
+        f"{logs[0].strip().splitlines()[-1]}")
+    out["paths"].append({"name": "multihost gloo 2 processes",
+                         "launches": {}, "wall_s": runs["two"]})
+    out["paths"].append({"name": "multihost 1 process", "launches": {},
+                         "wall_s": runs["one"]})
+    return out
+
+
 def b3_states(dev):
     """B3's inputs that ``--compare`` times: ``(label, scene, o, d)`` of
     phase 7's cornell_boxes render wavefront, phase 16's cornell_boxes
@@ -3326,9 +3875,24 @@ def main() -> None:
     del tri_scene
     scan_train = timed(29, phase_scan_train, scene, cam, dev)
     a7 = timed(30, phase_a7, dev)
+    atlas = timed(31, phase_atlas, dev)
+    merl = timed(32, phase_merl, dev)
+    meshes = timed(33, phase_mesh_scenes, dev)
+    sharded = timed(34, phase_dist, root, scene, cam, dev)
     new_paths = ([scan["path"], scan_tri["path"], seq["path"],
                   resumable["path"]] + cli_paths + [scan_train["path"]]
-                 + a7["paths"])
+                 + a7["paths"] + atlas["paths"] + merl["paths"]
+                 + meshes["paths"] + sharded["paths"])
+    log(f"[kernels] phases 31-34: launches {json.dumps(atlas['counts'])} "
+        f"on the float-atlas paths, B3 {merl['B3']} on the MERL paths, B3 "
+        f"{meshes['B3']}, B4 {meshes['B4']} and B2 {meshes['B2']} on the "
+        f"mesh-asset paths, B2 {sharded['B2']} on render_sharded; B2 on the "
+        f"float atlas {atlas['b2']['ms']} ms (bound "
+        f"{atlas['b2']['bound_ms']}); B3 on cornell_box's bunny "
+        f"{meshes['b3']['ms']} ms (plain {meshes['b3']['plain_ms']}, bound "
+        f"{meshes['b3']['bound_ms']}); B4 on the teapot with its meshes "
+        f"{meshes['b4']['ms']} ms (plain {meshes['b4']['plain_ms']}, bound "
+        f"{meshes['b4']['bound_ms']})")
     log(f"[kernels] B2 at the scan engine's 524,288 lanes: ball_scenes "
         f"{scan['b2']['ms']} ms (plain {scan['b2']['plain_ms']}, bound "
         f"{scan['b2']['bound_ms']}, {scan['b2']['bound_by']}), "
@@ -3379,6 +3943,16 @@ def main() -> None:
                             scan_tri["b2"]["max_abs_err"])
     b2_parity["launches"] += seq["counts"]["B2 parity"]
     b5["launches"] += scan_train["counts"]["B5"]
+    # phases 31-34's paths, each read from counts set to 0 just before it
+    b1["launches"] += atlas["counts"]["B1"]
+    b2["launches"] += atlas["counts"]["B2"] + meshes["B2"] + sharded["B2"]
+    b3["launches"] += merl["B3"] + meshes["B3"]
+    b4["launches"] += meshes["B4"]
+    b5["launches"] += atlas["counts"]["B5"]
+    b6["launches"] += atlas["counts"]["B6"]
+    b2["max_abs_err"] = max(b2["max_abs_err"], atlas["b2"]["max_abs_err"])
+    b3["max_abs_err"] = max(b3["max_abs_err"], meshes["b3"]["max_abs_err"])
+    b4["max_abs_err"] = max(b4["max_abs_err"], meshes["b4"]["max_abs_err"])
     log(f"[kernels] B2 launches: {b2_train} on the train path, {b2_render} "
         f"in external-hit mode on the cornell render path, {b2_pot_render} "
         f"on the teapot render path, {b2_geom} on the geometry train path, "

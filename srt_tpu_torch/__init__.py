@@ -1,9 +1,9 @@
 """srt_tpu_torch — the path tracer ported to PyTorch and CUDA.
 
 The JAX package ``srt_tpu`` is the reference; this package imports neither
-it nor JAX. It covers the scenes its coverage gate admits
-(``scene.ir.require_covered``: all but MERL materials and atlases that
-are not 8-bit) with two render engines:
+it nor JAX. It renders every scene of the JAX package's builder and
+library (the scanned meshes loaded by ``io/mesh.py``, MERL measured BRDFs,
+packed and float image atlases) with two render engines:
 
 * :func:`render`, the scan engine (``render/api.py``): a chunk of pixels ×
   samples traced as one wavefront over ``max_depth`` lockstep bounces,
@@ -17,11 +17,14 @@ are not 8-bit) with two render engines:
   lights) a bounce, or on triangle scenes and under the parity estimator
   the walk and the bounce kernel a bounce.
 
-A scene the bounce kernels' gate refuses (mesh-bounded media, past their
-table caps) takes the plain bounce in either engine
+A scene the bounce kernels' gate refuses (MERL, mesh-bounded media, past
+their table caps) takes the plain bounce in either engine
 (``render/route.py``). The inverse-rendering train step
 (``diff.make_train_step``, either engine) runs the bounce kernel forward
-and the backward kernel (``csrc/bounce_bwd.cu``) or the hybrid backward.
+and the backward kernel (``csrc/bounce_bwd.cu``) or the hybrid backward;
+an optimised image atlas takes the hybrid. ``dist`` splits the pixels of
+a render or a train step over processes (``torch.distributed``;
+``python -m srt_tpu_torch.dist.multihost``).
 The command line is ``python -m srt_tpu_torch`` (``cli.py``). Entry
 points put their tensors on the card unless the caller passes
 ``device="cpu"``.

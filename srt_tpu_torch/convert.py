@@ -19,7 +19,8 @@ from srt_tpu_torch.scene.ir import TorchScene
 
 def scene_from_arrays(d: dict[str, np.ndarray], device="cuda") -> TorchScene:
     """``TorchScene`` from the JAX ``Scene`` fields after ``np.asarray``
-    (extra fields are ignored; ``atlas_u32`` may be None)."""
+    (extra fields are ignored), the MERL tables and a float atlas among
+    them; ``atlas_u32`` is None where JAX's scene has no packed twin."""
     out = {}
     for f in dataclasses.fields(TorchScene):
         v = d.get(f.name)
@@ -37,7 +38,8 @@ def camera_from_arrays(d: dict[str, np.ndarray], device="cuda") -> Camera:
 
 def params_from_arrays(d: dict[str, np.ndarray],
                        device="cuda") -> dict[str, torch.Tensor]:
-    """Optimised parameters (e.g. ``{"tex_color": ...}``) as float32
-    tensors, so the port starts from the JAX package's numbers."""
+    """Optimised parameters (e.g. ``{"tex_color": ...}`` or
+    ``{"atlas": ...}``) as float32 tensors, so the port starts from the
+    JAX package's numbers."""
     return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
             .to(device) for k, v in d.items()}

@@ -92,8 +92,9 @@ struct BounceBwdArgs {
   const float* mat;
   const float* light;
   const int* tex_img;
-  const int* atlas_u32;
-  int n, n_sph, n_rect, n_mat, n_light, n_atlas, max_depth, rr_start;
+  const void* atlas;            // texels: packed rgb8, or 3 floats
+  int n, n_sph, n_rect, n_mat, n_light, n_atlas, atlas_f32, max_depth,
+      rr_start;
   float pdf_floor;
   const float* med;             // (n_med, 10) media (rich)
   int n_med;

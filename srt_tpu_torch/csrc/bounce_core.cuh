@@ -630,8 +630,11 @@ struct SceneView {
   const float* mat;
   const float* light;
   const int* tex_img;    // (n_tex, 3) atlas offset, nx, ny
-  const int* atlas_u32;  // packed rgb8
-  int n_sph, n_rect, n_mat, n_light, n_atlas;
+  // the atlas's n_atlas texels: an int r<<16|g<<8|b each (the packed
+  // rgb8 twin), or with atlas_f32 three floats each; n_atlas is 0 only
+  // for a scene without images
+  const void* atlas;
+  int n_sph, n_rect, n_mat, n_light, n_atlas, atlas_f32;
   int max_depth, rr_start;
   float pdf_floor;
   const float* med;        // kRich
@@ -671,12 +674,13 @@ template <class Args>
 __device__ __forceinline__ SceneView scene_view(const Args& a, float* smem) {
   SceneView s;
   s.tex_img = a.tex_img;
-  s.atlas_u32 = a.atlas_u32;
+  s.atlas = a.atlas;
   s.n_sph = a.n_sph;
   s.n_rect = a.n_rect;
   s.n_mat = a.n_mat;
   s.n_light = a.n_light;
   s.n_atlas = a.n_atlas;
+  s.atlas_f32 = a.atlas_f32;
   s.max_depth = a.max_depth;
   s.rr_start = a.rr_start;
   s.pdf_floor = a.pdf_floor;
@@ -730,6 +734,10 @@ __device__ inline void sphere_uv(V3 unit, float& u, float& v) {
   v = (theta + kHalfPi) / kPi;
 }
 
+// The texel of the packed rgb8 twin where the scene has one, else the
+// float atlas's three floats (textures.py:image_value; the JAX package's
+// clip of the float index to A - 3 is this clip of the texel, as image
+// offsets are multiples of 3).
 __device__ inline V3 image_value(const SceneView& s, int tex, float u,
                                  float v) {
   int off = s.tex_img[3 * tex], nx = s.tex_img[3 * tex + 1];
@@ -738,7 +746,11 @@ __device__ inline V3 image_value(const SceneView& s, int tex, float u,
   int j = min(max((int)((1.0f - v) * (float)ny - 0.001f), 0), ny - 1);
   if (s.n_atlas == 0) return v3(1.0f, 1.0f, 1.0f);
   int base3 = min(max(off / 3 + i + nx * j, 0), s.n_atlas - 1);
-  int bits = s.atlas_u32[base3];
+  if (s.atlas_f32) {
+    const float* t = static_cast<const float*>(s.atlas) + 3 * base3;
+    return v3(t[0], t[1], t[2]);
+  }
+  int bits = static_cast<const int*>(s.atlas)[base3];
   return v3((float)((bits >> 16) & 255) / 255.0f,
             (float)((bits >> 8) & 255) / 255.0f,
             (float)(bits & 255) / 255.0f);

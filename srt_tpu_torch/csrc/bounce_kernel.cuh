@@ -29,8 +29,9 @@ struct BounceArgs {
   const float* mat;             // (n_mat, 14)
   const float* light;           // (n_light, 8) rect lights
   const int* tex_img;           // (n_tex, 3) atlas offset, nx, ny
-  const int* atlas_u32;
-  int n, n_sph, n_rect, n_mat, n_light, n_atlas, max_depth, rr_start;
+  const void* atlas;            // texels: packed rgb8, or 3 floats
+  int n, n_sph, n_rect, n_mat, n_light, n_atlas, atlas_f32, max_depth,
+      rr_start;
   float pdf_floor;
   const float* tri_t;           // (n,) closest triangle: t, kBig on a miss
   const float* tri_u;           // (n,)

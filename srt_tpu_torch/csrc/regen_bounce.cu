@@ -87,10 +87,10 @@ struct RegenArgs {
   const float* mat;    // (n_mat, 14)
   const float* light;  // (n_light, 8) rect lights
   const int* tex_img;  // (n_tex, 3) atlas offset, nx, ny
-  const int* atlas_u32;
+  const void* atlas;   // texels: packed rgb8 ints, or 3 floats (atlas_f32)
   const float* cam;    // (21,)
   const float* jitter; // (spp, 2)
-  int n, n_sph, n_rect, n_mat, n_light, n_atlas;
+  int n, n_sph, n_rect, n_mat, n_light, n_atlas, atlas_f32;
   int width, height, spp, total_work, max_depth, rr_start;
   float pdf_floor;
   unsigned int seed;

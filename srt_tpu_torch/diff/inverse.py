@@ -11,16 +11,17 @@ whose bounce is kernel B2 forward and, on the card, kernel B5 backward
 under frozen geometry -- its lean instantiation, or its rich one on the
 specular branch, media, checker, noise and image textures and sphere
 lights -- or the hybrid backward (the plain bounce replayed under autograd with kernel
-B6's sphere winner) for geometry and for the scenes B5 does not cover
-(triangles, moving spheres), as the JAX package's gate sends them; a
-scene that gate keeps off the bounce kernel (mesh-bounded media, past its
-table caps) differentiates the plain bounce under autograd. Random
-decisions are pure functions of ``(seed, pixel, sample, bounce,
-dimension)``; the gradient follows the JAX package's backward kernel,
-through the sampled direction and the pdfs (ROADMAP C2). The image atlas
-among the parameters raises (ROADMAP A13), and so does what the render
-side refuses (``scene.ir.require_trainable``: MERL). The
-train step never sets the parity estimator, as JAX's does not.
+B6's sphere winner) for geometry, the float image atlas and the scenes B5
+does not cover (triangles, moving spheres), as the JAX package's gate
+sends them; a scene that gate keeps off the bounce kernel (MERL,
+mesh-bounded media, past its table caps) differentiates the plain bounce
+under autograd. Random decisions are pure functions of ``(seed, pixel,
+sample, bounce, dimension)``; the gradient follows the JAX package's
+backward kernel, through the sampled direction and the pdfs (ROADMAP
+C2). With a ``mesh`` (:mod:`srt_tpu_torch.dist`) each process takes the
+loss and gradient of its strip of pixels and the ranks average both
+before Adam, as the JAX step's ``shard_map`` and ``pmean`` do. The train
+step never sets the parity estimator, as JAX's does not.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Callable
 import torch
 
 from srt_tpu_torch.core import rng
+from srt_tpu_torch.dist import sharding
 from srt_tpu_torch.kernels.bounce import (DIM_LENS, DIM_TIME, StepSpec,
                                           build_tables)
 from srt_tpu_torch.kernels.bounce_vjp import bounce_step_auto
@@ -46,17 +48,16 @@ DIM_PIX_Y = 31
 
 def splice(scene: TorchScene, params: dict) -> TorchScene:
     """Replace scene fields by name from a parameter dict (e.g.
-    ``{"tex_color": ..., "sph_center0": ...}``). The image atlas raises
-    ``NotImplementedError``: its gradient needs the float atlas path the
-    port lacks (ROADMAP A13)."""
-    if "atlas" in params:
-        raise NotImplementedError(
-            "srt_tpu_torch does not optimise the image atlas yet: its "
-            "gradient needs the float atlas lookup (ROADMAP A13)")
+    ``{"tex_color": ..., "sph_center0": ...}``). Optimising the float
+    ``atlas`` drops its packed rgb8 twin, as ``inverse.py:44-47`` does:
+    gradients cannot flow through the integer gather, so every lookup
+    reads the float atlas."""
     unknown = sorted(set(params) - {f.name for f in
                                     dataclasses.fields(TorchScene)})
     if unknown:
         raise KeyError(f"not scene fields: {unknown}")
+    if "atlas" in params:
+        return dataclasses.replace(scene, **params, atlas_u32=None)
     return dataclasses.replace(scene, **params)
 
 
@@ -158,24 +159,37 @@ class TrainStep:
     flags its bounces run with."""
 
     def __init__(self, scene: TorchScene, camera: Camera, params: dict,
-                 loss_fn: Callable, lr: float, device, flags: SceneFlags):
+                 loss_fn: Callable, lr: float, device, flags: SceneFlags,
+                 mesh=None, pixels: tuple | None = None):
         self.scene, self.camera, self.flags = scene, camera, flags
+        self.mesh, self.pixels = mesh, pixels
         self.params = {k: torch.as_tensor(v, dtype=torch.float32)
                        .to(device).clone().requires_grad_()
                        for k, v in params.items()}
+        if mesh is not None:            # rank 0's parameters start all
+            with torch.no_grad():
+                for v in self.params.values():
+                    v.copy_(sharding.broadcast(mesh, v))
         self.optimizer = adam(list(self.params.values()), lr)
         self.loss_fn = loss_fn
         self.device = device
 
     def target(self, target) -> torch.Tensor:
-        """``target`` as the (P, 3) float32 tensor the loss compares."""
-        return torch.as_tensor(target, dtype=torch.float32,
-                               device=self.device).reshape(-1, 3)
+        """``target`` as the (P, 3) float32 tensor the loss compares: the
+        whole image's, or under a mesh this rank's strip of it."""
+        t = torch.as_tensor(target, dtype=torch.float32,
+                            device=self.device).reshape(-1, 3)
+        return t if self.pixels is None else t[self.pixels[0]:
+                                                self.pixels[1]]
 
     def __call__(self, target, seed) -> torch.Tensor:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss_fn(self.params, self.target(target), seed)
         loss.backward()
+        if self.mesh is not None:       # pmean of the loss and gradients
+            loss = sharding.pmean(self.mesh, loss.detach())
+            for v in self.params.values():
+                v.grad = sharding.pmean(self.mesh, v.grad)
         self.optimizer.step()
         return loss.detach()
 
@@ -184,25 +198,47 @@ def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
                     width: int, height: int, spp: int, max_depth: int,
                     lr: float = 1e-2, engine: str = "regen",
                     engine_kw: dict | None = None, mesh=None,
-                    device="cuda") -> TrainStep:
+                    device=None) -> TrainStep:
     """An Adam step ``(target, seed) -> loss`` of :func:`image_loss` over
-    every pixel (counterpart of ``inverse.py:160-186``; ``optax.adam``
+    every pixel (counterpart of ``inverse.py:160-210``; ``optax.adam``
     becomes :func:`adam`). The scene, camera and parameters move to
-    ``device``; the step updates ``TrainStep.params`` in place. The
-    sharded ``mesh`` branch is ROADMAP A11. A sphere-centre parameter
+    ``device`` (``cuda`` unless named); the step updates
+    ``TrainStep.params`` in place. With a ``mesh``
+    (:func:`dist.make_mesh`) the pixel count must divide over its ranks,
+    as JAX's does: each rank renders its contiguous strip of pixels on
+    the mesh's device (a ``device`` named besides must name it, else the
+    step raises), rank 0's scene, camera and parameters start every rank,
+    and the loss and gradients are averaged over the ranks before Adam
+    (``inverse.py:192-200``), so every rank holds the same parameters. A
+    sphere-centre parameter
     makes the spheres moving for the forward kernel, as the JAX package's
     flags degrade (``ir.py:115-125``): an optimised ``sph_center0`` leaves
     ``sph_center1`` where it was, so after the first step the sphere
     moves over the shutter interval."""
+    splice(scene, params)               # refuse unknown fields early
+    pixels = None
     if mesh is not None:
-        raise NotImplementedError("the sharded train step is ROADMAP A11")
-    splice(scene, params)               # refuse the atlas early
+        n_pixels = width * height
+        if n_pixels % mesh.size:
+            raise ValueError(f"{n_pixels} pixels do not divide over "
+                             f"{mesh.size} ranks")
+        if device is not None and not sharding.same_device(device,
+                                                           mesh.device):
+            raise ValueError(f"the step's device {device} is not the "
+                             f"mesh's {mesh.device}")
+        device = mesh.device
+        pixels = sharding.strip(mesh, n_pixels)
+        scene = sharding.replicate_scene(scene, mesh)
+        camera = Camera(*(sharding.broadcast(mesh, t.to(device))
+                          for t in camera))
+    device = torch.device("cuda" if device is None else device)
     scene, camera = scene_to(scene, device), camera_to(camera, device)
     flags = SceneFlags.of(scene)
     if set(params) & CENTRE_FIELDS:
         flags = flags._replace(moving=True)
     require_trainable(scene, flags)
-    pixel_ids = torch.arange(width * height, device=scene.device)
+    pixel_ids = torch.arange(*(pixels or (0, width * height)),
+                             device=scene.device)
 
     def loss_fn(p, target, seed):
         return image_loss(p, scene, camera, target, pixel_ids, width=width,
@@ -210,4 +246,5 @@ def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
                           seed=seed, engine=engine, engine_kw=engine_kw,
                           flags=flags)
 
-    return TrainStep(scene, camera, params, loss_fn, lr, scene.device, flags)
+    return TrainStep(scene, camera, params, loss_fn, lr, scene.device, flags,
+                     mesh, pixels)

@@ -8,8 +8,8 @@ PPM or an 8-bit RGB PNG such as the asset-free ``goldens/cornell_boxes_512
 .png`` (read with numpy and ``zlib``, no Pillow). ``--ref-parity`` renders
 the reference's as-implemented estimator, the one its own goldens bake in
 (``GOLDEN.md``), and asks the scene for first-mesh-only loading, as the
-JAX tool does (no scene of the port loads a mesh file yet: one that would
-raises, ROADMAP A8). ``--seq-stale`` with ``--ref-parity`` renders each
+JAX tool does (the soldier's FBX keeps its first mesh, as the
+reference's loader does). ``--seq-stale`` with ``--ref-parity`` renders each
 pixel's samples one after another, carrying the heap-slot plane.
 
 Usage::

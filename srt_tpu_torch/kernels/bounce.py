@@ -167,8 +167,12 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
                                  scene.light_index.tolist())]
     light = (torch.stack(rows) if rows
              else torch.zeros((0, 8), dtype=f, device=dev))
-    atlas = (scene.atlas_u32 if scene.atlas_u32 is not None
-             else torch.zeros((1,), dtype=_I32, device=dev))
+    if scene.atlas_u32 is not None:
+        atlas = scene.atlas_u32.to(_I32)
+    elif scene.atlas.shape[0]:
+        atlas = scene.atlas.detach().to(f)
+    else:
+        atlas = torch.zeros((1,), dtype=_I32, device=dev)
     T = scene.n_tris
     med = torch.cat([scene.med_kind[:, None].to(f), scene.med_center,
                      scene.med_radius[:, None], scene.med_half,
@@ -178,7 +182,7 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
                 rect=rect.reshape(R, 10).contiguous(),
                 mat=mat.contiguous(), light=light.reshape(-1, 8).contiguous(),
                 tex_img=scene.tex_img.to(_I32).contiguous(),
-                atlas_u32=atlas.to(_I32).contiguous(),
+                atlas=atlas.contiguous(),
                 tri_n=scene.tri_n.reshape(T, 9).contiguous(),
                 tri_uv=scene.tri_uv.reshape(T, 6).contiguous(),
                 tri_mat=scene.tri_mat.to(_I32).contiguous(),
@@ -189,6 +193,24 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
 
 
 _RICH_TABLES = ("med", "light_kind", "perlin_vec", "perlin_perm")
+
+
+def atlas_args(scene: TorchScene, tables: dict) -> dict:
+    """The image atlas's fields of a bounce kernel's arguments: its
+    pointer, its texel count ``n_atlas`` and ``atlas_f32``, set when the
+    table holds three floats a texel (a scene without the packed rgb8
+    twin, :func:`diff.inverse.splice` of ``"atlas"``) rather than one
+    packed int. ``n_atlas`` is 0 only when the scene has no image, which
+    the kernels read as white."""
+    atlas = tables["atlas"]
+    f32 = atlas.dtype == _F32
+    packed = scene.atlas_u32 is not None
+    texels = scene.atlas.shape[0] // 3 if f32 or packed else 0
+    if atlas.shape[0] != (3 * texels if f32 else max(texels, 1)):
+        raise ValueError(f"atlas table of {atlas.shape[0]} {atlas.dtype} "
+                         f"entries for a scene atlas of "
+                         f"{scene.atlas.shape[0]} floats")
+    return dict(atlas=atlas.data_ptr(), n_atlas=texels, atlas_f32=int(f32))
 
 
 def _check_tables(tables: dict, keys, device) -> None:
@@ -234,13 +256,12 @@ class RegenInputs:
                       (*tb, "cam", "jitter"), dev)
         self.fields = dict(
             **{k: tb[k].data_ptr() for k in
-               ("sph", "rect", "mat", "light", "tex_img", "atlas_u32")},
+               ("sph", "rect", "mat", "light", "tex_img")},
             cam=self.cam_record.data_ptr(), jitter=self.jitter.data_ptr(),
             n_sph=tb["sph"].shape[0], n_rect=tb["rect"].shape[0],
             n_mat=tb["mat"].shape[0], n_light=tb["light"].shape[0],
-            n_atlas=(tb["atlas_u32"].shape[0]
-                     if scene.atlas_u32 is not None else 0),
-            moving=int(flags.moving), **rich_args(scene, flags, tb))
+            **atlas_args(scene, tb), moving=int(flags.moving),
+            **rich_args(scene, flags, tb))
 
 
 def new_wavefront(n: int, device) -> dict:
@@ -366,9 +387,10 @@ class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "o", "d", "time", "beta", "rad", "salt", "depth", "alive", "pix",
         "fin", "dead_in", "dead_out", "cursor_in", "cursor_out", "sph",
-        "rect", "mat", "light", "tex_img", "atlas_u32", "cam", "jitter")]
+        "rect", "mat", "light", "tex_img", "atlas", "cam", "jitter")]
         + [(name, ctypes.c_int) for name in (
-            "n", "n_sph", "n_rect", "n_mat", "n_light", "n_atlas", "width",
+            "n", "n_sph", "n_rect", "n_mat", "n_light", "n_atlas",
+            "atlas_f32", "width",
             "height", "spp", "total_work", "max_depth", "rr_start")]
         + [("pdf_floor", ctypes.c_float), ("seed", ctypes.c_uint32),
            ("moving", ctypes.c_int), ("med", ctypes.c_void_p),
@@ -498,7 +520,7 @@ def bounce_step_ref(scene: TorchScene, flags: SceneFlags,
 
 
 _ROWS = ("o", "d", "beta", "radiance")
-_TABLES = ("sph", "rect", "mat", "light", "tex_img", "atlas_u32")
+_TABLES = ("sph", "rect", "mat", "light", "tex_img", "atlas")
 
 
 class _BounceArgs(ctypes.Structure):
@@ -508,7 +530,7 @@ class _BounceArgs(ctypes.Structure):
         "beta_out", "rad_out", "depth_out", "alive_out", *_TABLES)]
         + [(name, ctypes.c_int) for name in (
             "n", "n_sph", "n_rect", "n_mat", "n_light", "n_atlas",
-            "max_depth", "rr_start")]
+            "atlas_f32", "max_depth", "rr_start")]
         + [("pdf_floor", ctypes.c_float)]
         + [(name, ctypes.c_void_p) for name in (
             "tri_t", "tri_u", "tri_v", "tri_idx", "tri_n", "tri_uv",
@@ -544,12 +566,10 @@ def check_state(state: dict, tables: dict, device) -> int:
 
 def table_args(scene: TorchScene, tables: dict) -> dict:
     """The table pointers and counts of a train kernel's arguments."""
-    return dict(**{k: tables[k].data_ptr() for k in _TABLES},
+    return dict(**{k: tables[k].data_ptr() for k in _TABLES if k != "atlas"},
                 n_sph=tables["sph"].shape[0], n_rect=tables["rect"].shape[0],
                 n_mat=tables["mat"].shape[0],
-                n_light=tables["light"].shape[0],
-                n_atlas=(tables["atlas_u32"].shape[0]
-                         if scene.atlas_u32 is not None else 0))
+                n_light=tables["light"].shape[0], **atlas_args(scene, tables))
 
 
 def _tri_args(scene: TorchScene, tables: dict, tri, n: int, dev) -> dict:

@@ -66,6 +66,9 @@ def _bwd_kernel_gaps(scene: TorchScene, flags: SceneFlags) -> list[str]:
         gaps.append("triangle scenes: it has no external-hit mode")
     if flags.moving:
         gaps.append("moving spheres: it replays static spheres")
+    if scene.atlas.requires_grad:
+        gaps.append("an image atlas that requires a gradient: it has no "
+                    "texel cotangents")
     return gaps
 
 
@@ -75,9 +78,12 @@ def bwd_kernel_available(scene: TorchScene, flags: SceneFlags) -> bool:
     (``bounce_bwd.py:58-73``), reading no environment variable. Moving
     spheres go to the hybrid backward as there, and so do triangles (the
     kernel has no external-hit input, so it would differentiate a
-    triangle lane as if the triangle were not there), and so does the
-    parity estimator; a scene the bounce kernels' gate refuses takes
-    autograd of the plain bounce."""
+    triangle lane as if the triangle were not there), and so do the
+    parity estimator and an image atlas that requires a gradient (the
+    kernel gives no texel cotangents; JAX's keeps its kernel and
+    differentiates the image epilogue outside it,
+    ``pallas/bounce_vjp.py:108-114``); a scene the bounce kernels' gate
+    refuses takes autograd of the plain bounce."""
     return not _bwd_kernel_gaps(scene, flags)
 
 
@@ -91,7 +97,7 @@ def require_bwd_kernel(scene: TorchScene, flags: SceneFlags) -> None:
         raise NotImplementedError(
             f"the backward kernel cannot differentiate {gaps[0]}; the train "
             "step takes the hybrid backward or autograd of the plain bounce "
-            "for it (ROADMAP A13)")
+            "for it")
     require_trainable(scene, flags)
 
 
@@ -146,7 +152,7 @@ class _BwdArgs(ctypes.Structure):
         "wmat", *_TABLES)]
         + [(name, ctypes.c_int) for name in (
             "n", "n_sph", "n_rect", "n_mat", "n_light", "n_atlas",
-            "max_depth", "rr_start")]
+            "atlas_f32", "max_depth", "rr_start")]
         + [("pdf_floor", ctypes.c_float), ("med", ctypes.c_void_p),
            ("n_med", ctypes.c_int)]
         + _RICH_FIELDS)

@@ -25,7 +25,10 @@ kernel B2 and save only the bounce's inputs:
   gives the gradients of the scene's geometric tensors (sphere centres and
   radii, rect planes) and takes the scenes B5 does not cover: moving
   spheres, triangles and the parity estimator, whose ``stale`` plane it
-  passes on (no gradient).
+  passes on (no gradient). An optimised image atlas takes it too: the
+  replay's float gathers give each texel's cotangent exactly, where B5
+  gives none (the JAX package keeps its kernel and differentiates the
+  image epilogue outside it, ``bounce_vjp.py:14-21``).
 
 :func:`bounce_step_auto` chooses between them as ``bounce_vjp.py:120-138``
 does. A scene the bounce kernel's gate refuses (mesh-bounded media, past
@@ -45,7 +48,7 @@ from srt_tpu_torch.kernels.bounce import (StepSpec, bounce_fwd,
 from srt_tpu_torch.kernels.bounce_bwd import (ROWS, bounce_bwd,
                                               bwd_kernel_available,
                                               replay_vjp)
-from srt_tpu_torch.scene.ir import GEOM_FIELDS, SceneFlags, TorchScene
+from srt_tpu_torch.scene.ir import REPLAY_FIELDS, SceneFlags, TorchScene
 
 
 class BounceCore(torch.autograd.Function):
@@ -102,8 +105,8 @@ def hybrid_vjp(scene: TorchScene, flags: SceneFlags, tables: dict,
     bounce (:func:`kernels.bounce_bwd.replay_vjp`) with the sphere winner
     from :func:`kernels.spheres.sphere_winner` (B6 on CUDA tensors) and the
     triangle hit ``tri`` (the forward's, from B3 or B4), both detached.
-    ``geom`` names the geometric tensors to differentiate (a subset of the
-    scene's :data:`GEOM_FIELDS`). Returns ``(d_state, d_mat, d_geom)``:
+    ``geom`` names the tensors to differentiate (a subset of the scene's
+    :data:`scene.ir.REPLAY_FIELDS`: geometry, the float atlas). Returns ``(d_state, d_mat, d_geom)``:
     the cotangents of the input rows, of the (M, 14) material table and of
     each ``geom`` tensor. With the plain sweep's winner instead of B6's,
     the same replay is the plain version the hybrid is held against."""
@@ -155,8 +158,9 @@ class BounceHybrid(torch.autograd.Function):
 
 
 def geometric_params(scene: TorchScene) -> dict:
-    """The scene's geometric tensors that require a gradient, by name."""
-    return {k: getattr(scene, k) for k in sorted(GEOM_FIELDS)
+    """The scene's tensors that require a gradient only the hybrid gives,
+    by name: its geometric tensors, and the float image atlas."""
+    return {k: getattr(scene, k) for k in sorted(REPLAY_FIELDS)
             if isinstance(getattr(scene, k), torch.Tensor)
             and getattr(scene, k).requires_grad}
 

@@ -1,8 +1,9 @@
 """Material shading: emission, BSDF sample/pdf/weight (counterpart of
 ``srt_tpu/materials/materials.py``) for the slice's families: Oren–Nayar,
-anisotropic Beckmann and one-sided diffuse lights, whose diffuse branch
-has Lambertian's cosine lobe as its default, and the one-sample specular
-branch of metal, dielectric and isotropic (:func:`scatter_specular`).
+anisotropic Beckmann, MERL measured BRDFs and one-sided diffuse lights,
+whose diffuse branch has Lambertian's cosine lobe as its default (MERL
+samples it too), and the one-sample specular branch of metal, dielectric
+and isotropic (:func:`scatter_specular`).
 Albedo and emission are the material's texture at the hit's uv and
 position (:func:`textures.texture_value`).
 
@@ -34,6 +35,7 @@ from srt_tpu_torch.core.gradsafe import grad_safe_sqrt, gsdiv
 from srt_tpu_torch.core.vecmath import (dot, normalize, onb_from_w,
                                         safe_normalize, to_local, to_world,
                                         where3)
+from srt_tpu_torch.materials import merl as merl_mod
 from srt_tpu_torch.materials.microfacet import (beckmann_d,
                                                 beckmann_lambda, g, g1,
                                                 pdf_wh_visible,
@@ -48,6 +50,7 @@ _METAL = int(MaterialType.METAL)
 _DIEL = int(MaterialType.DIELECTRIC)
 _ISO = int(MaterialType.ISOTROPIC)
 _ON = int(MaterialType.OREN_NAYAR)
+_MERL = int(MaterialType.MERL)
 
 
 def _alphas(scene: TorchScene, mat):
@@ -254,7 +257,9 @@ def bsdf_weight(scene: TorchScene, mat, uv, p, basis, wo, wi_world,
     """f(wo, wi) * |cosθi| — the reference's attenuation*scattering_pdf;
     under parity the plain cosine on Oren–Nayar lanes and, on Beckmann
     lanes, the VNDF density ``D·G1(wo)/(4|cosO|)`` in the ``raw`` frame
-    with no same-hemisphere clamp (``material.h:134-138, 160-185``)."""
+    with no same-hemisphere clamp (``material.h:134-138, 160-185``). On
+    MERL lanes the measured table at the Rusinkiewicz index, tinted by the
+    albedo (``brdf.h:106-214``, ``materials.py:329-336``)."""
     t = scene.mat_type[mat]
     params = scene.mat_params[mat]
     alb = texture_value(scene, scene.mat_tex[mat], uv, p, flags)
@@ -278,4 +283,10 @@ def bsdf_weight(scene: TorchScene, mat, uv, p, basis, wo, wi_world,
                        torch.clamp(4.0 * torch.abs(wo[:, 2]), min=1e-8))
         w_beck = torch.where(frame.same_hemisphere(wo, wi), w_beck, 0.0)
         w = torch.where(t == _BECK, w_beck, w)
-    return alb * w[:, None]
+    weight = alb * w[:, None]
+    if scene.merl.shape[0] > 0:
+        table_id = params[:, 0].to(torch.int32)
+        f_merl = merl_mod.lookup(scene.merl, table_id, wo, wi)
+        w_merl = alb * f_merl * torch.clamp(wi[:, 2], min=0.0)[:, None]
+        weight = where3(t == _MERL, w_merl, weight)
+    return weight

@@ -11,9 +11,12 @@ from srt_tpu_torch.scene.ir import SceneFlags, TextureType, TorchScene
 
 
 def image_value(scene: TorchScene, tex_id, u, v):
-    """Nearest-neighbor lookup with y-flip (``texture.h:58-70``) in the
-    packed rgb8 atlas ``atlas_u32``; ``int(c) / 255`` in float32 gives
-    back the build-time ``u8 / 255`` values exactly."""
+    """Nearest-neighbor lookup with y-flip (``texture.h:58-70``,
+    ``textures.py:_image_value``): in the packed rgb8 atlas ``atlas_u32``
+    where the scene has one (``int(c) / 255`` in float32 gives back the
+    build-time ``u8 / 255`` values exactly), else in the float atlas,
+    three gathers whose cotangents reach the texels (an optimised atlas,
+    :func:`diff.inverse.splice`, drops the packed twin)."""
     meta = scene.tex_img[tex_id]              # (N, 3) offset, nx, ny
     off, nx, ny = meta[:, 0], meta[:, 1], meta[:, 2]
     i = torch.minimum(torch.clamp((u * nx.to(u.dtype)).to(torch.int32),
@@ -23,6 +26,11 @@ def image_value(scene: TorchScene, tex_id, u, v):
     if scene.atlas.shape[0] == 0:
         return torch.ones((u.shape[0], 3), dtype=torch.float32,
                           device=u.device)
+    if scene.atlas_u32 is None:
+        base = torch.clamp(off + 3 * (i + nx * j), 0,
+                           scene.atlas.shape[0] - 3).long()
+        return torch.stack([scene.atlas[base], scene.atlas[base + 1],
+                            scene.atlas[base + 2]], -1)
     base3 = torch.clamp(off // 3 + i + nx * j, 0,
                         scene.atlas_u32.shape[0] - 1)
     bits = scene.atlas_u32[base3.long()]

@@ -144,33 +144,34 @@ def render_setup(scene, config, plain: bool = False) -> tuple:
 
 def sample_chunks(route: Route, camera, config, jitter: torch.Tensor,
                   s_start: int = 0, seq: bool = False,
-                  with_aux: bool = False):
+                  with_aux: bool = False, pixels: tuple | None = None):
     """The scan engine's loop from sample ``s_start``: for each chunk of
     ``sample_chunk`` samples, every pixel chunk in turn, yields
     ``(s_end, part, aux)``: the samples done after it, its radiance sums
     (pixels, 3) and, under ``with_aux``, its counters summed over the
     pixel chunks (else None). Under ``seq`` a chunk is one sample (lane =
     pixel) and each pixel's heap-slot plane carries over from sample to
-    sample."""
+    sample. ``pixels``: the pixel ids ``[lo, hi)`` to trace (a rank's
+    strip, :func:`dist.sharding.render_sharded`), by default the image."""
     w, h, spp = config.width, config.height, config.spp
-    n_pixels = w * h
+    lo, hi = pixels if pixels is not None else (0, w * h)
     dev = jitter.device
     chunk = 1 if seq else min(config.sample_chunk, spp)
-    stale = (torch.zeros((n_pixels,), dtype=torch.float32, device=dev)
+    stale = (torch.zeros((hi - lo,), dtype=torch.float32, device=dev)
              if seq else None)
     s0 = s_start
     while s0 < spp:
         n_s = min(chunk, spp - s0)
         parts, aux = [], None
-        for p0 in range(0, n_pixels, config.pixel_chunk):
-            p1 = min(p0 + config.pixel_chunk, n_pixels)
+        for p0 in range(lo, hi, config.pixel_chunk):
+            p1 = min(p0 + config.pixel_chunk, hi)
             out = _render_chunk(
                 route, camera, torch.arange(p0, p1, device=dev), s0, jitter,
                 config.seed, width=w, height=h, n_samples=n_s,
                 with_aux=with_aux,
-                stale_in=None if stale is None else stale[p0:p1])
+                stale_in=None if stale is None else stale[p0 - lo:p1 - lo])
             if seq:
-                out, stale[p0:p1] = out
+                out, stale[p0 - lo:p1 - lo] = out
             elif with_aux:
                 out, a = out
                 aux = a if aux is None else {k: aux[k] + a[k] for k in a}
@@ -179,34 +180,66 @@ def sample_chunks(route: Route, camera, config, jitter: torch.Tensor,
         yield s0, torch.cat(parts), aux
 
 
-def render(scene, camera, config: RenderConfig, metrics: bool = False,
-           plain: bool = False):
-    """Render a linear-radiance image (H, W, 3) float32 with the scan
-    engine, on the scene's device (``api.py:127-187``). The image's sums
-    add up over the sample chunks of :func:`sample_chunks` in their order
-    (no atomics), as :func:`utils.checkpoint.render_resumable` adds them,
-    so a resumed render equals this one to the bit. Under ``seq_stale``
-    with ``ref_parity`` each pixel's samples go one at a time (lane =
-    pixel), the heap-slot plane carried from sample to sample.
+def sequential(config, flags) -> bool:
+    """Whether the scan engine traces each pixel's samples one at a time,
+    the heap-slot plane carried from sample to sample: ``seq_stale``
+    under ``ref_parity`` (``api.py:160``)."""
+    return bool(config.seq_stale and flags.ref_parity)
 
-    ``metrics=True`` also returns a :class:`RenderMetrics` (bounce
-    histogram, path vertices, NaN scrubs, the route). ``plain=True`` runs
-    the kernels' plain versions on any device."""
-    flags, jitter, route = render_setup(scene, config, plain)
-    w, h, spp = config.width, config.height, config.spp
-    dev = scene.device
-    seq = bool(config.seq_stale and flags.ref_parity)
-    acc = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+
+def accumulate(route: Route, camera, config, jitter: torch.Tensor, *,
+               seq: bool | None = None, s_start: int = 0, acc=None,
+               pixels: tuple | None = None, with_aux: bool = False,
+               on_chunk=None) -> tuple:
+    """The radiance sums of the image, or of the pixel ids ``pixels =
+    [lo, hi)``: each chunk of :func:`sample_chunks` from sample
+    ``s_start`` added in its order onto ``acc`` (zeros by default), with
+    no atomics. :func:`render`, :func:`utils.checkpoint.render_resumable`
+    and :func:`dist.sharding.render_sharded` all sum here, so they agree
+    to the bit. ``seq`` defaults to :func:`sequential`. ``on_chunk(s_end,
+    acc)`` runs after each chunk. Returns ``(acc, aux)``: the (pixels, 3)
+    sums and, under ``with_aux`` (not with ``seq``), the counters summed
+    over the chunks, else None."""
+    if seq is None:
+        seq = sequential(config, route.flags)
+    lo, hi = pixels if pixels is not None else (0,
+                                                config.width * config.height)
+    if acc is None:
+        acc = torch.zeros((hi - lo, 3), dtype=torch.float32,
+                          device=jitter.device)
     aux_sum = None
-    t0 = _time.time()
     with torch.no_grad():
-        for _, part, aux in sample_chunks(route, camera, config, jitter,
-                                          seq=seq,
-                                          with_aux=metrics and not seq):
+        for s0, part, aux in sample_chunks(route, camera, config, jitter,
+                                           s_start, seq=seq,
+                                           with_aux=with_aux and not seq,
+                                           pixels=pixels):
             acc = acc + part
             if aux is not None:
                 aux_sum = (aux if aux_sum is None else
                            {k: aux_sum[k] + aux[k] for k in aux})
+            if on_chunk is not None:
+                on_chunk(s0, acc)
+    return acc, aux_sum
+
+
+def render(scene, camera, config: RenderConfig, metrics: bool = False,
+           plain: bool = False):
+    """Render a linear-radiance image (H, W, 3) float32 with the scan
+    engine, on the scene's device (``api.py:127-187``): the sums of
+    :func:`accumulate` over ``spp``, so a resumed or sharded render equals
+    this one to the bit. Under :func:`sequential` each pixel's samples go
+    one at a time (lane = pixel), the heap-slot plane carried from sample
+    to sample.
+
+    ``metrics=True`` also returns a :class:`RenderMetrics` (bounce
+    histogram, path vertices, NaN scrubs, the route). ``plain=True`` runs
+    the kernels' plain versions on any device."""
+    _, jitter, route = render_setup(scene, config, plain)
+    w, h, spp = config.width, config.height, config.spp
+    dev = scene.device
+    t0 = _time.time()
+    acc, aux_sum = accumulate(route, camera, config, jitter,
+                              with_aux=metrics)
     img = (acc / spp).reshape(h, w, 3)
     if not metrics:
         return img

@@ -6,7 +6,8 @@ The bounce is kernel B2 (:func:`kernels.bounce.bounce_fwd`) wherever the
 JAX package's gate admits its fused bounce kernel (``_use_fused_bounce``,
 ``srt_tpu/render/regen.py:44-58``, over ``_fused_bounce_eligible``,
 ``srt_tpu/scene/ir.py:133-160``): no more than 4,096 spheres, 64 rects,
-8 lights, 512 materials and 8 media, no mesh-bounded medium. Elsewhere it
+8 lights, 512 materials and 8 media, no mesh-bounded medium, no MERL
+material. Elsewhere it
 is the plain bounce (:func:`kernels.bounce.bounce_step_ref`), as the JAX
 package sends those scenes to its XLA bounce; the triangles are still
 walked by B3 or B4. JAX's gate also keeps roulette off its kernel on

@@ -4,8 +4,8 @@ Covers what the port's slices render: spheres (static, moving and env
 domes), axis-aligned rects, boxes, triangles and triangle meshes with
 their BVH and its two-level clustering, sphere, box and mesh-bounded
 media, constant, checker, noise and image textures, Lambertian,
-Oren–Nayar, Beckmann, metal, dielectric, isotropic and diffuse-light
-materials, and rect and sphere lights. The tables, the Perlin tables
+Oren–Nayar, Beckmann, metal, dielectric, isotropic, MERL measured and
+diffuse-light materials, and rect and sphere lights. The tables, the Perlin tables
 among them, are packed in numpy exactly as the JAX builder packs them,
 then moved to one device.
 """
@@ -77,6 +77,7 @@ class SceneBuilder:
     _tris: list = field(default_factory=list)   # (p, uv, n, mat) chunks
     _med: list = field(default_factory=list)
     _med_tris: list = field(default_factory=list)  # (world tris, medium)
+    _merl: list = field(default_factory=list)   # (3, N) measured tables
     _lights: list = field(default_factory=list)
 
     # ------------------------------------------------------------------ tex
@@ -149,6 +150,15 @@ class SceneBuilder:
 
     def isotropic(self, tex: int) -> int:
         return self._push_mat(MaterialType.ISOTROPIC, tex)
+
+    def merl(self, table: np.ndarray, albedo) -> int:
+        """Measured-BRDF material; ``table`` is (3, N) f32 in MERL layout
+        (already scaled), from :func:`srt_tpu_torch.io.merl.read_merl`;
+        its index in the stacked ``merl`` field is parameter 0."""
+        tex = self.constant(albedo)
+        self._merl.append(np.asarray(table, np.float32))
+        return self._push_mat(MaterialType.MERL, tex,
+                              (float(len(self._merl) - 1), 0, 0, 0))
 
     # ------------------------------------------------------------------ geo
     def sphere(self, center, radius, mat, flip=False, env=False,
@@ -358,7 +368,8 @@ class SceneBuilder:
             tex_scale=arr(self._tex_scale, f32, ()),
             tex_img=arr(self._tex_img, i32, (3,)),
             atlas=atlas, perlin_vec=pv, perlin_perm=perm,
-            merl=np.zeros((0, 3, 1), f32),
+            merl=(np.stack(self._merl) if self._merl
+                  else np.zeros((0, 3, 1), f32)),
             light_kind=arr([int(li[0]) for li in self._lights], i32, ()),
             light_index=arr([li[1] for li in self._lights], i32, ()),
             atlas_u32=atlas_u32, **clusters, **med_tris)

@@ -51,6 +51,10 @@ GEOM_FIELDS = frozenset({
 #: the geometric fields that move a sphere's centre over the shutter
 #: interval: optimising one makes the spheres moving (``ir.py:115-125``)
 CENTRE_FIELDS = frozenset({"sph_center0", "sph_center1", "sph_times"})
+#: the scene fields the hybrid backward differentiates when they require a
+#: gradient: the geometry, and the float image atlas, whose texel
+#: cotangents come from the replay's gathers (B5 has no atlas input)
+REPLAY_FIELDS = GEOM_FIELDS | {"atlas"}
 
 
 @dataclasses.dataclass
@@ -100,7 +104,7 @@ class TorchScene:
     # Perlin tables (perlin.h:28-97), drawn on the host from a fixed seed
     perlin_vec: torch.Tensor    # (256, 3) f32 unit gradients
     perlin_perm: torch.Tensor   # (3, 256) i32 permutations (x, y, z)
-    merl: torch.Tensor          # (Nm, 3, n) f32; the gate reads its length
+    merl: torch.Tensor          # (Nm, 3, n) f32 MERL tables, scales applied
     light_kind: torch.Tensor    # (L,) i32
     light_index: torch.Tensor   # (L,) i32
     atlas_u32: torch.Tensor | None = None   # (A/3,) i32 r<<16|g<<8|b
@@ -229,10 +233,7 @@ def _fused_bounce_eligible(scene: TorchScene, mat_types: np.ndarray,
                          int(TextureType.IMAGE)]).all())
 
 
-_COVERED_MATS = {int(MaterialType.LAMBERTIAN), int(MaterialType.OREN_NAYAR),
-                 int(MaterialType.BECKMANN), int(MaterialType.DIFFUSE_LIGHT),
-                 int(MaterialType.METAL), int(MaterialType.DIELECTRIC),
-                 int(MaterialType.ISOTROPIC)}
+_COVERED_MATS = {int(m) for m in MaterialType}
 #: the one-sample specular branch (metal, dielectric, isotropic)
 SPECULAR_MATS = {int(MaterialType.METAL), int(MaterialType.DIELECTRIC),
                  int(MaterialType.ISOTROPIC)}
@@ -263,40 +264,32 @@ def rich_families(scene: TorchScene, flags: SceneFlags) -> list[str]:
     return out
 
 
-def _missing(what: str, item: str):
-    raise NotImplementedError(
-        f"srt_tpu_torch does not cover {what} yet (ROADMAP {item})")
-
-
 def require_covered(scene: TorchScene, flags: SceneFlags) -> None:
-    """Raise ``NotImplementedError`` for a scene the port cannot render,
-    naming the ROADMAP item that will port what it needs: MERL materials
-    (A12) and image atlases that are not 8-bit (A13). Every other scene
-    renders: the families of the JAX package's fused bounce kernel
-    (``_kernel``, ``srt_tpu/pallas/bounce.py:1067``) through the bounce
-    kernels, and what that kernel's gate (``_fused_bounce_eligible``)
-    refuses -- mesh-bounded media, scenes past its table caps -- through
-    the plain bounce, as the JAX package sends them to its XLA bounce.
-    Reads the flags and the tables' shapes, no device memory: the train
-    step runs it before every backward launch."""
-    if scene.merl.shape[0]:
-        _missing("MERL measured BRDFs", "A12")
-    if not set(flags.mat_kinds) <= _COVERED_MATS:
-        names = sorted(MaterialType(m).name for m in
-                       set(flags.mat_kinds) - _COVERED_MATS)
-        _missing(f"materials {names}", "A12")
-    if scene.atlas.shape[0] and scene.atlas_u32 is None:
-        _missing("image atlases that are not 8-bit", "A13")
+    """Raise ``NotImplementedError`` for a scene the port cannot render:
+    one whose material type ids name no :class:`MaterialType`, which no
+    bounce would shade as its builder meant. Every scene of the JAX
+    package's builder renders: the families of its fused bounce kernel
+    (``_kernel``, ``srt_tpu/pallas/bounce.py:1067``), packed 8-bit and
+    float image atlases among them, through the bounce kernels, and what
+    that kernel's gate (``_fused_bounce_eligible``) refuses -- MERL
+    measured BRDFs, mesh-bounded media, scenes past its table caps --
+    through the plain bounce, as the JAX package sends them to its XLA
+    bounce. Reads the flags, no device memory: the train step runs it
+    before every backward launch."""
+    unknown = sorted(set(flags.mat_kinds) - _COVERED_MATS)
+    if unknown:
+        raise NotImplementedError(
+            f"srt_tpu_torch has no material of type ids {unknown}")
 
 
 def require_trainable(scene: TorchScene, flags: SceneFlags) -> None:
     """Raise ``NotImplementedError`` for a scene the train step cannot
-    differentiate: exactly what :func:`require_covered` refuses (MERL,
-    atlases that are not 8-bit). The train step never sets
-    the parity flags, as JAX's ``make_train_step`` never does. Every
-    family the render kernels shade, the train step differentiates: kernel
-    B5 (its lean or rich instantiation) under frozen geometry, the hybrid
-    backward on triangles, moving spheres and geometric parameters, and
-    autograd of the plain bounce where the bounce kernel's gate refuses
-    the scene."""
+    differentiate: exactly what :func:`require_covered` refuses. The train
+    step never sets the parity flags, as JAX's ``make_train_step`` never
+    does. Every family the render kernels shade, the train step
+    differentiates: kernel B5 (its lean or rich instantiation) under
+    frozen geometry, the hybrid backward on triangles, moving spheres,
+    geometric parameters and an optimised image atlas, and autograd of
+    the plain bounce where the bounce kernel's gate refuses the scene
+    (MERL among them)."""
     require_covered(scene, flags)

@@ -1,14 +1,19 @@
 """The port's scene library (counterpart of ``srt_tpu/scene/library.py``).
 
-Holds the scenes the port covers, each drawing the same numpy sequences as
-its JAX counterpart: ``ball_scenes``, the reference's default
+Holds every scene of the JAX library, each drawing the same numpy
+sequences as its JAX counterpart: ``ball_scenes``, the reference's default
 (``Raytracing_n.cpp:379-425``, ``sceneid = 2``), ``ball_orennayar_scenes``,
-``cornell_box`` (its bunny an absent asset, skipped), ``cornell_boxes``,
-the asset-free triangle scene, ``teapot_scene``, the reference's scene 1
-(``Raytracing_n.cpp:306-377``), ``random_scene`` (the RTiOW cover),
-``final`` and ``final1`` (*The Next Week*), and the reference's fixtures
-``two_spheres``, ``two_perlin_spheres``, ``earth_sphere`` and
-``simple_light``. Every function returns ``(scene, camera, info)``.
+``cornell_box`` (with its bunny), ``cornell_boxes``, the asset-free
+triangle scene, ``teapot_scene``, the reference's scene 1
+(``Raytracing_n.cpp:306-377``, with its bunny and dragon), the scanned
+meshes' ``jadebunny_scene``, ``soldier_scene`` and ``flatnormal_bunny``,
+``random_scene`` (the RTiOW cover), ``final`` and ``final1`` (*The Next
+Week*), and the reference's fixtures ``two_spheres``,
+``two_perlin_spheres``, ``earth_sphere`` and ``simple_light``. Mesh and
+image assets are found under ``$SRT_ASSETS`` (:mod:`io.assets`); an absent
+one is skipped, or an image replaced by its stand-in, and named in
+``info["skipped"]``, as in the JAX library. Every function returns
+``(scene, camera, info)``.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import warnings
 import numpy as np
 
 from srt_tpu_torch.io.assets import find_asset, load_image_asset
+from srt_tpu_torch.io.mesh import load_mesh
 from srt_tpu_torch.render.camera import Camera
 from srt_tpu_torch.scene.build import SceneBuilder, rotation_x, rotation_y
 
@@ -34,9 +40,6 @@ ALIASES = {"cornell": "cornell_box", "teapot": "teapot_scene",
            "balls": "ball_scenes", "orennayar": "ball_orennayar_scenes",
            "jade": "jadebunny_scene", "soldier": "soldier_scene",
            "flatnormal": "flatnormal_bunny", "boxes": "cornell_boxes"}
-#: the JAX library's scenes of scanned meshes, which wait for the mesh
-#: loaders
-MESH_SCENES = ("jadebunny_scene", "soldier_scene", "flatnormal_bunny")
 
 
 def list_scenes() -> list[str]:
@@ -46,32 +49,31 @@ def list_scenes() -> list[str]:
 
 def get_scene(name: str, aspect: float = 1.0, device="cuda", **kw):
     """Build a scene by name or alias (:data:`ALIASES`) on ``device`` (the
-    card unless the caller asks for another). The JAX library's scenes of
-    scanned meshes raise ``NotImplementedError`` (ROADMAP A8), another
-    unknown name ``KeyError``, as in the JAX library. ``max_tex``
-    downsamples image textures, ``first_mesh_only``, which the golden tool
-    passes under parity, is accepted as the JAX library accepts it: no
-    scene here loads a mesh file, and one whose mesh asset is present
-    raises (ROADMAP A8)."""
+    card unless the caller asks for another); an unknown name raises
+    ``KeyError``, as in the JAX library. ``max_tex`` downsamples image
+    textures; ``first_mesh_only``, which the golden tool passes under
+    parity, keeps the first mesh of the soldier's FBX file, as the
+    reference's loader does (``model.h:90,101``); other scenes ignore
+    it."""
     key = ALIASES.get(name, name)
-    if key in MESH_SCENES:
-        raise NotImplementedError(
-            f"scene {name!r} is not in srt_tpu_torch yet: it needs the mesh "
-            "loaders (ROADMAP A8)")
     if key not in SCENES:
         raise KeyError(f"unknown scene {name!r}; have {sorted(SCENES)}")
     return SCENES[key](aspect=aspect, device=device, **kw)
 
 
-def _mesh_asset(rel: str, info: dict) -> None:
-    """A scanned mesh the reference loads: absent here, it is skipped and
-    named in ``info``, as the JAX library does; present, it needs the
-    mesh loaders, which the port does not hold yet."""
-    if find_asset(rel) is None:
+def _mesh_asset(rel: str, info: dict, first_mesh_only: bool = False):
+    """A scanned mesh the reference loads, as a
+    :class:`~srt_tpu_torch.io.mesh.TriMesh`; absent, None, and it is
+    skipped and named in ``info["skipped"]``, as the JAX library does.
+    ``info["mesh_s"]`` adds up the seconds spent reading mesh files."""
+    path = find_asset(rel)
+    if path is None:
         info.setdefault("skipped", []).append(rel)
-        return
-    raise NotImplementedError(
-        f"srt_tpu_torch cannot load mesh assets ({rel}) yet (ROADMAP A8)")
+        return None
+    t0 = time.perf_counter()
+    mesh = load_mesh(path, first_mesh_only=first_mesh_only)
+    info["mesh_s"] = info.get("mesh_s", 0.0) + time.perf_counter() - t0
+    return mesh
 
 
 def _maybe_downsample(img: np.ndarray, max_tex: int | None) -> np.ndarray:
@@ -166,10 +168,12 @@ def teapot_scene(aspect: float = 1.0, divs: int = 100,
     ``srt_tpu/scene/library.py:296-349``: a mirror teapot and a gold
     Beckmann teapot (``divs`` sets the tessellation, ``teapot.h:77``; 100
     gives 640k triangles a teapot), a glass sphere holding a blue isotropic
-    medium, a Lambertian floor, a rect light and the environment dome. The
-    bunny and the dragon are absent assets, skipped and named in
-    ``info["skipped"]``. ``info["host_s"]`` holds the host build's seconds
-    a step: the tessellation, then ``SceneBuilder.seconds``."""
+    medium, a Lambertian floor, a rect light, the environment dome, and the
+    bunny and the dragon where their assets are present (else skipped and
+    named in ``info["skipped"]``). ``info["host_s"]`` holds the host
+    build's seconds a step: the tessellation, then
+    ``SceneBuilder.seconds``; ``info["mesh_s"]`` the mesh files'
+    reading."""
     from srt_tpu_torch.scene.teapot import create_teapot
 
     lookfrom = (100.0, 800.0, -400.0)
@@ -178,9 +182,9 @@ def teapot_scene(aspect: float = 1.0, divs: int = 100,
 
     light = b.diffuse_light(b.constant((40.0, 40.0, 40.0)))
     lam_brown = b.lambertian(b.constant((0.426, 0.3, 0.254)))
-    b.oren_nayar(b.constant((1.0, 1.0, 1.0)), 10.0)     # the bunny's
+    on_white = b.oren_nayar(b.constant((1.0, 1.0, 1.0)), 10.0)
     beck_gold = b.beckmann(b.constant((0.945, 0.75, 0.336)), 0.01, 0.05)
-    b.beckmann(b.constant((0.8, 0.85, 0.88)), 0.1, 0.1)  # the dragon's
+    beck_silver = b.beckmann(b.constant((0.8, 0.85, 0.88)), 0.1, 0.1)
     mirror = b.metal((0.9, 0.9, 0.9), 0.0)
 
     lid = b.xz_rect(3, 153, 217, 343, 800, light, flip=True)     # :336
@@ -192,15 +196,21 @@ def teapot_scene(aspect: float = 1.0, divs: int = 100,
     tessellation = time.perf_counter() - t0
     b.trimesh(pot, mirror, rotate=rotation_x(90.0), translate=(200, 0, 250))
     b.trimesh(pot, beck_gold, rotate=rotation_x(90.0), translate=(360, 0, 150))
-    _mesh_asset("models/bunny.ply", info)                        # :356-357
+    bunny = _mesh_asset("models/bunny.ply", info)
+    if bunny is not None:
+        b.trimesh(bunny, on_white, scale=2000.0, rotate=rotation_y(180.0),
+                  translate=(180, -70, 450), flip_winding=True)  # :356-357
 
     b.sphere((280, 30, 70), 30.0, b.dielectric(1.5))              # :360
     b.medium_sphere((280, 30, 70), 30.0, 0.2,
                     b.constant((0.2, 0.4, 0.9)))                  # :362
-    _mesh_asset("models/dragon.ply", info)                       # :364-366
-    if "models/dragon.ply" in info["skipped"]:
+    dragon = _mesh_asset("models/dragon.ply", info)               # :364-366
+    if dragon is None:
         warnings.warn("dragon.ply is absent; teapot_scene renders without "
                       "it")
+    else:
+        b.trimesh(dragon, beck_silver, scale=500.0, rotate=rotation_y(180.0),
+                  translate=(140, -20, 120), flip_winding=True)
     b.light_rect(lid)
 
     cam = Camera.look_at(lookfrom, (300, 278, 200), vfov=40.0,
@@ -244,23 +254,27 @@ def ball_orennayar_scenes(aspect: float = 1.0, max_tex: int | None = None,
 
 @_register
 def cornell_box(aspect: float = 1.0, max_tex: int | None = None,
-                device="cuda", **_kw):
+                bunny_scale: float = 2000.0, device="cuda", **_kw):
     """Reference scene 0 (``Raytracing_n.cpp:216-304``): an Oren–Nayar
-    floor, a rect light, the sky_2 dome and the bunny. The bunny is an
-    absent asset here, skipped and named in ``info["skipped"]`` as the JAX
-    library skips it, so the scene is rects and the dome."""
+    floor, a rect light, the sky_2 dome and the bunny (``models/
+    bunny.ply``; absent, it is skipped and named in ``info["skipped"]``
+    as the JAX library skips it, and the scene is rects and the dome)."""
     lookfrom = (300.0, 500.0, -800.0)
     b = SceneBuilder()
     info: dict = {}
 
     light = b.diffuse_light(b.constant((45.0, 45.0, 45.0)))
     on_white_0 = b.oren_nayar(b.constant((0.7, 0.7, 0.7)), 0.0)
-    b.oren_nayar(b.constant((0.7, 0.7, 0.7)), 10.0)          # the bunny's
+    on_white_10 = b.oren_nayar(b.constant((0.7, 0.7, 0.7)), 10.0)
 
     lid = b.xz_rect(203, 353, 217, 343, 800, light, flip=True)   # :261
     b.xz_rect(0, 555, 0, 555, 0, on_white_0)                     # :264
     _env_dome(b, lookfrom, "environment_map/sky_2.png", info, max_tex)
-    _mesh_asset("models/bunny.ply", info)                        # :273-274
+    bunny = _mesh_asset("models/bunny.ply", info)
+    if bunny is not None:
+        b.trimesh(bunny, on_white_10, scale=bunny_scale,
+                  rotate=rotation_y(180.0), translate=(250, -70, 400),
+                  flip_winding=True)                              # :273-274
     b.light_rect(lid)                                             # :285,303
 
     cam = Camera.look_at(lookfrom, (300, 278, 200), vfov=40.0,
@@ -491,3 +505,129 @@ def final1(aspect: float = 1.0, seed: int = 1, n_cluster: int = 1000,
     _sphere_cube(b, rng, n_cluster, white)                        # :704-709
     b.light_rect(lid)
     return b.build(device), _tnw_cam(aspect, device), {"lights": 1}
+
+
+@_register
+def jadebunny_scene(aspect: float = 1.0, max_tex: int | None = None,
+                    device="cuda", **_kw):
+    """Reference scene 4 (``Raytracing_n.cpp:535-583``), as
+    ``srt_tpu/scene/library.py:500-533`` builds it: a glass bunny shell
+    over a slightly smaller Oren–Nayar blue bunny."""
+    lookfrom = (300.0, 500.0, -800.0)
+    b = SceneBuilder()
+    info: dict = {}
+
+    light = b.diffuse_light(b.constant((45.0, 45.0, 45.0)))
+    glass = b.dielectric(1.2)
+    on_white_0 = b.oren_nayar(b.constant((0.7, 0.7, 0.7)), 0.0)
+    on_blue = b.oren_nayar(b.constant((0.2, 0.4, 0.9)), 0.0)
+
+    lid = b.xz_rect(203, 353, 17, 543, 800, light, flip=True)     # :555
+    b.xz_rect(0, 555, 0, 555, 0, on_white_0)                      # :556
+    _env_dome(b, lookfrom, "environment_map/sky_2.png", info, max_tex)
+
+    bunny = _mesh_asset("models/bunny.ply", info)
+    if bunny is not None:
+        b.trimesh(bunny, glass, scale=2000.0, rotate=rotation_y(180.0),
+                  translate=(250, -70, 400))                      # :563-565
+        b.trimesh(bunny, on_blue, scale=1990.0, rotate=rotation_y(180.0),
+                  translate=(250, -70, 400), flip_winding=True)   # :568-570
+    b.light_rect(lid)
+
+    cam = Camera.look_at(lookfrom, (300, 278, 200), vfov=40.0,
+                         aspect=aspect, aperture=0.0, focus_dist=10.0,
+                         device=device)
+    info["lights"] = 1
+    return b.build(device), cam, info
+
+
+@_register
+def soldier_scene(aspect: float = 1.0, max_tex: int | None = None,
+                  first_mesh_only: bool = False,
+                  floor_variant: str = "ref", no_soldier: bool = False,
+                  device="cuda", **_kw):
+    """Reference scene 6 (``Raytracing_n.cpp:585-657``), as
+    ``srt_tpu/scene/library.py:536-597`` builds it: the FBX soldier over a
+    glass-coated wood floor, the sky4 dome, thin-lens bokeh (aperture 10).
+    ``first_mesh_only`` keeps the FBX file's first mesh (the reference's
+    truncation, which its golden renders show). ``floor_variant`` and
+    ``no_soldier`` are the JAX library's golden-debugging knobs: "ref" is
+    the wood box and the glass coat box as the reference builds them,
+    "nocoat" drops the glass box, "lambert" makes the wood Lambertian,
+    "rect" a single xz rect floor."""
+    lookfrom = (300.0, 500.0, -800.0)
+    b = SceneBuilder()
+    info: dict = {}
+
+    light1 = b.diffuse_light(b.constant((35.0, 35.0, 35.0)))
+    lid = b.xz_rect(203, 353, 17, 167, 800, light1, flip=True)    # :623
+
+    wood_rel = "textures/TexturesCom_Wood_Wenge_1K_albedo.png"
+    if find_asset(wood_rel) is None:
+        info.setdefault("skipped", []).append("wood albedo")
+    wood = b.image(_maybe_downsample(load_image_asset(
+        wood_rel, (0.3, 0.2, 0.1)), max_tex))
+    if floor_variant == "lambert":
+        floor_mat = b.lambertian(wood)
+    else:
+        floor_mat = b.oren_nayar(wood, 0.5)                       # :619
+    if floor_variant == "rect":
+        b.xz_rect(0, 600, 0, 600, 0.1, floor_mat)
+    else:
+        b.box((0, -0.1, 0), (600, 0.1, 600), floor_mat)           # :626
+    if floor_variant not in ("nocoat", "rect"):
+        b.box((0, -1, 0), (600, 1, 600), b.dielectric(1.4))       # :628
+
+    _env_dome(b, lookfrom, "environment_map/sky4.jpg", info, max_tex)
+
+    soldier = None
+    if not no_soldier:
+        soldier = _mesh_asset("models/Soilder.FBX", info, first_mesh_only)
+    if soldier is not None:
+        if find_asset("textures/NPC_YuanChengBing_A.png") is None:
+            info.setdefault("skipped", []).append("soldier texture")
+        skin = b.image(_maybe_downsample(load_image_asset(
+            "textures/NPC_YuanChengBing_A.png", (0.5, 0.4, 0.3)), max_tex))
+        beck_tex = b.beckmann(skin, 0.9, 0.85)                    # :604,638
+        b.trimesh(soldier, beck_tex, scale=8.0, rotate=rotation_y(180.0),
+                  translate=(250, 0, 300), flip_winding=True)     # :640-642
+    b.light_rect(lid)
+
+    cam = Camera.look_at(lookfrom, (300, 278, 200), vfov=40.0,
+                         aspect=aspect, aperture=10.0,
+                         focus_dist=1000.0, device=device)        # :589-592
+    info["lights"] = 1
+    return b.build(device), cam, info
+
+
+@_register
+def flatnormal_bunny(aspect: float = 1.0, max_tex: int | None = None,
+                     device="cuda", **_kw):
+    """Reference scene 7 (``Raytracing_n.cpp:659-691``), as
+    ``srt_tpu/scene/library.py:600-633`` builds it: a gold Beckmann bunny
+    with flat normals (its PLY stores none). The reference builds the
+    bunny but never appends it (``:683-686``); the JAX library adds it and
+    registers the light rect, and so does this one."""
+    lookfrom = (300.0, 500.0, -800.0)
+    b = SceneBuilder()
+    info: dict = {}
+
+    light = b.diffuse_light(b.constant((45.0, 45.0, 45.0)))
+    on_white = b.oren_nayar(b.constant((0.7, 0.7, 0.7)), 0.1)
+    beck_gold = b.beckmann(b.constant((0.945, 0.75, 0.336)), 0.85, 0.85)
+
+    lid = b.xz_rect(203, 353, 17, 167, 800, light, flip=True)     # :675
+    b.xz_rect(0, 600, 0, 600, 0, on_white)                        # :676
+    _env_dome(b, lookfrom, "environment_map/sky_2.png", info, max_tex)
+
+    bunny = _mesh_asset("models/bunny.ply", info)
+    if bunny is not None:
+        b.trimesh(bunny, beck_gold, scale=2000.0, rotate=rotation_y(180.0),
+                  translate=(250, -70, 400))
+    b.light_rect(lid)
+
+    cam = Camera.look_at(lookfrom, (300, 278, 200), vfov=40.0,
+                         aspect=aspect, aperture=0.0, focus_dist=10.0,
+                         device=device)
+    info["lights"] = 1
+    return b.build(device), cam, info

@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from srt_tpu_torch.render.api import render_setup, sample_chunks
+from srt_tpu_torch.render.api import accumulate, render_setup
 from srt_tpu_torch.utils.metrics import RenderMetrics
 
 #: the config fields a checkpoint must share with the render that resumes
@@ -78,28 +78,29 @@ def render_resumable(scene, camera, config, ckpt_path: str,
     one for this config; returns the (H, W, 3) linear image on the scene's
     device and deletes the checkpoint when done (``checkpoint.py:67-120``).
     Equal to :func:`render.api.render` with the same config to the bit
-    when ``ckpt_every_spp`` is a multiple of ``sample_chunk``: both add
-    the same sample chunks (:func:`render.api.sample_chunks`) in the same
-    order.
+    when ``ckpt_every_spp`` is a multiple of ``sample_chunk``: both sum
+    through :func:`render.api.accumulate`.
     ``metrics=True`` also returns a :class:`RenderMetrics` of the samples
     this call rendered (route and wall)."""
     _, jitter, route = render_setup(scene, config)
     w, h, spp = config.width, config.height, config.spp
     loaded = load_render_ckpt(ckpt_path, config)
+    acc, s_done = None, 0
     if loaded is not None:
         acc, s_done = torch.from_numpy(loaded[0]).to(scene.device), loaded[1]
-    else:
-        acc, s_done = torch.zeros((w * h, 3), dtype=torch.float32,
-                                  device=scene.device), 0
     s_ckpt = s_done
+
+    def on_chunk(s0, acc):
+        nonlocal s_ckpt
+        if s0 - s_ckpt >= ckpt_every_spp and s0 < spp:
+            save_render_ckpt(ckpt_path, acc, s0, config)
+            s_ckpt = s0
+
     t0 = time.time()
-    with torch.no_grad():
-        for s0, part, _ in sample_chunks(route, camera, config, jitter,
-                                         s_done):
-            acc = acc + part
-            if s0 - s_ckpt >= ckpt_every_spp and s0 < spp:
-                save_render_ckpt(ckpt_path, acc, s0, config)
-                s_ckpt = s0
+    # whole sample chunks, as JAX's checkpointed render sums them: a
+    # checkpoint holds no heap-slot plane to carry a sequential render
+    acc, _ = accumulate(route, camera, config, jitter, seq=False,
+                        s_start=s_done, acc=acc, on_chunk=on_chunk)
     if os.path.exists(ckpt_path):
         os.unlink(ckpt_path)
     img = (acc / spp).reshape(h, w, 3)

@@ -8,7 +8,9 @@ Two scenes the bounce kernels' gate refuses, so both engines shade them
 with the plain bounce: ``medium_room``, a rect light seen through a
 constant medium bounded by a box or by the same box as 12 triangles
 (``tests/test_render.py:192-220``), and ``cornell_tiled``, cornell_boxes
-with its back wall tiled into rects, past the kernels' 64 rects."""
+with its back wall tiled into rects, past the kernels' 64 rects. And
+``write_blob_ply``, a seeded closed mesh written as the PLY a scanned
+mesh asset would be, and ``merl_table``, a seeded smooth MERL table."""
 from __future__ import annotations
 
 import numpy as np
@@ -127,3 +129,78 @@ def cornell_tiled(b, tiles: int = 8):
     b.box((265, 0, 295), (430, 330, 460), white, as_tris=True)
     b.light_rect(lid)
     return b
+
+
+def write_blob_ply(path: str, n_lat: int, n_lon: int, seed: int,
+                   centre=(-0.02, 0.11, 0.0), radius: float = 0.07,
+                   binary: bool = True, quads: bool = False) -> int:
+    """A seeded closed blob -- a UV sphere of ``n_lat`` rings and
+    ``n_lon`` segments, each vertex's radius jittered by up to 20% -- as a
+    PLY with the Stanford bunny's vertex properties (``x y z confidence
+    intensity``, float32) and a ``uchar``/``int`` face list: binary
+    little-endian or ASCII, and with ``quads`` the faces between rings as
+    quads. The default centre and radius put it where the bunny sits in
+    bunny.ply's own units (about 0.15 across, on y = 0.04). Returns its
+    triangle count, ``2 n_lon (n_lat - 1)``."""
+    r = np.random.default_rng(seed)
+    th = np.linspace(0.0, np.pi, n_lat + 1)[1:-1]
+    ph = np.linspace(0.0, 2 * np.pi, n_lon, endpoint=False)
+    ring = np.stack([np.sin(th)[:, None] * np.cos(ph),
+                     np.cos(th)[:, None] * np.ones_like(ph),
+                     np.sin(th)[:, None] * np.sin(ph)], -1).reshape(-1, 3)
+    dirs = np.concatenate([[[0.0, 1.0, 0.0]], ring, [[0.0, -1.0, 0.0]]])
+    rad = radius * (1.0 + 0.2 * r.uniform(-1.0, 1.0, len(dirs)))
+    verts = (np.asarray(centre) + dirs * rad[:, None]).astype(np.float32)
+    last = len(verts) - 1
+
+    def vid(i, j):
+        return 1 + i * n_lon + j % n_lon
+
+    faces = [[0, vid(0, j + 1), vid(0, j)] for j in range(n_lon)]
+    for i in range(n_lat - 2):
+        for j in range(n_lon):
+            a, b = vid(i, j), vid(i, j + 1)
+            c, d = vid(i + 1, j + 1), vid(i + 1, j)
+            faces += [[a, b, c, d]] if quads else [[a, b, c], [a, c, d]]
+    faces += [[last, vid(n_lat - 2, j), vid(n_lat - 2, j + 1)]
+              for j in range(n_lon)]
+    extra = r.uniform(0.0, 1.0, (len(verts), 2)).astype(np.float32)
+    header = ("ply\nformat " + ("binary_little_endian" if binary
+                                 else "ascii") + " 1.0\n"
+              f"element vertex {len(verts)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              "property float confidence\nproperty float intensity\n"
+              f"element face {len(faces)}\n"
+              "property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        if binary:
+            f.write(np.concatenate([verts, extra], 1).astype("<f4")
+                    .tobytes())
+            for face in faces:
+                f.write(np.uint8(len(face)).tobytes())
+                f.write(np.asarray(face, "<i4").tobytes())
+        else:
+            for v, e in zip(verts, extra):
+                f.write((" ".join(repr(float(x)) for x in (*v, *e))
+                         + "\n").encode())
+            for face in faces:
+                f.write((f"{len(face)} " + " ".join(map(str, face))
+                         + "\n").encode())
+    return 2 * n_lon * (n_lat - 1)
+
+
+def merl_table(seed: int) -> np.ndarray:
+    """A seeded smooth (3, 90*90*180) MERL table, unscaled (the values
+    ``write_merl`` stores): a positive low-frequency field over the
+    half/diff grid, each channel its own."""
+    r = np.random.default_rng(seed)
+    th, td, pd = np.meshgrid(np.linspace(0, 1, 90), np.linspace(0, 1, 90),
+                             np.linspace(0, 1, 180), indexing="ij")
+    out = []
+    for _ in range(3):
+        a, b, c = r.uniform(0.5, 2.0, 3)
+        out.append(150.0 * (1.5 + np.cos(a * np.pi * th)
+                            * np.cos(b * np.pi * td)
+                            + 0.3 * np.sin(2 * np.pi * c * pd)))
+    return np.stack(out).reshape(3, -1)

@@ -115,8 +115,12 @@ def test_cli_lists_scenes_and_takes_aliases(tmp_path, capsys):
             a, _, _ = get_scene(alias, device="cpu")
             b, _, _ = get_scene(name, device="cpu")
         assert torch.equal(a.rect_k, b.rect_k)
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_scene("jade", device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jade, _, info = get_scene("jade", device="cpu")
+        assert torch.equal(jade.rect_k,
+                           get_scene("jadebunny_scene", device="cpu")[0].rect_k)
+    assert "models/bunny.ply" in info["skipped"]
     with pytest.raises(KeyError):
         get_scene("no_such_scene", device="cpu")
 

@@ -175,18 +175,23 @@ def test_roulette_matches_jax(name):
 
 
 def test_gate_refuses_only_merl_and_wide_atlases():
-    """``require_covered`` refuses MERL (A12) and atlases that are not
-    8-bit (A13); mesh media and scenes past the caps pass."""
+    """``require_covered`` refused MERL (A12) and atlases that are not
+    8-bit (A13) until both were ported: it now admits them, as it admits
+    mesh media and scenes past the caps, and refuses only a material type
+    id no ``MaterialType`` names."""
     scene, _, _ = get_scene("earth_sphere", device="cpu")
     require_covered(scene, SceneFlags.of(scene))
     mt = scene.mat_type.clone()
     mt[-1] = 7
     merl = dataclasses.replace(scene, mat_type=mt, merl=torch.zeros((1, 3, 1)))
-    with pytest.raises(NotImplementedError, match="A12"):
-        require_covered(merl, SceneFlags.of(merl))
+    require_covered(merl, SceneFlags.of(merl))
+    assert not SceneFlags.of(merl).fused_bounce
     wide = dataclasses.replace(scene, atlas_u32=None)
-    with pytest.raises(NotImplementedError, match="A13"):
-        require_covered(wide, SceneFlags.of(wide))
+    require_covered(wide, SceneFlags.of(wide))
+    mt[-1] = 9
+    unknown = dataclasses.replace(scene, mat_type=mt)
+    with pytest.raises(NotImplementedError, match=r"\[9\]"):
+        require_covered(unknown, SceneFlags.of(unknown))
     for fill, camera in ((lambda b: medium_room(b, "mesh"), MEDIUM_CAMERA),
                          (cornell_tiled, CORNELL_CAMERA)):
         _, _, other, _ = _both(fill, camera)

@@ -413,7 +413,7 @@ def test_bounce_bwd_refuses_what_the_kernel_lacks():
         kbb.bounce_bwd(scene, moving, tables, st, ct, spec)
     rows = {k: st[k].clone().requires_grad_() for k in ROWS}
     out = kv.bounce_core(scene, moving, tables, dict(st, **rows), spec)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="hybrid backward"):
         out["radiance"].sum().backward()
     tri, _, _ = get_scene("cornell_boxes", device="cpu")
     with pytest.raises(NotImplementedError, match="triangle"):

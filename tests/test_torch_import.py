@@ -1,5 +1,6 @@
 """srt_tpu_torch stands alone: importing it (the command line, its
-``__main__``, the checkpoint and cache utilities among its modules),
+``__main__``, the checkpoint and cache utilities, the distribution and
+MERL modules and the mesh loaders among its modules),
 rendering ball_scenes, cornell_boxes and teapot_scene (its native BVH
 builder, clusters, the two-level walk, specular materials and a medium)
 with either engine, running the command line into a PNG and taking a
@@ -63,6 +64,9 @@ import srt_tpu_torch.diff, srt_tpu_torch.render.regen_scan
 import srt_tpu_torch.trainbench
 import srt_tpu_torch.cli, srt_tpu_torch.__main__
 import srt_tpu_torch.utils.checkpoint, srt_tpu_torch.utils.cache
+import srt_tpu_torch.dist.multihost, srt_tpu_torch.io.merl
+import srt_tpu_torch.materials.merl, srt_tpu_torch.io.mesh
+from srt_tpu_torch.dist import make_mesh, render_sharded
 import os, tempfile
 scene, cam, _ = get_scene("ball_scenes", device="cpu")
 img = render_regen(scene, cam, RenderConfig(width=8, height=8, spp=1,
@@ -81,6 +85,12 @@ step = make_train_step(scene, cam, {"tex_color": scene.tex_color}, width=4,
 loss = step(torch.full((4, 4, 3), 0.3), 0)
 scan_img = srt_tpu_torch.render(tri_scene, tri_cam, RenderConfig(
     width=8, height=8, spp=2, max_depth=4))
+sharded = render_sharded(tri_scene, tri_cam, RenderConfig(
+    width=8, height=8, spp=2, max_depth=4), make_mesh(device="cpu"))
+jade, _, _ = get_scene("jadebunny_scene", device="cpu")
+f_merl = srt_tpu_torch.materials.merl.lookup(
+    torch.ones((1, 3, 8)), torch.zeros(1), torch.tensor([[0.0, 0.0, 1.0]]),
+    torch.tensor([[0.0, 0.0, 1.0]]))
 png = os.path.join(tempfile.mkdtemp(), "out.png")
 cli_rc = srt_tpu_torch.cli.main(["--scene", "balls", "--width", "8", "--spp",
                                  "1", "--max-depth", "2", "--device", "cpu",
@@ -94,6 +104,9 @@ print(json.dumps({"shape": list(img.shape),
                                  and loss.isfinite()
                                  and scan_img.isfinite().all()
                                  and scan_img.mean() > 0
+                                 and torch.equal(sharded, scan_img)
+                                 and jade.rect_k.shape[0] > 0
+                                 and bool((f_merl == 1).all())
                                  and cli_rc == 0 and os.path.isfile(png)),
                   "modules": sorted(m.split(".")[0] for m in sys.modules),
                   "triton_importer": TritonWatch.stack}))

@@ -639,3 +639,43 @@ def test_parity_bounce_matches_plain_on_gpu(cuda_device, name, no_stale):
     keys = ("alive", "d", "beta", "radiance", "stale")
     contract.check_bounce({k: ref[k].cpu().numpy() for k in keys},
                           {k: out[k].cpu().numpy() for k in keys})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["earth_sphere", "lit_room_media"])
+def test_float_atlas_matches_packed_on_gpu(name, cuda_device):
+    """B1, B2 and B5 read a float atlas (``splice`` of ``"atlas"`` drops
+    the packed rgb8 twin) whose values are the twin's u8/255: every output
+    equal to the bit to the packed atlas's launch, on the scene's emitting
+    image (earth_sphere) and its image albedo (lit_room_media)."""
+    from srt_tpu_torch.diff import splice
+
+    def same(a, b):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return torch.equal(a, b)
+
+    inp, st, spec = _inputs(cuda_device, n=20000, name=name)
+    flt = splice(inp.scene, {"atlas": inp.scene.atlas})
+    inp_f = kb.RegenInputs(flt, inp.flags, inp.camera, inp.jitter)
+    assert inp_f.fields["atlas_f32"] and not inp.fields["atlas_f32"]
+    for _ in range(2):
+        kb.regen_bounce_reference(inp, st, spec)
+    a, b = ({k: v.clone() for k, v in st.items()} for _ in range(2))
+    kb.regen_bounce(inp, a, spec)
+    kb.regen_bounce(inp_f, b, spec)
+    torch.cuda.synchronize()
+    assert all(same(a[k], b[k]) for k in a)
+
+    scene, flags, tables, st, spec, ct = _train_inputs(cuda_device, 20000,
+                                                       name, 0)
+    flt = splice(scene, {"atlas": scene.atlas})
+    tab_f = kb.build_tables(flt, flags)
+    out_p = kb.bounce_fwd(scene, flags, tables, st, spec)
+    out_f = kb.bounce_fwd(flt, flags, tab_f, st, spec)
+    g_p = kbb.lane_cotangents(scene, flags, tables, st, ct, spec)
+    g_f = kbb.lane_cotangents(flt, flags, tab_f, st, ct, spec)
+    torch.cuda.synchronize()
+    assert all(same(out_p[k], out_f[k]) for k in out_p)
+    assert all(same(g_p[0][k], g_f[0][k]) for k in kbb.ROWS)
+    assert same(g_p[1], g_f[1]) and torch.equal(g_p[2], g_f[2])

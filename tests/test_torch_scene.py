@@ -137,8 +137,9 @@ def _merl(scene):
                                        ("train_mesh_medium", "A7")])
 def test_uncovered_scenes_raise(case, item):
     """Of the scenes the port once refused, ``item`` names the ROADMAP item
-    that covered it or still will: MERL materials (A12) still raise, in
-    the render as in the train step. Parity's sequential heap-slot mode
+    that covered it: MERL materials (A12) render and train through the
+    plain bounce, which the bounce kernels' gate gives them. Parity's
+    sequential heap-slot mode
     (``seq_stale``, A6) renders on the scan engine, and mesh-bounded media
     (A7) render through the plain bounce and train through it (random_scene,
     whose checker ground and specular spheres the train step refused
@@ -149,12 +150,12 @@ def test_uncovered_scenes_raise(case, item):
     scene, cam, _ = get_scene(name, device="cpu")
     cfg = RenderConfig(width=4, height=4, spp=1)
     if case == "merl":
-        with pytest.raises(NotImplementedError, match=item):
-            render_regen(_merl(scene), cam, cfg)
-        with pytest.raises(NotImplementedError, match=item):
-            make_train_step(_merl(scene), cam, {"tex_color": scene.tex_color},
-                            width=4, height=4, spp=1, max_depth=2,
-                            device="cpu")
+        img, m = render_regen(_merl(scene), cam, cfg, metrics=True)
+        assert m.bounce == "plain" and torch.isfinite(img).all()
+        step = make_train_step(_merl(scene), cam,
+                               {"tex_color": scene.tex_color}, width=4,
+                               height=4, spp=1, max_depth=2, device="cpu")
+        assert torch.isfinite(step(torch.full((4, 4, 3), 0.3), 0))
         return
     if case == "train_mesh_medium":
         step = make_train_step(_mesh_medium(scene), cam,
@@ -171,11 +172,17 @@ def test_uncovered_scenes_raise(case, item):
 
 
 def test_mesh_asset_scenes_not_registered():
-    """The scenes of scanned meshes wait for the mesh loaders (A8)."""
-    for name in ("jadebunny_scene", "soldier_scene", "flatnormal_bunny"):
-        assert name in jlib.SCENES
-        with pytest.raises(NotImplementedError, match="A8"):
-            get_scene(name, device="cpu")
+    """The scenes of scanned meshes waited for the mesh loaders (A8): now
+    registered, the library holds every scene of JAX's, and each builds
+    with its mesh asset absent, skipped and named in ``info``, as JAX's
+    does."""
+    from srt_tpu_torch.scene.library import list_scenes
+    assert sorted(list_scenes()) == sorted(jlib.list_scenes())
+    for name, rel in (("jadebunny_scene", "models/bunny.ply"),
+                      ("soldier_scene", "models/Soilder.FBX"),
+                      ("flatnormal_bunny", "models/bunny.ply")):
+        scene, _, info = get_scene(name, device="cpu")
+        assert rel in info["skipped"] and scene.n_tris == 0
 
 
 def test_media_and_parity_raise():

@@ -531,7 +531,7 @@ def test_gates_on_the_teapot():
         scene, med_kind=torch.full_like(scene.med_kind, 2))
     require_covered(mesh_med, SceneFlags.of(mesh_med))
     assert not SceneFlags.of(mesh_med).fused_bounce
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="hybrid backward"):
         kbb.require_bwd_kernel(scene, SceneFlags.of(scene))
     assert not kbb.bwd_kernel_available(scene, SceneFlags.of(scene))
     step = make_train_step(scene, cam, {"tex_color": scene.tex_color},

@@ -169,17 +169,22 @@ def test_inverse_recovers_albedo():
 
 
 def test_splice_refuses_geometry_and_the_atlas():
-    """The image atlas is still refused (A13), and so is the sharded step
-    (A11); the scan engine (A6, refused before it was ported) renders the
-    pixels, and an unknown engine raises; geometric fields are accepted:
-    splice sets them, the train step optimises them, and a sphere-centre
-    parameter makes the spheres moving for the forward kernel."""
+    """What splice and the train step refused is taken now: the image
+    atlas (A13; splice drops its packed twin, as JAX's does) and the
+    sharded step (A11, here on a one-process mesh); the scan engine (A6)
+    renders the pixels, an unknown engine or field raises; geometric
+    fields are accepted: splice sets them, the train step optimises them,
+    and a sphere-centre parameter makes the spheres moving for the
+    forward kernel."""
+    from srt_tpu_torch.dist import make_mesh
     scene, cam = _lit_room()
-    with pytest.raises(NotImplementedError, match="A13"):
-        splice(scene, {"atlas": scene.atlas})
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(scene, cam, {"atlas": scene.atlas}, device="cpu",
-                        **LOSS)
+    spliced = splice(scene, {"atlas": scene.atlas})
+    assert spliced.atlas_u32 is None and scene.atlas_u32 is not None
+    step = make_train_step(scene, cam, {"atlas": scene.atlas}, device="cpu",
+                           **LOSS)
+    assert torch.isfinite(step(torch.full((8, 8, 3), 0.3), 0))
+    with pytest.raises(KeyError, match="atlas_f32"):
+        splice(scene, {"atlas_f32": scene.atlas})
     for key in ("sph_center0", "sph_radius", "rect_k"):
         moved = getattr(scene, key) + 0.5
         assert torch.equal(getattr(splice(scene, {key: moved}), key), moved)
@@ -187,9 +192,9 @@ def test_splice_refuses_geometry_and_the_atlas():
                                device="cpu", **LOSS)
         assert step.params[key].requires_grad
         assert step.flags.moving == (key == "sph_center0")
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_train_step(scene, cam, {"tex_color": scene.tex_color},
-                        mesh=object(), device="cpu", **LOSS)
+    step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
+                           mesh=make_mesh(device="cpu"), **LOSS)
+    assert torch.isfinite(step(torch.full((8, 8, 3), 0.3), 0))
     px = render_pixels(scene, cam, torch.arange(4), engine="scan", seed=0,
                        **LOSS)
     assert px.shape == (4, 3) and torch.isfinite(px).all()

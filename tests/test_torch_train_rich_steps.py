@@ -159,7 +159,7 @@ def test_train_gate_takes_every_rendered_family(name):
     if b5:
         kbb.require_bwd_kernel(scene, flags)
     else:
-        with pytest.raises(NotImplementedError, match="A13"):
+        with pytest.raises(NotImplementedError, match="hybrid backward"):
             kbb.require_bwd_kernel(scene, flags)
 
 
@@ -181,34 +181,28 @@ def _merl(scene: TorchScene) -> TorchScene:
 @pytest.mark.parametrize("case,item", [("mesh_medium", "A7"),
                                        ("merl", "A12"), ("parity", "A13")])
 def test_train_gate_still_refuses(case, item):
-    """What the train step still refuses is what the render side refuses:
-    MERL (A12), on a rich scene as on any other. Mesh-bounded media, which
-    A7 covered, train through the plain bounce under autograd, the route
-    the bounce kernels' gate gives them. The parity estimator renders, and
-    the backward kernel refuses it, as JAX's gate does (its bounce takes
-    the hybrid backward); the train step never sets it."""
+    """What the train step refused, by the ROADMAP item that covered it:
+    MERL (A12) and mesh-bounded media (A7) train through the plain bounce
+    under autograd, the route the bounce kernels' gate gives them, on a
+    rich scene as on any other. The parity estimator renders, and the
+    backward kernel refuses it, as JAX's gate does (its bounce takes the
+    hybrid backward); the train step never sets it."""
     scene, cam = _scene("two_spheres")
     if case == "parity":
         flags = SceneFlags.of(scene)._replace(ref_parity=True)
         require_covered(scene, flags)
         assert not kbb.bwd_kernel_available(scene, flags)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match="parity"):
             kbb.require_bwd_kernel(scene, flags)
         return
-    if case == "mesh_medium":
-        media = _mesh_medium(scene)
+    if case in ("mesh_medium", "merl"):
+        media = _mesh_medium(scene) if case == "mesh_medium" else _merl(scene)
         require_trainable(media, SceneFlags.of(media))
         step = make_train_step(media, cam, {"tex_color": media.tex_color},
                                width=4, height=4, spp=1, max_depth=2,
                                device="cpu")
         assert torch.isfinite(step(torch.full((4, 4, 3), 0.3), 0))
-        return
-    bad = _merl(scene)
-    with pytest.raises(NotImplementedError, match=item):
-        require_trainable(bad, SceneFlags.of(bad))
-    with pytest.raises(NotImplementedError, match=item):
-        make_train_step(bad, cam, {"tex_color": bad.tex_color}, width=4,
-                        height=4, spp=1, max_depth=2, device="cpu")
+        assert not SceneFlags.of(media).fused_bounce
 
 
 def test_coverage_gate_reads_no_device_memory():

@@ -352,7 +352,7 @@ def test_train_step_refuses_triangles():
     scene, cam = _cornell()[2:]
     flags = SceneFlags.of(scene)
     assert not kbb.bwd_kernel_available(scene, flags)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="hybrid backward"):
         kbb.require_bwd_kernel(scene, flags)
     step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
                            width=4, height=4, spp=1, max_depth=2,
