@@ -199,10 +199,29 @@ of which raises on failure:
    equal to ``render`` to the bit, the sharded train step of one NCCL
    process and of two gloo processes on the one card against the
    unsharded one, and ``python -m srt_tpu_torch.dist.multihost`` as two
-   gloo processes on the one card against one process, to the bit.
+   gloo processes on the one card against one process, to the bit;
+35. the sphere BVH (A15): a seeded field of 10,000 spheres on
+   random_scene's ground under its lights (``tests/_torch_scenes.py:
+   sphere_field``, past the bounce kernels' gate of 4,096 spheres), its
+   tree's walk against the sweep on 65,536 camera rays and on the same
+   rays after two plain bounces (hit and material equal, ``t`` within
+   2e-5, the normal within 2e-4, the winner equal; the longest walk's
+   visits; each one's time), the same on a 40,000-sphere field, then
+   ``render_regen`` at 512x512, 8 spp (cut from 16 for the budget), depth
+   50 with ``sphere_bvh`` on and off: the plain bounce, no kernel, no NaN,
+   the images within the image contract, both walls; the budget (about
+   90 s) and the cut printed on the phase's line;
+36. the scaling sweep (A16): ``python -m srt_tpu_torch.dist.scaling
+   --devices 1 2`` on the one card, two gloo processes sharing it: the
+   images equal to the bit, ``cards`` 1, its JSON line printed;
+37. the tools (A16): ``python -m srt_tpu_torch.phases --scene ball_scenes
+   --lanes 65536 --loop 4`` (every number finite and positive); two
+   parity chunks of ball_scenes averaged by ``golden_avg`` against the
+   parity golden (its PSNR finite); ``regions`` at 500x500, 4 spp over the
+   four floor variants against ``goldens/soldier_scene_500.png``.
 
 Prints each phase's seconds, then one JSON line about the kernels, one
-about the paths phases 24-34 drive (``paths``: each path's launches per
+about the paths phases 24-37 drive (``paths``: each path's launches per
 kernel and its wall), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -3329,6 +3348,289 @@ def phase_dist(root: str, scene, cam, dev) -> dict:
     return out
 
 
+# --- phases 35-37: the sphere BVH and the tools (A15, A16) -------------
+#: phase 35: a seeded field of spheres (``tests/_torch_scenes.py:
+#: sphere_field``) past the bounce kernels' gate of 4,096, so both engines
+#: take the plain bounce; the reference's many-sphere scenes stand behind
+#: it (random_scene's ground, lights and camera)
+FIELD_SPHERES = 10_000
+FIELD = dict(MAIN)
+#: phase 35 (b): both renders (the switch on and off) at this size, the
+#: main path's unless the phase's budget forces a cut, which is printed.
+#: Cut to 8 spp: at 16 the walk's render took 49 s and the sweep's 25 s,
+#: and the phase 95 s of its 90
+FIELD_RENDER = dict(width=512, height=512, spp=8)
+FIELD_ROW = 192             # phase 35 (a): camera rays of rows 192-319
+#: phase 35 (a) also at a larger field, where the sweep's cost (linear in
+#: the spheres) meets the walk's: the intersections only, no render
+FIELD_MORE = 40_000
+FIELD_BUDGET_S = 90
+FIELD_REPS = 3              # timed intersections at each input
+SPHERE_T_ATOL = 2e-5        # JAX's own bounds (tests/test_intersect.py)
+SPHERE_N_ATOL = 2e-4
+#: phases 36-37
+SCALING_BUDGET_S = 120
+TOOLS_BUDGET_S = 120
+TOOLS_CHUNK = dict(size=512, spp=8)   # golden_avg's two parity chunks
+
+
+def field_hits(label: str, scene, flags, o, d, time_) -> dict:
+    """Phase 35 (a): the sphere BVH's walk (``intersect_scene`` with the
+    switch) against the sweep on rays ``o, d``: hit and material equal,
+    ``t`` within :data:`SPHERE_T_ATOL` and the normal within
+    :data:`SPHERE_N_ATOL` on the hits, the walk's winner the sweep's on
+    every ray (the field has no dome); the longest walk's visits and each
+    one's ms per call."""
+    import torch
+
+    from srt_tpu_torch.render.intersect import (intersect_scene,
+                                                sphere_bvh_winner,
+                                                sphere_winner)
+
+    def walk():
+        return intersect_scene(scene, o, d, 1e-3, time=time_,
+                               sphere_bvh=True, sbvh_leaf=flags.sbvh_leaf)
+
+    def sweep():
+        return intersect_scene(scene, o, d, 1e-3, time=time_)
+
+    with torch.no_grad():
+        hw, hs = walk(), sweep()
+        k, visits = sphere_bvh_winner(scene, o, d, time_, 1e-3,
+                                      flags.sbvh_leaf, stats=True)
+        _, k_sweep = sphere_winner(scene, o, d, time_)
+        both = hw.hit & hs.hit
+        dt = float((hw.t - hs.t)[both].abs().max()) if both.any() else 0.0
+        dn = (float((hw.normal - hs.normal)[both].abs().max())
+              if both.any() else 0.0)
+        if (not torch.equal(hw.hit, hs.hit)
+                or not torch.equal(hw.mat[both], hs.mat[both])
+                or dt > SPHERE_T_ATOL or dn > SPHERE_N_ATOL
+                or not torch.equal(k, k_sweep)):
+            raise AssertionError(
+                f"{label}: the walk against the sweep: hits "
+                f"{int(hw.hit.sum())}/{int(hs.hit.sum())}, |dt| {dt}, "
+                f"|dn| {dn}, winners differ on "
+                f"{int((k != k_sweep).sum())}")
+        out = {"rays": o.shape[0], "hits": int(hw.hit.sum()),
+               "max_abs_dt": dt, "max_abs_dn": dn,
+               "visits_max": int(visits.max()),
+               "visits_mean": float(visits.float().mean()),
+               "walk_ms": time_ms(walk, FIELD_REPS),
+               "sweep_ms": time_ms(sweep, FIELD_REPS)}
+    log(f"[sphere-bvh-{label}] {json.dumps(out)}")
+    return out
+
+
+def phase_sphere_bvh(dev) -> dict:
+    """Phase 35 (A15): the sphere BVH on the card. The field of
+    :data:`FIELD_SPHERES` spheres, its tree built by the native builder;
+    (a) the walk against the sweep (:func:`field_hits`) on 65,536 camera
+    rays (rows 192-319 of a 512x512 image) and on the same rays after two
+    plain bounces, and the same on a field of :data:`FIELD_MORE`; (b) ``render_regen`` at :data:`FIELD` with
+    ``sphere_bvh`` on and off (both at :data:`FIELD_RENDER`): the bounce
+    plain, no kernel launched, no
+    NaN, the two images within the image contract. Budget
+    :data:`FIELD_BUDGET_S` s; the cuts and the walls are printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from _torch_scenes import SPHERE_FIELD_CAMERA, sphere_field
+
+    from srt_tpu_torch import RenderConfig, render_regen
+    from srt_tpu_torch.render.api import chunk_rays, pixel_jitter
+    from srt_tpu_torch.render.camera import Camera
+    from srt_tpu_torch.render.integrator import bounce_step
+    from srt_tpu_torch.scene.build import SceneBuilder
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.utils import contract
+
+    t_phase = time.time()
+    b = sphere_field(SceneBuilder(), FIELD_SPHERES)
+    scene = b.build(dev)
+    cam = Camera.look_at(**SPHERE_FIELD_CAMERA, device=dev)
+    flags = SceneFlags.of(scene)
+    if flags.fused_bounce or scene.sbvh_ids is None:
+        raise AssertionError(f"sphere field: fused {flags.fused_bounce}, "
+                             f"tree {scene.sbvh_ids is not None}")
+    log(f"[sphere-bvh] {scene.n_spheres} spheres, {scene.n_rects} rects, "
+        f"tree of {scene.sbvh_skip.shape[0]} nodes, widest leaf "
+        f"{flags.sbvh_leaf}; host build {json.dumps(b.seconds)}")
+
+    cfg = RenderConfig(**FIELD)
+    w = FIELD["width"]
+    pix = torch.arange(LANES, device=dev) + FIELD_ROW * w
+    jitter = pixel_jitter(cfg).to(dev)
+
+    def both_inputs(label: str, scene, flags) -> dict:
+        """:func:`field_hits` on the camera rays and on the same rays
+        after two plain bounces."""
+        (o, d, tm), salt = chunk_rays(cam, pix, 0, jitter, 0, width=w,
+                                      height=FIELD["height"], n_samples=1)
+        res = {"camera": field_hits(f"{label}-camera", scene, flags, o, d,
+                                    tm)}
+        st = dict(o=o, d=d, time=tm, beta=torch.ones_like(o),
+                  radiance=torch.zeros_like(o), salt=salt.to(torch.int32),
+                  depth=torch.zeros((LANES,), dtype=torch.int32, device=dev),
+                  alive=torch.ones((LANES,), dtype=torch.bool, device=dev))
+        with torch.no_grad():
+            for _ in range(2):
+                st = bounce_step(scene, st, FIELD["max_depth"], 1 << 30,
+                                 flags)
+        res["bounced"] = field_hits(f"{label}-bounced", scene, flags,
+                                    st["o"], st["d"], st["time"])
+        res["bounced"]["alive"] = int(st["alive"].sum())
+        return res
+
+    out = both_inputs(str(FIELD_SPHERES), scene, flags)
+    more = sphere_field(SceneBuilder(), FIELD_MORE).build(dev)
+    out["more"] = both_inputs(str(FIELD_MORE), more, SceneFlags.of(more))
+    del more
+
+    walls, imgs, paths = {}, {}, []
+    cut = dataclasses.replace(cfg, **FIELD_RENDER)
+    for name, c in (("sphere_bvh", dataclasses.replace(
+            cut, sphere_bvh=True)), ("sweep", cut)):
+        torch.cuda.synchronize()
+        reset_counts()
+        img, m = render_regen(scene, cam, c, metrics=True)
+        counts = read_counts()
+        a = img.cpu().numpy()
+        nan = int(np.isnan(a).sum())
+        if (m.bounce, m.walk) != ("plain", None) or any(counts.values()) \
+                or nan or m.nan_scrubbed or not 0.0 < float(a.mean()) < 1.0:
+            raise AssertionError(f"sphere field {name}: {m.to_dict()}, "
+                                 f"{counts}, nan {nan}")
+        walls[name], imgs[name] = m.wall_s, a
+        paths.append({"name": f"regen sphere field {name} "
+                              f"{c.width}x{c.height}x{c.spp}x{c.max_depth}",
+                      "launches": {}, "wall_s": m.wall_s})
+        log(f"[sphere-bvh-render] {name} {c.width}x{c.height}x{c.spp} depth "
+            f"{c.max_depth}: wall {m.wall_s:.3f} s, "
+            f"{m.primary_rays_per_sec:.1f} primary rays/s, mean "
+            f"{a.mean():.5f}, nan_pixels {nan}, bounces {m.bounces}")
+    agree = contract.check_image(imgs["sphere_bvh"], imgs["sweep"])
+    phase_s = time.time() - t_phase
+    cuts = [f"both renders' {k} {FIELD[k]} -> {v}"
+            for k, v in FIELD_RENDER.items() if v != FIELD[k]]
+    log(f"[sphere-bvh] budget {FIELD_BUDGET_S} s, took {phase_s:.1f} s; "
+        f"cuts: {cuts or 'none'}; walls {json.dumps(walls)}; images "
+        f"{json.dumps(agree)}")
+    if phase_s > 2 * FIELD_BUDGET_S:
+        raise AssertionError(f"phase 35 took {phase_s:.1f} s")
+    out.update(walls=walls, agree=agree, paths=paths, cuts=cuts)
+    return out
+
+
+def phase_scaling(root: str) -> dict:
+    """Phase 36 (A16): ``python -m srt_tpu_torch.dist.scaling --devices 1
+    2`` on the one card (two gloo processes share it): two processes'
+    image equal to one's to the bit, ``cards`` 1, ``backend`` gloo; the
+    JSON line printed. No scaling is measured: the card is shared."""
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "srt_tpu_torch.dist.scaling", "--devices",
+         "1", "2", "--timeout", str(SCALING_BUDGET_S)],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=3 * SCALING_BUDGET_S)
+    wall = time.time() - t0
+    if proc.returncode:
+        raise AssertionError(f"scaling: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rows = rec["devices"]
+    if (rec["cards"], rec["backend"]) != (1, "gloo") \
+            or rows["2"].get("bit_exact_vs_1dev") is not True \
+            or rows["1"]["efficiency_vs_linear"] != 1.0:
+        raise AssertionError(f"scaling: {rec}")
+    log(f"[scaling] budget {SCALING_BUDGET_S} s, took {wall:.1f} s, no "
+        f"cuts: {json.dumps(rec)}")
+    return {"paths": [{"name": "dist.scaling 1 and 2 processes",
+                       "launches": {}, "wall_s": wall}]}
+
+
+def phase_tools(root: str, dev) -> dict:
+    """Phase 37 (A16): ``python -m srt_tpu_torch.phases --scene
+    ball_scenes --lanes 65536 --loop 4`` in a subprocess, every number
+    finite and positive; the golden tool's two parity chunks of
+    ball_scenes (:data:`TOOLS_CHUNK`, seeds 1 and 2, the golden's size)
+    averaged by ``golden_avg`` against ``goldens/ball_parity_4096avg.png``,
+    its PSNR finite; ``regions`` at 500x500, 4 spp over the four floor variants,
+    one row a variant (both in process, their launches read)."""
+    import math
+    import shutil
+    import tempfile
+
+    from srt_tpu_torch import golden, golden_avg, regions
+
+    t_phase = time.time()
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run(
+        [sys.executable, "-m", "srt_tpu_torch.phases", "--scene",
+         "ball_scenes", "--lanes", str(LANES), "--loop", "4"],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=3 * TOOLS_BUDGET_S)
+    if proc.returncode:
+        raise AssertionError(f"phases: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    nums = {k: v for k, v in {**rec, **{f"route.{k}": v for k, v in
+                                        rec["route"].items()}}.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    bad = {k: v for k, v in nums.items() if not (math.isfinite(v) and v > 0)}
+    if bad or rec["route"]["bounce"] != "B2":
+        raise AssertionError(f"phases: {bad}, {rec['route']}")
+    log(f"[tools-phases] {json.dumps(rec)}")
+
+    tmp = tempfile.mkdtemp(prefix="srt_tools_")
+    paths = []
+    try:
+        reset_counts()
+        t0 = time.time()
+        size, spp = TOOLS_CHUNK["size"], TOOLS_CHUNK["spp"]
+        for seed in (1, 2):
+            golden.run(golden.parse_args(
+                ["--scene", "ball_scenes", "--size", str(size), "--spp",
+                 str(spp), "--ref-parity", "--seed", str(seed),
+                 "--out-dir", tmp, "--out-name", f"chunk_s{seed}.ppm",
+                 "--device", str(dev)]))
+        avg = golden_avg.run(golden_avg.parse_args(
+            ["--chunks", os.path.join(tmp, "chunk_s*.ppm"), "--golden",
+             os.path.join(root, "goldens", "ball_parity_4096avg.png")]))
+        counts = read_counts()
+        if avg["n_chunks"] != 2 or not math.isfinite(avg["psnr_db"]) \
+                or not counts["B2 parity"]:
+            raise AssertionError(f"golden_avg: {avg}, {counts}")
+        paths.append({"name": f"golden parity chunks ball_scenes "
+                              f"{size}x{size}x{spp} x2",
+                      "launches": {k: v for k, v in counts.items() if v},
+                      "wall_s": time.time() - t0})
+        log(f"[tools-golden-avg] chunks {size}x{size}x{spp} parity seeds 1, "
+            f"2: {json.dumps(avg)}")
+
+        reset_counts()
+        t0 = time.time()
+        variants = ["ref", "nocoat", "lambert", "rect"]
+        reg = regions.run(regions.parse_args(
+            ["--spp", "4", "--size", "500", "--variants", *variants,
+             "--out-dir", tmp, "--device", str(dev)]))
+        counts = read_counts()
+        if "golden" not in reg or any(v not in reg for v in variants) or \
+                not all(math.isfinite(x) for v in variants
+                        for k in ("floor_rgb", "sky_rgb", "soldier_rgb")
+                        for x in reg[v][k]):
+            raise AssertionError(f"regions: {reg}")
+        paths.append({"name": "regions soldier_scene 500x500x4 4 variants",
+                      "launches": {k: v for k, v in counts.items() if v},
+                      "wall_s": time.time() - t0})
+        log(f"[tools-regions] {json.dumps(reg)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.time() - t_phase
+    log(f"[tools] budget {TOOLS_BUDGET_S} s, took {phase_s:.1f} s, no cuts")
+    return {"paths": paths}
+
+
 def b3_states(dev):
     """B3's inputs that ``--compare`` times: ``(label, scene, o, d)`` of
     phase 7's cornell_boxes render wavefront, phase 16's cornell_boxes
@@ -3879,10 +4181,14 @@ def main() -> None:
     merl = timed(32, phase_merl, dev)
     meshes = timed(33, phase_mesh_scenes, dev)
     sharded = timed(34, phase_dist, root, scene, cam, dev)
+    field = timed(35, phase_sphere_bvh, dev)
+    scaling = timed(36, phase_scaling, root)
+    tools = timed(37, phase_tools, root, dev)
     new_paths = ([scan["path"], scan_tri["path"], seq["path"],
                   resumable["path"]] + cli_paths + [scan_train["path"]]
                  + a7["paths"] + atlas["paths"] + merl["paths"]
-                 + meshes["paths"] + sharded["paths"])
+                 + meshes["paths"] + sharded["paths"] + field["paths"]
+                 + scaling["paths"] + tools["paths"])
     log(f"[kernels] phases 31-34: launches {json.dumps(atlas['counts'])} "
         f"on the float-atlas paths, B3 {merl['B3']} on the MERL paths, B3 "
         f"{meshes['B3']}, B4 {meshes['B4']} and B2 {meshes['B2']} on the "
@@ -3950,6 +4256,11 @@ def main() -> None:
     b4["launches"] += meshes["B4"]
     b5["launches"] += atlas["counts"]["B5"]
     b6["launches"] += atlas["counts"]["B6"]
+    # phase 37's in-process paths (the parity chunks, the regions' renders)
+    for path in tools["paths"]:
+        for key, kern in (("B1", b1), ("B2", b2), ("B2 parity", b2_parity),
+                          ("B3", b3), ("B4", b4), ("B5", b5), ("B6", b6)):
+            kern["launches"] += path["launches"].get(key, 0)
     b2["max_abs_err"] = max(b2["max_abs_err"], atlas["b2"]["max_abs_err"])
     b3["max_abs_err"] = max(b3["max_abs_err"], meshes["b3"]["max_abs_err"])
     b4["max_abs_err"] = max(b4["max_abs_err"], meshes["b4"]["max_abs_err"])

@@ -8,7 +8,9 @@ checkpoint and resume), tonemap, write a PNG or the reference's ASCII
 and, under ``--metrics``, one JSON line with the JAX line's keys and
 ``launches``, the render's launches of each kernel read from the kernels'
 counters (:func:`kernels.launch_counts`). It runs on the card unless
-``--device`` names another torch device.
+``--device`` names another torch device. ``--sphere-bvh`` is the port's
+flag for what JAX switches with ``SRT_TPU_SPHERE_BVH=on``
+(``RenderConfig.sphere_bvh``).
 
 ``--engine regen`` (the default) is :func:`render.regen.render_regen`,
 ``--engine scan`` :func:`render.api.render`; ``--checkpoint`` is
@@ -70,6 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reproduce the reference's as-implemented "
                          "estimator (GOLDEN.md) instead of the "
                          "physically-correct one")
+    ap.add_argument("--sphere-bvh", action="store_true",
+                    help="walk the sphere BVH (scenes of 64 spheres or "
+                         "more) where the plain bounce runs, instead of "
+                         "sweeping every sphere")
     ap.add_argument("--wavefront", type=int, default=1 << 16,
                     help="regen engine persistent-wavefront lanes")
     ap.add_argument("--pdf-floor", type=float, default=1e-9,
@@ -141,6 +147,7 @@ def main(argv=None) -> int:
                           max_depth=args.max_depth, rr_start=args.rr_start,
                           seed=args.seed, sample_chunk=args.sample_chunk,
                           ref_parity=args.ref_parity,
+                          sphere_bvh=args.sphere_bvh,
                           wavefront=args.wavefront,
                           pdf_floor=args.pdf_floor)
     reset_launch_counts()

@@ -38,6 +38,7 @@ from srt_tpu_torch.kernels.bounce_vjp import bounce_step_auto
 from srt_tpu_torch.kernels.intersect import pack_walk
 from srt_tpu_torch.render.camera import Camera
 from srt_tpu_torch.render.integrator import trace
+from srt_tpu_torch.render.intersect import SPHERE_GEOM_FIELDS
 from srt_tpu_torch.render.regen_scan import steps_for, trace_queue
 from srt_tpu_torch.scene.ir import (CENTRE_FIELDS, SceneFlags, TorchScene,
                                     require_trainable)
@@ -198,7 +199,7 @@ def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
                     width: int, height: int, spp: int, max_depth: int,
                     lr: float = 1e-2, engine: str = "regen",
                     engine_kw: dict | None = None, mesh=None,
-                    device=None) -> TrainStep:
+                    device=None, sphere_bvh: bool = False) -> TrainStep:
     """An Adam step ``(target, seed) -> loss`` of :func:`image_loss` over
     every pixel (counterpart of ``inverse.py:160-210``; ``optax.adam``
     becomes :func:`adam`). The scene, camera and parameters move to
@@ -214,8 +215,17 @@ def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
     makes the spheres moving for the forward kernel, as the JAX package's
     flags degrade (``ir.py:115-125``): an optimised ``sph_center0`` leaves
     ``sph_center1`` where it was, so after the first step the sphere
-    moves over the shutter interval."""
+    moves over the shutter interval. ``sphere_bvh`` walks the scene's
+    sphere BVH where the plain bounce runs (``RenderConfig.sphere_bvh``);
+    with a sphere geometry parameter it raises ``ValueError``, since the
+    tree would keep the spheres' starting boxes
+    (:func:`render.intersect.require_fresh_tree`)."""
     splice(scene, params)               # refuse unknown fields early
+    if sphere_bvh and set(params) & set(SPHERE_GEOM_FIELDS):
+        raise ValueError(
+            f"sphere_bvh with the sphere geometry parameters "
+            f"{sorted(set(params) & set(SPHERE_GEOM_FIELDS))}: the sphere "
+            f"BVH would keep the spheres' starting boxes")
     pixels = None
     if mesh is not None:
         n_pixels = width * height
@@ -233,7 +243,7 @@ def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,
                           for t in camera))
     device = torch.device("cuda" if device is None else device)
     scene, camera = scene_to(scene, device), camera_to(camera, device)
-    flags = SceneFlags.of(scene)
+    flags = SceneFlags.of(scene)._replace(sphere_bvh=sphere_bvh)
     if set(params) & CENTRE_FIELDS:
         flags = flags._replace(moving=True)
     require_trainable(scene, flags)

@@ -29,6 +29,18 @@ def find_asset(rel_path: str) -> str | None:
     return None
 
 
+def require_asset(rel_path: str) -> str:
+    """The path of an asset, as :func:`find_asset` resolves it; a missing
+    one raises ``FileNotFoundError`` naming the roots searched
+    (``srt_tpu/io/assets.py:40-46``)."""
+    path = find_asset(rel_path)
+    if path is None:
+        raise FileNotFoundError(
+            f"asset {rel_path!r} not found under any of {asset_roots()}; "
+            f"set SRT_ASSETS to a contents/ tree")
+    return path
+
+
 def load_image_asset(rel_path: str, fallback_color=(0.5, 0.5, 0.5),
                      fallback_size: int = 8) -> np.ndarray:
     """Decode an image asset to (ny, nx, 3) uint8, or the stand-in."""

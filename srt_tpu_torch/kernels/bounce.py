@@ -337,8 +337,9 @@ def regen_bounce_reference(inp: RegenInputs, st: dict,
     rows = {k: st[k].T for k in ("o", "d", "beta", "radiance")}
     state, take, pix = regenerate(
         inp, spec, dict(st, **rows, alive=st["alive"] != 0), st["cursor"])
+    # B1 sweeps the spheres whatever ``flags.sphere_bvh`` says
     nxt = bounce_step(inp.scene, state, spec.max_depth, spec.rr_start,
-                      inp.flags, spec.pdf_floor)
+                      inp.flags._replace(sphere_bvh=False), spec.pdf_floor)
     # the depth cap folds into alive (bounce.py:1314-1318)
     alive_fin = nxt["alive"] & (nxt["depth"] < spec.max_depth)
     for k in ("o", "d", "beta", "radiance"):
@@ -652,9 +653,10 @@ def bounce_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
     :class:`kernels.bounce_vjp.BounceHybrid` wrap this."""
     dev = state["alive"].device
     if dev.type == "cpu":
+        # B2 sweeps the spheres whatever ``flags.sphere_bvh`` says
         with torch.no_grad():
-            return bounce_step_ref(scene, flags, tables["mat"], state, spec,
-                                   tri)
+            return bounce_step_ref(scene, flags._replace(sphere_bvh=False),
+                                   tables["mat"], state, spec, tri)
     if dev.type == "cuda":
         return _launch_fwd(scene, flags, tables, state, spec, tri)
     raise ValueError(f"no bounce kernel for {dev}")

@@ -229,8 +229,9 @@ def bounce_bwd(scene: TorchScene, flags: SceneFlags, tables: dict,
     require_bwd_kernel(scene, flags)
     dev = state["alive"].device
     if dev.type == "cpu":
-        return bounce_bwd_reference(scene, flags, tables["mat"], state, ct,
-                                    spec)
+        # B5 sweeps the spheres whatever ``flags.sphere_bvh`` says
+        return bounce_bwd_reference(scene, flags._replace(sphere_bvh=False),
+                                    tables["mat"], state, ct, spec)
     if dev.type != "cuda":
         raise ValueError(f"no bounce backward kernel for {dev}")
     g, g_mat, wmat = lane_cotangents(scene, flags, tables, state, ct, spec)

@@ -31,12 +31,17 @@ from srt_tpu_torch.utils.metrics import RenderMetrics
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """A copy of the JAX package's ``RenderConfig``, field for field, so a
-    configuration written for one package runs in the other. Both engines
+    configuration written for one package runs in the other, and one
+    field of the port's own after them (:data:`PORT_CONFIG`). Both engines
     read ``width height spp max_depth seed rr_start sobol_pixel_jitter
-    pdf_floor ref_parity parity_no_stale`` (the estimator switches
-    through :func:`scene_flags`); the regeneration engine reads
-    ``wavefront``, the scan engine (:func:`render`) ``sample_chunk``,
-    ``pixel_chunk`` and ``seq_stale``."""
+    pdf_floor ref_parity parity_no_stale sphere_bvh`` (the estimator
+    switches and the sphere BVH's through :func:`scene_flags`); the
+    regeneration engine reads ``wavefront``, the scan engine
+    (:func:`render`) ``sample_chunk``, ``pixel_chunk`` and ``seq_stale``.
+    ``sphere_bvh`` walks the scene's sphere BVH in the plain bounce, which
+    the JAX package turns on with its environment variable
+    ``SRT_TPU_SPHERE_BVH=on``; the port reads no environment variable for
+    it."""
     width: int = 256
     height: int = 256
     spp: int = 64
@@ -51,15 +56,21 @@ class RenderConfig:
     wavefront: int = 1 << 16         # persistent-wavefront lanes (regen)
     parity_no_stale: bool = False    # parity diagnostic: the slot reads 0
     seq_stale: bool = False          # parity scan-engine mode
+    sphere_bvh: bool = False         # the plain bounce walks the sphere BVH
+
+
+#: the fields of :class:`RenderConfig` that the JAX package's has not
+PORT_CONFIG = ("sphere_bvh",)
 
 
 def scene_flags(scene, config) -> SceneFlags:
     """The scene's flags with the config's estimator switches
-    (``srt_tpu/render/api.py:61-71``): ``ref_parity`` and
-    ``parity_no_stale``."""
+    (``srt_tpu/render/api.py:61-71``), ``ref_parity`` and
+    ``parity_no_stale``, and its ``sphere_bvh``."""
     return SceneFlags.of(scene)._replace(
         ref_parity=bool(getattr(config, "ref_parity", False)),
-        parity_no_stale=bool(getattr(config, "parity_no_stale", False)))
+        parity_no_stale=bool(getattr(config, "parity_no_stale", False)),
+        sphere_bvh=bool(getattr(config, "sphere_bvh", False)))
 
 
 def _rng_jitter(spp: int, seed: int) -> torch.Tensor:

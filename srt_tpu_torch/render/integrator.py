@@ -239,8 +239,9 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
     f32, alive (N,) bool, salt (N,) 32-bit words (any int dtype), depth
     (N,) int32``. ``tri``: the triangles' closest hit ``(t, u, v, tri)``,
     ``sph``: the spheres' winner ``(t, idx)``, if the caller has them (see
-    ``intersect_scene``). Returns the next state (``alive`` does not yet
-    fold in the depth cap; the caller does).
+    ``intersect_scene``; without ``sph``, ``flags.sphere_bvh`` walks the
+    sphere BVH). Returns the next state (``alive`` does not yet fold in
+    the depth cap; the caller does).
 
     Under ``flags.ref_parity`` the diffuse branch is :func:`parity_draw`
     with the reference's BSDF forms (``materials.RawFrame``), and the next
@@ -255,7 +256,8 @@ def bounce_step(scene: TorchScene, state: dict, max_depth: int,
     alive, beta = state["alive"], state["beta"]
 
     hit = intersect_scene(scene, o, d, 1e-3, tri, flags.bvh_leaf,
-                          state["time"], sph)
+                          state["time"], sph, flags.sphere_bvh,
+                          flags.sbvh_leaf)
     if scene.n_media:
         hit = apply_media(scene, o, d, salt, hit)
     # sanitize miss lanes: zero normal -> +z, far position -> origin

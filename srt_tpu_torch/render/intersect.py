@@ -2,12 +2,11 @@
 (counterpart of ``srt_tpu/render/intersect.py:39-565``).
 
 Spheres and rects: a dense sweep over primitive chunks, the JAX package's
-default for sphere scenes (its sphere BVH is opt-in and off the main
-path). Ties keep the lowest index. A sphere is at its centre at the ray's
-time (``moving_sphere.h:19-21``), the lerp factor taken with the
-reciprocal of the shutter span as the kernels' tables hold it (the JAX
-package's XLA sweep divides). :func:`sphere_winner` is the plain version
-of kernel B6, each ray's winning sphere ``(t, idx)`` only;
+default for sphere scenes. Ties keep the lowest index. A sphere is at its
+centre at the ray's time (``moving_sphere.h:19-21``), the lerp factor
+taken with the reciprocal of the shutter span as the kernels' tables hold
+it (the JAX package's XLA sweep divides). :func:`sphere_winner` is the
+plain version of kernel B6, each ray's winning sphere ``(t, idx)`` only;
 :func:`assemble_sphere_hit` re-derives the winner's hit differentiably,
 so geometry gradients flow through the one winning sphere while the
 winner itself is detached (``intersect.py:91-140``).
@@ -21,6 +20,13 @@ walk over the two-level BVH (a top tree whose leaves are clusters,
 ``accel/cluster.py``). :func:`intersect_tris_any` picks one by the JAX
 package's rule (:func:`two_level`). A triangle wins only when strictly
 nearer than the spheres' and rects' best hit.
+
+The sphere BVH: :func:`intersect_spheres_bvh` walks the scene's
+skip-link tree over its spheres (``sbvh_*``, built from 64 spheres on) in
+place of the sweep when the render turns it on (``SceneFlags.sphere_bvh``,
+off by default, as the JAX package's ``SRT_TPU_SPHERE_BVH`` is). JAX
+computes that walk in XLA, not in a Pallas kernel, so it is plain torch
+here too.
 """
 from __future__ import annotations
 
@@ -103,6 +109,25 @@ def _lerp_factor(times: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
     return (time - times[..., 0]) * inv_dt
 
 
+def _near_root(oc, dd, r2, t_min):
+    """The sphere test's quadratic for unit directions (the kernels'
+    ``sphere_t``): ``(t, t1)``, ``t`` the nearer root beyond ``t_min``
+    (BIG on a miss) and ``t1`` the far root; ``oc`` (..., 3) from the
+    centre to the origin, ``dd`` the direction, ``r2`` the squared
+    radius."""
+    b = (oc[..., 0] * dd[..., 0] + oc[..., 1] * dd[..., 1]
+         + oc[..., 2] * dd[..., 2])
+    c = (oc[..., 0] * oc[..., 0] + oc[..., 1] * oc[..., 1]
+         + oc[..., 2] * oc[..., 2]) - r2
+    disc = b * b - c                                     # unit d => a = 1
+    sq = safe_sqrt(disc)
+    t0 = -b - sq
+    t1 = -b + sq
+    valid0 = (disc > 0.0) & (t0 > t_min) & (t0 < BIG)
+    valid1 = (disc > 0.0) & (t1 > t_min) & (t1 < BIG)
+    return torch.where(valid0, t0, torch.where(valid1, t1, BIG)), t1
+
+
 def _sphere_t(scene: TorchScene, o, d, time, t_min, c0, c1):
     """Each ray's distance to spheres ``c0:c1`` (N, C), BIG on a miss (the
     kernels' ``sphere_t``), and the spheres' centres at the rays' times
@@ -111,19 +136,8 @@ def _sphere_t(scene: TorchScene, o, d, time, t_min, c0, c1):
     f = _lerp_factor(scene.sph_times[c0:c1][None], time[:, None])  # (N, C)
     cen = cen0[None] + f[..., None] * (scene.sph_center1[c0:c1] - cen0)[None]
     rad = scene.sph_radius[c0:c1]                        # (C,)
-    oc = o[:, None, :] - cen                             # (N, C, 3)
-    dd = d[:, None, :]
-    b = (oc[..., 0] * dd[..., 0] + oc[..., 1] * dd[..., 1]
-         + oc[..., 2] * dd[..., 2])
-    c = (oc[..., 0] * oc[..., 0] + oc[..., 1] * oc[..., 1]
-         + oc[..., 2] * oc[..., 2]) - rad[None] * rad[None]
-    disc = b * b - c                                     # unit d => a = 1
-    sq = safe_sqrt(disc)
-    t0 = -b - sq
-    t1 = -b + sq
-    valid0 = (disc > 0.0) & (t0 > t_min) & (t0 < BIG)
-    valid1 = (disc > 0.0) & (t1 > t_min) & (t1 < BIG)
-    t = torch.where(valid0, t0, torch.where(valid1, t1, BIG))
+    t, t1 = _near_root(o[:, None, :] - cen, d[:, None, :],
+                       rad[None] * rad[None], t_min)
     # env dome: always hit at the far crossing (env_sphere.h:27-38)
     env = scene.sph_env[c0:c1][None]
     return torch.where(env, torch.where(t1 > t_min, t1, BIG), t), cen
@@ -445,23 +459,157 @@ def tri_hit(scene: TorchScene, o: torch.Tensor, d: torch.Tensor, t, u, v,
                mat=scene.tri_mat[tri].long())
 
 
+#: the sphere tensors the sphere BVH's boxes are built from: a tree walked
+#: while one of them is optimised would hold the spheres' old boxes
+SPHERE_GEOM_FIELDS = ("sph_center0", "sph_center1", "sph_times",
+                      "sph_radius")
+
+
+def require_fresh_tree(scene: TorchScene) -> None:
+    """Raise ``ValueError`` when a sphere geometry tensor of ``scene``
+    requires a gradient: optimising it would leave the sphere BVH's boxes
+    where the spheres were when the scene was built. The JAX package walks
+    such a stale tree silently; the port refuses it."""
+    live = [k for k in SPHERE_GEOM_FIELDS
+            if getattr(scene, k).requires_grad]
+    if live:
+        raise ValueError(
+            f"the sphere BVH is built from the spheres' starting geometry; "
+            f"{live} require a gradient, so the tree would go stale. Turn "
+            f"the sphere BVH off (RenderConfig.sphere_bvh, "
+            f"make_train_step(sphere_bvh=False)) to optimise sphere "
+            f"geometry")
+
+
+def sphere_bvh_winner(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
+                      time: torch.Tensor, t_min: float = 1e-3,
+                      leaf_size: int = 4, stats: bool = False):
+    """Each ray's closest sphere that is not an environment dome, over the
+    sphere BVH (``sbvh_*``), the winner search of JAX's
+    ``intersect_spheres_bvh`` (``srt_tpu/render/intersect.py:143-220``):
+    ``idx`` int32, -1 on a miss. The walk is the plain triangle walk's
+    (:func:`intersect_tris`): a box test descends to node ``i+1`` on an
+    inner node it hits and jumps to ``skip[i]`` otherwise, ``t_best``
+    prunes it, and a leaf tests up to ``leaf_size`` spheres
+    (``SceneFlags.sbvh_leaf``) gathered through ``sbvh_ids``, a strict
+    ``<`` keeping the first in walk order. Each sphere test is the
+    sweep's (:func:`_sphere_t`, the same float operations) on a record
+    packed once a call: centre, the centre's motion, shutter start, the
+    reciprocal of its span, squared radius. The host reads the count of
+    rays still walking once a round; when a quarter of the working set has
+    left the tree, those rays' winners are written out and the rest
+    compacted, so a round costs the rays still walking. Ties: spheres at
+    exactly equal ``t`` may give another winner than the sweep's lowest
+    index, as in JAX. No autograd. With ``stats`` it also returns each
+    ray's node visits (int64)."""
+    n, dev = o.shape[0], o.device
+    idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    visits = torch.zeros((n,), dtype=torch.int64, device=dev)
+    n_nodes, n_ids = scene.sbvh_skip.shape[0], scene.sbvh_ids.shape[0]
+    slots = torch.arange(leaf_size, device=dev)
+    with torch.no_grad():
+        times = scene.sph_times
+        rec = torch.cat([
+            scene.sph_center0, scene.sph_center1 - scene.sph_center0,
+            times[:, :1],
+            1.0 / torch.clamp(times[:, 1:] - times[:, :1], min=1e-20),
+            (scene.sph_radius * scene.sph_radius)[:, None]], 1)
+        box = torch.cat([scene.sbvh_lo, scene.sbvh_hi], 1)
+        link = torch.stack([scene.sbvh_first, scene.sbvh_count,
+                            scene.sbvh_skip], 1).long()
+        lane = torch.arange(n, device=dev)
+        o, d, time = o.detach(), d.detach(), time.detach()
+        inv_d = _safe_inv(d)
+        cursor = torch.zeros((n,), dtype=torch.int64, device=dev)
+        t_best = torch.full((n,), BIG, device=dev)
+        k_best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        vis = torch.zeros((n,), dtype=torch.int64, device=dev)
+        live = n if n_nodes else 0
+        while live:
+            active = cursor < n_nodes
+            cur = torch.clamp(cursor, max=n_nodes - 1)
+            nb, nl = box[cur], link[cur]
+            box_hit = _slab(nb[:, :3], nb[:, 3:], o, inv_d, t_min, t_best)
+            is_leaf = nl[:, 0] >= 0
+            test = ((active & box_hit & is_leaf)[:, None]
+                    & (slots < nl[:, 1:2]))
+            sid = scene.sbvh_ids[torch.clamp(nl[:, :1] + slots, 0,
+                                             n_ids - 1)].long()
+            r = rec[sid]                                  # (L, leaf, 9)
+            f = (time[:, None] - r[..., 6]) * r[..., 7]
+            cen = r[..., :3] + f[..., None] * r[..., 3:6]
+            t, _ = _near_root(o[:, None, :] - cen, d[:, None, :], r[..., 8],
+                              t_min)
+            tb, j = torch.min(torch.where(test, t, BIG), 1)
+            better = tb < t_best
+            t_best = torch.where(better, tb, t_best)
+            k_best = torch.where(better, sid.gather(1, j[:, None])[:, 0],
+                                 k_best)
+            vis += active
+            cursor = torch.where(active, torch.where(
+                box_hit & ~is_leaf, cursor + 1, nl[:, 2]), cursor)
+            live = int((cursor < n_nodes).sum())     # one read a round
+            if live <= 3 * lane.numel() // 4:
+                # a quarter done: results out, the rest compacted
+                idx[lane] = k_best.to(torch.int32)
+                visits[lane] = vis
+                keep = torch.nonzero(cursor < n_nodes)[:, 0]
+                lane, o, d, time, inv_d, cursor, t_best, k_best, vis = (
+                    x[keep] for x in (lane, o, d, time, inv_d, cursor,
+                                      t_best, k_best, vis))
+        idx[lane] = k_best.to(torch.int32)
+        visits[lane] = vis
+    return (idx, visits) if stats else idx
+
+
+def intersect_spheres_bvh(scene: TorchScene, o: torch.Tensor,
+                          d: torch.Tensor, time: torch.Tensor,
+                          t_min: float = 1e-3, leaf_size: int = 4) -> Hit:
+    """Closest sphere hit through the sphere BVH, the port of JAX's
+    ``intersect_spheres_bvh`` (``intersect.py:143-230``): the winner from
+    :func:`sphere_bvh_winner`, detached, its hit re-assembled
+    differentiably (:func:`assemble_sphere_hit`), then each environment
+    dome (``sph_env_ids``, which the tree leaves out) by brute force, a
+    dome winning only when strictly nearer. The tree must have been built
+    from the scene's current geometry (:func:`require_fresh_tree`)."""
+    n = o.shape[0]
+    k = sphere_bvh_winner(scene, o, d, time, t_min, leaf_size)
+    best = assemble_sphere_hit(scene, o, d, time, t_min, k)
+    for e in scene.sph_env_ids.tolist():
+        k_env = torch.full((n,), e, dtype=torch.int32, device=o.device)
+        best = best.closer_of(assemble_sphere_hit(scene, o, d, time, t_min,
+                                                  k_env))
+    return best
+
+
 def intersect_scene(scene: TorchScene, o: torch.Tensor, d: torch.Tensor,
                     t_min: float = 1e-3, tri=None, leaf_size: int = 4,
-                    time: torch.Tensor | None = None, sph=None) -> Hit:
+                    time: torch.Tensor | None = None, sph=None,
+                    sphere_bvh: bool = False, sbvh_leaf: int = 4) -> Hit:
     """Closest hit over every sphere, then every rect, then the triangles
     (an earlier family wins ties), at the rays' ``time`` (0 when None).
     ``sph`` is the spheres' winner ``(t, idx)`` when the caller has it
     (kernel B6's output): the sphere hit is then assembled from it
-    (:func:`assemble_sphere_hit`) instead of swept. ``tri`` is the
-    triangles' closest hit ``(t, u, v, tri)`` when the caller has it
-    (kernel B3's or B4's output); otherwise :func:`intersect_tris_any`
-    computes it with ``leaf_size``."""
+    (:func:`assemble_sphere_hit`) instead of swept. Otherwise, with
+    ``sphere_bvh`` on a scene that has a sphere BVH, the spheres are
+    walked through it (:func:`intersect_spheres_bvh`, leaves of up to
+    ``sbvh_leaf``; a scene whose sphere geometry requires a gradient
+    raises, :func:`require_fresh_tree`), as JAX's ``intersect_scene`` does
+    under ``SRT_TPU_SPHERE_BVH=on`` (``intersect.py:519-535``); else
+    swept. ``tri`` is the triangles' closest hit ``(t, u, v, tri)`` when
+    the caller has it (kernel B3's or B4's output); otherwise
+    :func:`intersect_tris_any` computes it with ``leaf_size``."""
     best = Hit.none(o.shape[0], o.device)
     if time is None:
         time = torch.zeros(o.shape[0], device=o.device)
+    sweep = scene.n_spheres if sph is None else 0
     if scene.n_spheres and sph is not None:
         best = assemble_sphere_hit(scene, o, d, time, t_min, sph[1])
-    for c0 in range(0, scene.n_spheres if sph is None else 0, PRIM_CHUNK):
+    elif sweep and sphere_bvh and scene.sbvh_ids is not None:
+        require_fresh_tree(scene)
+        best = intersect_spheres_bvh(scene, o, d, time, t_min, sbvh_leaf)
+        sweep = 0
+    for c0 in range(0, sweep, PRIM_CHUNK):
         c1 = min(c0 + PRIM_CHUNK, scene.n_spheres)
         best = best.closer_of(_sphere_chunk(scene, o, d, time, t_min, c0,
                                             c1))

@@ -1,13 +1,13 @@
 """Host-side scene construction (counterpart of ``srt_tpu/scene/build.py``).
 
 Covers what the port's slices render: spheres (static, moving and env
-domes), axis-aligned rects, boxes, triangles and triangle meshes with
-their BVH and its two-level clustering, sphere, box and mesh-bounded
-media, constant, checker, noise and image textures, Lambertian,
-Oren–Nayar, Beckmann, metal, dielectric, isotropic, MERL measured and
-diffuse-light materials, and rect and sphere lights. The tables, the Perlin tables
-among them, are packed in numpy exactly as the JAX builder packs them,
-then moved to one device.
+domes) and a BVH over them when there are many, axis-aligned rects,
+boxes, triangles and triangle meshes with their BVH and its two-level
+clustering, sphere, box and mesh-bounded media, constant, checker, noise
+and image textures, Lambertian, Oren–Nayar, Beckmann, metal, dielectric,
+isotropic, MERL measured and diffuse-light materials, and rect and sphere
+lights. The tables, the Perlin tables among them, are packed in numpy
+exactly as the JAX builder packs them, then moved to one device.
 """
 from __future__ import annotations
 
@@ -55,10 +55,14 @@ class SceneBuilder:
     """Accumulates primitives/materials/textures, then :meth:`build`
     packs them into a :class:`TorchScene`. The cluster caps of the
     two-level BVH are the JAX builder's (``srt_tpu/scene/build.py:47-48``).
-    ``seconds`` holds the last build's host seconds a step: ``bvh``,
-    ``clusters`` and ``upload`` (the tables onto the device).
+    A scene with at least ``sphere_bvh_min`` spheres that are not
+    environment domes also gets a sphere BVH (:func:`sphere_bvh`, JAX's
+    threshold of 64). ``seconds`` holds the last build's host seconds a
+    step: ``bvh`` (both trees), ``clusters`` and ``upload`` (the tables
+    onto the device).
     """
 
+    sphere_bvh_min: int = 64
     cluster_node_cap: int = 2048
     cluster_tri_cap: int = 4096
     seconds: dict = field(default_factory=dict, init=False)
@@ -305,6 +309,7 @@ class SceneBuilder:
             tm = np.zeros((0,), i32)
         t0 = time.perf_counter()
         bvh, order = build_bvh(p, leaf_size=4)
+        sbvh = sphere_bvh(self._sph, self.sphere_bvh_min)
         t1 = time.perf_counter()
         p, uv, n, tm = p[order], uv[order], n[order], tm[order]
         clusters = {}
@@ -372,7 +377,7 @@ class SceneBuilder:
                   else np.zeros((0, 3, 1), f32)),
             light_kind=arr([int(li[0]) for li in self._lights], i32, ()),
             light_index=arr([li[1] for li in self._lights], i32, ()),
-            atlas_u32=atlas_u32, **clusters, **med_tris)
+            atlas_u32=atlas_u32, **clusters, **med_tris, **sbvh)
         t3 = time.perf_counter()
         scene = TorchScene(**{
             k: None if v is None else
@@ -383,6 +388,35 @@ class SceneBuilder:
         self.seconds = dict(bvh=t1 - t0, clusters=t2 - t1,
                             upload=time.perf_counter() - t3)
         return scene
+
+
+def sphere_bvh(spheres: list, min_count: int = 64) -> dict:
+    """The sphere BVH's tables (``sbvh_*`` and ``sph_env_ids``) over the
+    builder's spheres, as the JAX builder makes them
+    (``srt_tpu/scene/build.py:399-426``), or ``{}`` below ``min_count``
+    spheres that are not environment domes. The triangle builder
+    (:func:`accel.bvh.build_bvh`) takes one synthetic triangle a sphere,
+    ``(lo, hi, (lo + hi) / 2)`` of the box around its centre at both ends
+    of the shutter interval, so the triangle's box and centroid are the
+    sphere's; the tree's leaves hold original sphere ids."""
+    if len(spheres) < min_count:
+        return {}
+    c0 = np.stack([s[0] for s in spheres])
+    c1 = np.stack([s[5] for s in spheres])
+    r = np.asarray([s[1] for s in spheres], np.float32)[:, None]
+    env = np.asarray([s[4] for s in spheres], bool)
+    lo = np.minimum(c0, c1) - r
+    hi = np.maximum(c0, c1) + r
+    ids = np.nonzero(~env)[0].astype(np.int64)
+    if len(ids) < min_count:
+        return {}
+    synth = np.stack([lo[ids], hi[ids], 0.5 * (lo[ids] + hi[ids])],
+                     axis=1).astype(np.float32)
+    tree, order = build_bvh(synth, leaf_size=4)
+    return dict(sbvh_lo=tree.lo, sbvh_hi=tree.hi, sbvh_skip=tree.skip,
+                sbvh_first=tree.first, sbvh_count=tree.count,
+                sbvh_ids=ids[order].astype(np.int32),
+                sph_env_ids=np.nonzero(env)[0].astype(np.int32))
 
 
 def roughness_to_alpha(roughness: float) -> float:

@@ -125,6 +125,19 @@ class TorchScene:
     med_tri_p1: torch.Tensor | None = None    # (K, 3) f32
     med_tri_p2: torch.Tensor | None = None    # (K, 3) f32
     med_tri_mid: torch.Tensor | None = None   # (K,) i32 medium index
+    # the sphere BVH (``scene/build.py``, ``srt_tpu/scene/ir.py:295-305``)
+    # of a scene with at least ``SceneBuilder.sphere_bvh_min`` spheres that
+    # are not environment domes, None with fewer: a skip-link tree over
+    # their motion-union boxes whose leaves hold original sphere ids
+    # through ``sbvh_ids`` (no sphere table is reordered), and the domes,
+    # which every ray hits and the tree leaves out
+    sbvh_lo: torch.Tensor | None = None       # (Bs, 3) f32
+    sbvh_hi: torch.Tensor | None = None       # (Bs, 3) f32
+    sbvh_skip: torch.Tensor | None = None     # (Bs,) i32
+    sbvh_first: torch.Tensor | None = None    # (Bs,) i32 into sbvh_ids
+    sbvh_count: torch.Tensor | None = None    # (Bs,) i32
+    sbvh_ids: torch.Tensor | None = None      # (Sn,) i32 sphere ids
+    sph_env_ids: torch.Tensor | None = None   # (Se,) i32 dome ids
 
     @property
     def n_spheres(self) -> int:
@@ -169,10 +182,18 @@ class SceneFlags(NamedTuple):
     sets them from its config (``render.api.scene_flags``), as the JAX
     package's flags carry them (``srt_tpu/scene/ir.py:89-94``): the
     reference's as-implemented estimator, and its diagnostic variant whose
-    heap slot reads 0."""
+    heap slot reads 0. ``sbvh_leaf`` is the sphere BVH's widest leaf (4
+    without one), independent of ``bvh_leaf``: a tiny mesh can shrink the
+    triangle leaf below 4, which would drop sphere hits
+    (``srt_tpu/render/intersect.py:530-532``). ``sphere_bvh`` is the
+    render's switch (``RenderConfig.sphere_bvh``, False from :meth:`of`):
+    the plain bounce walks the sphere BVH instead of sweeping every sphere
+    (``render.intersect.intersect_scene``); the bounce kernels sweep
+    whatever it says, as the JAX package's fused kernels do."""
     tex_kinds: tuple
     mat_kinds: tuple
     bvh_leaf: int = 4
+    sbvh_leaf: int = 4
     fused_bounce: bool = False
     light_kinds: tuple = ()
     moving: bool = False
@@ -180,6 +201,7 @@ class SceneFlags(NamedTuple):
     mesh_media: bool = False
     ref_parity: bool = False
     parity_no_stale: bool = False
+    sphere_bvh: bool = False
 
     @staticmethod
     def of(scene: TorchScene) -> "SceneFlags":
@@ -193,6 +215,8 @@ class SceneFlags(NamedTuple):
             tex_kinds=tuple(sorted(set(tt.tolist()))),
             mat_kinds=tuple(sorted(set(mt.tolist()))),
             bvh_leaf=int(_np(scene.bvh_count).max(initial=0)) or 4,
+            sbvh_leaf=(4 if scene.sbvh_count is None else
+                       int(_np(scene.sbvh_count).max(initial=0)) or 4),
             fused_bounce=_fused_bounce_eligible(scene, mt, tt),
             light_kinds=tuple(_np(scene.light_kind).tolist()),
             moving=bool((_np(scene.sph_center0)
@@ -202,8 +226,10 @@ class SceneFlags(NamedTuple):
 
 
 #: the fields of :class:`SceneFlags` that the JAX package's ``SceneFlags``
-#: does not have (its gate reads ``med_kind`` where it needs it)
-PORT_FLAGS = ("mesh_media",)
+#: does not have (its gate reads ``med_kind`` where it needs it; its
+#: sphere BVH is switched by the environment variable
+#: ``SRT_TPU_SPHERE_BVH``, which the port does not read)
+PORT_FLAGS = ("mesh_media", "sphere_bvh")
 
 
 def _fused_bounce_eligible(scene: TorchScene, mat_types: np.ndarray,

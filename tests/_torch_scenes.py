@@ -10,7 +10,10 @@ constant medium bounded by a box or by the same box as 12 triangles
 (``tests/test_render.py:192-220``), and ``cornell_tiled``, cornell_boxes
 with its back wall tiled into rects, past the kernels' 64 rects. And
 ``write_blob_ply``, a seeded closed mesh written as the PLY a scanned
-mesh asset would be, and ``merl_table``, a seeded smooth MERL table."""
+mesh asset would be, and ``merl_table``, a seeded smooth MERL table.
+``sphere_field``: many seeded spheres on random_scene's ground under its
+lights, which takes a sphere BVH (from 64 spheres) and, past 4,096, the
+plain bounce."""
 from __future__ import annotations
 
 import numpy as np
@@ -204,3 +207,44 @@ def merl_table(seed: int) -> np.ndarray:
                             * np.cos(b * np.pi * td)
                             + 0.3 * np.sin(2 * np.pi * c * pd)))
     return np.stack(out).reshape(3, -1)
+
+
+#: random_scene's camera (``srt_tpu/scene/library.py:88-159``)
+SPHERE_FIELD_CAMERA = dict(lookfrom=(-10.0, 6.0, -15.0),
+                           lookat=(0.0, 0.0, 0.0), vfov=40.0, aspect=1.0,
+                           aperture=0.0, focus_dist=10.0)
+
+
+def sphere_field(b, n: int, seed: int = 11):
+    """``n`` seeded spheres 0.2-0.5 in radius, resting on random_scene's
+    checker ground (a sphere of radius 1,000 under y = 0) at uniform
+    positions over a square of side 1.2 sqrt(n) about the origin, inside
+    random_scene's six inward rect lights (``e = 100``) in the colour its
+    sky stand-in takes without the sky_1 asset. Each sphere takes one of
+    eight materials: four Lambertian colours and four Beckmann
+    roughnesses. Fills builder ``b`` (either package's) and returns it."""
+    r = np.random.default_rng(seed)
+    ground = b.lambertian(b.checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, ground)
+    mats = ([b.lambertian(b.constant(c)) for c in
+             ((0.5, 0.5, 0.5), (0.7, 0.3, 0.2), (0.2, 0.4, 0.7),
+              (0.8, 0.8, 0.3))]
+            + [b.beckmann(b.constant((0.9, 0.8, 0.7)), a, a)
+               for a in (0.05, 0.1, 0.2, 0.4)])
+    half = 0.6 * float(np.sqrt(n))
+    rad = r.uniform(0.2, 0.5, n)
+    xz = r.uniform(-half, half, (n, 2))
+    pick = r.integers(0, len(mats), n)
+    for i in range(n):
+        b.sphere((float(xz[i, 0]), float(rad[i]), float(xz[i, 1])),
+                 float(rad[i]), mats[int(pick[i])])
+    sky = b.diffuse_light(b.constant((0.6, 0.7, 0.9)))
+    e = 100.0
+    for rect in (lambda m: b.xy_rect(-e, e, -e, e, -e, m),
+                 lambda m: b.xy_rect(-e, e, -e, e, e, m, flip=True),
+                 lambda m: b.yz_rect(-e, e, -e, e, e, m, flip=True),
+                 lambda m: b.yz_rect(-e, e, -e, e, -e, m),
+                 lambda m: b.xz_rect(-e, e, -e, e, e, m, flip=True),
+                 lambda m: b.xz_rect(-e, e, -e, e, -e, m)):
+        b.light_rect(rect(sky))
+    return b

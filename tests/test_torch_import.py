@@ -1,6 +1,6 @@
 """srt_tpu_torch stands alone: importing it (the command line, its
 ``__main__``, the checkpoint and cache utilities, the distribution and
-MERL modules and the mesh loaders among its modules),
+MERL modules, the mesh loaders and the tools among its modules),
 rendering ball_scenes, cornell_boxes and teapot_scene (its native BVH
 builder, clusters, the two-level walk, specular materials and a medium)
 with either engine, running the command line into a PNG and taking a
@@ -66,6 +66,8 @@ import srt_tpu_torch.cli, srt_tpu_torch.__main__
 import srt_tpu_torch.utils.checkpoint, srt_tpu_torch.utils.cache
 import srt_tpu_torch.dist.multihost, srt_tpu_torch.io.merl
 import srt_tpu_torch.materials.merl, srt_tpu_torch.io.mesh
+import srt_tpu_torch.phases, srt_tpu_torch.golden_avg, srt_tpu_torch.regions
+import srt_tpu_torch.dist.scaling
 from srt_tpu_torch.dist import make_mesh, render_sharded
 import os, tempfile
 scene, cam, _ = get_scene("ball_scenes", device="cpu")

@@ -17,6 +17,7 @@ from srt_tpu.scene.ir import SceneFlags as JaxSceneFlags
 from srt_tpu_torch import (RenderConfig, convert, get_scene, make_train_step,
                            render, render_regen)
 from srt_tpu_torch.core import rng
+from srt_tpu_torch.render.api import PORT_CONFIG
 from srt_tpu_torch.scene.build import SceneBuilder
 from srt_tpu_torch.scene.ir import PORT_FLAGS, SceneFlags, TorchScene
 
@@ -202,6 +203,9 @@ def test_media_and_parity_raise():
 
 
 def test_render_config_fields_match_jax():
-    assert ([(f.name, f.default) for f in dataclasses.fields(RenderConfig)]
-            == [(f.name, f.default)
-                for f in dataclasses.fields(JaxRenderConfig)])
+    """JAX's fields, names and defaults in its order, then the port's own
+    (``PORT_CONFIG``), each off by default."""
+    got = [(f.name, f.default) for f in dataclasses.fields(RenderConfig)]
+    want = [(f.name, f.default) for f in dataclasses.fields(JaxRenderConfig)]
+    assert got[:len(want)] == want
+    assert got[len(want):] == [(k, False) for k in PORT_CONFIG]
