@@ -17,8 +17,9 @@ of which raises on failure:
    instantiations, lean and rich, static and moving, at each G, and of
    B2's (with and without the external hit, with and without parity);
 4. the render path: ``render_regen`` on ball_scenes at 512x512, 16 spp,
-   depth 50, a 65,536-lane wavefront and seed 0, through B1, once to warm
-   up and five times timed;
+   depth 50, a 65,536-lane wavefront and seed 0, through B1 and the film
+   kernel (one launch each a bounce), once to warm up and five times
+   timed;
 5. the train kernels against their plain versions on the card, on a
    16,384-lane ball_scenes state (``render_pixels``' camera rays, three
    plain bounces, a seeded half of the lanes dead): one launch of the
@@ -30,7 +31,7 @@ of which raises on failure:
    depth 50, a 16,384-lane wavefront, depth budget 4.0, drain 12,
    parameters ``{"tex_color"}``, Adam at 1e-2, a constant 0.3 target: one
    step to warm up, then three timed steps with seeds 1-3, 76 bounces
-   each, every bounce one B2 and one B5 launch;
+   each, every bounce one B2, one B5 and one material-sum launch;
 7. the triangle BVH kernel (B3) against its plain version on two inputs:
    a mid-flight 65,536-lane cornell_boxes wavefront, and the 4,800
    triangles of ``final``'s ground field (its 400 boxes and their seeded
@@ -47,7 +48,8 @@ of which raises on failure:
 9. the triangle render path: ``render_regen`` on cornell_boxes at 512x512,
    16 spp, depth 50, a 65,536-lane wavefront and seed 0, first kernels
    against plain versions on a 64x64, 4 spp, depth 8 image, then once to
-   warm up and three times timed, every bounce one B3 and one B2 launch;
+   warm up and three times timed, every bounce one B3, one B2 and one film
+   launch;
 10. the two-level BVH kernel (B4) against its plain version on
    ``teapot_scene`` at divs=100 (1,278,400 triangles; the seconds of the
    host build's tessellation, BVH, clusters and upload as the builder
@@ -169,8 +171,9 @@ of which raises on failure:
    again: equal to phase 24's uninterrupted render to the bit;
 28. the command line (``python -m srt_tpu_torch``) in a subprocess on
    cornell_boxes at 512x512, 16 spp, depth 50 with ``--engine regen``,
-   ``--engine scan`` and ``--checkpoint``: each PNG against the
-   in-process render's 8-bit values, the JSON metrics line parsed;
+   ``--engine scan`` and ``--checkpoint``: each PNG equal to the
+   in-process render's 8-bit values to the bit, the JSON metrics line
+   parsed;
 29. the scan engine's train step on ball_scenes at phase 6's size,
    ``{"tex_color"}``, Adam 1e-2: B2 and B5 against their plain versions
    (as in phase 5) on the step's 262,144-lane wavefront three bounces
@@ -218,10 +221,30 @@ of which raises on failure:
    --lanes 65536 --loop 4`` (every number finite and positive); two
    parity chunks of ball_scenes averaged by ``golden_avg`` against the
    parity golden (its PSNR finite); ``regions`` at 500x500, 4 spp over the
-   four floor variants against ``goldens/soldier_scene_500.png``.
+   four floor variants against ``goldens/soldier_scene_500.png``;
+38. the fixed-order sums (ROADMAP C18): the film kernel
+   (``csrc/film_sum.cu``) against its plain version on the CPU to the bit,
+   sums and counts, on three seeded flushes (pixels of up to 256 records,
+   runs of 1,024 lanes, NaN and +-inf) and on flushes recorded in the
+   ball_scenes B1 render, at 16 and at 1,024 spp, and the cornell_boxes
+   per-bounce render, with its time, ``index_add_``'s and the bound; two
+   ball_scenes B1 renders at 512x512x16x50 and two at 1,024 spp, and two
+   cornell_boxes per-bounce renders at 512x512x16x50, each pair equal to
+   the bit; the material-sum kernel (``csrc/segment_sum.cu``) on B5's
+   per-lane outputs at 16,384 and 262,144 lanes, two launches equal to the
+   bit and every row of the table within the gradient contract of its
+   plain version, timed against ``index_add_``; the
+   regen-scan and scan ``{"tex_color"}`` train steps' loss and gradient
+   twice from the same state, to the bit; the geometry step's the same,
+   as a record;
+39. ``python -m srt_tpu_torch.bench --engine both --min-seconds 0
+   --matrix --matrix-out FILE`` in a subprocess: both engines, the
+   ``tri_scene`` side cell, and every library scene at 64x64, 2 spp,
+   depth 50 (cut from ``bench.py``'s 256x256x8), no NaN pixel, every key
+   of ``bench.py``'s line and its artifact's.
 
 Prints each phase's seconds, then one JSON line about the kernels, one
-about the paths phases 24-37 drive (``paths``: each path's launches per
+about the paths phases 24-39 drive (``paths``: each path's launches per
 kernel and its wall), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -423,6 +446,26 @@ def bare_launch_ms(entry: str, size: int, call, reps: int) -> float:
     ms = time_ms(two, max(reps // 2, 1)) / 2
     del held
     return ms
+
+
+def args_launch_ms(entry: str, args, reps: int) -> float:
+    """Milliseconds per launch of the library's ``entry`` on the argument
+    struct ``args``, built once: bare launches, as
+    :func:`bare_launch_ms` times them."""
+    import ctypes
+
+    import torch
+
+    from srt_tpu_torch.kernels import build
+
+    fn = getattr(build.load_library(), entry)
+    addr = ctypes.addressof(args)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def one():
+        if fn(addr, stream):
+            raise RuntimeError(f"{entry} launch failed")
+    return time_ms(one, reps)
 
 
 def kernel_registers(report: str, kernel: str, spills: bool = False) -> dict:
@@ -689,27 +732,29 @@ def phase_regen_kernel(scene, cam, dev) -> dict:
             "bound_by": by, "library_ms": None}
 
 
-def phase_render(scene, cam, ppm) -> int:
-    """Phase 4: the render path through B1; returns its launches."""
+def phase_render(scene, cam, ppm) -> tuple[int, int]:
+    """Phase 4: the render path through B1 and the film kernel; returns
+    their launches."""
     import numpy as np
     import torch
 
     from srt_tpu_torch import RenderConfig, render_regen
     from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import film as kfilm
 
     cfg = RenderConfig(**MAIN)
     t0 = time.time()
     render_regen(scene, cam, cfg)
     torch.cuda.synchronize()
     warmup_s = time.time() - t0
-    kb.LAUNCHES = 0
+    kb.LAUNCHES = kfilm.LAUNCHES = 0
     runs = [render_regen(scene, cam, cfg, metrics=True)
             for _ in range(MAIN_REPS)]
-    launches = kb.LAUNCHES
+    launches, flushes = kb.LAUNCHES, kfilm.LAUNCHES
     bounces = sum(m.bounces for _, m in runs)
-    if launches != bounces or launches == 0:
-        raise AssertionError(f"{launches} kernel launches for "
-                             f"{bounces} bounces")
+    if not launches == flushes == bounces or launches == 0:
+        raise AssertionError(f"{launches} kernel launches and {flushes} "
+                             f"film launches for {bounces} bounces")
     rates = sorted(m.primary_rays_per_sec for _, m in runs)
     for img, met in runs:
         img = img.cpu().numpy()
@@ -721,11 +766,12 @@ def phase_render(scene, cam, ppm) -> int:
     log(f"[main] ball_scenes 512x512x16 depth 50, {MAIN_REPS} renders: "
         f"median {rates[len(rates) // 2]:.1f} primary rays/s (all {rates}), "
         f"first render {warmup_s:.3f}s, mean {mean:.5f}, nan_pixels "
-        f"{nan_pixels}, {json.dumps(met.to_dict())}")
+        f"{nan_pixels}, {launches} B1 and {flushes} film launches, "
+        f"{json.dumps(met.to_dict())}")
     if ppm:
         from srt_tpu_torch.io.image import write_ppm
         write_ppm(ppm, np.sqrt(np.clip(img, 0.0, 1.0)))
-    return launches
+    return launches, flushes
 
 
 def train_state(scene, cam, flags, tables, spec, dev,
@@ -933,30 +979,32 @@ def train_walls(scene, cam, params: dict, size: dict, dev, steps: int,
     return step, warmup_s, losses, walls
 
 
-def phase_train(scene, cam, dev) -> tuple[int, int]:
-    """Phase 6: the train path; returns the B2 and B5 launches of the
-    timed steps."""
+def phase_train(scene, cam, dev) -> tuple[int, int, int]:
+    """Phase 6: the train path; returns the B2, B5 and material-sum
+    launches of the timed steps."""
     import numpy as np
 
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.kernels import segment as kseg
     from srt_tpu_torch.render.regen_scan import steps_for
 
     w, spp = TRAIN["width"], TRAIN["spp"]
     rays = w * w * spp
 
     def reset():
-        kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = 0
+        kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = kseg.LAUNCHES = 0
     step, warmup_s, (loss0, *losses), walls = train_walls(
         scene, cam, {"tex_color": scene.tex_color}, TRAIN, dev, TRAIN_STEPS,
         reset)
-    fwd, bwd = kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD
+    fwd, bwd, sums = kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD, kseg.LAUNCHES
     n_steps = steps_for(rays, TRAIN_ENGINE["wavefront"],
                         TRAIN_ENGINE["depth_budget"], TRAIN["max_depth"],
                         drain=TRAIN_ENGINE["drain"])
-    if not fwd == bwd == n_steps * TRAIN_STEPS:
-        raise AssertionError(f"{fwd} forward and {bwd} backward launches "
-                             f"for {TRAIN_STEPS} steps of {n_steps} bounces")
+    if not fwd == bwd == sums == n_steps * TRAIN_STEPS:
+        raise AssertionError(f"{fwd} forward, {bwd} backward and {sums} "
+                             f"material-sum launches for {TRAIN_STEPS} steps "
+                             f"of {n_steps} bounces")
     if not all(np.isfinite([loss0] + losses)):
         raise AssertionError(f"losses {loss0} {losses}")
     grad = step.params["tex_color"].grad.cpu().numpy()
@@ -970,9 +1018,10 @@ def phase_train(scene, cam, dev) -> tuple[int, int]:
     log(f"[train] ball_scenes {w}x{w}x{spp} depth {TRAIN['max_depth']}, "
         f"{n_steps} bounces a step: median {rays / med:.1f} train-step "
         f"rays/s (step walls {walls} s), warm-up step {warmup_s:.3f} s, "
-        f"losses {[loss0] + losses}, {fwd} B2 and {bwd} B5 launches, "
-        f"tex_color gradient finite, nonzero on rows {const}")
-    return fwd, bwd
+        f"losses {[loss0] + losses}, {fwd} B2, {bwd} B5 and {sums} "
+        f"material-sum launches, tex_color gradient finite, nonzero on rows "
+        f"{const}")
+    return fwd, bwd, sums
 
 
 def step_wavefront(scene, cam, dev, row: int = 256, flags=None) -> tuple:
@@ -1206,14 +1255,15 @@ def shade_ops(scene, flags, c: dict) -> int:
             + c["marble"] * OPS_MARBLE + c["image"] * OPS_IMAGE)
 
 
-def phase_tri_render(scene, cam) -> tuple[int, int]:
-    """Phase 9: the triangle render path; returns the B3 and B2 launches
-    of the timed renders."""
+def phase_tri_render(scene, cam) -> tuple[int, int, int]:
+    """Phase 9: the triangle render path; returns the B3, B2 and film
+    launches of the timed renders."""
     import numpy as np
     import torch
 
     from srt_tpu_torch import RenderConfig, render_regen
     from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import film as kfilm
     from srt_tpu_torch.kernels import intersect as ki
     from srt_tpu_torch.utils import contract
 
@@ -1230,16 +1280,17 @@ def phase_tri_render(scene, cam) -> tuple[int, int]:
     render_regen(scene, cam, cfg)
     torch.cuda.synchronize()
     warmup_s = time.time() - t0
-    ki.LAUNCHES = kb.LAUNCHES_FWD = kb.LAUNCHES = 0
+    ki.LAUNCHES = kb.LAUNCHES_FWD = kb.LAUNCHES = kfilm.LAUNCHES = 0
     runs = []
     for _ in range(TRI_MAIN_REPS):
         img, met = render_regen(scene, cam, cfg, metrics=True)
         runs.append((img.cpu().numpy(), met))
     b3, b2, b1 = ki.LAUNCHES, kb.LAUNCHES_FWD, kb.LAUNCHES
+    flushes = kfilm.LAUNCHES
     bounces = sum(m.bounces for _, m in runs)
-    if not b3 == b2 == bounces or bounces == 0 or b1:
-        raise AssertionError(f"{b3} B3 and {b2} B2 launches ({b1} B1) for "
-                             f"{bounces} bounces")
+    if not b3 == b2 == flushes == bounces or bounces == 0 or b1:
+        raise AssertionError(f"{b3} B3, {b2} B2 and {flushes} film launches "
+                             f"({b1} B1) for {bounces} bounces")
     for img, met in runs:
         nan_pixels = int(np.isnan(img).sum())
         mean = float(img.mean())
@@ -1251,9 +1302,9 @@ def phase_tri_render(scene, cam) -> tuple[int, int]:
         f"{MAIN['spp']} depth {MAIN['max_depth']}, {TRI_MAIN_REPS} "
         f"renders: median {rates[len(rates) // 2]:.1f} primary rays/s (all "
         f"{rates}), first render {warmup_s:.3f}s, mean {mean:.5f}, "
-        f"nan_pixels {nan_pixels}, {b3} B3 and {b2} B2 launches for "
-        f"{bounces} bounces, {json.dumps(met.to_dict())}")
-    return b3, b2
+        f"nan_pixels {nan_pixels}, {b3} B3, {b2} B2 and {flushes} film "
+        f"launches for {bounces} bounces, {json.dumps(met.to_dict())}")
+    return b3, b2, flushes
 
 
 def teapot(dev):
@@ -2604,12 +2655,11 @@ def phase_cli(root: str, scene, cam, scan_img) -> list:
     cornell_boxes at 512x512, 16 spp, depth 50 with ``--engine regen``,
     ``--engine scan`` and ``--checkpoint``, each ``--metrics``: the PNG,
     read back with ``read_png``, against the in-process tonemapped
-    render's 8-bit values (the scan engine's, phase 25's image, to the
-    bit; the regeneration engine's, whose film adds with ``index_add_``
-    and so in an order the card's atomics choose, within one 8-bit step
-    on at most 1e-4 of the values), the JSON line parsed with its route
-    and the launches the subprocess read from the kernels' counters: one
-    B3 and one B2 a bounce, nothing else."""
+    render's 8-bit values to the bit (the scan engine's, phase 25's image;
+    the regeneration engine's, whose film kernel adds in lane order), the
+    JSON line parsed with its route and the launches the subprocess read
+    from the kernels' counters: one B3 and one B2 a bounce, and on the
+    regeneration engine one film launch a bounce, nothing else."""
     import shutil
     import subprocess
     import tempfile
@@ -2652,20 +2702,18 @@ def phase_cli(root: str, scene, cam, scan_img) -> list:
             png = read_png(out)
             diff = np.abs(png.astype(np.int32) - want.astype(np.int32))
             off = float((diff > 0).mean())
-            exact = label != "regen"
-            if (png.shape != want.shape or (exact and diff.any())
-                    or diff.max() > 1 or off > 1e-4
+            b = line["bounces"]
+            want_launches = {"B2": b, "B3": b, **(
+                {"film_sum": b} if label == "regen" else {})}
+            if (png.shape != want.shape or diff.any()
                     or line["nan_pixels"] or line["bounce"] != "B2"
-                    or line["walk"] != "B3" or not line["bounces"]
-                    or line["launches"] != {"B2": line["bounces"],
-                                            "B3": line["bounces"]}):
+                    or line["walk"] != "B3" or not b
+                    or line["launches"] != want_launches):
                 raise AssertionError(f"cli {label}: {off} of the 8-bit "
                                      f"values off (max {diff.max()}), "
                                      f"{line}")
-            log(f"[cli] {label}: {wall:.1f} s in the subprocess, PNG "
-                f"{'equal to' if not diff.any() else 'within one step of'}"
-                f" the in-process render ({off} of values off); "
-                f"{json.dumps(line)}")
+            log(f"[cli] {label}: {wall:.1f} s in the subprocess, PNG equal "
+                f"to the in-process render to the bit; {json.dumps(line)}")
             records.append({"name": f"cli {label} cornell_boxes",
                             "launches": line["launches"],
                             "wall_s": line["wall_s"],
@@ -2676,31 +2724,43 @@ def phase_cli(root: str, scene, cam, scan_img) -> list:
     return records
 
 
-def scan_train_kernels(scene, cam, dev, bounces: int = 3) -> dict:
-    """B2 and B5 against their plain versions at the scan train step's
-    shape: its wavefront of all 262,144 rays (256x256, 4 spp, the step's
-    camera rays for seed 1) after ``bounces`` B2 bounces, as the step
-    saves it for B5; B5's time per launch beside its bound."""
+def scan_train_state(scene, flags, tables, spec, cam, dev,
+                     bounces: int = 3) -> dict:
+    """The scan train step's wavefront of all 262,144 rays (256x256, 4
+    spp, the step's camera rays for seed 1) after ``bounces`` B2 bounces,
+    as the step saves it for B5."""
     import torch
 
     from srt_tpu_torch.diff.inverse import camera_rays
     from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import bounce_bwd as kbb
-    from srt_tpu_torch.kernels.build import launch
     from srt_tpu_torch.render.integrator import initial_state
-    from srt_tpu_torch.scene.ir import SceneFlags
 
     w, spp = TRAIN["width"], TRAIN["spp"]
-    flags = SceneFlags.of(scene)
-    tables = kb.build_tables(scene, flags)
-    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
     rays, salt = camera_rays(cam, torch.arange(w * w, device=dev), spp,
                              width=w, height=w, seed=1)
     st = initial_state(rays, salt)
     with torch.no_grad():
         for _ in range(bounces):
             st = kb.bounce_fwd(scene, flags, tables, st, spec)
-        st = {k: v.contiguous() for k, v in st.items()}
+    return {k: v.contiguous() for k, v in st.items()}
+
+
+def scan_train_kernels(scene, cam, dev, bounces: int = 3) -> dict:
+    """B2 and B5 against their plain versions at the scan train step's
+    shape (:func:`scan_train_state`); B5's time per launch beside its
+    bound."""
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.kernels.build import launch
+    from srt_tpu_torch.scene.ir import SceneFlags
+
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    st = scan_train_state(scene, flags, tables, spec, cam, dev, bounces)
+    with torch.no_grad():
         b2 = check_b2("scan-train", scene, flags, tables, st, spec)
         alive_after = kb.bounce_step_ref(scene, flags, tables["mat"], st,
                                          spec)["alive"]
@@ -2794,8 +2854,10 @@ def phase_a7(dev) -> dict:
     for engine, fn in (("scan", render), ("regen", render_regen)):
         _, mets, counts, _ = scan_runs(f"a7-mesh-medium-{engine}", fn, mesh,
                                        mesh_cam, cfg, 1)
+        flushes = mets[0].bounces if engine == "regen" else 0
         if (mets[0].bounce, mets[0].walk) != ("plain", None) or any(
-                counts.values()):
+                v for k, v in counts.items() if k != "film_sum") \
+                or counts["film_sum"] != flushes:
             raise AssertionError(f"mesh medium {engine}: {mets[0]}, "
                                  f"{counts}")
         out["paths"].append(path_record(f"{engine} mesh medium", counts,
@@ -2959,10 +3021,11 @@ def phase_atlas(dev) -> dict:
     n_steps = steps_for(w * w * spp, TRAIN_ENGINE["wavefront"],
                         TRAIN_ENGINE["depth_budget"], TRAIN["max_depth"],
                         drain=TRAIN_ENGINE["drain"])
-    totals = {"B1": b1_launches, "B2": 0, "B5": 0, "B6": 0}
+    totals = {"B1": b1_launches, "B2": 0, "B5": 0, "B6": 0,
+              "segment_sum": 0}
     for label, scene, params, want in (
             ("tex_color float atlas", flt, {"tex_color": flt.tex_color},
-             ("B2", "B5")),
+             ("B2", "B5", "segment_sum")),
             ("atlas", packed, {"atlas": packed.atlas}, ("B2", "B6"))):
         stp, warm, losses, walls = train_walls(scene, cam, params, TRAIN,
                                                dev, 1, reset_counts)
@@ -3498,14 +3561,17 @@ def phase_sphere_bvh(dev) -> dict:
         counts = read_counts()
         a = img.cpu().numpy()
         nan = int(np.isnan(a).sum())
-        if (m.bounce, m.walk) != ("plain", None) or any(counts.values()) \
+        if (m.bounce, m.walk) != ("plain", None) or any(
+                v for k, v in counts.items() if k != "film_sum") \
+                or counts["film_sum"] != m.bounces \
                 or nan or m.nan_scrubbed or not 0.0 < float(a.mean()) < 1.0:
             raise AssertionError(f"sphere field {name}: {m.to_dict()}, "
                                  f"{counts}, nan {nan}")
         walls[name], imgs[name] = m.wall_s, a
         paths.append({"name": f"regen sphere field {name} "
                               f"{c.width}x{c.height}x{c.spp}x{c.max_depth}",
-                      "launches": {}, "wall_s": m.wall_s})
+                      "launches": {"film_sum": m.bounces},
+                      "wall_s": m.wall_s})
         log(f"[sphere-bvh-render] {name} {c.width}x{c.height}x{c.spp} depth "
             f"{c.max_depth}: wall {m.wall_s:.3f} s, "
             f"{m.primary_rays_per_sec:.1f} primary rays/s, mean "
@@ -3629,6 +3695,441 @@ def phase_tools(root: str, dev) -> dict:
     phase_s = time.time() - t_phase
     log(f"[tools] budget {TOOLS_BUDGET_S} s, took {phase_s:.1f} s, no cuts")
     return {"paths": paths}
+
+
+#: phase 38: the film flush recorded mid-render (the main path's 176
+#: bounces: bounce 40 has finished lanes of many pixels, two bounces of
+#: some)
+FLUSH_AT = 40
+#: phase 38: the main path's samples a pixel for the long chains: a pixel's
+#: 1,024 camera rays are handed out together and leave the scene together
+DEEP_SPP = 1024
+#: phase 38: the material sum at the regen-scan and the scan train steps'
+#: wavefronts
+SUM_LANES = (TRAIN_LANES, 1 << 18)
+#: phase 39: the matrix's size, cut from bench.py's 256x256x8 for the
+#: script's time limit
+MATRIX = dict(width=64, spp=2)
+BENCH_BUDGET_S = 240
+
+
+def same_tensor_bits(a, b) -> bool:
+    """``a`` and ``b`` equal bit for bit, a NaN equal to any NaN (the
+    card's NaN is not the CPU's)."""
+    import torch
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a = a.masked_fill(nan, 0.0).view(torch.int32)
+        b = b.masked_fill(nan, 0.0).view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+#: phase 38's seeded flushes, 70% of the lanes finished: each lane's pixel
+#: by layout, and the lanes. Scattered over 1,024 pixels (about 45 lanes a
+#: pixel, most in a 256-lane tile of their own: up to 66 records), over 64
+#: pixels (about 700 lanes a pixel, a record in nearly each of the 256
+#: tiles), in runs of 1,024 lanes a pixel (the camera rays of 1,024
+#: samples, four dense records a pixel), and over 512 pixels of a
+#: 262,144-lane wavefront (more tiles than a block each and than one walk
+#: of a chain places)
+SYNTHETIC = (("scattered-1024", LANES), ("scattered-64", LANES),
+             ("runs-1024", LANES), ("scattered-512", 1 << 18))
+
+
+def synthetic_flush(dev, layout: str, n: int) -> tuple:
+    """A seeded flush of ``n`` lanes in :data:`SYNTHETIC`'s ``layout``,
+    radiance of mixed signs and magnitudes with NaN and +-inf, on a film
+    of nonzero sums: ``(acc, n_vertices, nan_scrubbed, pix, radiance, fin,
+    alive)``."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(7)
+    kind, count = layout.split("-")
+    pix = (r.integers(0, int(count), n) if kind == "scattered"
+           else np.arange(n) // int(count)).astype(np.int32)
+    rad = (r.standard_normal((3, n)) * 10.0 ** r.integers(-3, 4, (1, n))
+           ).astype(np.float32)
+    rad[r.random((3, n)) < 0.01] = np.nan
+    rad[r.random((3, n)) < 0.005] = np.inf
+    rad[r.random((3, n)) < 0.005] = -np.inf
+    acc = r.standard_normal((3, int(pix.max()) + 1)).astype(np.float32)
+    fin = (r.random(n) < 0.7).astype(np.int32)
+    alive = (r.random(n) < 0.3).astype(np.int32)
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+    return (t(acc), torch.tensor(5, device=dev), torch.tensor(7, device=dev),
+            t(pix), t(rad), t(fin), t(alive))
+
+
+class _Recorded(Exception):
+    """Ends a render once its flush is recorded."""
+
+
+def record_flush(render, at: int) -> tuple:
+    """The film and the arguments of the ``at``-th flush of ``render()``,
+    copied just before that flush: ``(acc, n_vertices, nan_scrubbed, pix,
+    radiance, fin, alive)``. The render stops there."""
+    from srt_tpu_torch.kernels import film as kfilm
+
+    orig = kfilm.Film.flush
+    calls, rec = [0], []
+
+    def capture(self, pix, radiance, fin, alive):
+        if calls[0] == at:
+            rec.append((self.acc.clone(), self.n_vertices.clone(),
+                        self.nan_scrubbed.clone(), pix.clone(),
+                        radiance.clone(), fin.clone(), alive.clone()))
+            raise _Recorded
+        calls[0] += 1
+        orig(self, pix, radiance, fin, alive)
+    kfilm.Film.flush = capture
+    try:
+        render()
+    except _Recorded:
+        pass
+    finally:
+        kfilm.Film.flush = orig
+    if not rec:
+        raise AssertionError(f"the render made {calls[0]} flushes, not "
+                             f"{at + 1}")
+    return rec[0]
+
+
+def check_flush(label: str, rec: tuple, timing: bool = True) -> dict:
+    """The film kernel against its plain version on a recorded flush: two
+    launches from the same film, each equal to the plain version on the
+    CPU (``index_add_`` lane after lane) to the bit, sums and counts, and
+    the largest |kernel - plain| over the sums finite in both; with
+    ``timing`` also the kernel's time as bare launches, the plain
+    version's and ``index_add_``'s on the card, the bound from the flush's
+    own lanes."""
+    import torch
+
+    from srt_tpu_torch.kernels import film as kfilm
+
+    acc, n_vert, n_nan, pix, rad, fin, alive = rec
+    dev = acc.device
+    n = pix.shape[0]
+    plain = [t.cpu().clone() for t in (acc, n_vert, n_nan)]
+    kfilm.film_sum_reference(*plain, pix.cpu(), rad.cpu(), fin.cpu(),
+                             alive.cpu())
+    err = 0.0
+    for run in range(2):
+        film = kfilm.Film(acc.shape[1], n, dev)
+        for t, src in zip((film.acc, film.n_vertices, film.nan_scrubbed),
+                          (acc, n_vert, n_nan)):
+            t.copy_(src)
+        film.flush(pix, rad, fin, alive)
+        torch.cuda.synchronize()
+        for name, got, want in zip(("sums", "vertices", "NaN"),
+                                   (film.acc, film.n_vertices,
+                                    film.nan_scrubbed), plain):
+            if not same_tensor_bits(got, want):
+                bad = int((got.cpu() != want).sum())
+                raise AssertionError(f"film {label}: the kernel's {name} "
+                                     f"differ from the plain version's "
+                                     f"({bad} values, launch {run + 1})")
+        if int((film.head != -1).sum()):
+            raise AssertionError(f"film {label}: chains left after a launch")
+        got = film.acc.cpu()
+        ok = torch.isfinite(got) & torch.isfinite(plain[0])
+        off = (got - plain[0])[ok].abs()
+        err = max(err, float(off.max()) if off.numel() else 0.0)
+    done = fin != 0
+    n_fin = int(done.sum())
+    p_fin = pix[done].long()
+    touched = int(torch.unique(p_fin).numel())
+    chain = int(torch.bincount(p_fin).max()) if n_fin else 0
+    # a pixel's records: the 256-lane tiles its finished lanes lie in
+    tiles = torch.nonzero(done).squeeze(1) // 256
+    span = n // 256 + 1
+    records = (int(torch.bincount(torch.unique(p_fin * span + tiles) // span)
+                   .max()) if n_fin else 0)
+    shape = (f"{n} lanes, {n_fin} finished into {touched} pixels (the most "
+             f"lanes a pixel {chain}, the most records {records})")
+    if not timing:
+        log(f"[film-{label}] {shape}: the kernel's sums (NaN where the plain"
+            f" version's are) and counts equal to the plain version's on the"
+            f" CPU to the bit, twice")
+        return {"max_abs_err": err}
+    args = film.kernel_args(pix, rad, fin, alive)
+    ms = [args_launch_ms("srt_film_sum", args, 200) for _ in range(2)]
+    g = [t.clone() for t in (acc, n_vert, n_nan)]
+    plain_ms = time_ms(lambda: kfilm.film_sum_reference(
+        *g, pix, rad, fin, alive), 50)
+    contrib = torch.where(done, rad, 0.0).nan_to_num(0.0, float("inf"),
+                                                     float("-inf"))
+    library_ms = time_ms(lambda: g[0].index_add_(1, pix, contrib), 200)
+    ms_bound, by = bound(n * (fin.element_size() + alive.element_size())
+                         + n_fin * (pix.element_size() + 12) + touched * 24
+                         + 16, 3 * n_fin)
+    log(f"[film-{label}] {shape}, {int(((alive != 0) | done).sum())} live: "
+        f"the kernel's sums and counts equal to the plain version's on the "
+        f"CPU to the bit, twice; ms per launch {ms} (bare), plain on the "
+        f"card {plain_ms}, index_add_ {library_ms}, bound {ms_bound:.6f} "
+        f"({by})")
+    return {"max_abs_err": err, "ms": min(ms), "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": ms_bound, "bound_by": by,
+            "shape": shape}
+
+
+def renders_twice(label: str, scene, cam, cfg) -> dict:
+    """``render_regen`` twice on the same settings, counts from 0: the
+    images and the counts equal to the bit; each render's film launches
+    one a bounce."""
+    import numpy as np
+
+    from srt_tpu_torch import render_regen
+
+    reset_counts()
+    runs = [render_regen(scene, cam, cfg, metrics=True) for _ in range(2)]
+    counts = read_counts()
+    (a, ma), (b, mb) = runs
+    if not same_tensor_bits(a, b) or (ma.path_vertices, ma.nan_scrubbed) \
+            != (mb.path_vertices, mb.nan_scrubbed):
+        raise AssertionError(f"{label}: two renders differ "
+                             f"({int((a != b).sum())} values; vertices "
+                             f"{ma.path_vertices} {mb.path_vertices})")
+    if counts["film_sum"] != ma.bounces + mb.bounces:
+        raise AssertionError(f"{label}: {counts} for {ma.bounces} bounces "
+                             f"a render")
+    img = a.cpu().numpy()
+    if not np.isfinite(img).all() or ma.nan_scrubbed:
+        raise AssertionError(f"{label}: mean {img.mean()}")
+    log(f"[twice-{label}] two renders equal to the bit: walls {ma.wall_s:.4f}"
+        f" and {mb.wall_s:.4f} s, launches {json.dumps(counts)}, mean "
+        f"{float(img.mean()):.6f}")
+    return path_record(f"twice {label}", counts, [ma, mb])
+
+
+def material_sum_case(scene, cam, dev, lanes: int) -> dict:
+    """The material-sum kernel on B5's per-lane outputs at ``lanes``
+    lanes (phase 5's 16,384-lane train state, or the scan train step's
+    262,144-lane wavefront three bounces in): twice, equal to the bit;
+    against the plain version on the CPU (``index_add_`` lane after lane)
+    under the gradient contract, every row of the table within it; its
+    time as bare launches, the plain version's and ``index_add_``'s on the
+    card, and the bound."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    from srt_tpu_torch.kernels import segment as kseg
+    from srt_tpu_torch.scene.ir import SceneFlags
+    from srt_tpu_torch.utils import contract
+
+    flags = SceneFlags.of(scene)
+    tables = kb.build_tables(scene, flags)
+    spec = kb.StepSpec(max_depth=TRAIN["max_depth"])
+    st = (train_state(scene, cam, flags, tables, spec, dev)
+          if lanes == TRAIN_LANES
+          else scan_train_state(scene, flags, tables, spec, cam, dev))
+    if st["o"].shape[0] != lanes:
+        raise AssertionError(f"material sum: {st['o'].shape[0]} lanes")
+    r = np.random.default_rng(3)
+    ct = {k: torch.from_numpy(r.standard_normal((lanes, 3))
+                              .astype(np.float32)).to(dev) for k in kbb.ROWS}
+    _, g_mat, wmat = kbb.lane_cotangents(scene, flags, tables, st, ct, spec)
+    n_mat = tables["mat"].shape[0]
+    outs = [kseg.material_sum(g_mat, wmat, n_mat) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not same_tensor_bits(*outs):
+        raise AssertionError(f"material sum at {lanes} lanes: two launches "
+                             f"differ")
+    ref = kseg.material_sum_reference(g_mat.cpu(), wmat.cpu(), n_mat)
+    m = contract.check_grads({"d_mat": ref.numpy()},
+                             {"d_mat": outs[0].cpu().numpy()}, frac=0.0)
+    args, _out, _part = kseg.kernel_args(g_mat, wmat, n_mat)
+    ms = [args_launch_ms("srt_segment_sum", args, 200) for _ in range(2)]
+    plain_ms = time_ms(lambda: kseg.material_sum_reference(
+        g_mat, wmat, n_mat), 50)
+    k = len(kb.MAT_GRAD_COLS)
+    per = torch.zeros((n_mat, k), device=dev)
+    idx = wmat.long()
+    library_ms = time_ms(lambda: per.index_add_(0, idx, g_mat), 50)
+    ms_bound, by = bound(lanes * (4 * k + 4) + n_mat * 14 * 4, lanes * k)
+    log(f"[material-sum] {lanes} lanes into {n_mat} rows, "
+        f"{int(st['alive'].sum())} live: two launches equal to the bit; "
+        f"against the plain version on the CPU {json.dumps(m)}; ms per "
+        f"launch {ms} (bare), plain on the card {plain_ms}, index_add_ "
+        f"{library_ms}, bound {ms_bound:.6f} ({by})")
+    return {"max_abs_err": m["max_abs"], "ms": min(ms), "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": ms_bound, "bound_by": by}
+
+
+def grads_twice(label: str, scene, cam, params: dict, size: dict, dev,
+                engine: str = "regen", record: bool = False) -> dict:
+    """One train step's loss and gradient (no Adam) twice from the same
+    parameters, counts from 0: equal to the bit, or with ``record`` only
+    reported."""
+    import torch
+
+    from srt_tpu_torch import make_train_step
+
+    w = size["width"]
+    step = make_train_step(scene, cam, params, width=w, height=w,
+                           spp=size["spp"], max_depth=size["max_depth"],
+                           lr=TRAIN_LR, engine=engine,
+                           engine_kw=TRAIN_ENGINE if engine == "regen"
+                           else None, device=dev)
+    target = step.target(torch.full((w, w, 3), TRAIN_TARGET, device=dev))
+    reset_counts()
+    t0 = time.time()
+    runs = []
+    for _ in range(2):
+        step.optimizer.zero_grad(set_to_none=True)
+        loss = step.loss_fn(step.params, target, 1)
+        loss.backward()
+        runs.append((loss.detach().clone(),
+                     {k: p.grad.clone() for k, p in step.params.items()}))
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) / 2
+    counts = read_counts()
+    (la, ga), (lb, gb) = runs
+    same = same_tensor_bits(la, lb) and all(same_tensor_bits(ga[k], gb[k])
+                                            for k in ga)
+    off = {k: int((ga[k] != gb[k]).sum()) for k in ga}
+    if not same and not record:
+        raise AssertionError(f"{label}: two steps from the same state differ"
+                             f" (losses {float(la)} {float(lb)}, gradient "
+                             f"entries off {off})")
+    if not all(torch.isfinite(g).all() for g in ga.values()):
+        raise AssertionError(f"{label}: gradient not finite")
+    log(f"[twice-{label}] loss and gradient {'equal to the bit' if same else 'NOT equal'}"
+        f" over two runs from the same state (loss {float(la)!r}, entries "
+        f"off {off}); launches {json.dumps(counts)}, {wall:.3f} s a step")
+    return {"same": same, "path": {"name": f"twice {label}",
+                                   "launches": {k: v for k, v in
+                                                counts.items() if v},
+                                   "wall_s": wall}}
+
+
+def phase_sums(scene, cam, dev) -> dict:
+    """Phase 38 (ROADMAP C18): the film kernel (``csrc/film_sum.cu``)
+    against its plain version to the bit on the seeded flushes of
+    :data:`SYNTHETIC`, on the main path's second flush (a pixel's camera
+    rays that left the scene finish together) and its flush
+    :data:`FLUSH_AT` (65,536 lanes), on the second flush and flush
+    :data:`FLUSH_AT` of the main path at :data:`DEEP_SPP` samples (1,024
+    camera rays of a pixel finish together), and on one of cornell_boxes'
+    per-bounce loop; two ball_scenes renders at 512x512x16x50 and two at
+    :data:`DEEP_SPP` samples through B1, and two cornell_boxes renders
+    through the per-bounce loop, each pair equal to the bit; the
+    material-sum kernel (``csrc/segment_sum.cu``) at :data:`SUM_LANES`;
+    the regen-scan and the scan engine's ``{"tex_color"}`` train steps
+    twice from the same state, loss and gradient to the bit; the geometry
+    step (the hybrid's replay) the same, reported as a record."""
+    from srt_tpu_torch import RenderConfig, get_scene, render_regen
+    from srt_tpu_torch.kernels import build
+
+    report = build.ptxas_report()
+    log(f"[sums] registers, spill stores: film_sum_kernel "
+        f"{json.dumps(kernel_registers(report, 'film_sum_kernel', True))}, "
+        f"segment_sum_kernel "
+        f"{json.dumps(kernel_registers(report, 'segment_sum_kernel', True))}")
+    cfg = RenderConfig(**MAIN)
+    deep = RenderConfig(**dict(MAIN, spp=DEEP_SPP))
+    tri_scene, tri_cam, _ = get_scene("cornell_boxes", device=dev)
+    checks = [check_flush(f"synthetic {layout}", synthetic_flush(dev, layout,
+                                                                n),
+                          timing=False) for layout, n in SYNTHETIC]
+    checks.append(check_flush("ball_scenes second flush", record_flush(
+        lambda: render_regen(scene, cam, cfg), 1), timing=False))
+    film = check_flush("ball_scenes", record_flush(
+        lambda: render_regen(scene, cam, cfg), FLUSH_AT))
+    film_deep = {at: check_flush(f"ball_scenes {DEEP_SPP} spp flush {at}",
+                                 record_flush(lambda: render_regen(
+                                     scene, cam, deep), at))
+                 for at in (1, FLUSH_AT)}
+    film_tri = check_flush("cornell_boxes", record_flush(
+        lambda: render_regen(tri_scene, tri_cam, cfg), FLUSH_AT))
+    checks += [film, film_tri, *film_deep.values()]
+    paths = [renders_twice("ball_scenes B1", scene, cam, cfg),
+             renders_twice(f"ball_scenes B1 {DEEP_SPP} spp", scene, cam,
+                           deep),
+             renders_twice("cornell_boxes per-bounce", tri_scene, tri_cam,
+                           cfg)]
+    sums = {n: material_sum_case(scene, cam, dev, n) for n in SUM_LANES}
+    tex = {"tex_color": scene.tex_color}
+    steps = {e: grads_twice(f"{e} tex_color step", scene, cam, tex, TRAIN,
+                            dev, engine=e) for e in ("regen", "scan")}
+    geom = grads_twice("geometry step (record)", scene, cam,
+                       {k: getattr(scene, k) for k in GEOM_PARAMS},
+                       HYBRID_RICH, dev, record=True)
+    for e, s in steps.items():
+        if not s["path"]["launches"].get("segment_sum"):
+            raise AssertionError(f"the {e} train step launched no material "
+                                 f"sum")
+    paths += [s["path"] for s in steps.values()] + [geom["path"]]
+    return {"film": film, "film_tri": film_tri, "film_deep": film_deep,
+            "film_err": max(c["max_abs_err"] for c in checks),
+            "sums": sums, "geom_same": geom["same"], "paths": paths}
+
+
+def phase_bench(root: str) -> dict:
+    """Phase 39: ``python -m srt_tpu_torch.bench --engine both
+    --min-seconds 0 --matrix`` in a subprocess: the main cell through both
+    engines, ``tri_scene``, and every library scene at :data:`MATRIX`
+    (``bench.py``'s 256x256x8 cut for the time limit; depth 50) with
+    ``--matrix-out``: its JSON line parsed, every key of ``bench.py``'s
+    plus ``backend``, no NaN pixel and a finite mean on every scene, the
+    artifact's keys."""
+    import math
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="srt_bench_")
+    try:
+        art = os.path.join(tmp, "matrix.json")
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "srt_tpu_torch.bench", "--engine", "both",
+             "--min-seconds", "0", "--matrix", "--matrix-width",
+             str(MATRIX["width"]), "--matrix-spp", str(MATRIX["spp"]),
+             "--matrix-out", art], cwd=root, env=env, capture_output=True,
+            text=True, timeout=3 * BENCH_BUDGET_S)
+        wall = time.time() - t0
+        if proc.returncode:
+            raise AssertionError(f"bench: {proc.stderr[-3000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(art) as f:
+            artifact = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = {"metric", "value", "unit", "vs_baseline", "baseline_rays_per_sec",
+            "scene", "engine", "engines", "config", "device", "wall_s",
+            "warmup_s", "nan_pixels", "backend", "tri_scene", "matrix"}
+    scene_keys = {"n_tris", "primary_rays_per_sec", "path_vertices_per_sec",
+                  "wall_s", "warmup_s", "nan_pixels", "mean"}
+    from srt_tpu_torch.scene.library import list_scenes
+    bad = {n: e for n, e in rec.get("matrix", {}).items()
+           if not scene_keys <= set(e) or e["nan_pixels"]
+           or not math.isfinite(e["mean"])}
+    if (not keys <= set(rec) or set(rec["engines"]) != {"regen", "scan"}
+            or set(rec["warmup_s"]) != {"regen", "scan"}
+            or rec["backend"] != "torch-cuda" or rec["nan_pixels"]
+            or rec["tri_scene"]["nan_pixels"] or bad
+            or sorted(rec["matrix"]) != sorted(list_scenes())
+            or sorted(artifact["scenes"]) != sorted(list_scenes())
+            or not {"what", "workload", "date"} <= set(artifact)):
+        raise AssertionError(f"bench: {json.dumps(rec)[:3000]} bad {bad}")
+    for line in proc.stderr.splitlines():
+        if line.startswith(("[tri]", "[regen]", "[scan]")):
+            log(f"[bench] {line}")
+    log(f"[bench] budget {BENCH_BUDGET_S} s, took {wall:.1f} s; the matrix "
+        f"cut to {MATRIX['width']}x{MATRIX['width']}x{MATRIX['spp']} depth "
+        f"50 (bench.py: 256x256x8); {json.dumps(rec)}")
+    return {"paths": [{"name": "bench --engine both --matrix",
+                       "launches": {}, "wall_s": wall}]}
 
 
 def b3_states(dev):
@@ -4142,13 +4643,14 @@ def main() -> None:
 
     scene, cam, _ = get_scene("ball_scenes", device=dev)
     b1 = timed(3, phase_regen_kernel, scene, cam, dev)
-    b1["launches"] = timed(4, phase_render, scene, cam, args.ppm)
+    b1["launches"], film_main = timed(4, phase_render, scene, cam, args.ppm)
     b2, b5 = timed(5, phase_train_kernels, scene, cam, dev)
-    b2_train, b5["launches"] = timed(6, phase_train, scene, cam, dev)
+    b2_train, b5["launches"], sums_train = timed(6, phase_train, scene, cam,
+                                                 dev)
     tri_scene, tri_cam, _ = get_scene("cornell_boxes", device=dev)
     b3, b2_ext = timed(7, phase_tri_kernels, tri_scene, tri_cam, dev)  # + 8
-    b3["launches"], b2_render = timed(9, phase_tri_render, tri_scene,
-                                      tri_cam)
+    b3["launches"], b2_render, film_tri = timed(9, phase_tri_render,
+                                                tri_scene, tri_cam)
     pot, pot_cam = teapot(dev)
     b4, b2_pot = timed(10, phase_teapot_kernels, pot, pot_cam, dev)  # + 11
     b4["launches"], b2_pot_render = timed(12, phase_teapot_render, pot,
@@ -4184,11 +4686,14 @@ def main() -> None:
     field = timed(35, phase_sphere_bvh, dev)
     scaling = timed(36, phase_scaling, root)
     tools = timed(37, phase_tools, root, dev)
+    sums = timed(38, phase_sums, scene, cam, dev)
+    bench = timed(39, phase_bench, root)
     new_paths = ([scan["path"], scan_tri["path"], seq["path"],
                   resumable["path"]] + cli_paths + [scan_train["path"]]
                  + a7["paths"] + atlas["paths"] + merl["paths"]
                  + meshes["paths"] + sharded["paths"] + field["paths"]
-                 + scaling["paths"] + tools["paths"])
+                 + scaling["paths"] + tools["paths"] + sums["paths"]
+                 + bench["paths"])
     log(f"[kernels] phases 31-34: launches {json.dumps(atlas['counts'])} "
         f"on the float-atlas paths, B3 {merl['B3']} on the MERL paths, B3 "
         f"{meshes['B3']}, B4 {meshes['B4']} and B2 {meshes['B2']} on the "
@@ -4286,11 +4791,45 @@ def main() -> None:
         f"{b3_ct['bound_ms']}); B4 {b4['ms']} ms against B3 {b4['b3_ms']} "
         f"ms on the teapot's wavefront after three bounces")
 
+    # the film and material sums: phases 4, 6 and 9, and every path of
+    # phases 24-38 (each read from counts set to 0 just before it)
+    film = {"name": "film_sum", "route": "cuda",
+            "source": "srt_tpu_torch/csrc/film_sum.cu",
+            "replaces": "srt_tpu/render/regen.py:117",
+            "launches": film_main + film_tri + sum(
+                p["launches"].get("film_sum", 0) for p in new_paths),
+            **sums["film"], "max_abs_err": sums["film_err"]}
+    seg = {"name": "segment_sum", "route": "cuda",
+           "source": "srt_tpu_torch/csrc/segment_sum.cu",
+           "replaces": "srt_tpu/pallas/bounce_bwd.py:308-315",
+           "launches": sums_train + sum(
+               p["launches"].get("segment_sum", 0) for p in new_paths),
+           **sums["sums"][SUM_LANES[-1]]}
+    seg["max_abs_err"] = max(c["max_abs_err"] for c in sums["sums"].values())
+    for kern in (film, seg):
+        if not kern["launches"]:
+            raise AssertionError(f"{kern['name']}: no launch on the paths")
+    log(f"[kernels] film_sum launches: {film_main} on the ball_scenes render "
+        f"path, {film_tri} on the cornell render path, {film['launches']} in "
+        f"all; ms on cornell_boxes' per-bounce flush {sums['film_tri']['ms']}"
+        f" (index_add_ {sums['film_tri']['library_ms']}), on the {DEEP_SPP}"
+        f"-spp flushes "
+        f"{json.dumps({a: c['ms'] for a, c in sums['film_deep'].items()})} "
+        f"(index_add_ "
+        f"{json.dumps({a: c['library_ms'] for a, c in sums['film_deep'].items()})}"
+        f"); the largest |kernel - plain| of the film {sums['film_err']}; "
+        f"segment_sum "
+        f"launches {sums_train} on the train path, {seg['launches']} in all; "
+        f"ms by lanes {json.dumps({n: c['ms'] for n, c in sums['sums'].items()})}"
+        f" (index_add_ "
+        f"{json.dumps({n: c['library_ms'] for n, c in sums['sums'].items()})}"
+        f"); the geometry step's gradient "
+        f"{'repeats' if sums['geom_same'] else 'does not repeat'} to the bit")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in (b1, b2, b2_parity, b3, b4,
-                                               b5, b6)]}),
+                                               b5, b6, film, seg)]}),
           flush=True)
     print(json.dumps({"paths": new_paths}), flush=True)
     print(smi, flush=True)

@@ -20,15 +20,15 @@ versions of the same function:
   instantiation (``kRich``), which also replays the media sweep and
   differentiates the specular branch, the media events, the checker's
   colours, the marble and sphere lights (17 columns instead of 14).
-  Per-lane material cotangents are segment-summed here with
-  ``index_add_`` into the (M, 14) table, as ``bounce_bwd.py:301-316``
-  does with ``.at[].add``.
+  Per-lane material cotangents are summed by material into the (M, 14)
+  table by :func:`kernels.segment.material_sum` (``csrc/segment_sum.cu``,
+  in an order fixed by the lanes, so the table's bits repeat run to run),
+  as ``bounce_bwd.py:301-316`` does with ``.at[].add``.
 
 :func:`bounce_bwd` takes the plain version for CPU tensors and launches
-the kernel for CUDA tensors; it never falls back, and it raises for a
+the kernels for CUDA tensors; it never falls back, and it raises for a
 scene the kernel cannot differentiate (:func:`require_bwd_kernel`), on
-either device. ``index_add_`` on CUDA floats is atomic, so the table's
-sums differ in their last bits from run to run.
+either device.
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ from srt_tpu_torch.kernels.bounce import (_RICH_FIELDS, _TABLES,
                                           bounce_step_ref, check_state,
                                           rich_args, table_args)
 from srt_tpu_torch.kernels.build import launch
+from srt_tpu_torch.kernels.segment import material_sum
 from srt_tpu_torch.scene.ir import SceneFlags, TorchScene, require_trainable
 
 #: Kernel launches made by :func:`bounce_bwd` (the CUDA path only), both
@@ -207,18 +208,6 @@ def lane_cotangents(scene: TorchScene, flags: SceneFlags, tables: dict,
     return outs
 
 
-def segment_sum(g_mat: torch.Tensor, wmat: torch.Tensor,
-                n_mat: int) -> torch.Tensor:
-    """Per-lane material cotangents (N, 10) summed by material into the
-    (M, 14) table's differentiable columns."""
-    per_mat = torch.zeros((n_mat, g_mat.shape[1]), dtype=g_mat.dtype,
-                          device=g_mat.device)
-    per_mat.index_add_(0, wmat.long(), g_mat)
-    d_mat = torch.zeros((n_mat, 14), dtype=g_mat.dtype, device=g_mat.device)
-    d_mat[:, list(MAT_GRAD_COLS)] = per_mat
-    return d_mat
-
-
 def bounce_bwd(scene: TorchScene, flags: SceneFlags, tables: dict,
                state: dict, ct: dict, spec: StepSpec):
     """The VJP of one bounce at ``state`` (the inputs of
@@ -235,4 +224,4 @@ def bounce_bwd(scene: TorchScene, flags: SceneFlags, tables: dict,
     if dev.type != "cuda":
         raise ValueError(f"no bounce backward kernel for {dev}")
     g, g_mat, wmat = lane_cotangents(scene, flags, tables, state, ct, spec)
-    return g, segment_sum(g_mat, wmat, tables["mat"].shape[0])
+    return g, material_sum(g_mat, wmat, tables["mat"].shape[0])

@@ -39,7 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launch's cudaError_t
 ENTRY_POINTS = ("srt_regen_bounce", "srt_bounce", "srt_bounce_bwd",
                 "srt_intersect_tris", "srt_intersect_big",
-                "srt_sphere_winner")
+                "srt_sphere_winner", "srt_film_sum", "srt_segment_sum")
 
 _LIB = None
 
@@ -125,6 +125,8 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.srt_segment_sum_blocks.argtypes = [ctypes.c_int]
+        lib.srt_segment_sum_blocks.restype = ctypes.c_int
         lib.srt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.srt_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

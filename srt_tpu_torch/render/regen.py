@@ -28,11 +28,14 @@ Two loops, chosen by the scene and the estimator as
   loop carries the ``stale`` plane across regeneration, as
   ``srt_tpu/render/regen.py:173-177`` does; the bounce does not read it.
 
-The host loop adds the finished lanes' radiance into the image,
-NaN-scrubbed and counted. Every random decision is a pure function of
-``(seed, pixel, sample, bounce)``, so the image equals the JAX engine's up
-to float accumulation order and near-tie branch flips, and equals the scan
-engine's (:func:`render.api.render`) likewise.
+After each bounce the film (:class:`kernels.film.Film`: on the card one
+launch of ``csrc/film_sum.cu``) adds the finished lanes' radiance into
+the image, NaN-scrubbed and counted, each pixel's lanes in lane order, as
+JAX's ``.at[].add`` on the CPU does: the sums repeat to the bit run to run
+(ROADMAP C18). Every random decision is a pure function of ``(seed,
+pixel, sample, bounce)``, so the image equals the JAX engine's up to near-tie
+branch flips, and equals the scan engine's (:func:`render.api.render`) up to
+those and the order of its sums.
 
 The host reads the device (work cursor, any lane alive) once every
 ``CHECK_EVERY`` bounces: a bounce of a drained, all-dead wavefront takes
@@ -45,34 +48,15 @@ import time as _time
 import torch
 
 from srt_tpu_torch.kernels import bounce as kb
+from srt_tpu_torch.kernels.film import Film
 from srt_tpu_torch.render.api import render_setup
 from srt_tpu_torch.render.integrator import CHECK_EVERY
 from srt_tpu_torch.render.route import Route
 from srt_tpu_torch.utils.metrics import RenderMetrics
 
 
-class _Film:
-    """The image sums (3, pixels) and the counters, on the device."""
-
-    def __init__(self, pixels: int, device):
-        self.acc = torch.zeros((3, pixels), dtype=torch.float32,
-                               device=device)
-        self.n_vertices = torch.zeros((), dtype=torch.int64, device=device)
-        self.nan_scrubbed = torch.zeros((), dtype=torch.int64, device=device)
-
-    def flush(self, pix, fin, radiance, live) -> None:
-        """Add the finished lanes' radiance (3, N) at their pixels, NaN
-        scrubbed and counted (de_nan, ``Raytracing_n.cpp:47-53``); count
-        the bounce's ``live`` lanes as traced path vertices."""
-        contrib = torch.where(fin, radiance, 0.0)
-        is_nan = torch.isnan(contrib)
-        self.acc.index_add_(1, pix, torch.where(is_nan, 0.0, contrib))
-        self.n_vertices += live.sum()
-        self.nan_scrubbed += is_nan.sum()
-
-
 def _regen_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
-                film: _Film, plain: bool) -> int:
+                film: Film, plain: bool) -> int:
     """The B1 loop; returns its bounces."""
     step = kb.regen_bounce_reference if plain else kb.regen_bounce
     st = kb.new_wavefront(n, inp.scene.device)
@@ -80,9 +64,7 @@ def _regen_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
     while True:
         for _ in range(CHECK_EVERY):
             step(inp, st, spec)
-            fin = st["fin"] != 0
-            film.flush(st["pix"], fin, st["radiance"],
-                       (st["alive"] != 0) | fin)
+            film.flush(st["pix"], st["radiance"], st["fin"], st["alive"])
         bounces += CHECK_EVERY
         cursor, any_alive = torch.stack(
             [st["cursor"][0].long(), (st["alive"] != 0).any().long()]).tolist()
@@ -91,7 +73,7 @@ def _regen_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
 
 
 def _step_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
-               film: _Film, route: Route) -> int:
+               film: Film, route: Route) -> int:
     """The per-bounce loop: the torch regeneration, then one step of
     ``route`` (the walk on a triangle scene, the bounce); returns its
     bounces."""
@@ -116,8 +98,9 @@ def _step_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
                 state["stale"] = st["stale"]   # across regeneration
             nxt = route(state)
             alive = nxt["alive"] & (nxt["depth"] < spec.max_depth)
-            film.flush(pix, state["alive"] & ~alive, nxt["radiance"].T,
-                       state["alive"])
+            # B1's planes: finished if alive before and not after the cap
+            film.flush(pix.int(), nxt["radiance"].T.contiguous(),
+                       (state["alive"] & ~alive).int(), alive.int())
             st = dict(nxt, alive=alive, pix=pix)
         bounces += CHECK_EVERY
         left, any_alive = torch.stack(
@@ -141,8 +124,8 @@ def render_regen(scene, camera, config, metrics: bool = False,
                         max_depth=config.max_depth, rr_start=config.rr_start,
                         pdf_floor=config.pdf_floor, seed=config.seed)
     inp = kb.RegenInputs(scene, flags, camera, jitter)
-    film = _Film(w * h, scene.device)
     n = min(config.wavefront, spec.total_work)
+    film = Film(w * h, n, scene.device, plain)
     t0 = _time.time()
     with torch.no_grad():
         if (scene.n_tris or flags.ref_parity

@@ -18,7 +18,10 @@ bounce is kernel B3 then B2 forward, or B2 alone, and the hybrid backward
 ``chip_smoke.py`` phase 15. ``--engines regen scan`` also times the
 lockstep scan engine's step (``make_train_step(engine="scan")``, every
 bounce of every ray kept for the backward), as ``tools/trainbench.py``
-times both.
+times both, and with both the line carries ``speedup_regen_vs_scan``.
+``tools/trainbench.py``'s ``--unroll`` is ``lax.scan``'s unroll; the
+port's train loop is a Python loop of eager launches, not a compiled
+scan, so it has no counterpart.
 
 Usage: ``python -m srt_tpu_torch.trainbench [--width 256] [--engines regen
 scan] [--profile DIR]``.
@@ -103,7 +106,7 @@ def phase_walls(step, target, seed: int) -> dict:
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", default="ball_scenes")
     ap.add_argument("--width", type=int, default=256)
@@ -120,7 +123,7 @@ def main() -> None:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one step to DIR "
                          "and log device time by kernel")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     dev = torch.device(args.device)
     on_card = dev.type == "cuda"
     if on_card and not torch.cuda.is_available():
@@ -169,11 +172,15 @@ def main() -> None:
                 args.reps + 2)
         engines[engine] = rec
         del step
-    print(json.dumps({
-        "metric": "train_step_rays_per_sec", "scene": args.scene,
-        "width": w, "spp": args.spp, "max_depth": args.max_depth,
-        "device": kind, "engines": engines,
-        "backend": "torch-cuda" if on_card else "torch-cpu"}), flush=True)
+    out = {"metric": "train_step_rays_per_sec", "scene": args.scene,
+           "width": w, "spp": args.spp, "max_depth": args.max_depth,
+           "device": kind, "engines": engines,
+           "backend": "torch-cuda" if on_card else "torch-cpu"}
+    if "regen" in engines and "scan" in engines:
+        out["speedup_regen_vs_scan"] = round(
+            engines["regen"]["rays_per_sec"] / engines["scan"]["rays_per_sec"],
+            2)
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 (``regen_bounce.cu``), the per-bounce step (``bounce.cu``, the train
 forward, and with a triangle hit the bounce of triangle scenes), its VJP,
 the train backward (``bounce_bwd.cu``), the triangle BVH walks, single
-level (``intersect_tris.cu``) and two level (``intersect_big.cu``), and
-the sphere winner of the hybrid backward (``sphere_winner.cu``).
+level (``intersect_tris.cu``) and two level (``intersect_big.cu``), the
+sphere winner of the hybrid backward (``sphere_winner.cu``), the film sum
+(``film_sum.cu``) and the material sum (``segment_sum.cu``).
 
 On a machine with an NVIDIA GPU the ``cuda``-marked tests build the
 kernels and hold one launch of each against its plain version lane by
@@ -30,7 +31,9 @@ from srt_tpu_torch.diff.inverse import camera_rays
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import build
+from srt_tpu_torch.kernels import film as kfilm
 from srt_tpu_torch.kernels import intersect as ki
+from srt_tpu_torch.kernels import segment as kseg
 from srt_tpu_torch.kernels import spheres as ks
 from srt_tpu_torch.render.camera import Camera
 from srt_tpu_torch.scene.build import SceneBuilder
@@ -679,3 +682,76 @@ def test_float_atlas_matches_packed_on_gpu(name, cuda_device):
     assert all(same(out_p[k], out_f[k]) for k in out_p)
     assert all(same(g_p[0][k], g_f[0][k]) for k in kbb.ROWS)
     assert same(g_p[1], g_f[1]) and torch.equal(g_p[2], g_f[2])
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """Float32 words as int32, every NaN as one word (the card's NaN is
+    not the CPU's)."""
+    x = x.cpu()
+    return torch.where(torch.isnan(x), float("nan"), x).view(torch.int32)
+
+
+#: the film test's lanes and their pixels: scattered over 500 pixels (a
+#: record in nearly every 256-lane tile a pixel), in runs of 1,024 lanes a
+#: pixel (the camera rays of 1,024 samples that finish together), a 64-lane
+#: run a pixel, repeated (a record or two a pixel), and scattered over a
+#: 300,000-lane wavefront (more tiles than a block each, and than one walk
+#: of a chain places)
+FILM_LAYOUTS = {"scattered": (30000, lambda r, n: r.integers(0, 500, n)),
+                "runs-1024": (30000, lambda r, n: np.arange(n) // 1024),
+                "runs-64": (30000, lambda r, n: (np.arange(n) // 64) % 300),
+                "wide": (300000, lambda r, n: r.integers(0, 700, n))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(FILM_LAYOUTS))
+def test_film_kernel_matches_plain_on_gpu(layout, cuda_device):
+    """The film kernel's sums and counts against the plain version's on
+    the CPU (lane after lane), to the bit, twice: seeded lanes in
+    ``layout``, NaN and +-inf radiance."""
+    r = np.random.default_rng(4)
+    n, pixels_of = FILM_LAYOUTS[layout]
+    pix = torch.from_numpy(pixels_of(r, n).astype(np.int32))
+    pixels = int(pix.max()) + 1
+    rad = (r.standard_normal((3, n))
+           * 10.0 ** r.integers(-3, 4, (1, n))).astype(np.float32)
+    rad[r.random((3, n)) < 0.01] = np.nan
+    rad[r.random((3, n)) < 0.003] = np.inf
+    rad[r.random((3, n)) < 0.003] = -np.inf
+    fin = torch.from_numpy((r.random(n) < 0.7).astype(np.int32))
+    alive = torch.from_numpy((r.random(n) < 0.3).astype(np.int32))
+    rad = torch.from_numpy(rad)
+    acc0 = torch.from_numpy(r.standard_normal((3, pixels)).astype(np.float32))
+    want = [acc0.clone(), torch.tensor(3), torch.tensor(4)]
+    kfilm.film_sum_reference(*want, pix, rad, fin, alive)
+    dev = cuda_device
+    film = kfilm.Film(pixels, n, dev)
+    for run in range(2):
+        film.acc.copy_(acc0)
+        film.n_vertices.fill_(3)
+        film.nan_scrubbed.fill_(4)
+        film.flush(pix.to(dev), rad.to(dev), fin.to(dev), alive.to(dev))
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(film.acc), _bits(want[0])), run
+        assert int(film.n_vertices) == int(want[1])
+        assert int(film.nan_scrubbed) == int(want[2])
+        assert int((film.head != -1).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 16384, 262144])
+def test_material_sum_kernel_on_gpu(n, cuda_device):
+    """The material-sum kernel: twice equal to the bit, and every row
+    within the gradient contract of the plain version on the CPU."""
+    r = np.random.default_rng(5)
+    g = torch.from_numpy(r.standard_normal((n, 10)).astype(np.float32))
+    seg = torch.from_numpy(r.integers(0, 124, n).astype(np.int32))
+    seg[: n // 2] = 7   # one material over half the lanes, as the floor
+    want = kseg.material_sum_reference(g, seg, 124)
+    got = [kseg.material_sum(g.to(cuda_device), seg.to(cuda_device), 124)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[0]), _bits(got[1]))
+    contract.check_grads({"d_mat": want.numpy()},
+                         {"d_mat": got[0].cpu().numpy()}, frac=0.0)
+    assert (got[0].cpu()[:, [0, 5, 12, 13]] == 0).all()
