@@ -224,16 +224,22 @@ of which raises on failure:
    four floor variants against ``goldens/soldier_scene_500.png``;
 38. the fixed-order sums (ROADMAP C18): the film kernel
    (``csrc/film_sum.cu``) against its plain version on the CPU to the bit,
-   sums and counts, on three seeded flushes (pixels of up to 256 records,
-   runs of 1,024 lanes, NaN and +-inf) and on flushes recorded in the
+   sums and counts, twice, its per-pixel scratch back at 0 after each
+   launch, on four seeded flushes (pixels of up to 256 records, runs of
+   1,024 lanes, NaN and +-inf), on the flush layouts of the tests
+   (``tests/_torch_flushes.py``: a pixel in every tile, tiles of one
+   pixel, runs across tile edges, the edges of the kernel's row of seven
+   records and of one thread's 16 lanes) and on flushes recorded in the
    ball_scenes B1 render, at 16 and at 1,024 spp, and the cornell_boxes
    per-bounce render, with its time, ``index_add_``'s and the bound; two
    ball_scenes B1 renders at 512x512x16x50 and two at 1,024 spp, and two
    cornell_boxes per-bounce renders at 512x512x16x50, each pair equal to
    the bit; the material-sum kernel (``csrc/segment_sum.cu``) on B5's
    per-lane outputs at 16,384 and 262,144 lanes, two launches equal to the
-   bit and every row of the table within the gradient contract of its
-   plain version, timed against ``index_add_``; the
+   bit and to its order of adds in torch on the CPU
+   (``kernels/segment.py:material_sum_order``), every row of the table
+   within the gradient contract of its plain version, timed against
+   ``index_add_``; the
    regen-scan and scan ``{"tex_color"}`` train steps' loss and gradient
    twice from the same state, to the bit; the geometry step's the same,
    as a record;
@@ -257,9 +263,15 @@ bounced teapot rays, B5 on phase 5's and phase 19's states, B6 on the
 ball_scenes and random_scene train states, the ball_scenes and teapot
 renders and the train steps from each checkout TREE in turns (see
 ``compare``), B1, B2, B3 and B6 also at every G where the checkout picks
-one, for example the parent commit unpacked with ``git archive`` under ``build/``, and fails
+one, the film kernel on phase 38's four recorded flushes and the material
+sum at 16,384 and 262,144 lanes beside ``index_add_`` (CUDA events over a
+loop of launches, over a CUDA graph's replay, and the profiler's device
+rows), the profiler's kernel rows over a ball_scenes render and a train
+step, and ``bench --spp 1024 --profile``'s busy share, for example the
+parent commit unpacked with ``git archive`` under ``build/``, and fails
 where two runs given the same inputs gave different outputs (SHA-256
-digests of every kernel's inputs and per-lane outputs).
+digests of every kernel's inputs and per-lane outputs; the material sum's
+table, whose order is the checkout's own, is only reported).
 """
 from __future__ import annotations
 
@@ -403,6 +415,68 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 50):
+    """Milliseconds a call of ``fn`` over four replays of a CUDA graph of
+    ``reps`` calls (no host between launches), or the capture's error."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(reps):
+                fn()
+    except Exception as e:     # a launch the capture does not take
+        torch.cuda.synchronize()
+        return f"{type(e).__name__}: {e}"[:200]
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(4):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (4 * reps)
+
+
+def device_rows(fn) -> tuple:
+    """``fn()`` once under ``torch.profiler`` (device rows only): ``(its
+    result, {kernel: [launches, device microseconds]})``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.key: [e.count, e.self_device_time_total]
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+
+
+def device_ms(fn, reps: int = 100) -> float:
+    """The profiler's device time a call over ``reps`` calls of ``fn``,
+    every device row summed."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    _, rows = device_rows(lambda: [fn() for _ in range(reps)])
+    return sum(us for _, us in rows.values()) / 1e3 / reps
+
+
+def three_timers(fn) -> dict:
+    """``fn``'s milliseconds a call three ways: CUDA events over a Python
+    loop (``loop``, the least of two runs of 200; reads the host's issue
+    interval below about 0.01 ms), over a CUDA graph's replay (``graph``)
+    and the profiler's device rows (``device``)."""
+    return {"loop": min(time_ms(fn, 200) for _ in range(2)),
+            "graph": graph_ms(fn), "device": device_ms(fn)}
+
+
 def time_bounces(step, inp, st0, spec, reps: int) -> float:
     """Milliseconds per bounce over ``reps`` steps from a copy of ``st0``."""
     st = clone(st0)
@@ -448,10 +522,10 @@ def bare_launch_ms(entry: str, size: int, call, reps: int) -> float:
     return ms
 
 
-def args_launch_ms(entry: str, args, reps: int) -> float:
-    """Milliseconds per launch of the library's ``entry`` on the argument
-    struct ``args``, built once: bare launches, as
-    :func:`bare_launch_ms` times them."""
+def bare_call(entry: str, args):
+    """One bare launch of the library's ``entry`` on the argument struct
+    ``args`` (held by the call), on the stream current at the call, so
+    that a graph's capture takes it."""
     import ctypes
 
     import torch
@@ -460,12 +534,18 @@ def args_launch_ms(entry: str, args, reps: int) -> float:
 
     fn = getattr(build.load_library(), entry)
     addr = ctypes.addressof(args)
-    stream = torch.cuda.current_stream().cuda_stream
 
     def one():
-        if fn(addr, stream):
-            raise RuntimeError(f"{entry} launch failed")
-    return time_ms(one, reps)
+        if fn(addr, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"{entry} launch failed ({args})")
+    return one
+
+
+def args_launch_ms(entry: str, args, reps: int) -> float:
+    """Milliseconds per launch of the library's ``entry`` on the argument
+    struct ``args``, built once: bare launches, as
+    :func:`bare_launch_ms` times them."""
+    return time_ms(bare_call(entry, args), reps)
 
 
 def kernel_registers(report: str, kernel: str, spills: bool = False) -> dict:
@@ -3836,8 +3916,9 @@ def check_flush(label: str, rec: tuple, timing: bool = True) -> dict:
                 raise AssertionError(f"film {label}: the kernel's {name} "
                                      f"differ from the plain version's "
                                      f"({bad} values, launch {run + 1})")
-        if int((film.head != -1).sum()):
-            raise AssertionError(f"film {label}: chains left after a launch")
+        if not film.clean():
+            raise AssertionError(f"film {label}: a pixel's row count or "
+                                 f"bitmap left set after a launch")
         got = film.acc.cpu()
         ok = torch.isfinite(got) & torch.isfinite(plain[0])
         off = (got - plain[0])[ok].abs()
@@ -3909,22 +3990,17 @@ def renders_twice(label: str, scene, cam, cfg) -> dict:
     return path_record(f"twice {label}", counts, [ma, mb])
 
 
-def material_sum_case(scene, cam, dev, lanes: int) -> dict:
-    """The material-sum kernel on B5's per-lane outputs at ``lanes``
-    lanes (phase 5's 16,384-lane train state, or the scan train step's
-    262,144-lane wavefront three bounces in): twice, equal to the bit;
-    against the plain version on the CPU (``index_add_`` lane after lane)
-    under the gradient contract, every row of the table within it; its
-    time as bare launches, the plain version's and ``index_add_``'s on the
-    card, and the bound."""
+def material_sum_inputs(scene, cam, dev, lanes: int) -> tuple:
+    """B5's per-lane material cotangents at ``lanes`` lanes (phase 5's
+    16,384-lane train state, or the scan train step's 262,144-lane
+    wavefront three bounces in), seeded cotangents of its outputs:
+    ``(g_mat, wmat, n_mat)``."""
     import numpy as np
     import torch
 
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import bounce_bwd as kbb
-    from srt_tpu_torch.kernels import segment as kseg
     from srt_tpu_torch.scene.ir import SceneFlags
-    from srt_tpu_torch.utils import contract
 
     flags = SceneFlags.of(scene)
     tables = kb.build_tables(scene, flags)
@@ -3938,7 +4014,23 @@ def material_sum_case(scene, cam, dev, lanes: int) -> dict:
     ct = {k: torch.from_numpy(r.standard_normal((lanes, 3))
                               .astype(np.float32)).to(dev) for k in kbb.ROWS}
     _, g_mat, wmat = kbb.lane_cotangents(scene, flags, tables, st, ct, spec)
-    n_mat = tables["mat"].shape[0]
+    return g_mat, wmat, tables["mat"].shape[0]
+
+
+def material_sum_case(scene, cam, dev, lanes: int) -> dict:
+    """The material-sum kernel on B5's per-lane outputs at ``lanes``
+    lanes (:func:`material_sum_inputs`): twice, equal to the bit;
+    against the plain version on the CPU (``index_add_`` lane after lane)
+    under the gradient contract, every row of the table within it; its
+    time as bare launches, the plain version's and ``index_add_``'s on the
+    card, and the bound."""
+    import torch
+
+    from srt_tpu_torch.kernels import bounce as kb
+    from srt_tpu_torch.kernels import segment as kseg
+    from srt_tpu_torch.utils import contract
+
+    g_mat, wmat, n_mat = material_sum_inputs(scene, cam, dev, lanes)
     outs = [kseg.material_sum(g_mat, wmat, n_mat) for _ in range(2)]
     torch.cuda.synchronize()
     if not same_tensor_bits(*outs):
@@ -3947,7 +4039,11 @@ def material_sum_case(scene, cam, dev, lanes: int) -> dict:
     ref = kseg.material_sum_reference(g_mat.cpu(), wmat.cpu(), n_mat)
     m = contract.check_grads({"d_mat": ref.numpy()},
                              {"d_mat": outs[0].cpu().numpy()}, frac=0.0)
-    args, _out, _part = kseg.kernel_args(g_mat, wmat, n_mat)
+    if not same_tensor_bits(outs[0], kseg.material_sum_order(
+            g_mat.cpu(), wmat.cpu(), n_mat)):
+        raise AssertionError(f"material sum at {lanes} lanes: the kernel "
+                             f"differs from its order of adds in torch")
+    args, _out = kseg.kernel_args(g_mat, wmat, n_mat)
     ms = [args_launch_ms("srt_segment_sum", args, 200) for _ in range(2)]
     plain_ms = time_ms(lambda: kseg.material_sum_reference(
         g_mat, wmat, n_mat), 50)
@@ -3956,8 +4052,8 @@ def material_sum_case(scene, cam, dev, lanes: int) -> dict:
     idx = wmat.long()
     library_ms = time_ms(lambda: per.index_add_(0, idx, g_mat), 50)
     ms_bound, by = bound(lanes * (4 * k + 4) + n_mat * 14 * 4, lanes * k)
-    log(f"[material-sum] {lanes} lanes into {n_mat} rows, "
-        f"{int(st['alive'].sum())} live: two launches equal to the bit; "
+    log(f"[material-sum] {lanes} lanes into {n_mat} rows: two launches "
+        f"equal to the bit and to the order of adds in torch on the CPU; "
         f"against the plain version on the CPU {json.dumps(m)}; ms per "
         f"launch {ms} (bare), plain on the card {plain_ms}, index_add_ "
         f"{library_ms}, bound {ms_bound:.6f} ({by})")
@@ -4015,7 +4111,9 @@ def grads_twice(label: str, scene, cam, params: dict, size: dict, dev,
 def phase_sums(scene, cam, dev) -> dict:
     """Phase 38 (ROADMAP C18): the film kernel (``csrc/film_sum.cu``)
     against its plain version to the bit on the seeded flushes of
-    :data:`SYNTHETIC`, on the main path's second flush (a pixel's camera
+    :data:`SYNTHETIC` and of the tests' layouts
+    (``tests/_torch_flushes.py``), on the main path's second flush (a
+    pixel's camera
     rays that left the scene finish together) and its flush
     :data:`FLUSH_AT` (65,536 lanes), on the second flush and flush
     :data:`FLUSH_AT` of the main path at :data:`DEEP_SPP` samples (1,024
@@ -4027,6 +4125,8 @@ def phase_sums(scene, cam, dev) -> dict:
     the regen-scan and the scan engine's ``{"tex_color"}`` train steps
     twice from the same state, loss and gradient to the bit; the geometry
     step (the hybrid's replay) the same, reported as a record."""
+    import torch
+
     from srt_tpu_torch import RenderConfig, get_scene, render_regen
     from srt_tpu_torch.kernels import build
 
@@ -4041,6 +4141,13 @@ def phase_sums(scene, cam, dev) -> dict:
     checks = [check_flush(f"synthetic {layout}", synthetic_flush(dev, layout,
                                                                 n),
                           timing=False) for layout, n in SYNTHETIC]
+    from _torch_flushes import FILM_LAYOUTS, film_flush
+    for layout in FILM_LAYOUTS:
+        acc0, *lanes = (torch.from_numpy(x).to(dev)
+                        for x in film_flush(layout))
+        checks.append(check_flush(f"layout {layout}", (
+            acc0, torch.tensor(3, device=dev), torch.tensor(4, device=dev),
+            *lanes), timing=False))
     checks.append(check_flush("ball_scenes second flush", record_flush(
         lambda: render_regen(scene, cam, cfg), 1), timing=False))
     film = check_flush("ball_scenes", record_flush(
@@ -4445,6 +4552,112 @@ def teapot_times(dev) -> dict:
     return out
 
 
+#: ``--compare``: the film flushes it times, phase 38's: (label, scene,
+#: samples a pixel, flush)
+FLUSH_CASES = (("ball_scenes flush 40", "ball_scenes", 16, FLUSH_AT),
+               ("cornell_boxes flush 40", "cornell_boxes", 16, FLUSH_AT),
+               ("1,024 spp flush 1", "ball_scenes", DEEP_SPP, 1),
+               ("1,024 spp flush 40", "ball_scenes", DEEP_SPP, FLUSH_AT))
+
+
+def sums_times(dev) -> dict:
+    """``--compare``: the film kernel on :data:`FLUSH_CASES` and the
+    material sum at :data:`SUM_LANES`, each beside ``index_add_`` on the
+    same inputs, by :func:`three_timers` (bare launches); the film's
+    digests (its inputs; its sums and counts after one launch, the plain
+    version's bits in every checkout) and the material sum's (its inputs;
+    its table, whose order a checkout may change: reported, not held to
+    the other checkouts')."""
+    import torch
+
+    from srt_tpu_torch import RenderConfig, get_scene, render_regen
+    from srt_tpu_torch.kernels import film as kfilm
+    from srt_tpu_torch.kernels import segment as kseg
+
+    out = {k: {} for k in ("film", "film_index_add", "segment",
+                           "segment_index_add", "digests",
+                           "segment_digests")}
+    scenes = {}
+    for label, name, spp, at in FLUSH_CASES:
+        if name not in scenes:
+            scenes[name] = get_scene(name, device=dev)[:2]
+        scene, cam = scenes[name]
+        cfg = RenderConfig(**dict(MAIN, spp=spp))
+        rec = record_flush(lambda: render_regen(scene, cam, cfg), at)
+        acc, n_vert, n_nan, pix, rad, fin, alive = rec
+        film = kfilm.Film(acc.shape[1], pix.shape[0], dev)
+        for t, src in zip((film.acc, film.n_vertices, film.nan_scrubbed),
+                          (acc, n_vert, n_nan)):
+            t.copy_(src)
+        film.flush(pix, rad, fin, alive)
+        torch.cuda.synchronize()
+        out["digests"][f"film {label}"] = [
+            digest(*rec), digest(film.acc, film.n_vertices,
+                                 film.nan_scrubbed)]
+        out["film"][label] = three_timers(bare_call(
+            "srt_film_sum", film.kernel_args(pix, rad, fin, alive)))
+        contrib = torch.where(fin != 0, rad, 0.0).nan_to_num(
+            0.0, float("inf"), float("-inf"))
+        g = acc.clone()
+        out["film_index_add"][label] = three_timers(
+            lambda: g.index_add_(1, pix, contrib))
+    scene, cam = scenes["ball_scenes"]
+    for n in SUM_LANES:
+        g_mat, wmat, n_mat = material_sum_inputs(scene, cam, dev, n)
+        held = kseg.kernel_args(g_mat, wmat, n_mat)   # args, table[, part]
+        out["segment"][str(n)] = three_timers(bare_call("srt_segment_sum",
+                                                        held[0]))
+        per = torch.zeros((n_mat, g_mat.shape[1]), device=dev)
+        idx = wmat.long()
+        out["segment_index_add"][str(n)] = three_timers(
+            lambda: per.index_add_(0, idx, g_mat))
+        table = kseg.material_sum(g_mat, wmat, n_mat)
+        out["segment_digests"][f"material sum {n}"] = [digest(g_mat, wmat),
+                                                       digest(table)]
+        del held
+    return out
+
+
+#: ``--compare``'s profiled kernels, each known by its profiler name
+PROFILED = {"film": lambda k: "film_sum_kernel" in k,
+            "material sum": lambda k: "segment_sum_kernel" in k,
+            "B1": lambda k: "regen_bounce_kernel" in k,
+            "B2": lambda k: "bounce_kernel<" in k and "regen_" not in k,
+            "B5": lambda k: "bounce_bwd_kernel" in k}
+
+
+def profile_kernels(dev) -> dict:
+    """``--compare``: ``torch.profiler``'s device rows over one ball_scenes
+    render (512x512x16x50) and one regen-scan train step (the train cell,
+    ``{"tex_color"}``), each after one unprofiled run: the launches and
+    microseconds a launch of each kernel of :data:`PROFILED`, and the
+    device's busy microseconds (every device row)."""
+    import torch
+
+    from srt_tpu_torch import RenderConfig, get_scene, render_regen
+
+    scene, cam, _ = get_scene("ball_scenes", device=dev)
+    cfg = RenderConfig(**MAIN)
+    step, _, _, _ = train_walls(scene, cam, {"tex_color": scene.tex_color},
+                                TRAIN, dev, 0)
+    target = torch.full((TRAIN["width"],) * 2 + (3,), TRAIN_TARGET,
+                        device=dev)
+    render_regen(scene, cam, cfg)
+    out = {}
+    for label, fn in (("render", lambda: render_regen(scene, cam, cfg)),
+                      ("train step", lambda: step(target, 1))):
+        _, rows = device_rows(fn)
+        kern = {}
+        for name, named in PROFILED.items():
+            hits = [v for k, v in rows.items() if named(k)]
+            calls, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            if calls:
+                kern[name] = {"launches": calls, "us_a_launch": us / calls}
+        out[label] = {"busy_us": sum(v[1] for v in rows.values()),
+                      "kernels": kern}
+    return out
+
+
 def measure_tree() -> dict:
     """``--measure``: what ``--compare`` times in one checkout, with the
     package found first on ``sys.path``: its build, ``ptxas``' registers
@@ -4455,8 +4668,10 @@ def measure_tree() -> dict:
     B2's external hit and the teapot render (``teapot_times``), the
     ball_scenes train step with ``{"tex_color"}`` (phase 6, three steps)
     and with the geometric parameters (phase 15, two steps), and
-    ``cornell_times``. A measurement the checkout's package cannot make
-    holds its error instead."""
+    ``cornell_times``, the film and material sums beside ``index_add_``
+    (``sums_times``) and the profiler's kernel rows over a render and a
+    train step (``profile_kernels``). A measurement the checkout's package
+    cannot make holds its error instead."""
     import numpy as np
     import torch
 
@@ -4495,11 +4710,46 @@ def measure_tree() -> dict:
             ("geom_train_s", lambda: train_walls(
                 scene, cam, {k: getattr(scene, k) for k in GEOM_PARAMS},
                 TRAIN, dev, 2)[3]),
-            ("cornell", lambda: cornell_times(dev))):
+            ("cornell", lambda: cornell_times(dev)),
+            ("sums", lambda: sums_times(dev)),
+            ("profile", lambda: profile_kernels(dev))):
         try:
             out[key] = fn()
         except Exception as e:      # a path this checkout does not have
             out[key] = f"{type(e).__name__}: {e}"[:300]
+    return out
+
+
+def bench_profile(path: str, spp: int) -> dict:
+    """``python -m srt_tpu_torch.bench --spp spp --profile DIR`` in the
+    checkout ``path`` (ball_scenes 512x512xspp x50): its rays per second
+    and, from its ``[profile]`` lines, the wall with the profiler off, the
+    device's busy seconds and their share of the profiled wall."""
+    import re
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="srt_profile_")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "srt_tpu_torch.bench", "--spp", str(spp),
+             "--min-seconds", "3", "--profile", tmp], cwd=path,
+            capture_output=True, text=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode:
+        return {"error": proc.stderr[-1000:]}
+    out = {"rays_per_s": json.loads(
+        proc.stdout.strip().splitlines()[-1])["value"]}
+    for line in proc.stderr.splitlines():
+        m = re.search(r"device busy ([\d.]+)s.*busy share of it ([\d.]+)",
+                      line)
+        if m:
+            out["busy_s"], out["busy_share"] = float(m[1]), float(m[2])
+        m = re.search(r"wall per render with the profiler off: ([\d.]+)",
+                      line)
+        if m:
+            out["wall_s"] = float(m[1])
     return out
 
 
@@ -4508,8 +4758,12 @@ def compare(trees: list) -> None:
     given and then in reverse (A B C C B A), each time in fresh processes
     that import that checkout's package and build its kernels from its own
     sources: ``measure_tree`` with this script's timers, then
-    ``python -m srt_tpu_torch.bench`` (ball_scenes 512x512x16x50) from the
-    checkout. Prints a line per run and each checkout's extremes."""
+    ``python -m srt_tpu_torch.bench`` (ball_scenes 512x512x16x50) and
+    ``bench --spp 1024 --profile`` (:func:`bench_profile`) from the
+    checkout. Prints a line per run and each checkout's extremes; fails
+    when the same inputs gave different outputs (B1-B6 and the film; the
+    material sum's table is reported by digest, its order being the
+    checkout's own)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -4534,6 +4788,7 @@ def compare(trees: list) -> None:
                              f"{bench.stderr[-4000:]}")
         res["bench_rays_per_s"] = json.loads(
             bench.stdout.strip().splitlines()[-1])["value"]
+        res["bench_deep"] = bench_profile(path, DEEP_SPP)
         log(f"[compare] {tree} {json.dumps(res)}")
         runs[tree].append(res)
 
@@ -4575,12 +4830,32 @@ def compare(trees: list) -> None:
                          for k, v in rs[0]["cornell"]["b3_shares_ms"].items()}
         if isinstance(rs[0].get("cornell"), dict) else None,
         "cornell_b2_ext_ms": extremes(rs, "cornell", "b2_ext_ms"),
-        "registers": rs[0]["registers"]} for t, rs in runs.items()}))
+        "registers": rs[0]["registers"],
+        "sums_ms": {part: {k: {how: extremes(rs, "sums", part, k, how)
+                               for how in ("loop", "graph", "device")}
+                           for k in rs[0]["sums"][part]}
+                    for part in ("film", "film_index_add", "segment",
+                                 "segment_index_add")}
+        if isinstance(rs[0].get("sums"), dict) else rs[0].get("sums"),
+        "profile_us_a_launch": {
+            run: {k: extremes(rs, "profile", run, "kernels", k,
+                              "us_a_launch")
+                  for k in rs[0]["profile"][run]["kernels"]}
+            for run in rs[0]["profile"]}
+        if isinstance(rs[0].get("profile"), dict) else rs[0].get("profile"),
+        "bench_deep": {k: extremes(rs, "bench_deep", k)
+                       for k in ("rays_per_s", "wall_s", "busy_s",
+                                 "busy_share")},
+        "segment_tables": {k: sorted({r["sums"]["segment_digests"][k][1]
+                                      for r in rs})
+                           for k in rs[0]["sums"]["segment_digests"]}
+        if isinstance(rs[0].get("sums"), dict) else None}
+        for t, rs in runs.items()}))
     # the same inputs must give the same outputs in every run of every tree
     outs = {}
     for tree, rs in runs.items():
         for r in rs:
-            for part in ("bounce", "b5", "teapot", "cornell"):
+            for part in ("bounce", "b5", "teapot", "cornell", "sums"):
                 digests = (r[part].get("digests", {})
                            if isinstance(r.get(part), dict) else {})
                 for k, (d_in, d_out) in digests.items():

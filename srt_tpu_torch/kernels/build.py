@@ -125,8 +125,12 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.srt_segment_sum_blocks.argtypes = [ctypes.c_int]
-        lib.srt_segment_sum_blocks.restype = ctypes.c_int
+        lib.srt_film_sum_words.argtypes = [ctypes.c_int]
+        lib.srt_film_sum_words.restype = ctypes.c_int
+        lib.srt_film_sum_slots.argtypes = []
+        lib.srt_film_sum_slots.restype = ctypes.c_int
+        lib.srt_film_sum_tile.argtypes = []
+        lib.srt_film_sum_tile.restype = ctypes.c_int
         lib.srt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.srt_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -11,9 +11,11 @@ bounce kernel with XLA's scatter (``srt_tpu/render/regen.py:108-122``,
   lane after lane (the bits of JAX's ``.at[].add`` on the CPU; on the card
   its float atomics add in an order the scheduler picks, ROADMAP C18);
 * ``csrc/film_sum.cu``: one cooperative launch that packs each pixel's
-  finished lanes, tile by tile, and adds them in lane order from the
-  pixel's sum, and counts the live lanes and the scrubbed NaN components.
-  Its sums are the plain version's on the CPU, bit for bit, in every run.
+  finished lanes, tile by tile, into records registered with the pixel,
+  and adds the records in tile order, each one's lanes in lane order,
+  from the pixel's sum; it counts the live lanes and the scrubbed NaN
+  components. Its sums are the plain version's on the CPU, bit for bit,
+  in every run.
 
 :class:`Film` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back. The lanes come in B1's
@@ -27,7 +29,7 @@ import ctypes
 
 import torch
 
-from srt_tpu_torch.kernels.build import launch
+from srt_tpu_torch.kernels.build import launch, load_library
 
 #: Kernel launches made by :meth:`Film.flush` (the CUDA path only).
 LAUNCHES = 0
@@ -36,9 +38,9 @@ LAUNCHES = 0
 class _Args(ctypes.Structure):
     """``FilmSumArgs`` of ``csrc/film_sum.cu``, field for field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "acc", "pix", "rad", "fin", "alive", "head", "next", "rec",
+        "acc", "pix", "rad", "fin", "alive", "meta", "bits", "table",
         "packed", "barrier", "n_vertices", "nan_scrubbed")]
-        + [(name, ctypes.c_int) for name in ("n", "pixels")])
+        + [(name, ctypes.c_int) for name in ("n", "pixels", "words")])
 
 
 def film_sum_reference(acc: torch.Tensor, n_vertices: torch.Tensor,
@@ -59,10 +61,13 @@ def film_sum_reference(acc: torch.Tensor, n_vertices: torch.Tensor,
 
 class Film:
     """The image sums (3, pixels) and the counters, on the device; on the
-    card also the kernel's pixel chains (-1 between launches), its records,
-    their packed radiance and its grid barrier. ``plain`` takes the plain
-    version on any device (how ``render_regen(plain=True)`` checks the
-    kernels' image on the card)."""
+    card also the kernel's scratch: each pixel's row (the count of its
+    records, 0 between launches, and the first seven records) and bitmap
+    of tiles (0 between launches), each tile's hash table of records, the
+    records' packed radiance and the grid barrier's counter; 64 bytes a
+    pixel at a 65,536-lane wavefront. ``plain`` takes the plain version on
+    any device (how ``render_regen(plain=True)`` checks the kernels' image
+    on the card)."""
 
     def __init__(self, pixels: int, lanes: int, device, plain: bool = False):
         device = torch.device(device)
@@ -74,15 +79,18 @@ class Film:
         if not self.plain:
             if device.type != "cuda":
                 raise ValueError(f"no film kernel for {device}")
-            self.head = torch.full((pixels,), -1, dtype=torch.int32,
-                                   device=device)
-            self.next = torch.empty((lanes,), dtype=torch.int32,
+            lib = load_library()
+            words = lib.srt_film_sum_words(lanes)
+            tiles = -(-lanes // lib.srt_film_sum_tile())
+            self.meta = torch.zeros((pixels, 8), dtype=torch.int32,
                                     device=device)
-            self.rec = torch.empty((lanes, 2), dtype=torch.int32,
-                                   device=device)
+            self.bits = torch.zeros((pixels, words), dtype=torch.int32,
+                                    device=device)
+            self.table = torch.empty((tiles, lib.srt_film_sum_slots(), 2),
+                                     dtype=torch.int32, device=device)
             self.packed = torch.empty((lanes, 3), dtype=torch.float32,
                                       device=device)
-            self.barrier = torch.zeros((2,), dtype=torch.int32,
+            self.barrier = torch.zeros((1,), dtype=torch.int32,
                                        device=device)
 
     def flush(self, pix: torch.Tensor, radiance: torch.Tensor,
@@ -100,6 +108,12 @@ class Film:
         global LAUNCHES
         LAUNCHES += 1
 
+    def clean(self) -> bool:
+        """Whether the kernel's per-pixel scratch is as a launch must find
+        it: every row's count and every bitmap word 0."""
+        return not (int(self.meta[:, 0].count_nonzero())
+                    or int(self.bits.count_nonzero()))
+
     def kernel_args(self, pix, radiance, fin, alive) -> _Args:
         """The checked arguments of one ``csrc/film_sum.cu`` launch."""
         dev, n = self.acc.device, pix.shape[0]
@@ -112,16 +126,16 @@ class Film:
                 or radiance.device != dev or not radiance.is_contiguous()):
             raise ValueError(f"film radiance: want contiguous float32 "
                              f"(3, {n}) on {dev}")
-        if n > self.next.shape[0]:
-            raise ValueError(f"{n} lanes: the film holds links for "
-                             f"{self.next.shape[0]}")
+        if n > self.packed.shape[0]:
+            raise ValueError(f"{n} lanes: the film holds scratch for "
+                             f"{self.packed.shape[0]}")
         return _Args(
             acc=self.acc.data_ptr(), pix=pix.data_ptr(),
             rad=radiance.data_ptr(), fin=fin.data_ptr(),
-            alive=alive.data_ptr(), head=self.head.data_ptr(),
-            next=self.next.data_ptr(), rec=self.rec.data_ptr(),
+            alive=alive.data_ptr(), meta=self.meta.data_ptr(),
+            bits=self.bits.data_ptr(), table=self.table.data_ptr(),
             packed=self.packed.data_ptr(),
             barrier=self.barrier.data_ptr(),
             n_vertices=self.n_vertices.data_ptr(),
             nan_scrubbed=self.nan_scrubbed.data_ptr(), n=n,
-            pixels=self.acc.shape[1])
+            pixels=self.acc.shape[1], words=self.bits.shape[1])

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_flushes import FILM_LAYOUTS, film_flush
 
 from srt_tpu import RenderConfig as JaxRenderConfig
 from srt_tpu.render.regen import render_regen as jax_render_regen
@@ -105,6 +106,28 @@ def test_film_sum_is_jax_scatter_to_the_bit(form):
     assert kfilm.LAUNCHES == 0
 
 
+@pytest.mark.parametrize("layout", list(FILM_LAYOUTS))
+def test_film_layouts_are_jax_scatter_to_the_bit(layout):
+    """The plain version on the film kernel's edge cases
+    (``tests/_torch_flushes.py``, which the card test
+    ``test_film_kernel_matches_plain_on_gpu`` runs through the kernel):
+    sums from a non-zero film equal to JAX's ``.at[].add`` to the bit, and
+    the counts."""
+    acc0, pix, rad, fin, alive = film_flush(layout)
+    film = kfilm.Film(acc0.shape[1], pix.shape[0], "cpu")
+    film.acc.copy_(torch.from_numpy(acc0))
+    film.flush(*(torch.from_numpy(x) for x in (pix, rad, fin, alive)))
+    done = fin != 0
+    contrib = jnp.where(jnp.asarray(done)[:, None], jnp.asarray(rad.T), 0.0)
+    is_nan = jnp.isnan(contrib)
+    want = np.asarray(jnp.asarray(acc0.T).at[jnp.asarray(pix)].add(
+        jnp.where(is_nan, 0.0, contrib)))
+    got = film.acc.T.contiguous().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert int(film.n_vertices) == int(((alive != 0) | done).sum())
+    assert int(film.nan_scrubbed) == int(is_nan.sum()) > 0
+
+
 def test_film_on_the_cpu_is_the_plain_version(monkeypatch):
     """On the CPU the film adds with the plain version and launches
     nothing; a film that is not plain needs the card."""
@@ -143,6 +166,33 @@ def test_material_sum_is_jax_scatter_to_the_bit():
                                    .at[jmid].add(jnp.asarray(g[:, lo:hi])))
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     assert (got[:, [0, 5, 12, 13]] == 0).all()
+
+
+@pytest.mark.parametrize("n", [16384, 262144])
+def test_material_sum_order_is_within_the_contract_of_jax(n):
+    """The kernel's order of adds in torch (``material_sum_order``, which
+    the card test ``test_material_sum_kernel_on_gpu`` and ``chip_smoke.py``
+    phase 38 hold the kernel to, to the bit) against JAX's ``.at[].add``
+    under the gradient contract on every row (``check_grads``, frac 0), at
+    the regen-scan train state's and the scan train step's lanes, one
+    material over half of them (the floor); the columns no input feeds
+    zero, and an order of its own: not the plain version's bits."""
+    r = np.random.default_rng(6)
+    m = 124
+    g = (r.standard_normal((n, 10))
+         * 10.0 ** r.integers(-3, 2, (n, 1))).astype(np.float32)
+    mid = r.integers(0, m, n).astype(np.int32)
+    mid[: n // 2] = 7
+    got = kseg.material_sum_order(torch.from_numpy(g), torch.from_numpy(mid),
+                                  m).numpy()
+    jmid = jnp.asarray(mid)
+    want = np.zeros((m, 14), np.float32)
+    want[:, list(kb.MAT_GRAD_COLS)] = np.asarray(
+        jnp.zeros((m, 10), jnp.float32).at[jmid].add(jnp.asarray(g)))
+    contract.check_grads({"d_mat": want}, {"d_mat": got}, frac=0.0)
+    assert (got[:, [0, 5, 12, 13]] == 0).all()
+    assert not np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert kseg.chunks_for(n) == (1 if n == 16384 else 8)
 
 
 def test_material_sum_on_the_cpu_is_the_plain_version(monkeypatch):

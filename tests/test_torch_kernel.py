@@ -22,6 +22,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+from _torch_flushes import FILM_LAYOUTS, film_flush
 from _torch_scenes import (LIT_ROOM_CAMERA, clustered_soup, lit_room,
                           lit_room_media)
 
@@ -691,41 +692,19 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), float("nan"), x).view(torch.int32)
 
 
-#: the film test's lanes and their pixels: scattered over 500 pixels (a
-#: record in nearly every 256-lane tile a pixel), in runs of 1,024 lanes a
-#: pixel (the camera rays of 1,024 samples that finish together), a 64-lane
-#: run a pixel, repeated (a record or two a pixel), and scattered over a
-#: 300,000-lane wavefront (more tiles than a block each, and than one walk
-#: of a chain places)
-FILM_LAYOUTS = {"scattered": (30000, lambda r, n: r.integers(0, 500, n)),
-                "runs-1024": (30000, lambda r, n: np.arange(n) // 1024),
-                "runs-64": (30000, lambda r, n: (np.arange(n) // 64) % 300),
-                "wide": (300000, lambda r, n: r.integers(0, 700, n))}
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", list(FILM_LAYOUTS))
 def test_film_kernel_matches_plain_on_gpu(layout, cuda_device):
     """The film kernel's sums and counts against the plain version's on
     the CPU (lane after lane), to the bit, twice: seeded lanes in
-    ``layout``, NaN and +-inf radiance."""
-    r = np.random.default_rng(4)
-    n, pixels_of = FILM_LAYOUTS[layout]
-    pix = torch.from_numpy(pixels_of(r, n).astype(np.int32))
-    pixels = int(pix.max()) + 1
-    rad = (r.standard_normal((3, n))
-           * 10.0 ** r.integers(-3, 4, (1, n))).astype(np.float32)
-    rad[r.random((3, n)) < 0.01] = np.nan
-    rad[r.random((3, n)) < 0.003] = np.inf
-    rad[r.random((3, n)) < 0.003] = -np.inf
-    fin = torch.from_numpy((r.random(n) < 0.7).astype(np.int32))
-    alive = torch.from_numpy((r.random(n) < 0.3).astype(np.int32))
-    rad = torch.from_numpy(rad)
-    acc0 = torch.from_numpy(r.standard_normal((3, pixels)).astype(np.float32))
+    ``layout`` (``tests/_torch_flushes.py``), NaN and +-inf radiance; the
+    kernel's per-pixel scratch back at 0 after each launch."""
+    acc0, pix, rad, fin, alive = (torch.from_numpy(x)
+                                  for x in film_flush(layout))
     want = [acc0.clone(), torch.tensor(3), torch.tensor(4)]
     kfilm.film_sum_reference(*want, pix, rad, fin, alive)
     dev = cuda_device
-    film = kfilm.Film(pixels, n, dev)
+    film = kfilm.Film(acc0.shape[1], pix.shape[0], dev)
     for run in range(2):
         film.acc.copy_(acc0)
         film.n_vertices.fill_(3)
@@ -735,13 +714,15 @@ def test_film_kernel_matches_plain_on_gpu(layout, cuda_device):
         assert torch.equal(_bits(film.acc), _bits(want[0])), run
         assert int(film.n_vertices) == int(want[1])
         assert int(film.nan_scrubbed) == int(want[2])
-        assert int((film.head != -1).sum()) == 0
+        assert film.clean()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1000, 16384, 262144])
 def test_material_sum_kernel_on_gpu(n, cuda_device):
-    """The material-sum kernel: twice equal to the bit, and every row
+    """The material-sum kernel: twice equal to the bit, equal to the bit
+    to its order of adds in torch on the CPU (``material_sum_order``: adds
+    carry no FMA, so the same order gives the same bits), and every row
     within the gradient contract of the plain version on the CPU."""
     r = np.random.default_rng(5)
     g = torch.from_numpy(r.standard_normal((n, 10)).astype(np.float32))
@@ -752,6 +733,8 @@ def test_material_sum_kernel_on_gpu(n, cuda_device):
            for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(_bits(got[0]), _bits(got[1]))
+    assert torch.equal(_bits(got[0]), _bits(kseg.material_sum_order(g, seg,
+                                                                   124)))
     contract.check_grads({"d_mat": want.numpy()},
                          {"d_mat": got[0].cpu().numpy()}, frac=0.0)
     assert (got[0].cpu()[:, [0, 5, 12, 13]] == 0).all()
