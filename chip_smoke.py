@@ -267,7 +267,7 @@ one, the film kernel on phase 38's four recorded flushes and the material
 sum at 16,384 and 262,144 lanes beside ``index_add_`` (CUDA events over a
 loop of launches, over a CUDA graph's replay, and the profiler's device
 rows), the profiler's kernel rows over a ball_scenes render and a train
-step, and ``bench --spp 1024 --profile``'s busy share, for example the
+step, and ``bench --spp 1024 --profile``'s device busy, for example the
 parent commit unpacked with ``git archive`` under ``build/``, and fails
 where two runs given the same inputs gave different outputs (SHA-256
 digests of every kernel's inputs and per-lane outputs; the material sum's
@@ -815,22 +815,21 @@ def phase_regen_kernel(scene, cam, dev) -> dict:
 def phase_render(scene, cam, ppm) -> tuple[int, int]:
     """Phase 4: the render path through B1 and the film kernel; returns
     their launches."""
+    from srt_tpu_torch.kernels import launch_counts as lc, reset_launch_counts
     import numpy as np
     import torch
 
     from srt_tpu_torch import RenderConfig, render_regen
-    from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import film as kfilm
 
     cfg = RenderConfig(**MAIN)
     t0 = time.time()
     render_regen(scene, cam, cfg)
     torch.cuda.synchronize()
     warmup_s = time.time() - t0
-    kb.LAUNCHES = kfilm.LAUNCHES = 0
+    reset_launch_counts()
     runs = [render_regen(scene, cam, cfg, metrics=True)
             for _ in range(MAIN_REPS)]
-    launches, flushes = kb.LAUNCHES, kfilm.LAUNCHES
+    launches, flushes = lc()["B1"], lc()["film_sum"]
     bounces = sum(m.bounces for _, m in runs)
     if not launches == flushes == bounces or launches == 0:
         raise AssertionError(f"{launches} kernel launches and {flushes} "
@@ -1062,22 +1061,18 @@ def train_walls(scene, cam, params: dict, size: dict, dev, steps: int,
 def phase_train(scene, cam, dev) -> tuple[int, int, int]:
     """Phase 6: the train path; returns the B2, B5 and material-sum
     launches of the timed steps."""
+    from srt_tpu_torch.kernels import launch_counts as lc, reset_launch_counts
     import numpy as np
 
-    from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import bounce_bwd as kbb
-    from srt_tpu_torch.kernels import segment as kseg
     from srt_tpu_torch.render.regen_scan import steps_for
 
     w, spp = TRAIN["width"], TRAIN["spp"]
     rays = w * w * spp
 
-    def reset():
-        kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = kseg.LAUNCHES = 0
     step, warmup_s, (loss0, *losses), walls = train_walls(
         scene, cam, {"tex_color": scene.tex_color}, TRAIN, dev, TRAIN_STEPS,
-        reset)
-    fwd, bwd, sums = kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD, kseg.LAUNCHES
+        reset_launch_counts)
+    fwd, bwd, sums = lc()["B2"], lc()["B5"], lc()["segment_sum"]
     n_steps = steps_for(rays, TRAIN_ENGINE["wavefront"],
                         TRAIN_ENGINE["depth_budget"], TRAIN["max_depth"],
                         drain=TRAIN_ENGINE["drain"])
@@ -1338,13 +1333,11 @@ def shade_ops(scene, flags, c: dict) -> int:
 def phase_tri_render(scene, cam) -> tuple[int, int, int]:
     """Phase 9: the triangle render path; returns the B3, B2 and film
     launches of the timed renders."""
+    from srt_tpu_torch.kernels import launch_counts as lc, reset_launch_counts
     import numpy as np
     import torch
 
     from srt_tpu_torch import RenderConfig, render_regen
-    from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import film as kfilm
-    from srt_tpu_torch.kernels import intersect as ki
     from srt_tpu_torch.utils import contract
 
     small = RenderConfig(width=64, height=64, spp=4, max_depth=8,
@@ -1360,13 +1353,14 @@ def phase_tri_render(scene, cam) -> tuple[int, int, int]:
     render_regen(scene, cam, cfg)
     torch.cuda.synchronize()
     warmup_s = time.time() - t0
-    ki.LAUNCHES = kb.LAUNCHES_FWD = kb.LAUNCHES = kfilm.LAUNCHES = 0
+    reset_launch_counts()
     runs = []
     for _ in range(TRI_MAIN_REPS):
         img, met = render_regen(scene, cam, cfg, metrics=True)
         runs.append((img.cpu().numpy(), met))
-    b3, b2, b1 = ki.LAUNCHES, kb.LAUNCHES_FWD, kb.LAUNCHES
-    flushes = kfilm.LAUNCHES
+    c = lc()
+    b3, b2, b1 = c["B3"], c["B2"] + c["B2 parity"], c["B1"]
+    flushes = c["film_sum"]
     bounces = sum(m.bounces for _, m in runs)
     if not b3 == b2 == flushes == bounces or bounces == 0 or b1:
         raise AssertionError(f"{b3} B3, {b2} B2 and {flushes} film launches "
@@ -1568,12 +1562,11 @@ def phase_teapot_kernels(scene, cam, dev) -> tuple[dict, dict]:
 def phase_teapot_render(scene, cam) -> tuple[int, int]:
     """Phase 12: the teapot render path; returns the B4 and B2 launches of
     the timed renders."""
+    from srt_tpu_torch.kernels import launch_counts as lc, reset_launch_counts
     import numpy as np
     import torch
 
     from srt_tpu_torch import RenderConfig, render_regen
-    from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import intersect as ki
     from srt_tpu_torch.utils import contract
 
     small = RenderConfig(width=32, height=32, spp=4, max_depth=8,
@@ -1589,12 +1582,13 @@ def phase_teapot_render(scene, cam) -> tuple[int, int]:
     render_regen(scene, cam, cfg)
     torch.cuda.synchronize()
     warmup_s = time.time() - t0
-    ki.LAUNCHES = ki.LAUNCHES_BIG = kb.LAUNCHES_FWD = kb.LAUNCHES = 0
+    reset_launch_counts()
     runs = []
     for _ in range(TRI_MAIN_REPS):
         img, met = render_regen(scene, cam, cfg, metrics=True)
         runs.append((img.cpu().numpy(), met))
-    b4, b2, b3, b1 = ki.LAUNCHES_BIG, kb.LAUNCHES_FWD, ki.LAUNCHES, kb.LAUNCHES
+    c = lc()
+    b4, b2, b3, b1 = c["B4"], c["B2"] + c["B2 parity"], c["B3"], c["B1"]
     bounces = sum(m.bounces for _, m in runs)
     if not b4 == b2 == bounces or bounces == 0 or b3 or b1:
         raise AssertionError(f"{b4} B4 and {b2} B2 launches ({b3} B3, {b1} "
@@ -1732,6 +1726,7 @@ def moved_balls(scene):
 
 def phase_moving_bounces(scene, cam, dev) -> None:
     """Phase 14: B1 and B2 with kMoving against their plain versions."""
+    from srt_tpu_torch.kernels import launch_counts as lc
     import numpy as np
     import torch
 
@@ -1753,11 +1748,11 @@ def phase_moving_bounces(scene, cam, dev) -> None:
     for _ in range(3):
         kb.regen_bounce_reference(inp, mid, spec)
     st_k, st_p = clone(mid), clone(mid)
-    launches = kb.LAUNCHES
+    launches = lc()["B1"]
     kb.regen_bounce(inp, st_k, spec)
     kb.regen_bounce_reference(inp, st_p, spec)
     torch.cuda.synchronize()
-    if kb.LAUNCHES != launches + 1:
+    if lc()["B1"] != launches + 1:
         raise AssertionError("B1 did not launch")
     for k in ("salt", "pix", "depth", "cursor"):
         if not torch.equal(st_k[k], st_p[k]):
@@ -1793,13 +1788,13 @@ def phase_geom_train(scene, cam, dev) -> tuple[int, int]:
     and one backward under autograd) against ``torch.autograd`` of the
     plain step with its own sphere sweep, then the geometry train step;
     returns the B2 and B6 launches of the timed steps."""
+    from srt_tpu_torch.kernels import launch_counts as lc, reset_launch_counts
     import numpy as np
     import torch
 
     from srt_tpu_torch.kernels import bounce as kb
     from srt_tpu_torch.kernels import bounce_bwd as kbb
     from srt_tpu_torch.kernels import bounce_vjp as kv
-    from srt_tpu_torch.kernels import spheres as ks
     from srt_tpu_torch.render.regen_scan import steps_for
     from srt_tpu_torch.scene.ir import SceneFlags
     from srt_tpu_torch.utils import contract
@@ -1819,7 +1814,7 @@ def phase_geom_train(scene, cam, dev) -> tuple[int, int]:
             for k in GEOM_PARAMS}
     rows = {k: st[k].clone().requires_grad_() for k in kbb.ROWS}
     mat = tables["mat"].clone().requires_grad_()
-    launches = ks.LAUNCHES
+    launches = lc()["B6"]
     # BounceHybrid under autograd, as the train step runs it
     out = kv.bounce_hybrid(scene, flags, dict(tables, mat=mat),
                            dict(st, **rows), spec, geom)
@@ -1831,7 +1826,7 @@ def phase_geom_train(scene, cam, dev) -> tuple[int, int]:
            dict(zip(geom, grads[5:])))
     ref = kbb.replay_vjp(scene, flags, tables["mat"], st, ct, spec, geom)
     torch.cuda.synchronize()
-    if ks.LAUNCHES != launches + 1:
+    if lc()["B6"] != launches + 1:
         raise AssertionError("the hybrid backward did not launch B6")
     m = contract.check_grads({k: ref[0][k].cpu().numpy() for k in kbb.ROWS},
                              {k: got[0][k].cpu().numpy() for k in kbb.ROWS})
@@ -1853,11 +1848,11 @@ def phase_geom_train(scene, cam, dev) -> tuple[int, int]:
 
     def reset():
         torch.cuda.reset_peak_memory_stats()
-        kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = ks.LAUNCHES = 0
+        reset_launch_counts()
     step, warmup_s, (loss0, *losses), walls = train_walls(
         scene, cam, {k: getattr(scene, k) for k in GEOM_PARAMS}, TRAIN, dev,
         TRAIN_STEPS, reset)
-    fwd, b6, b5 = kb.LAUNCHES_FWD, ks.LAUNCHES, kbb.LAUNCHES_BWD
+    fwd, b6, b5 = lc()["B2"], lc()["B6"], lc()["B5"]
     peak = torch.cuda.max_memory_allocated()
     n_steps = steps_for(rays, TRAIN_ENGINE["wavefront"],
                         TRAIN_ENGINE["depth_budget"], TRAIN["max_depth"],
@@ -1892,13 +1887,12 @@ def phase_cornell_train(dev) -> tuple[int, int, dict, dict]:
     versions on a cornell_boxes train state, then the cornell_boxes train
     step; returns the B3 and B2 launches of the counted step and the two
     kernels' checks at the train wavefront's shape."""
+    from srt_tpu_torch.kernels import launch_counts as lc, reset_launch_counts
     import numpy as np
 
     from srt_tpu_torch import get_scene
     from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import bounce_bwd as kbb
     from srt_tpu_torch.kernels import intersect as ki
-    from srt_tpu_torch.kernels import spheres as ks
     from srt_tpu_torch.render.regen_scan import steps_for
     from srt_tpu_torch.scene.ir import SceneFlags
 
@@ -1919,14 +1913,11 @@ def phase_cornell_train(dev) -> tuple[int, int, dict, dict]:
 
     w, spp = CORNELL_TRAIN["width"], CORNELL_TRAIN["spp"]
 
-    def reset():
-        ki.LAUNCHES = ki.LAUNCHES_BIG = kb.LAUNCHES_FWD = 0
-        ks.LAUNCHES = kbb.LAUNCHES_BWD = 0
     step, _, (loss0, loss), (wall,) = train_walls(
         scene, cam, {"tex_color": scene.tex_color}, CORNELL_TRAIN, dev, 1,
-        reset)
-    b3, b2, b6, b5, b4 = (ki.LAUNCHES, kb.LAUNCHES_FWD, ks.LAUNCHES,
-                          kbb.LAUNCHES_BWD, ki.LAUNCHES_BIG)
+        reset_launch_counts)
+    c = lc()
+    b3, b2, b6, b5, b4 = c["B3"], c["B2"], c["B6"], c["B5"], c["B4"]
     n_steps = steps_for(w * w * spp, TRAIN_ENGINE["wavefront"],
                         TRAIN_ENGINE["depth_budget"],
                         CORNELL_TRAIN["max_depth"],
@@ -1988,6 +1979,7 @@ def phase_rich_kernel(dev) -> dict:
     """Phase 17: B1's rich instantiation against its plain version on a
     mid-flight 65,536-lane step of each of ``RICH_CASES``; returns the
     largest error and the cases' times and bounds."""
+    from srt_tpu_torch.kernels import launch_counts as lc
     import numpy as np
     import torch
     from _torch_census import bounce_census
@@ -2018,11 +2010,11 @@ def phase_rich_kernel(dev) -> dict:
         c = bounce_census(scene, state["o"], state["d"], state["time"],
                    state["salt"], state["depth"], state["alive"])
         st_k, st_p = clone(mid), clone(mid)
-        launches = kb.LAUNCHES
+        launches = lc()["B1"]
         kb.regen_bounce(inp, st_k, spec)
         kb.regen_bounce_reference(inp, st_p, spec)
         torch.cuda.synchronize()
-        if kb.LAUNCHES != launches + 1:
+        if lc()["B1"] != launches + 1:
             raise AssertionError(f"B1 {name}: the kernel did not launch")
         for k in ("salt", "pix", "depth", "cursor"):
             if not torch.equal(st_k[k], st_p[k]):
@@ -2086,13 +2078,13 @@ def phase_final_ext(dev) -> dict:
 def phase_rich_render(dev) -> int:
     """Phase 18, second part: the new path, random_scene through B1's
     rich instantiation; returns its launches in the timed renders."""
+    from srt_tpu_torch.kernels import launch_counts as lc, reset_launch_counts
     import warnings
 
     import numpy as np
     import torch
 
     from srt_tpu_torch import RenderConfig, get_scene, render_regen
-    from srt_tpu_torch.kernels import bounce as kb
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -2102,12 +2094,12 @@ def phase_rich_render(dev) -> int:
     render_regen(scene, cam, cfg)
     torch.cuda.synchronize()
     warmup_s = time.time() - t0
-    kb.LAUNCHES = 0
+    reset_launch_counts()
     runs = []
     for _ in range(TRI_MAIN_REPS):
         img, met = render_regen(scene, cam, cfg, metrics=True)
         runs.append((img.cpu().numpy(), met))
-    launches = kb.LAUNCHES
+    launches = lc()["B1"]
     bounces = sum(m.bounces for _, m in runs)
     if launches != bounces or launches == 0:
         raise AssertionError(f"random_scene: {launches} B1 launches for "
@@ -2134,6 +2126,7 @@ def phase_rich_bwd(dev) -> dict:
     versions on a train state of each scene of ``RICH_BWD_EXPECT``, the
     forward and the backward of every bounce of phase 20's steps; returns
     each kernel's largest error and the cases' times and bounds."""
+    from srt_tpu_torch.kernels import launch_counts as lc
     import numpy as np
     import torch
     from _torch_census import bounce_census
@@ -2174,12 +2167,12 @@ def phase_rich_bwd(dev) -> dict:
               for k in kbb.ROWS}
         for k in ("o", "d", "beta"):
             ct[k][ends] = 0.0
-        rich0 = kbb.LAUNCHES_BWD_RICH
+        rich0 = lc()["B5 rich"]
         g_k, dmat_k = kbb.bounce_bwd(scene, flags, tables, st, ct, spec)
         g_p, dmat_p = kbb.bounce_bwd_reference(scene, flags, tables["mat"],
                                                st, ct, spec)
         torch.cuda.synchronize()
-        if kbb.LAUNCHES_BWD_RICH != rich0 + 1:
+        if lc()["B5 rich"] != rich0 + 1:
             raise AssertionError(f"B5 {name}: the rich kernel did not launch")
         m = contract.check_grads({k: g_p[k].cpu().numpy() for k in kbb.ROWS},
                                  {k: g_k[k].cpu().numpy() for k in kbb.ROWS})
@@ -2218,23 +2211,20 @@ def phase_rich_train(dev) -> dict:
     step on random_scene after B2 and B6 are held against their plain
     versions on its train state; returns the B2, B5 and B6 launches of the
     timed steps and those two checks."""
+    from srt_tpu_torch.kernels import launch_counts as lc, reset_launch_counts
     import numpy as np
     import torch
 
     from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import bounce_bwd as kbb
-    from srt_tpu_torch.kernels import spheres as ks
     from srt_tpu_torch.render.regen_scan import steps_for
     from srt_tpu_torch.scene.ir import SceneFlags
     from srt_tpu_torch.trainbench import phase_walls
 
     def counts():
-        return (kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD, kbb.LAUNCHES_BWD_RICH,
-                ks.LAUNCHES)
+        c = lc()
+        return c["B2"], c["B5"], c["B5 rich"], c["B6"]
 
-    def reset():
-        kb.LAUNCHES_FWD = kbb.LAUNCHES_BWD = kbb.LAUNCHES_BWD_RICH = 0
-        ks.LAUNCHES = 0
+    reset = reset_launch_counts
 
     def grads_of(step) -> dict:
         gs = {k: v.grad.cpu().numpy() for k, v in step.params.items()}
@@ -2392,26 +2382,26 @@ def parity_renders(name: str, cfg, reps: int, dev) -> tuple:
     up; checks every bounce launched one B2 parity, no B1, and one B3 on
     a triangle scene, and the images; returns (B2 parity launches, B3
     launches, the rates)."""
+    from srt_tpu_torch.kernels import launch_counts as lc, reset_launch_counts
     import numpy as np
     import torch
 
     from srt_tpu_torch import render_regen
-    from srt_tpu_torch.kernels import bounce as kb
-    from srt_tpu_torch.kernels import intersect as ki
 
     scene, cam, _ = parity_scene(name, dev)
     t0 = time.time()
     render_regen(scene, cam, cfg)
     torch.cuda.synchronize()
     warmup_s = time.time() - t0
-    kb.LAUNCHES = kb.LAUNCHES_FWD = kb.LAUNCHES_PARITY = ki.LAUNCHES = 0
+    reset_launch_counts()
     runs = []
     for _ in range(reps):
         img, met = render_regen(scene, cam, cfg, metrics=True)
         runs.append((img.cpu().numpy(), met))
-    b2, b3, b1 = kb.LAUNCHES_PARITY, ki.LAUNCHES, kb.LAUNCHES
+    c = lc()
+    b2, b3, b1 = c["B2 parity"], c["B3"], c["B1"]
     bounces = sum(m.bounces for _, m in runs)
-    if (b2 != bounces or kb.LAUNCHES_FWD != b2 or not bounces or b1
+    if (b2 != bounces or c["B2"] != 0 or not bounces or b1
             or b3 != (bounces if scene.n_tris else 0)):
         raise AssertionError(f"{name} parity: {b2} B2 parity, {b3} B3 and "
                              f"{b1} B1 launches for {bounces} bounces")
@@ -4723,8 +4713,8 @@ def measure_tree() -> dict:
 def bench_profile(path: str, spp: int) -> dict:
     """``python -m srt_tpu_torch.bench --spp spp --profile DIR`` in the
     checkout ``path`` (ball_scenes 512x512xspp x50): its rays per second
-    and, from its ``[profile]`` lines, the wall with the profiler off, the
-    device's busy seconds and their share of the profiled wall."""
+    and, from its ``[profile]`` lines, the wall with the profiler off and
+    the device's busy seconds."""
     import re
     import shutil
     import tempfile
@@ -4742,10 +4732,9 @@ def bench_profile(path: str, spp: int) -> dict:
     out = {"rays_per_s": json.loads(
         proc.stdout.strip().splitlines()[-1])["value"]}
     for line in proc.stderr.splitlines():
-        m = re.search(r"device busy ([\d.]+)s.*busy share of it ([\d.]+)",
-                      line)
+        m = re.search(r"device busy ([\d.]+)s", line)
         if m:
-            out["busy_s"], out["busy_share"] = float(m[1]), float(m[2])
+            out["busy_s"] = float(m[1])
         m = re.search(r"wall per render with the profiler off: ([\d.]+)",
                       line)
         if m:
@@ -4844,8 +4833,7 @@ def compare(trees: list) -> None:
             for run in rs[0]["profile"]}
         if isinstance(rs[0].get("profile"), dict) else rs[0].get("profile"),
         "bench_deep": {k: extremes(rs, "bench_deep", k)
-                       for k in ("rays_per_s", "wall_s", "busy_s",
-                                 "busy_share")},
+                       for k in ("rays_per_s", "wall_s", "busy_s")},
         "segment_tables": {k: sorted({r["sums"]["segment_digests"][k][1]
                                       for r in rs})
                            for k in rs[0]["sums"]["segment_digests"]}

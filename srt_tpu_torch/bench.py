@@ -81,18 +81,16 @@ def baseline_rays_per_sec() -> float:
 def profile_one(out_dir: str, fn, scene, camera, config) -> None:
     """One render by ``fn`` under torch.profiler: a chrome trace in
     ``out_dir``, and
-    on stderr the device's kernel time by kernel, its sum (device busy),
-    kernel launches per bounce, and the busy share of the wall. Only the
+    on stderr the device's kernel time by kernel, its sum (device busy)
+    and kernel launches per bounce. Only the
     profiler's device rows are summed: a CPU operator's row repeats the
     time of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, met = fn(scene, camera, config, metrics=True)
         torch.cuda.synchronize()
-    wall = time.time() - t0
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
     rows = [(e.self_device_time_total, e.count, e.key)
@@ -102,8 +100,7 @@ def profile_one(out_dir: str, fn, scene, camera, config) -> None:
     launches = sum(r[1] for r in rows)
     log(f"[profile] {met.bounces} bounces; device busy {busy_us / 1e6:.4f}s "
         f"in {launches} kernel launches ({launches / met.bounces:.1f} a "
-        f"bounce); wall {wall:.4f}s with the profiler on, busy share of it "
-        f"{busy_us / 1e6 / wall:.3f}")
+        f"bounce)")
     for us, count, key in sorted(rows, reverse=True)[:12]:
         log(f"[profile] {us / 1e3:10.3f} ms {count:6d} calls "
             f"{us / count:9.2f} us/call  {key[:90]}")

@@ -16,9 +16,12 @@ flag for what JAX switches with ``SRT_TPU_SPHERE_BVH=on``
 ``--engine scan`` :func:`render.api.render`; ``--checkpoint`` is
 :func:`utils.checkpoint.render_resumable` whatever the engine, as in
 JAX. ``--profile DIR`` writes a ``torch.profiler`` trace of the render to
-``DIR``. The kernels build into the cache directory
-(:mod:`utils.cache`), or, under ``--no-compile-cache``, into a temporary
-directory of the process, removed at exit.
+``DIR`` and, since the program's tracer records while the profiler runs
+(:mod:`srt_tpu_torch.trace`), its spans as ``DIR/srt_spans.json``:
+Chrome trace events on the profiler's clock (a ``--checkpoint`` render
+opens no entry span and records none). The kernels build into the cache
+directory (:mod:`utils.cache`), or, under ``--no-compile-cache``, into a
+temporary directory of the process, removed at exit.
 """
 from __future__ import annotations
 
@@ -67,7 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint-every", type=int, default=64,
                     metavar="SPP", help="spp between checkpoints")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler trace of the render to DIR")
+                    help="write a torch.profiler trace of the render to "
+                         "DIR, and the program's spans to "
+                         "DIR/srt_spans.json")
     ap.add_argument("--ref-parity", action="store_true",
                     help="reproduce the reference's as-implemented "
                          "estimator (GOLDEN.md) instead of the "
@@ -114,6 +119,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from srt_tpu_torch import trace as tracer
     from srt_tpu_torch.io.image import write_png, write_ppm
     from srt_tpu_torch.kernels import launch_counts, reset_launch_counts
     from srt_tpu_torch.render import film
@@ -163,6 +169,12 @@ def main(argv=None) -> int:
         img, m = out if args.metrics else (out, None)
         img_np = img.cpu().numpy()        # waits for the card
     wall = time.time() - t0
+    if args.profile:
+        n_spans = tracer.write_chrome(os.path.join(args.profile,
+                                                   "srt_spans.json"))
+        print(f"{n_spans} spans -> "
+              f"{os.path.join(args.profile, 'srt_spans.json')}",
+              file=sys.stderr)
     tonemapped = film.tonemap(img).cpu().numpy()
     if args.out.lower().endswith(".ppm"):
         write_ppm(args.out, tonemapped)

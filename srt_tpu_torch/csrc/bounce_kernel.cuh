@@ -54,6 +54,8 @@ struct BounceArgs {
   int parity;                   // the parity estimator (kParity)
   int parity_no_stale;          // parity: the slot reads 0
   int shares;                   // threads a lane, G: 1, 2, 4 or 8
+  long long* live;              // null, or where to add the lanes live on
+                                // entry (the program's tracer)
 };
 
 }  // extern "C"
@@ -100,6 +102,13 @@ bounce_kernel(const BounceArgs a) {
   const int p = threadIdx.x / kLanes, l = threadIdx.x % kLanes;
   const int i = blockIdx.x * kLanes + l;
   const bool live = i < a.n && a.alive[i];
+  // the tracer's count: one add a warp of share 0 (p is warp-uniform)
+  if (a.live != nullptr && p == 0) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, live);
+    if ((threadIdx.x & 31) == 0 && ballot != 0u)
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.live),
+                (unsigned long long)__popc(ballot));
+  }
   LaneT<float> L;
   if (i < a.n) {
     L.o = load_row3(a.o, i);

@@ -22,6 +22,13 @@ C2). With a ``mesh`` (:mod:`srt_tpu_torch.dist`) each process takes the
 loss and gradient of its strip of pixels and the ranks average both
 before Adam, as the JAX step's ``shard_map`` and ``pmean`` do. The train
 step never sets the parity estimator, as JAX's does not.
+
+Where the step records (:mod:`srt_tpu_torch.trace`): the entry span
+``train_step``; ``forward``, holding ``rays``, the ``tables`` read and
+``bounces`` (with the bounces' launch spans); ``backward``; ``pmean``
+under a mesh; ``adam``. On the card ``forward``, ``backward`` and
+``adam`` also carry their device time (``device_ms``, from a pair of
+CUDA events on the step's stream), read at readout.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Callable
 
 import torch
 
+from srt_tpu_torch import trace as tracer
 from srt_tpu_torch.core import rng
 from srt_tpu_torch.dist import sharding
 from srt_tpu_torch.kernels.bounce import (DIM_LENS, DIM_TIME, StepSpec,
@@ -95,20 +103,25 @@ def render_pixels(scene: TorchScene, camera: Camera, pixel_ids, *,
     require_trainable(scene, flags)
     pixel_ids = torch.as_tensor(pixel_ids, device=scene.device).long()
     p = pixel_ids.shape[0]
-    rays, salt = camera_rays(camera, pixel_ids, spp, width=width,
-                             height=height, seed=seed)
+    with tracer.span("rays"):
+        rays, salt = camera_rays(camera, pixel_ids, spp, width=width,
+                                 height=height, seed=seed)
     spec = StepSpec(max_depth=max_depth)
     tables = build_tables(scene, flags)
     if engine == "scan":
         walk = pack_walk(scene) if scene.n_tris else None
-        radiance = trace(
-            lambda st: bounce_step_auto(scene, flags, tables, st, spec, walk),
-            rays, salt, max_depth=max_depth)
+        with tracer.span("bounces"):
+            radiance = trace(
+                lambda st: bounce_step_auto(scene, flags, tables, st, spec,
+                                            walk),
+                rays, salt, max_depth=max_depth)
         return radiance.reshape(p, spp, 3).mean(1)
     steps = steps_for(p * spp, wavefront, depth_budget, max_depth,
                       drain=drain)
-    radiance, _ = trace_queue(scene, flags, tables, rays, salt,
-                              n_steps=steps, wavefront=wavefront, spec=spec)
+    with tracer.span("bounces"):
+        radiance, _ = trace_queue(scene, flags, tables, rays, salt,
+                                  n_steps=steps, wavefront=wavefront,
+                                  spec=spec)
     return radiance.reshape(p, spp, 3).mean(1)
 
 
@@ -184,15 +197,20 @@ class TrainStep:
                                                 self.pixels[1]]
 
     def __call__(self, target, seed) -> torch.Tensor:
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.params, self.target(target), seed)
-        loss.backward()
-        if self.mesh is not None:       # pmean of the loss and gradients
-            loss = sharding.pmean(self.mesh, loss.detach())
-            for v in self.params.values():
-                v.grad = sharding.pmean(self.mesh, v.grad)
-        self.optimizer.step()
-        return loss.detach()
+        with tracer.entry("train_step"):
+            self.optimizer.zero_grad(set_to_none=True)
+            with tracer.phase("forward", self.device):
+                loss = self.loss_fn(self.params, self.target(target), seed)
+            with tracer.phase("backward", self.device):
+                loss.backward()
+            if self.mesh is not None:   # pmean of the loss and gradients
+                with tracer.span("pmean"):
+                    loss = sharding.pmean(self.mesh, loss.detach())
+                    for v in self.params.values():
+                        v.grad = sharding.pmean(self.mesh, v.grad)
+            with tracer.phase("adam", self.device):
+                self.optimizer.step()
+            return loss.detach()
 
 
 def make_train_step(scene: TorchScene, camera: Camera, params: dict, *,

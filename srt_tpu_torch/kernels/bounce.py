@@ -69,19 +69,13 @@ import dataclasses
 
 import torch
 
+from srt_tpu_torch import trace as tracer
 from srt_tpu_torch.core import rng
 from srt_tpu_torch.kernels.build import launch
 from srt_tpu_torch.render.integrator import bounce_step
 from srt_tpu_torch.render.intersect import RECT_NAXIS, RECT_UAXIS, RECT_VAXIS
 from srt_tpu_torch.scene.ir import (LightKind, SceneFlags, TextureType,
                                     TorchScene, rich_families)
-
-#: Kernel launches made by :func:`regen_bounce` (the CUDA path only).
-LAUNCHES = 0
-#: Kernel launches made by :func:`bounce_fwd` (the CUDA path only).
-LAUNCHES_FWD = 0
-#: of which the parity instantiation's (``kParity``)
-LAUNCHES_PARITY = 0
 
 BLOCK = 128                      # lanes per B1 block (csrc kLanes)
 #: the threads a lane may take for its sphere sweep (the kernels' template
@@ -134,7 +128,14 @@ def build_tables(scene: TorchScene, flags: SceneFlags) -> dict:
     int32 array ``light_kind`` (L,), read at run time, so the lean
     instantiation's table stays as it was. A material's column 12, which
     the JAX table reserves for the noise scale, holds its texture's
-    ``tex_scale``."""
+    ``tex_scale``. The lights' rows are picked on the host, which reads
+    the kinds and indices from the device: where the call records, the
+    ``tables`` read span (:mod:`srt_tpu_torch.trace`)."""
+    with tracer.span("tables", read=True):
+        return _build_tables(scene)
+
+
+def _build_tables(scene: TorchScene) -> dict:
     f = _F32
     dev = scene.device
     S, R = scene.n_spheres, scene.n_rects
@@ -452,22 +453,26 @@ def regen_args(inp: RegenInputs, st: dict, spec: RegenSpec) -> _Args:
 
 def _launch(inp: RegenInputs, st: dict, spec: RegenSpec) -> None:
     """Launch ``csrc/regen_bounce.cu`` on the current stream."""
-    global LAUNCHES
     launch("srt_regen_bounce", regen_args(inp, st, spec), st["alive"].device)
-    LAUNCHES += 1
+    tracer.COUNTS["B1"] += 1
     st["dead"], st["dead_next"] = st["dead_next"], st["dead"]
     st["cursor"], st["cursor_next"] = st["cursor_next"], st["cursor"]
 
 
 def regen_bounce(inp: RegenInputs, st: dict, spec: RegenSpec) -> None:
     """One bounce of the wavefront ``st``, in place: the plain version for
-    CPU tensors, the CUDA kernel for CUDA tensors."""
+    CPU tensors, the CUDA kernel for CUDA tensors; a ``B1`` launch span
+    with its lanes where the call records (:mod:`srt_tpu_torch.trace`)."""
+    on = tracer.ON
+    t0 = tracer.now() if on else 0
     if st["alive"].device.type == "cpu":
         regen_bounce_reference(inp, st, spec)
     elif st["alive"].device.type == "cuda":
         _launch(inp, st, spec)
     else:
         raise ValueError(f"no regen_bounce for {st['alive'].device}")
+    if on:
+        tracer.launch("B1", t0, st["alive"].shape[0])
 
 
 # --- the per-bounce step (B2) -------------------------------------------
@@ -541,7 +546,8 @@ class _BounceArgs(ctypes.Structure):
            ("moving", ctypes.c_int)]
         + _RICH_FIELDS
         + [("stale_out", ctypes.c_void_p), ("parity", ctypes.c_int),
-           ("parity_no_stale", ctypes.c_int), ("shares", ctypes.c_int)])
+           ("parity_no_stale", ctypes.c_int), ("shares", ctypes.c_int),
+           ("live", ctypes.c_void_p)])
 
 
 def check_state(state: dict, tables: dict, device) -> int:
@@ -633,13 +639,17 @@ def fwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
 
 
 def _launch_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
-                state: dict, spec: StepSpec, tri) -> dict:
-    global LAUNCHES_FWD, LAUNCHES_PARITY
+                state: dict, spec: StepSpec, tri, on: bool) -> tuple:
+    """Launch ``csrc/bounce.cu``; returns the next state and, where the
+    call records (``on``), the tracer's slot the kernel counted into."""
+    dev = state["alive"].device
     args, out = fwd_args(scene, flags, tables, state, spec, tri)
-    launch("srt_bounce", args, state["alive"].device)
-    LAUNCHES_FWD += 1
-    LAUNCHES_PARITY += int(flags.ref_parity)
-    return dict(out, time=state["time"], salt=state["salt"])
+    live = None
+    if on:
+        args.live, live = tracer.live_slot(dev)
+    launch("srt_bounce", args, dev)
+    tracer.COUNTS["B2 parity" if flags.ref_parity else "B2"] += 1
+    return dict(out, time=state["time"], salt=state["salt"]), live
 
 
 def bounce_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
@@ -650,13 +660,23 @@ def bounce_fwd(scene: TorchScene, flags: SceneFlags, tables: dict,
     ``(t, u, v, idx)`` from :func:`kernels.intersect.intersect_tris`, which
     the kernel requires. Under parity the next state carries ``stale``.
     No autograd: :class:`kernels.bounce_vjp.BounceCore` and
-    :class:`kernels.bounce_vjp.BounceHybrid` wrap this."""
+    :class:`kernels.bounce_vjp.BounceHybrid` wrap this. Where the call
+    records (:mod:`srt_tpu_torch.trace`), a ``B2`` launch span with its
+    lanes and its live lanes: counted by the kernel on the card, by a
+    sum here on the CPU."""
     dev = state["alive"].device
+    on = tracer.ON
+    t0 = tracer.now() if on else 0
     if dev.type == "cpu":
         # B2 sweeps the spheres whatever ``flags.sphere_bvh`` says
         with torch.no_grad():
-            return bounce_step_ref(scene, flags._replace(sphere_bvh=False),
-                                   tables["mat"], state, spec, tri)
-    if dev.type == "cuda":
-        return _launch_fwd(scene, flags, tables, state, spec, tri)
-    raise ValueError(f"no bounce kernel for {dev}")
+            out = bounce_step_ref(scene, flags._replace(sphere_bvh=False),
+                                  tables["mat"], state, spec, tri)
+            live = state["alive"].sum() if on else None
+    elif dev.type == "cuda":
+        out, live = _launch_fwd(scene, flags, tables, state, spec, tri, on)
+    else:
+        raise ValueError(f"no bounce kernel for {dev}")
+    if on:
+        tracer.launch("B2", t0, state["alive"].shape[0], live)
+    return out

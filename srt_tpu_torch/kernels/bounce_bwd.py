@@ -37,6 +37,7 @@ import dataclasses
 
 import torch
 
+from srt_tpu_torch import trace as tracer
 from srt_tpu_torch.kernels.bounce import (_RICH_FIELDS, _TABLES,
                                           MAT_GRAD_COLS, StepSpec,
                                           bounce_step_ref, check_state,
@@ -44,12 +45,6 @@ from srt_tpu_torch.kernels.bounce import (_RICH_FIELDS, _TABLES,
 from srt_tpu_torch.kernels.build import launch
 from srt_tpu_torch.kernels.segment import material_sum
 from srt_tpu_torch.scene.ir import SceneFlags, TorchScene, require_trainable
-
-#: Kernel launches made by :func:`bounce_bwd` (the CUDA path only), both
-#: instantiations
-LAUNCHES_BWD = 0
-#: of which the rich instantiation's (``kRich``)
-LAUNCHES_BWD_RICH = 0
 
 ROWS = ("o", "d", "beta", "radiance")
 
@@ -200,11 +195,10 @@ def lane_cotangents(scene: TorchScene, flags: SceneFlags, tables: dict,
                     state: dict, ct: dict, spec: StepSpec):
     """Launch ``csrc/bounce_bwd.cu`` (its lean or its rich instantiation);
     returns its outputs (see :func:`bwd_args`)."""
-    global LAUNCHES_BWD, LAUNCHES_BWD_RICH
     args, outs = bwd_args(scene, flags, tables, state, ct, spec)
     launch("srt_bounce_bwd", args, state["alive"].device)
-    LAUNCHES_BWD += 1
-    LAUNCHES_BWD_RICH += args.rich
+    tracer.COUNTS["B5"] += 1
+    tracer.COUNTS["B5 rich"] += args.rich
     return outs
 
 
@@ -214,14 +208,22 @@ def bounce_bwd(scene: TorchScene, flags: SceneFlags, tables: dict,
     :func:`kernels.bounce.bounce_fwd`) for the cotangents ``ct``: returns
     ``(d_state, d_mat)`` as :func:`bounce_bwd_reference` does. The plain
     version for CPU tensors, the CUDA kernel for CUDA tensors; a scene the
-    kernel cannot differentiate raises on both (:func:`require_bwd_kernel`)."""
+    kernel cannot differentiate raises on both (:func:`require_bwd_kernel`).
+    A ``B5`` launch span with its lanes where the call records."""
     require_bwd_kernel(scene, flags)
     dev = state["alive"].device
+    on = tracer.ON
+    t0 = tracer.now() if on else 0
     if dev.type == "cpu":
         # B5 sweeps the spheres whatever ``flags.sphere_bvh`` says
-        return bounce_bwd_reference(scene, flags._replace(sphere_bvh=False),
-                                    tables["mat"], state, ct, spec)
+        out = bounce_bwd_reference(scene, flags._replace(sphere_bvh=False),
+                                   tables["mat"], state, ct, spec)
+        if on:
+            tracer.launch("B5", t0, state["alive"].shape[0])
+        return out
     if dev.type != "cuda":
         raise ValueError(f"no bounce backward kernel for {dev}")
     g, g_mat, wmat = lane_cotangents(scene, flags, tables, state, ct, spec)
+    if on:
+        tracer.launch("B5", t0, state["alive"].shape[0])
     return g, material_sum(g_mat, wmat, tables["mat"].shape[0])

@@ -29,10 +29,8 @@ import ctypes
 
 import torch
 
+from srt_tpu_torch import trace as tracer
 from srt_tpu_torch.kernels.build import launch, load_library
-
-#: Kernel launches made by :meth:`Film.flush` (the CUDA path only).
-LAUNCHES = 0
 
 
 class _Args(ctypes.Structure):
@@ -98,15 +96,20 @@ class Film:
         """Add the finished lanes' radiance (3, N) at their pixels ``pix``
         (N,) and count, with B1's planes ``fin`` and ``alive``: the plain
         version for CPU tensors (or a film made ``plain``), the kernel for
-        CUDA tensors."""
+        CUDA tensors; a ``film_sum`` launch span with its lanes where the
+        call records."""
+        on = tracer.ON
+        t0 = tracer.now() if on else 0
         if self.plain:
             film_sum_reference(self.acc, self.n_vertices, self.nan_scrubbed,
                                pix, radiance, fin, alive)
-            return
-        launch("srt_film_sum", self.kernel_args(pix, radiance, fin, alive),
-               self.acc.device)
-        global LAUNCHES
-        LAUNCHES += 1
+        else:
+            launch("srt_film_sum",
+                   self.kernel_args(pix, radiance, fin, alive),
+                   self.acc.device)
+            tracer.COUNTS["film_sum"] += 1
+        if on:
+            tracer.launch("film_sum", t0, pix.shape[0])
 
     def clean(self) -> bool:
         """Whether the kernel's per-pixel scratch is as a launch must find

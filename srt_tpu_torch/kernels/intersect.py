@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 
+from srt_tpu_torch import trace as tracer
 from srt_tpu_torch.kernels.build import launch
 from srt_tpu_torch.render.intersect import cluster_records
 from srt_tpu_torch.render.intersect import \
@@ -45,11 +46,6 @@ from srt_tpu_torch.render.intersect import \
     intersect_tris_big as intersect_tris_big_reference
 from srt_tpu_torch.render.intersect import two_level
 from srt_tpu_torch.scene.ir import TorchScene
-
-#: Kernel launches made by :func:`intersect_tris` (the CUDA path only).
-LAUNCHES = 0
-#: Kernel launches made by :func:`intersect_tris_big` (the CUDA path only).
-LAUNCHES_BIG = 0
 
 #: the threads a ray may take for B3's walk (the kernel's template G)
 WALK_SHARES = (1, 2, 4)
@@ -232,15 +228,20 @@ def intersect_tris(scene: TorchScene, tables: dict, o: torch.Tensor,
     """Each ray's closest triangle ``(t, u, v, idx)`` (idx int64 from the
     plain version, int32 from the kernel): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors. ``tables`` is
-    :func:`pack_tables` of ``scene``."""
-    global LAUNCHES
+    :func:`pack_tables` of ``scene``. A ``B3`` launch span with its lanes
+    where the call records."""
+    on = tracer.ON
+    t0 = tracer.now() if on else 0
     if o.device.type == "cpu":
-        return intersect_tris_reference(scene, o, d)
-    if o.device.type != "cuda":
+        out = intersect_tris_reference(scene, o, d)
+    elif o.device.type == "cuda":
+        args, out = kernel_args(tables, o, d)
+        launch("srt_intersect_tris", args, o.device)
+        tracer.COUNTS["B3"] += 1
+    else:
         raise ValueError(f"no triangle kernel for {o.device}")
-    args, out = kernel_args(tables, o, d)
-    launch("srt_intersect_tris", args, o.device)
-    LAUNCHES += 1
+    if on:
+        tracer.launch("B3", t0, o.shape[0])
     return out
 
 
@@ -269,15 +270,20 @@ def intersect_tris_big(scene: TorchScene, tables: dict, o: torch.Tensor,
                        d: torch.Tensor):
     """Each ray's closest triangle over the two-level BVH ``(t, u, v,
     idx)``: the plain version for CPU tensors, kernel B4 for CUDA tensors.
-    ``tables`` is :func:`pack_big_tables` of ``scene``."""
-    global LAUNCHES_BIG
+    ``tables`` is :func:`pack_big_tables` of ``scene``. A ``B4`` launch
+    span with its lanes where the call records."""
+    on = tracer.ON
+    t0 = tracer.now() if on else 0
     if o.device.type == "cpu":
-        return intersect_tris_big_reference(scene, o, d)
-    if o.device.type != "cuda":
+        out = intersect_tris_big_reference(scene, o, d)
+    elif o.device.type == "cuda":
+        args, out = big_kernel_args(tables, o, d)
+        launch("srt_intersect_big", args, o.device)
+        tracer.COUNTS["B4"] += 1
+    else:
         raise ValueError(f"no two-level triangle kernel for {o.device}")
-    args, out = big_kernel_args(tables, o, d)
-    launch("srt_intersect_big", args, o.device)
-    LAUNCHES_BIG += 1
+    if on:
+        tracer.launch("B4", t0, o.shape[0])
     return out
 
 

@@ -31,11 +31,9 @@ import ctypes
 
 import torch
 
+from srt_tpu_torch import trace as tracer
 from srt_tpu_torch.kernels.bounce import MAT_GRAD_COLS
 from srt_tpu_torch.kernels.build import launch
-
-#: Kernel launches made by :func:`material_sum` (the CUDA path only).
-LAUNCHES = 0
 
 #: the kernel's column map holds up to this many inputs
 MAX_COLS = 16
@@ -184,13 +182,18 @@ def material_sum(g: torch.Tensor, seg: torch.Tensor,
     """B5's per-lane material cotangents ``g`` (N, 10) summed by material
     ``seg`` (N,) int32 into the (``n_mat``, 14) table's differentiable
     columns, zeros elsewhere: the plain version for CPU tensors, the
-    kernel for CUDA tensors."""
-    global LAUNCHES
+    kernel for CUDA tensors; a ``segment_sum`` launch span with its lanes
+    where the call records."""
+    on = tracer.ON
+    t0 = tracer.now() if on else 0
     if g.device.type == "cpu":
-        return material_sum_reference(g, seg, n_mat)
-    if g.device.type != "cuda":
+        out = material_sum_reference(g, seg, n_mat)
+    elif g.device.type == "cuda":
+        args, out = kernel_args(g, seg, n_mat)
+        launch("srt_segment_sum", args, g.device)
+        tracer.COUNTS["segment_sum"] += 1
+    else:
         raise ValueError(f"no material-sum kernel for {g.device}")
-    args, out = kernel_args(g, seg, n_mat)
-    launch("srt_segment_sum", args, g.device)
-    LAUNCHES += 1
+    if on:
+        tracer.launch("segment_sum", t0, g.shape[0])
     return out

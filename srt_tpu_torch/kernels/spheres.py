@@ -33,14 +33,12 @@ import ctypes
 
 import torch
 
+from srt_tpu_torch import trace as tracer
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels.build import launch
 from srt_tpu_torch.render.intersect import \
     sphere_winner as sphere_winner_reference
 from srt_tpu_torch.scene.ir import TorchScene
-
-#: Kernel launches made by :func:`sphere_winner` (the CUDA path only).
-LAUNCHES = 0
 
 #: the most spheres a launch stages in shared memory (B2's table cap:
 #: 4096 records of 48 bytes, 192 KiB of the 227 KiB a block may take)
@@ -88,13 +86,18 @@ def sphere_winner(scene: TorchScene, sph: torch.Tensor, o: torch.Tensor,
                   d: torch.Tensor, time: torch.Tensor, t_min: float = 1e-3):
     """Each ray's closest sphere ``(t, idx)`` at its ``time``: the plain
     version for CPU tensors, kernel B6 for CUDA tensors. ``sph`` is
-    :func:`kernels.bounce.build_tables`' ``"sph"`` table of ``scene``."""
-    global LAUNCHES
+    :func:`kernels.bounce.build_tables`' ``"sph"`` table of ``scene``. A
+    ``B6`` launch span with its lanes where the call records."""
+    on = tracer.ON
+    t0 = tracer.now() if on else 0
     if o.device.type == "cpu":
-        return sphere_winner_reference(scene, o, d, time, t_min)
-    if o.device.type != "cuda":
+        out = sphere_winner_reference(scene, o, d, time, t_min)
+    elif o.device.type == "cuda":
+        args, out = kernel_args(sph, o, d, time, t_min)
+        launch("srt_sphere_winner", args, o.device)
+        tracer.COUNTS["B6"] += 1
+    else:
         raise ValueError(f"no sphere kernel for {o.device}")
-    args, out = kernel_args(sph, o, d, time, t_min)
-    launch("srt_sphere_winner", args, o.device)
-    LAUNCHES += 1
+    if on:
+        tracer.launch("B6", t0, o.shape[0])
     return out

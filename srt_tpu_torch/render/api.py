@@ -9,6 +9,12 @@ lockstep, each bounce one step of the render's :class:`render.route.
 Route` (kernel B2, after B3 or B4 on a triangle scene). The regeneration engine
 (:func:`render.regen.render_regen`) traces the same estimator from the
 same random streams.
+
+Where the call records (:mod:`srt_tpu_torch.trace`): the entry span
+``render``; ``setup`` (the flags, the jitter and the route, with the
+``tables`` read of :func:`kernels.bounce.build_tables`); for each chunk
+``rays`` (its camera rays) and ``bounces`` (its initial state, bounces
+and launch spans); ``sum``, the image from the sums.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import time as _time
 import numpy as np
 import torch
 
+from srt_tpu_torch import trace as tracer
 from srt_tpu_torch.core import rng
 from srt_tpu_torch.core.sobol import sobol_points
 from srt_tpu_torch.kernels.bounce import DIM_LENS, DIM_TIME, StepSpec
@@ -123,16 +130,20 @@ def _render_chunk(route: Route, camera, pixel_ids: torch.Tensor,
     lane = pixel) the parity heap-slot plane threads through and back out
     -> ``(radiance, stale)``; with ``with_aux`` -> ``(radiance, aux)``."""
     p = pixel_ids.shape[0]
-    rays, salt = chunk_rays(camera, pixel_ids, sample0, jitter, seed,
-                            width=width, height=height, n_samples=n_samples)
+    with tracer.span("rays"):
+        rays, salt = chunk_rays(camera, pixel_ids, sample0, jitter, seed,
+                                width=width, height=height,
+                                n_samples=n_samples)
     parity = route.flags.ref_parity
     if stale_in is not None:
         if n_samples != 1:
             raise ValueError("threading the stale plane needs lane = pixel")
-        return trace(route, rays, salt, max_depth=route.spec.max_depth,
-                     parity=parity, stale0=stale_in, return_stale=True)
-    out = trace(route, rays, salt, max_depth=route.spec.max_depth,
-                parity=parity, with_aux=with_aux)
+        with tracer.span("bounces"):
+            return trace(route, rays, salt, max_depth=route.spec.max_depth,
+                         parity=parity, stale0=stale_in, return_stale=True)
+    with tracer.span("bounces"):
+        out = trace(route, rays, salt, max_depth=route.spec.max_depth,
+                    parity=parity, with_aux=with_aux)
     if with_aux:
         radiance, aux = out
         return radiance.reshape(p, n_samples, 3).sum(1), aux
@@ -245,13 +256,21 @@ def render(scene, camera, config: RenderConfig, metrics: bool = False,
     ``metrics=True`` also returns a :class:`RenderMetrics` (bounce
     histogram, path vertices, NaN scrubs, the route). ``plain=True`` runs
     the kernels' plain versions on any device."""
-    _, jitter, route = render_setup(scene, config, plain)
+    with tracer.entry("render"):
+        return _render(scene, camera, config, metrics, plain)
+
+
+def _render(scene, camera, config: RenderConfig, metrics: bool,
+            plain: bool):
+    with tracer.span("setup"):
+        _, jitter, route = render_setup(scene, config, plain)
     w, h, spp = config.width, config.height, config.spp
     dev = scene.device
     t0 = _time.time()
     acc, aux_sum = accumulate(route, camera, config, jitter,
                               with_aux=metrics)
-    img = (acc / spp).reshape(h, w, 3)
+    with tracer.span("sum"):
+        img = (acc / spp).reshape(h, w, 3)
     if not metrics:
         return img
     m = RenderMetrics(width=w, height=h, spp=spp, max_depth=config.max_depth,

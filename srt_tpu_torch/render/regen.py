@@ -40,6 +40,13 @@ those and the order of its sums.
 The host reads the device (work cursor, any lane alive) once every
 ``CHECK_EVERY`` bounces: a bounce of a drained, all-dead wavefront takes
 no lane and finishes none, so the extra bounces change nothing.
+
+Where the call records (:mod:`srt_tpu_torch.trace`): the entry span
+``render_regen``, carrying ``path_vertices`` (the film's live-lane
+count, read at readout); ``setup`` (the flags, ``RegenInputs`` with the
+``tables`` read of :func:`kernels.bounce.build_tables`, the film's
+scratch); each bounce's launch spans; ``check``, the read that ends each
+block of ``CHECK_EVERY`` bounces; ``finish``, the image.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import time as _time
 
 import torch
 
+from srt_tpu_torch import trace as tracer
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels.film import Film
 from srt_tpu_torch.render.api import render_setup
@@ -66,8 +74,10 @@ def _regen_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
             step(inp, st, spec)
             film.flush(st["pix"], st["radiance"], st["fin"], st["alive"])
         bounces += CHECK_EVERY
-        cursor, any_alive = torch.stack(
-            [st["cursor"][0].long(), (st["alive"] != 0).any().long()]).tolist()
+        with tracer.span("check", read=True):
+            cursor, any_alive = torch.stack(
+                [st["cursor"][0].long(),
+                 (st["alive"] != 0).any().long()]).tolist()
         if cursor >= spec.total_work and not any_alive:
             return bounces
 
@@ -103,8 +113,9 @@ def _step_loop(inp: kb.RegenInputs, spec: kb.RegenSpec, n: int,
                        (state["alive"] & ~alive).int(), alive.int())
             st = dict(nxt, alive=alive, pix=pix)
         bounces += CHECK_EVERY
-        left, any_alive = torch.stack(
-            [cursor, st["alive"].any().long()]).tolist()
+        with tracer.span("check", read=True):
+            left, any_alive = torch.stack(
+                [cursor, st["alive"].any().long()]).tolist()
         if left >= spec.total_work and not any_alive:
             return bounces
 
@@ -118,14 +129,24 @@ def render_regen(scene, camera, config, metrics: bool = False,
     ``plain=True`` runs the kernels' plain versions on any device, which
     is how the kernels' image is checked on the card. The metrics name the
     route: the bounce ``"B1"``, ``"B2"`` or ``"plain"`` and the walk."""
-    flags, jitter, route = render_setup(scene, config, plain)
-    w, h, spp = config.width, config.height, config.spp
-    spec = kb.RegenSpec(width=w, height=h, spp=spp,
-                        max_depth=config.max_depth, rr_start=config.rr_start,
-                        pdf_floor=config.pdf_floor, seed=config.seed)
-    inp = kb.RegenInputs(scene, flags, camera, jitter)
-    n = min(config.wavefront, spec.total_work)
-    film = Film(w * h, n, scene.device, plain)
+    with tracer.entry("render_regen") as rec:
+        return _render_regen(scene, camera, config, metrics, plain, rec)
+
+
+def _render_regen(scene, camera, config, metrics: bool, plain: bool,
+                  rec: dict | None):
+    with tracer.span("setup"):
+        flags, jitter, route = render_setup(scene, config, plain)
+        w, h, spp = config.width, config.height, config.spp
+        spec = kb.RegenSpec(width=w, height=h, spp=spp,
+                            max_depth=config.max_depth,
+                            rr_start=config.rr_start,
+                            pdf_floor=config.pdf_floor, seed=config.seed)
+        inp = kb.RegenInputs(scene, flags, camera, jitter)
+        n = min(config.wavefront, spec.total_work)
+        film = Film(w * h, n, scene.device, plain)
+    if rec is not None:
+        rec["path_vertices"] = film.n_vertices
     t0 = _time.time()
     with torch.no_grad():
         if (scene.n_tris or flags.ref_parity
@@ -135,7 +156,8 @@ def render_regen(scene, camera, config, metrics: bool = False,
         else:
             bounces = _regen_loop(inp, spec, n, film, plain)
             names = dict(bounce="plain" if plain else "B1", walk=None)
-    img = (film.acc / spp).T.reshape(h, w, 3)
+    with tracer.span("finish"):
+        img = (film.acc / spp).T.reshape(h, w, 3)
     if not metrics:
         return img
     m = RenderMetrics(width=w, height=h, spp=spp, max_depth=config.max_depth,

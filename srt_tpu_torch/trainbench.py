@@ -48,27 +48,24 @@ def log(*a):
 
 def profile_step(out_dir: str, step, target, seed: int) -> dict:
     """One train step under torch.profiler: a chrome trace in ``out_dir``,
-    device time by kernel on stderr; returns the wall, the device's busy
-    time and the busy time of each bounce kernel. Only the profiler's
-    device rows are summed: a CPU operator's row repeats the time of the
-    kernels it launched."""
+    device time by kernel on stderr; returns the device's busy time and
+    the busy time of each bounce kernel. Only the profiler's device rows
+    are summed: a CPU operator's row repeats the time of the kernels it
+    launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(target, seed)
         torch.cuda.synchronize()
-    wall = time.time() - t0
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(r[0] for r in rows)
-    log(f"[profile] wall {wall:.4f}s (profiler on), device busy "
-        f"{busy_us / 1e6:.4f}s = {busy_us / 1e6 / wall:.3f} of the wall")
+    log(f"[profile] device busy {busy_us / 1e6:.4f}s")
     kernels = {}
     for rank, (us, count, key) in enumerate(sorted(rows, reverse=True)):
         if us and rank < 15:
@@ -80,8 +77,7 @@ def profile_step(out_dir: str, step, target, seed: int) -> dict:
                                   "::intersect_big_kernel(")):
             kernels[key] = {"us_per_launch": us / max(count, 1),
                             "launches": count}
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "kernels": kernels}
+    return {"device_busy_s": busy_us / 1e6, "kernels": kernels}
 
 
 def phase_walls(step, target, seed: int) -> dict:

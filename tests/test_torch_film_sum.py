@@ -24,6 +24,8 @@ from srt_tpu import RenderConfig as JaxRenderConfig
 from srt_tpu.render.regen import render_regen as jax_render_regen
 from srt_tpu.scene.library import get_scene as jax_get_scene
 from srt_tpu_torch import RenderConfig, convert, render_regen
+from srt_tpu_torch import trace as tracer
+from srt_tpu_torch.kernels import launch_counts
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import film as kfilm
@@ -103,7 +105,7 @@ def test_film_sum_is_jax_scatter_to_the_bit(form):
     np.testing.assert_array_equal(got.view(np.uint32), acc_j.view(np.uint32))
     assert int(film.n_vertices) == n_vertices_j
     assert int(film.nan_scrubbed) == nan_scrubbed_j > 0
-    assert kfilm.LAUNCHES == 0
+    assert launch_counts()["film_sum"] == 0
 
 
 @pytest.mark.parametrize("layout", list(FILM_LAYOUTS))
@@ -131,7 +133,7 @@ def test_film_layouts_are_jax_scatter_to_the_bit(layout):
 def test_film_on_the_cpu_is_the_plain_version(monkeypatch):
     """On the CPU the film adds with the plain version and launches
     nothing; a film that is not plain needs the card."""
-    monkeypatch.setattr(kfilm, "LAUNCHES", 0)
+    monkeypatch.setitem(tracer.COUNTS, "film_sum", 0)
     (f,) = _flushes(REGEN, flushes=1, seed=1)
     args = _film_args(REGEN, *f)
     film = kfilm.Film(64, 4096, "cpu")
@@ -142,7 +144,7 @@ def test_film_on_the_cpu_is_the_plain_version(monkeypatch):
     assert torch.equal(film.acc.view(torch.int32), want[0].view(torch.int32))
     assert (int(film.n_vertices), int(film.nan_scrubbed)) == (
         int(want[1]), int(want[2]))
-    assert kfilm.LAUNCHES == 0
+    assert launch_counts()["film_sum"] == 0
     with pytest.raises(ValueError, match="no film kernel"):
         kfilm.Film(64, 4096, "meta")
 
@@ -196,14 +198,14 @@ def test_material_sum_order_is_within_the_contract_of_jax(n):
 
 
 def test_material_sum_on_the_cpu_is_the_plain_version(monkeypatch):
-    monkeypatch.setattr(kseg, "LAUNCHES", 0)
+    monkeypatch.setitem(tracer.COUNTS, "segment_sum", 0)
     r = np.random.default_rng(3)
     g = torch.from_numpy(r.standard_normal((500, 10)).astype(np.float32))
     mid = torch.from_numpy(r.integers(0, 7, 500).astype(np.int32))
     got = kseg.material_sum(g, mid, 7)
     want = kseg.material_sum_reference(g, mid, 7)
     assert got.shape == (7, 14) and torch.equal(got, want)
-    assert kseg.LAUNCHES == 0
+    assert launch_counts()["segment_sum"] == 0
 
 
 @pytest.fixture

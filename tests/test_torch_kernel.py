@@ -29,6 +29,8 @@ from _torch_scenes import (LIT_ROOM_CAMERA, clustered_soup, lit_room,
 from srt_tpu_torch import get_scene
 from srt_tpu_torch.core.sobol import sobol_points
 from srt_tpu_torch.diff.inverse import camera_rays
+from srt_tpu_torch import trace as tracer
+from srt_tpu_torch.kernels import launch_counts
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import build
@@ -92,12 +94,12 @@ def test_launch_arguments_pick_the_instantiation(name, rich, perlin):
 
 
 def test_cpu_tensors_take_the_plain_version(monkeypatch):
-    monkeypatch.setattr(kb, "LAUNCHES", 0)
+    monkeypatch.setitem(tracer.COUNTS, "B1", 0)
     inp, st, spec = _inputs("cpu", n=300)
     ref = {k: v.clone() for k, v in st.items()}
     kb.regen_bounce(inp, st, spec)
     kb.regen_bounce_reference(inp, ref, spec)
-    assert kb.LAUNCHES == 0
+    assert launch_counts()["B1"] == 0
     for k in ("o", "d", "beta", "radiance", "salt", "pix", "depth", "alive",
               "fin", "dead", "cursor"):
         assert torch.equal(st[k], ref[k]), k
@@ -251,8 +253,8 @@ def test_bwd_passes_cover_every_column_once(rich, column_map):
 def test_train_wrappers_take_the_plain_version(monkeypatch):
     """On CPU tensors the forward and backward wrappers are the plain step
     and ``torch.autograd`` of it, and launch nothing."""
-    monkeypatch.setattr(kb, "LAUNCHES_FWD", 0)
-    monkeypatch.setattr(kbb, "LAUNCHES_BWD", 0)
+    monkeypatch.setitem(tracer.COUNTS, "B2", 0)
+    monkeypatch.setitem(tracer.COUNTS, "B5", 0)
     scene, flags, tables, st, spec, ct = _train_inputs("cpu", 300,
                                                        "lit_room")
     out = kb.bounce_fwd(scene, flags, tables, st, spec)
@@ -267,7 +269,7 @@ def test_train_wrappers_take_the_plain_version(monkeypatch):
         assert torch.equal(g[k], g_ref[k]), k
     assert torch.equal(d_mat, d_mat_ref)
     assert d_mat.shape == (scene.mat_type.shape[0], 14)
-    assert kb.LAUNCHES_FWD == 0 and kbb.LAUNCHES_BWD == 0
+    assert launch_counts()["B2"] == 0 and launch_counts()["B5"] == 0
 
 
 @pytest.mark.cuda
@@ -283,11 +285,11 @@ def test_kernel_matches_plain_on_gpu(name, cuda_device):
     for _ in range(3):
         kb.regen_bounce_reference(inp, st, spec)
     st_k = {k: v.clone() for k, v in st.items()}
-    launches = kb.LAUNCHES
+    launches = launch_counts()["B1"]
     kb.regen_bounce(inp, st_k, spec)
     kb.regen_bounce_reference(inp, st, spec)
     torch.cuda.synchronize()
-    assert kb.LAUNCHES == launches + 1
+    assert launch_counts()["B1"] == launches + 1
     for k in ("salt", "pix", "depth", "cursor"):
         assert torch.equal(st_k[k], st[k]), k
     contract.check_bounce(contract.wavefront_arrays(st),
@@ -301,11 +303,11 @@ def test_rich_bounce_matches_plain_on_gpu(name, cuda_device):
     media, textures) against the plain step, 20,000 lanes."""
     scene, flags, tables, st, spec, _ = _train_inputs(cuda_device, 20000,
                                                       name)
-    launches = kb.LAUNCHES_FWD
+    launches = launch_counts()["B2"]
     out = kb.bounce_fwd(scene, flags, tables, st, spec)
     ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
     torch.cuda.synchronize()
-    assert kb.LAUNCHES_FWD == launches + 1
+    assert launch_counts()["B2"] == launches + 1
     assert torch.equal(out["depth"], ref["depth"])
     keys = ("alive", "d", "beta", "radiance")
     contract.check_bounce({k: ref[k].cpu().numpy() for k in keys},
@@ -329,12 +331,12 @@ def test_train_kernels_match_plain_on_gpu(name, cuda_device):
     two spheres."""
     scene, flags, tables, st, spec, ct = _train_inputs(
         cuda_device, 20000, name, 0 if name == "earth_sphere" else 2)
-    fwd, bwd = kb.LAUNCHES_FWD, kbb.LAUNCHES_BWD
-    rich = kbb.LAUNCHES_BWD_RICH
+    fwd, bwd = launch_counts()["B2"], launch_counts()["B5"]
+    rich = launch_counts()["B5 rich"]
     out = kb.bounce_fwd(scene, flags, tables, st, spec)
     ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
     torch.cuda.synchronize()
-    assert kb.LAUNCHES_FWD == fwd + 1
+    assert launch_counts()["B2"] == fwd + 1
     assert torch.equal(out["depth"], ref["depth"])
 
     def arrays(s):
@@ -346,9 +348,9 @@ def test_train_kernels_match_plain_on_gpu(name, cuda_device):
     g_ref, d_mat_ref = kbb.bounce_bwd_reference(scene, flags, tables["mat"],
                                                 st, ct, spec)
     torch.cuda.synchronize()
-    assert kbb.LAUNCHES_BWD == bwd + 1
-    assert kbb.LAUNCHES_BWD_RICH == rich + (name not in ("ball_scenes",
-                                                         "lit_room"))
+    assert launch_counts()["B5"] == bwd + 1
+    assert launch_counts()["B5 rich"] == rich + (
+        name not in ("ball_scenes", "lit_room"))
     contract.check_grads({k: g_ref[k].cpu().numpy() for k in kbb.ROWS},
                          {k: g[k].cpu().numpy() for k in kbb.ROWS})
     a, b = d_mat_ref.cpu().numpy(), d_mat.cpu().numpy()
@@ -411,22 +413,22 @@ def test_triangle_kernels_match_plain_on_gpu(cuda_device):
     external-hit mode against the plain step fed the same hit, on 20,000
     mid-flight cornell_boxes lanes (a partial last block)."""
     scene, flags, tables, st, spec, tri = _tri_inputs(cuda_device, 20000)
-    launches = ki.LAUNCHES
+    launches = launch_counts()["B3"]
     t, u, v, idx = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"],
                                      st["d"])
     torch.cuda.synchronize()
-    assert ki.LAUNCHES == launches + 1
+    assert launch_counts()["B3"] == launches + 1
     hit = tri[0] < 3e38
     assert torch.equal(t < 3e38, hit) and int(hit.sum()) > 1000
     assert torch.equal(idx.long()[hit], tri[3][hit])
     for a, b in ((t, tri[0]), (u, tri[1]), (v, tri[2])):
         assert float((a - b)[hit].abs().max()) <= 2e-5
-    fwd = kb.LAUNCHES_FWD
+    fwd = launch_counts()["B2"]
     out = kb.bounce_fwd(scene, flags, tables, st, spec, (t, u, v, idx))
     ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec,
                              (t, u, v, idx))
     torch.cuda.synchronize()
-    assert kb.LAUNCHES_FWD == fwd + 1
+    assert launch_counts()["B2"] == fwd + 1
     assert torch.equal(out["depth"], ref["depth"])
     contract.check_bounce(
         {k: ref[k].cpu().numpy() for k in ("alive", "d", "beta", "radiance")},
@@ -473,12 +475,12 @@ def test_two_level_kernel_matches_plain_on_gpu(cuda_device):
     order."""
     scene, o, d = _clustered_soup(cuda_device, 20000)
     tables = ki.pack_big_tables(scene)
-    launches = ki.LAUNCHES_BIG
+    launches = launch_counts()["B4"]
     got = ki.intersect_tris_big(scene, tables, o, d)
     ref = ki.intersect_tris_big_reference(scene, o, d)
     single = ki.intersect_tris(scene, ki.pack_tables(scene), o, d)
     torch.cuda.synchronize()
-    assert ki.LAUNCHES_BIG == launches + 1
+    assert launch_counts()["B4"] == launches + 1
     hit = ref[0] < 3e38
     assert int(hit.sum()) > 1000
     for out in (got, single):
@@ -514,11 +516,11 @@ def test_specular_media_bounce_matches_plain_on_gpu(cuda_device):
             st = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec)
     st = {k: v.contiguous() for k, v in st.items()}
     hit = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"], st["d"])
-    fwd = kb.LAUNCHES_FWD
+    fwd = launch_counts()["B2"]
     out = kb.bounce_fwd(scene, flags, tables, st, spec, hit)
     ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec, hit)
     torch.cuda.synchronize()
-    assert kb.LAUNCHES_FWD == fwd + 1
+    assert launch_counts()["B2"] == fwd + 1
     assert int(st["alive"].sum()) > 2000
     assert torch.equal(out["depth"], ref["depth"])
     contract.check_bounce(
@@ -555,11 +557,11 @@ def _winner_inputs(device, name, n=20000):
 def test_sphere_winner_wrapper_checks_its_arguments(monkeypatch):
     """On CPU tensors the wrapper is the plain version and launches
     nothing; B6's arguments are built and checked there too."""
-    monkeypatch.setattr(ks, "LAUNCHES", 0)
+    monkeypatch.setitem(tracer.COUNTS, "B6", 0)
     scene, sph, (o, d, t) = _winner_inputs("cpu", "moving", 300)
     got = ks.sphere_winner(scene, sph, o, d, t)
     want = ks.sphere_winner_reference(scene, o, d, t)
-    assert ks.LAUNCHES == 0
+    assert launch_counts()["B6"] == 0
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert int((got[1] >= 0).sum()) == 300   # the env dome catches misses
     args, out = ks.kernel_args(sph, o, d, t, 1e-3)
@@ -583,10 +585,10 @@ def test_sphere_winner_matches_plain_on_gpu(name, cuda_device):
     scene, sph, rays = _winner_inputs(cuda_device, name)
     pt, pidx = ks.sphere_winner_reference(scene, *rays)
     assert int((pidx >= 0).sum()) > 1000
-    launches = ks.LAUNCHES
+    launches = launch_counts()["B6"]
     t, idx = ks.sphere_winner(scene, sph, *rays)
     torch.cuda.synchronize()
-    assert ks.LAUNCHES == launches + 1
+    assert launch_counts()["B6"] == launches + 1
     assert torch.equal(idx, pidx)
     assert torch.equal(t, pt)
 
@@ -619,9 +621,10 @@ def test_parity_launch_arguments(no_stale):
     args, out = kb.fwd_args(scene, flags._replace(ref_parity=False), tables,
                             st, spec)
     assert args.parity == 0 and not args.stale_out and "stale" not in out
-    launches = kb.LAUNCHES_PARITY
+    launches = launch_counts()["B2 parity"]
     got = kb.bounce_fwd(scene, flags, tables, st, spec)
-    assert kb.LAUNCHES_PARITY == launches and got["stale"].shape == (300,)
+    assert launch_counts()["B2 parity"] == launches
+    assert got["stale"].shape == (300,)
 
 
 @pytest.mark.cuda
@@ -634,11 +637,11 @@ def test_parity_bounce_matches_plain_on_gpu(cuda_device, name, no_stale):
     plane within its tolerance."""
     scene, flags, tables, st, spec, tri = _parity_inputs(
         cuda_device, 20000, name, no_stale)
-    launches = kb.LAUNCHES_PARITY
+    launches = launch_counts()["B2 parity"]
     out = kb.bounce_fwd(scene, flags, tables, st, spec, tri)
     ref = kb.bounce_step_ref(scene, flags, tables["mat"], st, spec, tri)
     torch.cuda.synchronize()
-    assert kb.LAUNCHES_PARITY == launches + 1
+    assert launch_counts()["B2 parity"] == launches + 1
     assert torch.equal(out["depth"], ref["depth"])
     keys = ("alive", "d", "beta", "radiance", "stale")
     contract.check_bounce({k: ref[k].cpu().numpy() for k in keys},

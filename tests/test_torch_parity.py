@@ -40,6 +40,7 @@ from srt_tpu_torch import golden
 from srt_tpu_torch.core.approx import erf_reference_buggy
 from srt_tpu_torch.core.vecmath import to_local
 from srt_tpu_torch.io.image import read_image, read_png, read_ppm, write_ppm
+from srt_tpu_torch.kernels import launch_counts
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.materials import materials as mats
@@ -198,10 +199,10 @@ def test_regen_kernel_refuses_parity():
         kb.regen_bounce(inp, st, spec)
     with pytest.raises(ValueError, match="parity"):
         kb.regen_args(inp, st, spec)
-    launches = kb.LAUNCHES
+    launches = launch_counts()["B1"]
     img = render_regen(scene, cam, RenderConfig(width=8, height=8, spp=1,
                                                 max_depth=4, ref_parity=True))
-    assert kb.LAUNCHES == launches and torch.isfinite(img).all()
+    assert launch_counts()["B1"] == launches and torch.isfinite(img).all()
 
 
 def test_train_step_never_sets_parity():

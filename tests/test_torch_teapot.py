@@ -58,6 +58,7 @@ from srt_tpu_torch import (RenderConfig, convert, get_scene, make_train_step,
 from srt_tpu_torch.accel import cluster
 from srt_tpu_torch.accel.bvh import FlatBVH, build_bvh, build_bvh_numpy
 from srt_tpu_torch.core import approx, rng
+from srt_tpu_torch.kernels import launch_counts
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import intersect as ki
@@ -298,9 +299,9 @@ def test_two_level_walk_matches_jax(case):
         idx[torch.from_numpy(hit)]]
     assert all(tuple(r) in read for r in hit_tris.tolist())
     # the wrapper takes the plain version on CPU tensors, launching nothing
-    launches = ki.LAUNCHES_BIG
+    launches = launch_counts()["B4"]
     got = ki.intersect_tris_big(scene, tables, to, td)
-    assert ki.LAUNCHES_BIG == launches
+    assert launch_counts()["B4"] == launches
     for a, b in zip(got, (t, u, v, idx)):
         assert torch.equal(a, b)
 
@@ -385,10 +386,10 @@ def test_specular_media_bounce_matches_fused_bounce(medium, flush_denormals,
     for dim in (0, 8, 9, 10, 11, 12, 14):
         np.testing.assert_array_equal(rng.uniform(salt, dim).numpy(),
                                       np.asarray(sampler.uniform(dim)))
-    launches = kb.LAUNCHES_FWD
+    launches = launch_counts()["B2"]
     got = kb.bounce_fwd(scene, flags, tables, st, spec,
                         ri.intersect_tris_any(scene, st["o"], st["d"]))
-    assert kb.LAUNCHES_FWD == launches
+    assert launch_counts()["B2"] == launches
     state_j = {k: v.numpy() for k, v in st.items()}
     state_j["salt"] = state_j["salt"].view(np.uint32)
     step = jax.jit(functools.partial(

@@ -21,6 +21,7 @@ from _torch_scenes import LIT_ROOM_CAMERA, lit_room_media
 
 from srt_tpu_torch import get_scene, make_train_step
 from srt_tpu_torch.diff.inverse import image_loss
+from srt_tpu_torch.kernels import launch_counts
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import bounce_vjp as kv
@@ -264,7 +265,7 @@ def test_rich_train_step_runs_on_the_plain_bounce():
     def spy(*a):
         took.append("B5")
         return core(*a)
-    kv.bounce_core, before = spy, kbb.LAUNCHES_BWD
+    kv.bounce_core, before = spy, launch_counts()["B5"]
     try:
         step = make_train_step(scene, cam, {"tex_color": scene.tex_color},
                                width=4, height=4, spp=1, max_depth=3,
@@ -272,6 +273,6 @@ def test_rich_train_step_runs_on_the_plain_bounce():
         loss = float(step(torch.full((4, 4, 3), 0.3), 0))
     finally:
         kv.bounce_core = core
-    assert took and set(took) == {"B5"} and kbb.LAUNCHES_BWD == before
+    assert took and set(took) == {"B5"} and launch_counts()["B5"] == before
     assert np.isfinite(loss)
     assert torch.isfinite(step.params["tex_color"].grad).all()

@@ -41,6 +41,7 @@ from srt_tpu_torch import (RenderConfig, convert, get_scene, make_train_step,
                            render_regen)
 from srt_tpu_torch.accel.bvh import build_bvh
 from srt_tpu_torch.diff.inverse import render_pixels
+from srt_tpu_torch.kernels import launch_counts
 from srt_tpu_torch.kernels import bounce as kb
 from srt_tpu_torch.kernels import bounce_bwd as kbb
 from srt_tpu_torch.kernels import intersect as ki
@@ -203,9 +204,9 @@ def test_walk_matches_jax(case):
     # what the bound counts: every ray visits the root; a hit needs a test
     assert (visits >= 1).all() and (tests.numpy()[hit] >= 1).all()
     # the wrapper takes the plain version on CPU tensors, launching nothing
-    launches = ki.LAUNCHES
+    launches = launch_counts()["B3"]
     got = ki.intersect_tris(scene, ki.pack_tables(scene), to, td)
-    assert ki.LAUNCHES == launches
+    assert launch_counts()["B3"] == launches
     for a, b in zip(got, (t, u, v, idx)):
         assert torch.equal(a, b)
 
@@ -282,9 +283,9 @@ def test_bounce_with_triangle_hit_matches_fused_bounce(flush_denormals):
     tables = kb.build_tables(scene, flags)
     spec = kb.StepSpec(max_depth=8)
     tri = ki.intersect_tris(scene, ki.pack_tables(scene), st["o"], st["d"])
-    launches = kb.LAUNCHES_FWD
+    launches = launch_counts()["B2"]
     got = kb.bounce_fwd(scene, flags, tables, st, spec, tri)
-    assert kb.LAUNCHES_FWD == launches
+    assert launch_counts()["B2"] == launches
     state_j = {k: v.numpy() for k, v in st.items()}
     state_j["salt"] = state_j["salt"].view(np.uint32)
     step = jax.jit(functools.partial(
