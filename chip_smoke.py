@@ -903,15 +903,17 @@ def train_state(scene, cam, flags, tables, spec, dev,
 
 def b5_shape(rich: bool) -> str:
     """B5's width K and passes P for one instantiation, with ``ptxas``'
-    registers and bytes of spill stores."""
+    registers and bytes of spill stores of its launch over the lanes and
+    of its launch over the list of live lanes."""
     from srt_tpu_torch.kernels import build
 
     regs = kernel_registers(build.ptxas_report(), "bounce_bwd_kernel", True)
-    (key, shape), = [(k, v) for k, v in regs.items()
-                     if k.endswith(str(int(rich)))]
+    # keyed "K,<kRich><kList>"
+    (k, lanes), = [(k, v) for k, v in regs.items()
+                   if k.endswith(f"{int(rich)}0")]
     passes = build.load_library().srt_bounce_bwd_passes(int(rich))
-    return (f"K {key.split(',')[0]}, P {passes}, registers and spill stores "
-            f"{shape}")
+    return (f"K {k.split(',')[0]}, P {passes}, registers and spill stores "
+            f"over the lanes {lanes}, over the list {regs[k[:-1] + '1']}")
 
 
 def check_b5(label: str, scene, flags, tables, st, spec,

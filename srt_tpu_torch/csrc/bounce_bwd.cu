@@ -61,11 +61,25 @@
 // The rich instantiation stages the Perlin tables in shared memory as B1
 // and B2 do (stage_rich) and reads the media and the lights' kinds from
 // global memory.
+// The launch sweeps only the live lanes where that spares blocks. Where
+// the wavefront's 32-lane tiles fit in the blocks the card holds at once,
+// one block a tile, as the sweep over every lane always was (a dead lane
+// costs nothing there but its tile's slowest lane). Else one cooperative
+// launch, the grid the blocks the card holds at once: each block lists its
+// share's live lanes (live_lanes.cuh); after a grid barrier each stages
+// the scene tables once and sweeps 32-lane tiles of the list, drawn from
+// a counter, then runs of dead lanes, beside the last tiles. A lane's threads run the same code
+// on the same inputs whichever lanes share its tile, so its outputs are
+// those of a launch over every lane.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 #include "bounce_core.cuh"
 #include "bwd_columns.cuh"
+#include "live_lanes.cuh"
 
 extern "C" {
 
@@ -103,6 +117,12 @@ struct BounceBwdArgs {
   const float* perlin_vec;      // (256, 3) (rich)
   const int* perlin_perm;       // (3, 256) (rich)
   int perlin;                   // stage the Perlin tables (noise)
+  int* list;                    // (n + srt_bounce_bwd_scratch(),) scratch:
+                                // the live lanes, each block's count, the
+                                // draws of tiles and of runs of dead lanes
+  unsigned* barrier;            // (1,) the grid barrier's arrivals, 0 at
+                                // first, never reset: one a stream
+  long long* live;              // null, or where to add the lanes swept
 };
 
 }  // extern "C"
@@ -205,35 +225,37 @@ using bwd::kPasses;
 // Lanes a block; each of a lane's passes is a warp of the block
 constexpr int kLanes = 32;
 
-// Thread (lane i, pass p): columns p*K .. p*K + K - 1 of lane i's Jacobian.
-// A lane's P threads share its closest-hit replay: each sweeps every P-th
-// sphere (bounce_core.cuh:sphere_share, as B1 and B2 split theirs) and
-// they exchange their bests through shared memory.
+// Thread (lane i, pass p) of one 32-lane tile: columns p*K .. p*K + K - 1
+// of lane i's Jacobian, where the lane is one of the tile's (``on``); a
+// dead lane (``live`` false) passes its cotangents through. A lane's P
+// threads share its closest-hit replay: each sweeps every P-th sphere
+// (bounce_core.cuh:sphere_share, as B1 and B2 split theirs) and they
+// exchange their bests through shared memory. Every thread of the block
+// calls it; it meets them twice, and returns ``*next`` (0 if null), read
+// between the two meetings.
 template <int K, bool kRich>
-__global__ void __launch_bounds__((kLanes * kPasses<K, kRich>))
-bounce_bwd_kernel(const BounceBwdArgs a) {
+__device__ __forceinline__ int sweep_tile(const BounceBwdArgs& a,
+                                          const SceneView& sv, int i,
+                                          bool on, bool live,
+                                          const int* next) {
   constexpr int P = kPasses<K, kRich>;
-  extern __shared__ __align__(16) float smem[];
   __shared__ float share_t[P][kLanes];
   __shared__ int share_k[P][kLanes];
-  SceneView sv = scene_view(a, smem);
-  if constexpr (kRich) stage_rich(sv, smem, a);
   const int p = threadIdx.x / kLanes, l = threadIdx.x % kLanes;
-  const int i = blockIdx.x * kLanes + l;
-  const bool live = i < a.n && a.alive[i];
   Rows in, ct;
-  if (i < a.n) {
+  if (on) {
     in = load_rows(a.o, a.d, a.beta, a.rad, i);
     ct = load_rows(a.ct_o, a.ct_d, a.ct_beta, a.ct_rad, i);
   }
-  __syncthreads();   // the tables are staged
+  __syncthreads();   // the tables staged, the last tile's shares read
+  const int nxt = next != nullptr ? *next : 0;
   float t_sph = kBig;
   int k_sph = -1;
   if (live) sphere_share<false>(sv, in.o, in.d, 0.0f, p, P, t_sph, k_sph);
   share_t[p][l] = t_sph;
   share_k[p][l] = k_sph;
   __syncthreads();
-  if (i >= a.n) return;
+  if (!on) return nxt;
   const int base = p * K;
 
   Contracted<K> c;
@@ -261,21 +283,136 @@ bounce_bwd_kernel(const BounceBwdArgs a) {
     bwd::store_unfed<kRich>(a.g_mat, i);
     a.wmat[i] = m;
   }
+  return nxt;
 }
 
+// A launch over the lanes (kList false): block b sweeps lanes 32b ..
+// 32b + 31, each block staging the tables. A launch over the list (kList,
+// cooperative, the grid the blocks the card holds at once): the list
+// (live_lanes.cuh); each block stages the tables once and sweeps 32-lane
+// tiles of the list, tile blockIdx.x first, then the next one no block has
+// taken (a counter), so blocks that drew slow tiles take fewer; then the
+// blocks draw runs of dead lanes and write their outputs, beside the last
+// tiles. The rich instantiation is held to two blocks an SM (168
+// registers; left free, it takes 182 over the lanes and 198-205 over the
+// list, and one block).
+template <int K, bool kRich, bool kList>
+__global__ void __launch_bounds__((kLanes * kPasses<K, kRich>),
+                                  kRich ? 2 : 1)
+bounce_bwd_kernel(const __grid_constant__ BounceBwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int l = threadIdx.x % kLanes;
+  if constexpr (!kList) {
+    SceneView sv = scene_view(a, smem);
+    if constexpr (kRich) stage_rich(sv, smem, a);
+    const int i = blockIdx.x * kLanes + l;
+    const bool is_live = i < a.n && a.alive[i];
+    if (a.live != nullptr) {
+      const int c = __syncthreads_count(is_live && threadIdx.x < kLanes);
+      if (threadIdx.x == 0 && c > 0)
+        atomicAdd(reinterpret_cast<unsigned long long*>(a.live),
+                  (unsigned long long)c);
+    }
+    sweep_tile<K, kRich>(a, sv, i, i < a.n, is_live, nullptr);
+  } else {
+    __shared__ int next;
+    int* const counts = a.list + a.n;
+    int* const draws = counts + live::kMaxBlocks;   // tiles, dead runs
+    // tiles 0 .. gridDim.x - 1 go by block index; the grid barrier in
+    // list_live orders this before any draw
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      draws[0] = gridDim.x;
+      draws[1] = 0;
+    }
+    const live::Lanes lanes{a.alive, a.n, a.list, counts, a.barrier, a.live};
+    const int total = live::list_live(lanes);
+    if (total > 0) {
+      SceneView sv = scene_view(a, smem);
+      if constexpr (kRich) stage_rich(sv, smem, a);
+      grid_barrier(a.barrier);   // the list whole, the tables staged
+      const int tiles = (total + kLanes - 1) / kLanes;
+      for (int tile = blockIdx.x; tile < tiles;) {
+        if (threadIdx.x == 0) next = atomicAdd(draws, 1);
+        const int slot = tile * kLanes + l;
+        const bool on = slot < total;
+        tile = sweep_tile<K, kRich>(a, sv, on ? __ldcg(a.list + slot) : 0,
+                                    on, on, &next);
+      }
+    }
+    live::pass_dead(lanes,
+                    live::PassThrough{{a.ct_o, a.ct_d, a.ct_beta, a.ct_rad},
+                                      {a.g_o, a.g_d, a.g_beta, a.g_rad},
+                                      a.g_mat, a.wmat},
+                    draws + 1);
+  }
+}
+
+// The blocks of a launch of bounce_bwd_kernel<K, kRich, kList> the card
+// holds at once with ``smem`` bytes of dynamic shared memory, found once
+// for each device and size; the kernel's dynamic shared memory limit is
+// raised to the largest size yet asked for on the device. A negative
+// cudaError_t if a query failed.
+template <bool kRich, bool kList>
+int resident_blocks(size_t smem) {
+  constexpr int K = bwd::kWidth<kRich>;
+  constexpr int kThreads = kLanes * kPasses<K, kRich>;
+  struct Known {
+    int dev;
+    size_t smem;
+    int blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Known> known, limit;   // limit: .smem set by device
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  std::lock_guard<std::mutex> hold(mu);
+  for (const Known& k : known)
+    if (k.dev == dev && k.smem == smem) return k.blocks;
+  Known* lim = nullptr;
+  for (Known& k : limit)
+    if (k.dev == dev) lim = &k;
+  if (lim == nullptr || lim->smem < smem) {
+    err = cudaFuncSetAttribute(bounce_bwd_kernel<K, kRich, kList>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return -(int)err;
+    if (lim == nullptr) limit.push_back(Known{dev, smem, 0});
+    else lim->smem = smem;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, bounce_bwd_kernel<K, kRich, kList>, kThreads, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  known.push_back(Known{dev, smem, per_sm * sms});
+  return per_sm * sms;
+}
+
+// Over the lanes where their tiles fit in the blocks the card holds at
+// once (a list would spare no wave of blocks), else over the list.
 template <bool kRich>
 int launch(const BounceBwdArgs& a, cudaStream_t stream) {
   constexpr int K = bwd::kWidth<kRich>;
-  size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light)
-                + (kRich ? srt::rich_smem_bytes(a.perlin) : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      bounce_bwd_kernel<K, kRich>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   constexpr int kThreads = kLanes * kPasses<K, kRich>;
-  const int blocks = (a.n + kLanes - 1) / kLanes;
-  bounce_bwd_kernel<K, kRich><<<blocks, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  const size_t smem = srt::smem_bytes(a.n_sph, a.n_rect, a.n_mat, a.n_light)
+                      + (kRich ? srt::rich_smem_bytes(a.perlin) : 0);
+  const int tiles = (a.n + kLanes - 1) / kLanes;
+  const int held = resident_blocks<kRich, false>(smem);
+  if (held < 0) return -held;
+  if (tiles <= held) {
+    bounce_bwd_kernel<K, kRich, false><<<tiles, kThreads, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const int resident = resident_blocks<kRich, true>(smem);
+  if (resident < 0) return -resident;
+  if (resident == 0) return (int)cudaErrorLaunchOutOfResources;
+  int grid = tiles < resident ? tiles : resident;
+  if (grid > live::kMaxBlocks) grid = live::kMaxBlocks;
+  void* params[] = {const_cast<BounceBwdArgs*>(&a)};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)bounce_bwd_kernel<K, kRich, true>, dim3(grid),
+      dim3(kThreads), params, smem, stream);
 }
 
 }  // namespace
@@ -286,6 +423,9 @@ extern "C" int srt_bounce_bwd(const BounceBwdArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return a.rich ? launch<true>(a, s) : launch<false>(a, s);
 }
+
+// The ints of the launch's scratch past the list of live lanes
+extern "C" int srt_bounce_bwd_scratch() { return srt::live::kMaxBlocks + 2; }
 
 // The passes (threads a lane) of the lean (rich 0) or the rich
 // instantiation, as compiled

@@ -45,9 +45,10 @@
 // below the card's rate. What the design does about it: one pass over the
 // lanes, no sort of the wavefront, one launch; what bounds it is latency,
 // the rounds of loads before and after the barrier.
-#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grid_barrier.cuh"
 
 extern "C" {
 
@@ -85,7 +86,6 @@ constexpr int kThreadLanes = 16;             // a pixel one thread adds
 constexpr int kChunks = 2;                   // warp loads of 32 lanes at once
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kOwner = (int)0x80000000u;     // the owner's table key bit
-constexpr unsigned kSpan = 1u << 20;         // barrier arrivals a launch
 static_assert(kThreads == 1 << kTileBits, "a tile is a block");
 
 // A record's descriptor: its start in packed (the tile's base plus its
@@ -134,26 +134,6 @@ __device__ int probe(const FilmSumArgs& a, int t, int p) {
     h = (h + 1) & (kSlots - 1);
   }
   return 0;
-}
-
-// Every block of the grid meets here; the launch is cooperative, so all of
-// them are resident. A block's arrival is an add with release order after
-// its threads meet (its writes before it), its wait loads with acquire
-// order. The counter is never reset: block 0 adds kSpan less the other
-// blocks' arrivals, so a launch adds kSpan in all and every arrival of one
-// launch lies in one span.
-__device__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<unsigned, cuda::thread_scope_device> count(*bar);
-    const unsigned add = blockIdx.x == 0 ? kSpan - gridDim.x + 1u : 1u;
-    const unsigned target =
-        (count.fetch_add(add, cuda::memory_order_release) & ~(kSpan - 1u))
-        + kSpan;
-    while ((int)(count.load(cuda::memory_order_acquire) - target) < 0) {
-    }
-  }
-  __syncthreads();
 }
 
 // The owner's thread alone, for a pixel of at most kInline records and
@@ -410,7 +390,7 @@ __global__ void __launch_bounds__(kThreads, 2) film_sum_kernel(
     if (nn)
       atomicAdd(reinterpret_cast<unsigned long long*>(a.nan_scrubbed), nn);
   }
-  grid_barrier(a.barrier);
+  srt::grid_barrier(a.barrier);
 
   // 2. each owned pixel's records in tile order: the block's last tile
   //    from its list of owned slots in shared memory, a thread an owner;

@@ -19,7 +19,12 @@ versions of the same function:
   :func:`scene.ir.rich_families` its rich
   instantiation (``kRich``), which also replays the media sweep and
   differentiates the specular branch, the media events, the checker's
-  colours, the marble and sphere lights (17 columns instead of 14).
+  colours, the marble and sphere lights (17 columns instead of 14). Where
+  a wavefront's 32-lane tiles fit in the blocks the card holds at once,
+  a block a tile; else one cooperative launch that lists the live lanes
+  on the card, sweeps only them and writes the dead lanes' outputs, so
+  its time follows the live lanes. Either gives the bits of a sweep over
+  every lane, and neither reads the card from the host.
   Per-lane material cotangents are summed by material into the (M, 14)
   table by :func:`kernels.segment.material_sum` (``csrc/segment_sum.cu``,
   in an order fixed by the lanes, so the table's bits repeat run to run),
@@ -42,7 +47,7 @@ from srt_tpu_torch.kernels.bounce import (_RICH_FIELDS, _TABLES,
                                           MAT_GRAD_COLS, StepSpec,
                                           bounce_step_ref, check_state,
                                           rich_args, table_args)
-from srt_tpu_torch.kernels.build import launch
+from srt_tpu_torch.kernels.build import launch, load_library
 from srt_tpu_torch.kernels.segment import material_sum
 from srt_tpu_torch.scene.ir import SceneFlags, TorchScene, require_trainable
 
@@ -151,7 +156,21 @@ class _BwdArgs(ctypes.Structure):
             "atlas_f32", "max_depth", "rr_start")]
         + [("pdf_floor", ctypes.c_float), ("med", ctypes.c_void_p),
            ("n_med", ctypes.c_int)]
-        + _RICH_FIELDS)
+        + _RICH_FIELDS
+        + [("list", ctypes.c_void_p), ("barrier", ctypes.c_void_p),
+           ("live", ctypes.c_void_p)])
+
+# The grid barrier's counter of the launches over the list, by device and
+# stream: zeroed once, never reset (launches on one stream meet in turn)
+_BARRIERS: dict = {}
+
+
+def _barrier(dev) -> int:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _BARRIERS[key].data_ptr()
 
 
 def bwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
@@ -161,7 +180,12 @@ def bwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
     outputs it writes: per-lane ``(d_state, d_mat_lane (N, 10), material
     id (N,) int32)``, before the segment sum. ``flags`` picks the
     instantiation on the host (``rich`` when the scene has any of
-    :func:`scene.ir.rich_families`), with no device read."""
+    :func:`scene.ir.rich_families`), with no device read. The kernel's
+    scratch (the list of live lanes, each block's count, its draws)
+    shares one buffer with the material ids, so the outputs keep it for
+    as long as they live (a replay of the arguments writes into them).
+    On the card a launch takes its stream's barrier counter, so launches
+    on other streams may run at once."""
     dev = state["alive"].device
     n = check_state(state, tables, dev)
     ctc = {}
@@ -175,7 +199,10 @@ def bwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
     g = {k: torch.empty_like(ctc[k]) for k in ROWS}
     g_mat = torch.empty((n, len(MAT_GRAD_COLS)), dtype=torch.float32,
                         device=dev)
-    wmat = torch.empty((n,), dtype=torch.int32, device=dev)
+    cuda = dev.type == "cuda"
+    scratch = load_library().srt_bounce_bwd_scratch() if cuda else 0
+    ids = torch.empty((2 * n + scratch,), dtype=torch.int32, device=dev)
+    wmat = ids[:n]
     args = _BwdArgs(
         **{k: state[k].data_ptr() for k in ("o", "d", "beta", "salt", "depth",
                                             "alive")},
@@ -185,6 +212,7 @@ def bwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
         g_o=g["o"].data_ptr(), g_d=g["d"].data_ptr(),
         g_beta=g["beta"].data_ptr(), g_rad=g["radiance"].data_ptr(),
         g_mat=g_mat.data_ptr(), wmat=wmat.data_ptr(),
+        list=ids[n:].data_ptr(), barrier=_barrier(dev) if cuda else None,
         **table_args(scene, tables), n=n, max_depth=spec.max_depth,
         rr_start=min(spec.rr_start, 2 ** 31 - 1), pdf_floor=spec.pdf_floor,
         **rich_args(scene, flags, tables))
@@ -192,10 +220,12 @@ def bwd_args(scene: TorchScene, flags: SceneFlags, tables: dict,
 
 
 def lane_cotangents(scene: TorchScene, flags: SceneFlags, tables: dict,
-                    state: dict, ct: dict, spec: StepSpec):
+                    state: dict, ct: dict, spec: StepSpec, live=None):
     """Launch ``csrc/bounce_bwd.cu`` (its lean or its rich instantiation);
-    returns its outputs (see :func:`bwd_args`)."""
+    returns its outputs (see :func:`bwd_args`). ``live``: the address the
+    kernel adds the lanes it sweeps to (a tracer slot), or None."""
     args, outs = bwd_args(scene, flags, tables, state, ct, spec)
+    args.live = live
     launch("srt_bounce_bwd", args, state["alive"].device)
     tracer.COUNTS["B5"] += 1
     tracer.COUNTS["B5 rich"] += args.rich
@@ -209,7 +239,9 @@ def bounce_bwd(scene: TorchScene, flags: SceneFlags, tables: dict,
     ``(d_state, d_mat)`` as :func:`bounce_bwd_reference` does. The plain
     version for CPU tensors, the CUDA kernel for CUDA tensors; a scene the
     kernel cannot differentiate raises on both (:func:`require_bwd_kernel`).
-    A ``B5`` launch span with its lanes where the call records."""
+    Where the call records (:mod:`srt_tpu_torch.trace`), a ``B5`` launch
+    span with its lanes and the live lanes it swept: counted by the
+    kernel on the card, by a sum here on the CPU."""
     require_bwd_kernel(scene, flags)
     dev = state["alive"].device
     on = tracer.ON
@@ -219,11 +251,14 @@ def bounce_bwd(scene: TorchScene, flags: SceneFlags, tables: dict,
         out = bounce_bwd_reference(scene, flags._replace(sphere_bvh=False),
                                    tables["mat"], state, ct, spec)
         if on:
-            tracer.launch("B5", t0, state["alive"].shape[0])
+            tracer.launch("B5", t0, state["alive"].shape[0],
+                          state["alive"].sum())
         return out
     if dev.type != "cuda":
         raise ValueError(f"no bounce backward kernel for {dev}")
-    g, g_mat, wmat = lane_cotangents(scene, flags, tables, state, ct, spec)
+    addr, live = tracer.live_slot(dev) if on else (None, None)
+    g, g_mat, wmat = lane_cotangents(scene, flags, tables, state, ct, spec,
+                                     addr)
     if on:
-        tracer.launch("B5", t0, state["alive"].shape[0])
+        tracer.launch("B5", t0, state["alive"].shape[0], live)
     return g, material_sum(g_mat, wmat, tables["mat"].shape[0])

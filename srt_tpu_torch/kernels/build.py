@@ -131,6 +131,8 @@ def load_library() -> ctypes.CDLL:
         lib.srt_film_sum_slots.restype = ctypes.c_int
         lib.srt_film_sum_tile.argtypes = []
         lib.srt_film_sum_tile.restype = ctypes.c_int
+        lib.srt_bounce_bwd_scratch.argtypes = []
+        lib.srt_bounce_bwd_scratch.restype = ctypes.c_int
         lib.srt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.srt_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -7,15 +7,16 @@ span, the call into the program it belongs to (a render or a train step:
 every span of one call shares its id), whether it is a *read* (the host
 waits for the card in it: a ``.tolist()``, an ``int()``, a synchronise)
 and its attributes. A launch span (``B1`` ... ``B6``, ``film_sum``,
-``segment_sum``) carries ``lanes``, the launch's lane count; a B2 launch
-also ``live``, the lanes live on entry, which the kernel counts into a
-slot of a device array this module owns (zeroed once a call) and which
-is read only when the records are (:func:`records`).
+``segment_sum``) carries ``lanes``, the launch's lane count; a B2 or B5
+launch also ``live``, the lanes live on entry (those B5 sweeps), which
+the kernel counts into a slot of a device array this module owns (zeroed
+once a call) and which is read only when the records are
+(:func:`records`).
 
 Whether a call records is decided once, at its entry span
 (:func:`entry`): while the profiler's own is-enabled query says a
 profiler runs. Its spans read one module flag, :data:`ON`; when it is
-off a span is that check, a B2 launch passes a null counter and nothing
+off a span is that check, B2 and B5 pass a null counter and nothing
 is allocated, recorded or read. Spans are not mirrored into the profiler
 (``record_function``), whose ranges would show on the card's timeline.
 
@@ -167,8 +168,8 @@ def phase(name: str, device):
 
 def launch(name: str, t0: int, lanes: int, live=None) -> None:
     """Record a launch span that began at ``t0`` and ends now, with its
-    lane count and, for B2, its live lanes (a slot of :func:`live_slot`
-    or a tensor). Called where :data:`ON` is set."""
+    lane count and, for B2 and B5, its live lanes (a slot of
+    :func:`live_slot` or a tensor). Called where :data:`ON` is set."""
     global _dropped
     if len(_records) >= MAX_RECORDS:
         _dropped += 1

@@ -8,7 +8,8 @@ sphere winner of the hybrid backward (``sphere_winner.cu``), the film sum
 
 On a machine with an NVIDIA GPU the ``cuda``-marked tests build the
 kernels and hold one launch of each against its plain version lane by
-lane; here, without a card, they skip. The CPU tests check that the
+lane (B5 also on wavefronts of every share of live lanes, a dead lane's
+rows to the bit); here, without a card, they skip. The CPU tests check that the
 wrappers take the plain versions for CPU tensors without launching
 anything, and what the build is asked to do.
 """
@@ -357,6 +358,115 @@ def test_train_kernels_match_plain_on_gpu(name, cuda_device):
     assert np.abs(a).max() > 0.0
     np.testing.assert_allclose(b, a, rtol=contract.GRAD_RTOL,
                                atol=1e-4 * np.abs(a).max())
+
+
+def _b5_inputs(device, n, rich, layout):
+    """Camera rays of ``n`` lanes (B5's lean scene, ball_scenes, or a rich
+    one, two_perlin_spheres) whose live lanes are ``layout``: ``dead``,
+    ``live``, ``one`` (a seeded lane) or a seeded share (``1%``, ``5%``);
+    and a seeded cotangent, zero on o, d, beta where the step ends the
+    path, as in :func:`_train_inputs`."""
+    scene, flags, tables, st, spec, _ = _train_inputs(
+        device, n, "two_perlin_spheres" if rich else "ball_scenes", 0)
+    r = np.random.default_rng(n + rich)
+    alive = np.zeros(n, bool)
+    if layout == "live":
+        alive[:] = True
+    elif layout == "one":
+        alive[r.integers(n)] = True
+    elif layout.endswith("%"):
+        alive = r.random(n) < float(layout[:-1]) / 100
+    st["alive"] = torch.from_numpy(alive).to(device)
+    with torch.no_grad():
+        ends = ~kb.bounce_step_ref(scene, flags, tables["mat"], st,
+                                   spec)["alive"]
+    ct = {k: torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32))
+          .to(device) for k in kbb.ROWS}
+    for k in ("o", "d", "beta"):
+        ct[k][ends] = 0.0
+    return scene, flags, tables, st, spec, ct
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16384, 262144])
+@pytest.mark.parametrize("layout", ["dead", "live", "one", "1%", "5%",
+                                    "90%"])
+@pytest.mark.parametrize("rich", [False, True])
+def test_bwd_kernel_sweeps_the_live_lanes_on_gpu(rich, layout, n,
+                                                 cuda_device):
+    """B5 sweeps the live lanes, over the lanes (the lean 16,384) or over
+    the list (the others): on wavefronts all dead, all live, one lane
+    live, 1%, 5% and 90% live, lean and rich, its cotangents hold to
+    ``torch.autograd`` of the plain step under the gradient contract; a
+    dead lane's rows are its cotangents and its material row and id 0, to
+    the bit; a second launch on the same inputs gives the same bits; and
+    its count of the lanes it swept is the live lanes."""
+    scene, flags, tables, st, spec, ct = _b5_inputs(cuda_device, n, rich,
+                                                    layout)
+    live = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    outs = [kbb.lane_cotangents(scene, flags, tables, st, ct, spec,
+                                live[k].data_ptr()) for k in range(2)]
+    g_ref, d_mat_ref = kbb.bounce_bwd_reference(scene, flags, tables["mat"],
+                                                st, ct, spec)
+    torch.cuda.synchronize()
+    alive = st["alive"]
+    assert live.tolist() == [int(alive.sum())] * 2
+    (g, g_mat, wmat), (g2, g_mat2, wmat2) = outs
+    for k in kbb.ROWS:
+        assert torch.equal(_bits(g[k]), _bits(g2[k])), k
+        assert torch.equal(_bits(g[k][~alive]), _bits(ct[k][~alive])), k
+    assert torch.equal(_bits(g_mat), _bits(g_mat2))
+    assert torch.equal(wmat, wmat2)
+    assert torch.equal(_bits(g_mat[~alive]), torch.zeros_like(
+        _bits(g_mat[~alive])))
+    assert not wmat[~alive].any()
+    contract.check_grads({k: g_ref[k].cpu().numpy() for k in kbb.ROWS},
+                         {k: g[k].cpu().numpy() for k in kbb.ROWS})
+    a = d_mat_ref.cpu().numpy()
+    b = kseg.material_sum(g_mat, wmat, tables["mat"].shape[0]).cpu().numpy()
+    if layout == "dead":
+        assert not a.any() and not b.any()
+    else:
+        np.testing.assert_allclose(b, a, rtol=contract.GRAD_RTOL,
+                                   atol=1e-4 * np.abs(a).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rich", [False, True])
+def test_bwd_kernel_lane_ignores_the_other_lanes_on_gpu(rich, cuda_device):
+    """A lane's outputs do not depend on which other lanes are live, nor
+    on how the launch sweeps: B5 on a 5%-live wavefront and on the same
+    wavefront with every lane alive (both over the list), where the lanes
+    live in both fall in other tiles, gives those lanes the same bits; and
+    on its first 4,096 lanes alone (over the lanes) every lane of them the
+    bits of the 5%-live launch."""
+    scene, flags, tables, st, spec, ct = _b5_inputs(cuda_device, 65536,
+                                                    rich, "5%")
+    sparse = kbb.lane_cotangents(scene, flags, tables, st, ct, spec)
+    every = kbb.lane_cotangents(scene, flags, tables,
+                                dict(st, alive=torch.ones_like(st["alive"])),
+                                ct, spec)
+    head = 4096
+    part = kbb.lane_cotangents(
+        scene, flags, tables,
+        {k: v[:head].contiguous() for k, v in st.items()},
+        {k: v[:head].contiguous() for k, v in ct.items()}, spec)
+    torch.cuda.synchronize()
+    both = st["alive"]
+    assert 0 < int(both.sum()) < both.shape[0] // 10
+    assert 0 < int(both[:head].sum())
+    for k in kbb.ROWS:
+        assert torch.equal(_bits(sparse[0][k][both]),
+                           _bits(every[0][k][both])), k
+        assert torch.equal(_bits(sparse[0][k][:head]), _bits(part[0][k])), k
+    assert torch.equal(_bits(sparse[1][both]), _bits(every[1][both]))
+    assert torch.equal(sparse[2][both], every[2][both])
+    assert torch.equal(_bits(sparse[1][:head]), _bits(part[1]))
+    assert torch.equal(sparse[2][:head], part[2])
 
 
 def _tri_inputs(device, n):

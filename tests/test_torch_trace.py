@@ -5,12 +5,13 @@ On the CPU, at toy sizes: a ``render_regen``, a scan ``render`` and a
 train step record nothing without a profiler and take no counter slot;
 under one each records its span tree (names, parents, one call id a
 call, reads marked); the live-lane counters equal the renders' own
-counts; a span brackets a ``record_function`` opened inside it on the
-profiler's clock. The ``cuda``-marked tests hold B2's live-lane count
-against the lanes alive on entry on every instantiation the scan engine
-and the train step take, a B1 launch's device operation inside its span,
-and the train step's ``backward`` device time between its kernels' time
-and the step's wall; here, without a card, they skip.
+counts, and the backward's B5 counts the forward's; a span brackets a
+``record_function`` opened inside it on the profiler's clock. The
+``cuda``-marked tests hold B2's and B5's live-lane counts against the
+lanes alive on entry on every instantiation the scan engine and the train
+step take, a B1 launch's device operation inside its span, and the train
+step's ``backward`` device time between its kernels' time and the step's
+wall; here, without a card, they skip.
 """
 from __future__ import annotations
 
@@ -177,6 +178,32 @@ def test_train_step_records_its_tree_and_live_lanes():
     assert live == aux["alive_per_bounce"].tolist()
 
 
+def test_train_step_b5_spans_count_the_lanes_they_sweep():
+    """The backward's B5 spans carry ``live``, the lanes each sweeps: the
+    bounce's ``alive.sum()``, so the forward's B2 counts in reverse bounce
+    order, summing to the same lanes over the step. The benchmark's
+    ``live_lane_share.train`` reads the B2 spans alone: the B5 counts
+    leave it as the forward's share."""
+    from benchmark import spec
+    from benchmark.trace import DeviceTrace
+
+    scene, cam = _scene()
+    step = _step(scene, cam)
+    _, recs, _ = _profiled(lambda: step(torch.full((8, 8, 3), 0.3), 7))
+    b2 = [r["attrs"] for r in recs if r["name"] == "B2"]
+    b5 = [r["attrs"] for r in recs if r["name"] == "B5"]
+    assert len(b5) == len(b2) == TRAIN["max_depth"]
+    assert [a["live"] for a in b5] == [a["live"] for a in b2][::-1]
+    assert [a["lanes"] for a in b5] == [a["lanes"] for a in b2]
+    assert 0 < sum(a["live"] for a in b5) < sum(a["lanes"] for a in b5)
+    t0, t1 = recs[0]["t0"], recs[0]["t1"]
+    ctx = {"kind": "train", "trace": DeviceTrace(
+        [("k", t0, t1)], [("train_step", t0, t1)], 1.0)}
+    share = spec.reader("live_lane_share.train")(ctx)
+    assert share == pytest.approx(100.0 * sum(a["live"] for a in b2)
+                                  / sum(a["lanes"] for a in b2))
+
+
 def test_calls_take_one_id_each():
     scene, cam = _scene()
     cfg = RenderConfig(width=8, height=8, spp=1, max_depth=3, wavefront=64)
@@ -305,6 +332,30 @@ def test_b2_live_lanes_on_gpu(name, cuda_device):
                                               spec, tri))
     (b2,) = [r for r in recs if r["name"] == "B2"]
     assert b2["attrs"] == {"lanes": st["alive"].shape[0], "live": want}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ball_scenes", "two_perlin_spheres"])
+def test_b5_live_lanes_on_gpu(name, cuda_device):
+    """B5's span carries the lanes it swept, the lanes alive on entry,
+    lean (ball_scenes) and rich (two_perlin_spheres), counted by the
+    kernel into the slot a recording call hands it."""
+    from srt_tpu_torch.kernels import bounce_bwd as kbb
+    scene, cam = _scene(name, cuda_device)
+    flags, tables, spec, st = _state(scene, cam, cuda_device)
+    r = np.random.default_rng(8)
+    ct = {k: torch.from_numpy(r.standard_normal(st["o"].shape)
+                              .astype(np.float32)).to(cuda_device)
+          for k in kbb.ROWS}
+    want = int(st["alive"].sum())
+    assert 0 < want < st["alive"].shape[0]
+
+    def body():
+        with tracer.entry("test"):
+            return kbb.bounce_bwd(scene, flags, tables, st, ct, spec)
+    _, recs, _ = _profiled(body)
+    (b5,) = [r for r in recs if r["name"] == "B5"]
+    assert b5["attrs"] == {"lanes": st["alive"].shape[0], "live": want}
 
 
 def _entry_fwd(scene, flags, tables, st, spec, tri):
