@@ -3,8 +3,8 @@ the paths of chosen pixels traced to the depth cap, and the train step's
 loss, gradient and Adam update.
 
 The bounce is a frozen copy of ``srt_tpu_torch/render/integrator.py:
-bounce_step`` without what the benchmark's configurations do not hold
-(media, triangles, the parity estimator, the sphere BVH). The reference
+bounce_step`` without what the benchmark's configurations do not hold (the
+parity estimator, the sphere BVH, media bounded by a mesh). The reference
 differs from the program's engines in how it walks the work, not in what
 it computes: it takes any set of pixels, traces every sample of each as
 one wavefront, and shades only the lanes still alive at each bounce.
@@ -23,6 +23,7 @@ import torch
 from benchmark.reference.core import (as_word, create_salt, dot, gsdiv,
                                       hash_combine, sobol_points, to_local,
                                       uniform, where3)
+from benchmark.reference.media import apply_media
 from benchmark.reference.shading import (bsdf_pdf, bsdf_weight, emitted,
                                          face_basis, is_scattering,
                                          is_specular, lights_pdf,
@@ -50,9 +51,10 @@ def bounce(scene, state: dict, max_depth: int, rr_start: int,
            pdf_floor: float = 1e-9) -> dict:
     """One bounce of ``state`` (``o d beta radiance`` (N, 3), ``time``,
     ``salt`` 32-bit words, ``depth`` int32, ``alive`` bool): the closest
-    hit, emission, the 50/50 mixture of light and BSDF sampling with its
-    mixture pdf, the specular branch, roulette from ``rr_start``. Returns
-    the next state (``alive`` not yet capped by depth)."""
+    hit, overridden by a nearer event in a medium, emission, the 50/50
+    mixture of light and BSDF sampling with its mixture pdf, the specular
+    branch, roulette from ``rr_start``. Returns the next state (``alive``
+    not yet capped by depth)."""
     flags = scene.flags
     depth = state["depth"]
     salt = hash_combine(as_word(state["salt"]), as_word(depth))
@@ -60,6 +62,8 @@ def bounce(scene, state: dict, max_depth: int, rr_start: int,
     alive, beta = state["alive"], state["beta"]
 
     hit = intersect_scene(scene, o, d, 1e-3, state["time"])
+    if scene.n_media:
+        hit = apply_media(scene, o, d, salt, hit)
     # sanitize miss lanes: zero normal -> +z, far position -> origin
     up = torch.zeros_like(hit.normal)
     up[:, 2] = 1.0

@@ -3,9 +3,10 @@
 static facts the shading reads.
 
 The program gets the same arrays and derives its own tables from them
-(packed sphere records, the material table, the packed rgb8 atlas); the
-reference derives nothing of them and reads the arrays as they are: the
-float atlas, never its packed twin. The ids are those of
+(packed sphere records, the material table, the packed rgb8 atlas, the
+triangles' BVH and clusters); the reference derives nothing of them and
+reads the arrays as they are: the float atlas, never its packed twin; the
+triangle soup, never a BVH. The ids are those of
 ``srt_tpu_torch/scene/ir.py`` (the reference C++ renderer's families).
 """
 from __future__ import annotations
@@ -15,6 +16,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from benchmark.reference import media
+from benchmark.reference.triangles import Soup
 
 
 class MaterialType(enum.IntEnum):
@@ -48,7 +52,7 @@ SPECULAR_MATS = {int(MaterialType.METAL), int(MaterialType.DIELECTRIC),
 COVERED_MATS = {int(MaterialType.LAMBERTIAN), int(MaterialType.OREN_NAYAR),
                 int(MaterialType.BECKMANN), int(MaterialType.METAL),
                 int(MaterialType.DIELECTRIC),
-                int(MaterialType.DIFFUSE_LIGHT)}
+                int(MaterialType.DIFFUSE_LIGHT), int(MaterialType.ISOTROPIC)}
 COVERED_TEX = {int(TextureType.CONSTANT), int(TextureType.CHECKER),
                int(TextureType.IMAGE)}
 
@@ -57,7 +61,9 @@ FIELDS = ("sph_center0", "sph_center1", "sph_times", "sph_radius", "sph_mat",
           "sph_flip", "sph_env", "rect_axis", "rect_bounds", "rect_k",
           "rect_mat", "rect_flip", "mat_type", "mat_tex", "mat_params",
           "tex_type", "tex_color", "tex_color2", "tex_img", "atlas",
-          "light_kind", "light_index")
+          "light_kind", "light_index", "tri_p0", "tri_p1", "tri_p2",
+          "tri_uv", "tri_n", "tri_mat", "med_kind", "med_center",
+          "med_radius", "med_half", "med_density", "med_mat")
 
 
 class Flags(NamedTuple):
@@ -75,21 +81,24 @@ class Scene:
     atlas_u32 = None      # the reference reads the float atlas
 
     def __init__(self, arrays: dict, device):
-        for k in FIELDS:
-            setattr(self, k, torch.from_numpy(
-                np.ascontiguousarray(arrays[k])).to(device))
-        n_tris = np.asarray(arrays.get("tri_p0", np.zeros((0, 3)))).shape[0]
         mats = set(np.asarray(arrays["mat_type"]).tolist())
         texs = set(np.asarray(arrays["tex_type"]).tolist())
-        if n_tris or np.asarray(arrays.get("med_kind", [])).size:
-            raise NotImplementedError("the reference holds spheres and rects "
-                                      "only")
+        #: each medium's boundary kind, read on the host
+        self.med_kinds = np.asarray(arrays["med_kind"]).tolist()
+        if media.MESH in self.med_kinds:
+            raise NotImplementedError("a medium bounded by a mesh: not in "
+                                      "the reference")
         if not mats <= COVERED_MATS or not texs <= COVERED_TEX:
             raise NotImplementedError(f"materials {sorted(mats)}, textures "
                                       f"{sorted(texs)}: not in the reference")
+        for k in FIELDS:
+            setattr(self, k, torch.from_numpy(
+                np.ascontiguousarray(arrays[k])).to(device))
         self.flags = Flags(mat_kinds=tuple(sorted(mats)),
                            tex_kinds=tuple(sorted(texs)))
-        self.n_tris = 0
+        self.soup = (Soup(self.tri_p0, self.tri_p1, self.tri_p2, self.tri_uv,
+                          self.tri_n, self.tri_mat)
+                     if self.n_tris else None)
 
     @property
     def n_spheres(self) -> int:
@@ -98,6 +107,14 @@ class Scene:
     @property
     def n_rects(self) -> int:
         return self.rect_k.shape[0]
+
+    @property
+    def n_tris(self) -> int:
+        return self.tri_p0.shape[0]
+
+    @property
+    def n_media(self) -> int:
+        return len(self.med_kinds)
 
     @property
     def n_lights(self) -> int:

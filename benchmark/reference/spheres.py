@@ -3,21 +3,20 @@ of primitives, ties to the lowest index, spheres at their centre at the
 ray's time, the environment dome always hit at its far crossing.
 
 A frozen copy of the sphere and rect parts of
-``srt_tpu_torch/render/intersect.py``. A configuration with triangles adds
-its own family file beside this one; :func:`intersect_scene` refuses a
-scene with triangles rather than drop them.
+``srt_tpu_torch/render/intersect.py``. :func:`intersect_scene` sweeps the
+three families in the port's order: spheres, rects, then the triangles of
+:mod:`benchmark.reference.triangles`.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
 import torch
 
+from benchmark.reference import triangles
 from benchmark.reference.core import gsdiv, safe_sqrt
+from benchmark.reference.hit import BIG, Hit, ray_at
 
-BIG = 3.0e38
-T_POS_MAX = 1.0e7    # position-eval clamp: o + BIG*d would overflow
 PRIM_CHUNK = 128
 
 
@@ -26,33 +25,6 @@ PRIM_CHUNK = 128
 RECT_NAXIS = (2, 1, 0)   # xy->z, xz->y, yz->x
 RECT_UAXIS = (0, 0, 1)   # xy->x, xz->x, yz->y
 RECT_VAXIS = (1, 2, 2)   # xy->y, xz->z, yz->z
-
-
-class Hit(NamedTuple):
-    t: torch.Tensor        # (N,) BIG when miss
-    hit: torch.Tensor      # (N,) bool
-    p: torch.Tensor        # (N, 3)
-    normal: torch.Tensor   # (N, 3) stored normal (may be flipped)
-    uv: torch.Tensor       # (N, 2)
-    mat: torch.Tensor      # (N,) int64 material id (0 when miss)
-
-    @staticmethod
-    def none(n: int, device) -> "Hit":
-        z = torch.zeros((n, 3), dtype=torch.float32, device=device)
-        return Hit(t=torch.full((n,), BIG, device=device),
-                   hit=torch.zeros((n,), dtype=torch.bool, device=device),
-                   p=z, normal=z, uv=z[:, :2],
-                   mat=torch.zeros((n,), dtype=torch.int64, device=device))
-
-    def closer_of(self, other: "Hit") -> "Hit":
-        take = other.hit & (other.t < self.t)
-        t3 = take[:, None]
-        return Hit(t=torch.where(take, other.t, self.t),
-                   hit=self.hit | other.hit,
-                   p=torch.where(t3, other.p, self.p),
-                   normal=torch.where(t3, other.normal, self.normal),
-                   uv=torch.where(t3, other.uv, self.uv),
-                   mat=torch.where(take, other.mat, self.mat))
 
 
 def sphere_uv(unit: torch.Tensor) -> torch.Tensor:
@@ -68,10 +40,6 @@ def sphere_uv(unit: torch.Tensor) -> torch.Tensor:
     u = 1.0 - (phi + math.pi) / (2.0 * math.pi)
     v = (theta + math.pi / 2.0) / math.pi
     return torch.stack([u, v], -1)
-
-
-def _ray_at(o, d, t):
-    return o + torch.clamp(t, max=T_POS_MAX)[:, None] * d
 
 
 def _lerp_factor(times: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
@@ -121,7 +89,7 @@ def _sphere_chunk(scene, o, d, time, t_min, c0, c1) -> Hit:
     rad = scene.sph_radius[c0:c1]
     tb, k = torch.min(t, dim=1)                          # first on ties
     hit = tb < BIG
-    p = _ray_at(o, d, tb)
+    p = ray_at(o, d, tb)
     unit = (p - cen[torch.arange(o.shape[0], device=o.device), k]) \
         / rad[k][:, None]
     flip = scene.sph_flip[c0:c1][k] ^ scene.sph_env[c0:c1][k]
@@ -156,19 +124,16 @@ def _rect_chunk(scene, o, d, t_min, c0, c1) -> Hit:
     v = (torch.gather(pv, 1, kk)[:, 0] - b[:, 2]) / (b[:, 3] - b[:, 2])
     normal = torch.nn.functional.one_hot(na[k], 3).to(torch.float32)
     normal = torch.where(scene.rect_flip[c0:c1][k][:, None], -normal, normal)
-    return Hit(t=torch.where(hit, tb, BIG), hit=hit, p=_ray_at(o, d, tb),
+    return Hit(t=torch.where(hit, tb, BIG), hit=hit, p=ray_at(o, d, tb),
                normal=normal, uv=torch.stack([u, v], -1),
                mat=scene.rect_mat[c0:c1][k].long())
 
 
 def intersect_scene(scene, o: torch.Tensor, d: torch.Tensor,
                     t_min: float, time: torch.Tensor) -> Hit:
-    """Closest hit over every sphere, then every rect (an earlier family
-    wins ties), at the rays' ``time``: the sweep of
+    """Closest hit over every sphere, then every rect, then every triangle
+    (an earlier family wins ties), at the rays' ``time``: the sweep of
     ``srt_tpu_torch/render/intersect.py:intersect_scene``."""
-    if scene.n_tris:
-        raise NotImplementedError("the sphere family's reference has no "
-                                  "triangles")
     best = Hit.none(o.shape[0], o.device)
     for c0 in range(0, scene.n_spheres, PRIM_CHUNK):
         c1 = min(c0 + PRIM_CHUNK, scene.n_spheres)
@@ -177,4 +142,7 @@ def intersect_scene(scene, o: torch.Tensor, d: torch.Tensor,
     for c0 in range(0, scene.n_rects, PRIM_CHUNK):
         c1 = min(c0 + PRIM_CHUNK, scene.n_rects)
         best = best.closer_of(_rect_chunk(scene, o, d, t_min, c0, c1))
+    if scene.n_tris:
+        best = best.closer_of(triangles.intersect(scene.soup, o, d, t_min,
+                                                  best.t))
     return best

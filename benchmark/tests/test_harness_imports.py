@@ -37,7 +37,8 @@ def test_harness_imports_no_jax():
 def test_reference_imports_nothing_of_the_program():
     mods = modules_after(
         "import benchmark.reference.path, benchmark.reference.camera, "
-        "benchmark.reference.scene, benchmark.scenes.builder, "
+        "benchmark.reference.scene, benchmark.reference.triangles, "
+        "benchmark.reference.media, benchmark.scenes.builder, "
         "benchmark.scenes.ball_scenes, benchmark.scenes.random_scene, "
         "benchmark.check, benchmark.work")
     assert not mods & {"srt_tpu_torch", "srt_tpu", "jax", "jaxlib"}

@@ -52,7 +52,8 @@ def test_configurations_load_by_name():
         assert cfg["reduced"] == c["reduced"] == []
         arrays, cam = spec.Cell.from_parts(
             "x", {"chips": 1}, cfg, {}, {}, [], []).scene()
-        assert arrays["sph_radius"].shape[0] > 100
+        assert arrays["sph_radius"].shape[0] + arrays["tri_p0"].shape[0] \
+            > 100
         assert set(cam) >= {"origin", "lower_left"}
 
 

@@ -1,9 +1,12 @@
 """The plain reference against the port's plain versions on the CPU at a
 few pixels: the regeneration and scan engines' images, and the scan
-train step's losses, first gradient and parameters after three steps.
-(The test imports both; the reference imports nothing of the port.)"""
+train step's losses, first gradient and parameters after three steps;
+and the reference's own images of the sphere scenes, pinned. (The test
+imports both; the reference imports nothing of the port.)"""
 from __future__ import annotations
 
+import functools
+import hashlib
 import warnings
 
 import numpy as np
@@ -14,6 +17,7 @@ from benchmark.reference import path
 from benchmark.reference.camera import camera_from
 from benchmark.reference.scene import Scene
 from benchmark.scenes import ball_scenes, random_scene
+from benchmark.tests._library import library_arrays
 from srt_tpu_torch import RenderConfig, convert, make_train_step, render
 from srt_tpu_torch import render_regen
 
@@ -28,11 +32,22 @@ def port_scene(arrays, cam):
                 convert.camera_from_arrays(cam, device="cpu"))
 
 
-@pytest.mark.parametrize("make", [ball_scenes.make, random_scene.make],
-                         ids=["ball_scenes", "random_scene"])
+#: the sphere scenes from the benchmark's generators; the triangle scenes
+#: from the port's library, BVH order and all, which the port needs until
+#: it derives its tables from a soup: cornell_boxes' 24 triangles, and
+#: the teapot's 1,984 metal and Beckmann ones with the glass sphere and
+#: its medium
+SCENES = {"ball_scenes": ball_scenes.make, "random_scene": random_scene.make,
+          "cornell_boxes": functools.partial(library_arrays,
+                                             "cornell_boxes"),
+          "teapot_scene": functools.partial(library_arrays, "teapot_scene",
+                                            divs=4)}
+
+
+@pytest.mark.parametrize("scene", list(SCENES))
 @pytest.mark.parametrize("engine", ["regen", "scan"])
-def test_render_matches_the_port(make, engine):
-    arrays, cam = make()
+def test_render_matches_the_port(scene, engine):
+    arrays, cam = SCENES[scene]()
     ps, pc = port_scene(arrays, cam)
     cfg = RenderConfig(width=W, height=H, spp=4, max_depth=50, seed=SEED,
                        wavefront=128, sample_chunk=2, pixel_chunk=32)
@@ -44,6 +59,25 @@ def test_render_matches_the_port(make, engine):
     # the same paths; only the order of a pixel's sums differs
     np.testing.assert_allclose(img, ref.numpy(), rtol=0, atol=2e-7)
     assert live[0] == W * H * 4 and live == sorted(live, reverse=True)
+
+
+#: sha256 of the reference's 8x8 image at 4 spp, depth 50, before the
+#: triangle family and media joined it: the sphere path kept bit for bit
+DIGESTS = {
+    "ball_scenes":
+        "7d4e3c55f795a414807fbad70d02d6baaa4ca3535576332895ef6e2fa4cf093b",
+    "random_scene":
+        "775031331b476466d6f8bf68d5babc69ad0ff81ca5b11e69c7f51d805fef9d56"}
+
+
+@pytest.mark.parametrize("scene", list(DIGESTS))
+def test_sphere_scene_images_are_pinned(scene):
+    arrays, cam = SCENES[scene]()
+    img, _ = path.render_pixels(Scene(arrays, "cpu"), camera_from(cam, "cpu"),
+                                torch.arange(W * H), width=W, height=H,
+                                spp=4, max_depth=50, seed=SEED)
+    assert hashlib.sha256(img.numpy().tobytes()).hexdigest() \
+        == DIGESTS[scene]
 
 
 def test_pixel_subset_is_the_image_at_those_pixels():
