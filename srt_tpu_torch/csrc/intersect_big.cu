@@ -50,6 +50,12 @@
 // Rays are (n, 3) rows o, d; outputs t (kBig on a miss), u, v float and
 // idx int32 (0 on a miss), (n,) each.
 //
+// The tracer's counts (srt_tpu_torch/trace.py), where count_nodes and
+// count_tests are not null: the records the launch's rays visited, top
+// and cluster nodes (one a loop iteration), and the triangles they
+// tested, each added once a warp into its int64 slot. The walk without
+// them is its own instantiation, the same code as before the counts.
+//
 // The guards, the operation order and the strict < are those of the
 // plain walk; with --fmad=false the two agree to the bit, and both equal
 // the single-level walk (B3) on the same tree.
@@ -71,6 +77,8 @@ struct IntersectBigArgs {
   float* v;
   int* idx;
   int n, n_top, count_bits;
+  long long* count_nodes;  // null, or where to add the records visited
+  long long* count_tests;  // null, or where to add the triangles tested
 };
 
 }  // extern "C"
@@ -83,6 +91,17 @@ using namespace srt;
 // teapot's bounced rays on one H100 (PERF.md, B4)
 constexpr int kBlock = 256;
 
+// a warp's sum of x over its threads that run this together, added by
+// one of them to *slot
+__device__ __forceinline__ void add_warp(long long* slot, unsigned x) {
+  const unsigned mask = __activemask();
+  const unsigned sum = __reduce_add_sync(mask, x);
+  if ((threadIdx.x & 31) == __ffs(mask) - 1)
+    atomicAdd(reinterpret_cast<unsigned long long*>(slot),
+              (unsigned long long)sum);
+}
+
+template <bool kCount>
 __global__ void __launch_bounds__(kBlock)
 intersect_big_kernel(const IntersectBigArgs a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
@@ -100,7 +119,9 @@ intersect_big_kernel(const IntersectBigArgs a) {
   bool inside = false;
   int c = 0, resume = 0;
   int4 cl = make_int4(0, 0, 0, 0);
+  [[maybe_unused]] unsigned visits = 0, tests = 0;
   while (inside || c < a.n_top) {
+    if constexpr (kCount) ++visits;
     const float4* r = inside ? a.nodes + 2 * (size_t)(cl.x + c)
                              : a.top + 2 * c;
     const float4 lo = __ldg(r), hi = __ldg(r + 1);
@@ -109,6 +130,7 @@ intersect_big_kernel(const IntersectBigArgs a) {
     if (inside) {
       if (box_hit && link >= 0) {
         const int first = link >> a.count_bits, count = link & mask;
+        if constexpr (kCount) tests += count;
         for (int k = first; k < first + count; ++k)
           tri_test(a.tris, cl.y + k, o, d, h, cl.z + k);
       }
@@ -130,6 +152,10 @@ intersect_big_kernel(const IntersectBigArgs a) {
   a.u[i] = h.u;
   a.v[i] = h.v;
   a.idx[i] = h.idx;
+  if constexpr (kCount) {
+    add_warp(a.count_nodes, visits);
+    add_warp(a.count_tests, tests);
+  }
 }
 
 }  // namespace
@@ -139,6 +165,10 @@ extern "C" int srt_intersect_big(const IntersectBigArgs* args,
   const IntersectBigArgs& a = *args;
   if (a.n <= 0) return (int)cudaSuccess;
   const int blocks = (a.n + kBlock - 1) / kBlock;
-  intersect_big_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a.count_nodes != nullptr && a.count_tests != nullptr)
+    intersect_big_kernel<true><<<blocks, kBlock, 0, s>>>(a);
+  else
+    intersect_big_kernel<false><<<blocks, kBlock, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -169,11 +169,14 @@ class _Args(ctypes.Structure):
 
 class _BigArgs(ctypes.Structure):
     """``IntersectBigArgs`` of ``csrc/intersect_big.cu``, field for
-    field."""
+    field; ``count_nodes`` and ``count_tests`` null unless the tracer
+    hands the launch its slots."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "o", "d", "top", "nodes", "tris", "clusters", "t", "u", "v", "idx")]
         + [(name, ctypes.c_int) for name in (
-            "n", "n_top", "count_bits")])
+            "n", "n_top", "count_bits")]
+        + [(name, ctypes.c_void_p) for name in (
+            "count_nodes", "count_tests")])
 
 
 def _check_rays(o: torch.Tensor, d: torch.Tensor) -> None:
@@ -271,19 +274,26 @@ def intersect_tris_big(scene: TorchScene, tables: dict, o: torch.Tensor,
     """Each ray's closest triangle over the two-level BVH ``(t, u, v,
     idx)``: the plain version for CPU tensors, kernel B4 for CUDA tensors.
     ``tables`` is :func:`pack_big_tables` of ``scene``. A ``B4`` launch
-    span with its lanes where the call records."""
+    span with its lanes where the call records; on the card also
+    ``nodes``, the top and cluster records its rays visited, and
+    ``tests``, the triangles they tested, which the kernel counts into
+    two of the tracer's slots."""
     on = tracer.ON
     t0 = tracer.now() if on else 0
+    counts = {}
     if o.device.type == "cpu":
         out = intersect_tris_big_reference(scene, o, d)
     elif o.device.type == "cuda":
         args, out = big_kernel_args(tables, o, d)
+        if on:
+            args.count_nodes, counts["nodes"] = tracer.live_slot(o.device)
+            args.count_tests, counts["tests"] = tracer.live_slot(o.device)
         launch("srt_intersect_big", args, o.device)
         tracer.COUNTS["B4"] += 1
     else:
         raise ValueError(f"no two-level triangle kernel for {o.device}")
     if on:
-        tracer.launch("B4", t0, o.shape[0])
+        tracer.launch("B4", t0, o.shape[0], **counts)
     return out
 
 

@@ -50,11 +50,46 @@ def _flat_normals(p: np.ndarray) -> np.ndarray:
     return np.repeat(gn[:, None, :], 3, axis=1)
 
 
+#: the two-level BVH's caps on a cluster's nodes and triangles, the JAX
+#: package's (``srt_tpu/scene/build.py:47-48``)
+CLUSTER_NODE_CAP = 2048
+CLUSTER_TRI_CAP = 4096
+
+
+def triangle_tables(p: np.ndarray, uv: np.ndarray, n: np.ndarray,
+                    tm: np.ndarray, node_cap: int = CLUSTER_NODE_CAP,
+                    tri_cap: int = CLUSTER_TRI_CAP,
+                    seconds: dict | None = None) -> dict:
+    """A scene's triangle tables from its soup in the order it was added:
+    corners ``p`` (T, 3, 3), uvs ``uv`` (T, 3, 2), normals ``n`` (T, 3, 3)
+    and materials ``tm`` (T,). Returns the ``TorchScene`` fields as numpy
+    arrays: the soup in BVH order (``tri_*``), the BVH over it (``bvh_*``,
+    leaves of at most 4) and, where there are triangles, its clusters
+    (``top_*``, ``cl_*``) under the caps. ``seconds``, if given, receives
+    the host seconds of ``bvh`` and of ``clusters``."""
+    t0 = time.perf_counter()
+    bvh, order = build_bvh(p, leaf_size=4)
+    t1 = time.perf_counter()
+    p, uv, n, tm = p[order], uv[order], n[order], tm[order]
+    clusters = {}
+    if len(p):
+        clusters = build_clusters(bvh, p[:, 0], p[:, 1], p[:, 2],
+                                  node_cap=node_cap,
+                                  tri_cap=tri_cap)._asdict()
+    if seconds is not None:
+        seconds.update(bvh=t1 - t0, clusters=time.perf_counter() - t1)
+    return dict(tri_p0=p[:, 0], tri_p1=p[:, 1], tri_p2=p[:, 2], tri_uv=uv,
+                tri_n=n, tri_mat=tm, bvh_lo=bvh.lo, bvh_hi=bvh.hi,
+                bvh_skip=bvh.skip, bvh_first=bvh.first, bvh_count=bvh.count,
+                **clusters)
+
+
 @dataclass
 class SceneBuilder:
     """Accumulates primitives/materials/textures, then :meth:`build`
-    packs them into a :class:`TorchScene`. The cluster caps of the
-    two-level BVH are the JAX builder's (``srt_tpu/scene/build.py:47-48``).
+    packs them into a :class:`TorchScene`; its triangles' tables come
+    from :func:`triangle_tables`, with the cluster caps of the two-level
+    BVH, the JAX package's (``srt_tpu/scene/build.py:47-48``).
     A scene with at least ``sphere_bvh_min`` spheres that are not
     environment domes also gets a sphere BVH (:func:`sphere_bvh`, JAX's
     threshold of 64). ``seconds`` holds the last build's host seconds a
@@ -63,8 +98,8 @@ class SceneBuilder:
     """
 
     sphere_bvh_min: int = 64
-    cluster_node_cap: int = 2048
-    cluster_tri_cap: int = 4096
+    cluster_node_cap: int = CLUSTER_NODE_CAP
+    cluster_tri_cap: int = CLUSTER_TRI_CAP
     seconds: dict = field(default_factory=dict, init=False)
     _tex_type: list = field(default_factory=list)
     _tex_color: list = field(default_factory=list)
@@ -300,25 +335,18 @@ class SceneBuilder:
             return np.zeros((0,) + shape_tail, dtype)
 
         s_c0 = arr([s[0] for s in self._sph], f32, (3,))
-        # triangles in BVH order
         if self._tris:
             p, uv, n, tm = (np.concatenate([t[k] for t in self._tris])
                             for k in range(4))
         else:
             p, uv, n = (np.zeros((0, 3, k), f32) for k in (3, 2, 3))
             tm = np.zeros((0,), i32)
+        seconds: dict = {}
+        tris = triangle_tables(p, uv, n, tm, node_cap=self.cluster_node_cap,
+                               tri_cap=self.cluster_tri_cap, seconds=seconds)
         t0 = time.perf_counter()
-        bvh, order = build_bvh(p, leaf_size=4)
         sbvh = sphere_bvh(self._sph, self.sphere_bvh_min)
-        t1 = time.perf_counter()
-        p, uv, n, tm = p[order], uv[order], n[order], tm[order]
-        clusters = {}
-        if len(p):
-            cl = build_clusters(bvh, p[:, 0], p[:, 1], p[:, 2],
-                                node_cap=self.cluster_node_cap,
-                                tri_cap=self.cluster_tri_cap)
-            clusters = cl._asdict()
-        t2 = time.perf_counter()
+        seconds["bvh"] += time.perf_counter() - t0
         atlas = (np.concatenate(self._atlas) if self._atlas
                  else np.zeros((0,), f32))
         # Packed rgb8 twin: exact iff every value is a u8/255 multiple.
@@ -355,10 +383,7 @@ class SceneBuilder:
             rect_k=arr([r[2] for r in self._rect], f32, ()),
             rect_mat=arr([r[3] for r in self._rect], i32, ()),
             rect_flip=arr([r[4] for r in self._rect], bool, ()),
-            tri_p0=p[:, 0], tri_p1=p[:, 1], tri_p2=p[:, 2], tri_uv=uv,
-            tri_n=n, tri_mat=tm, bvh_lo=bvh.lo, bvh_hi=bvh.hi,
-            bvh_skip=bvh.skip, bvh_first=bvh.first, bvh_count=bvh.count,
-            med_kind=arr([m[0] for m in self._med], i32, ()),
+            **tris, med_kind=arr([m[0] for m in self._med], i32, ()),
             med_center=arr([m[1] for m in self._med], f32, (3,)),
             med_radius=arr([m[2] for m in self._med], f32, ()),
             med_half=arr([m[3] for m in self._med], f32, (3,)),
@@ -377,7 +402,7 @@ class SceneBuilder:
                   else np.zeros((0, 3, 1), f32)),
             light_kind=arr([int(li[0]) for li in self._lights], i32, ()),
             light_index=arr([li[1] for li in self._lights], i32, ()),
-            atlas_u32=atlas_u32, **clusters, **med_tris, **sbvh)
+            atlas_u32=atlas_u32, **med_tris, **sbvh)
         t3 = time.perf_counter()
         scene = TorchScene(**{
             k: None if v is None else
@@ -385,8 +410,7 @@ class SceneBuilder:
             for k, v in tables.items()})
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)
-        self.seconds = dict(bvh=t1 - t0, clusters=t2 - t1,
-                            upload=time.perf_counter() - t3)
+        self.seconds = dict(seconds, upload=time.perf_counter() - t3)
         return scene
 
 

@@ -8,17 +8,19 @@ every span of one call shares its id), whether it is a *read* (the host
 waits for the card in it: a ``.tolist()``, an ``int()``, a synchronise)
 and its attributes. A launch span (``B1`` ... ``B6``, ``film_sum``,
 ``segment_sum``) carries ``lanes``, the launch's lane count; a B2 or B5
-launch also ``live``, the lanes live on entry (those B5 sweeps), which
-the kernel counts into a slot of a device array this module owns (zeroed
-once a call) and which is read only when the records are
-(:func:`records`).
+launch also ``live``, the lanes live on entry (those B5 sweeps), and a
+B4 launch on the card ``nodes`` and ``tests``, the top and cluster
+records its rays visited and the triangles they tested: each a count the
+kernel adds into a slot of a device array this module owns (zeroed once
+a call), read only when the records are (:func:`records`).
 
 Whether a call records is decided once, at its entry span
 (:func:`entry`): while the profiler's own is-enabled query says a
 profiler runs. Its spans read one module flag, :data:`ON`; when it is
-off a span is that check, B2 and B5 pass a null counter and nothing
-is allocated, recorded or read. Spans are not mirrored into the profiler
-(``record_function``), whose ranges would show on the card's timeline.
+off a span is that check, B2, B4 and B5 pass null counters and
+nothing is allocated, recorded or read. Spans are not mirrored into the
+profiler (``record_function``), whose ranges would show on the card's
+timeline.
 
 The records live in memory, at most :data:`MAX_RECORDS`; past them a
 record is dropped and counted (:func:`dropped`). :func:`write_chrome`
@@ -166,10 +168,11 @@ def phase(name: str, device):
     return _phase(name, torch.device(device))
 
 
-def launch(name: str, t0: int, lanes: int, live=None) -> None:
+def launch(name: str, t0: int, lanes: int, live=None, **counts) -> None:
     """Record a launch span that began at ``t0`` and ends now, with its
-    lane count and, for B2 and B5, its live lanes (a slot of
-    :func:`live_slot` or a tensor). Called where :data:`ON` is set."""
+    lane count and, for B2 and B5, its live lanes, and any other of its
+    ``counts`` (B4's ``nodes`` and ``tests``), each a slot of
+    :func:`live_slot` or a tensor. Called where :data:`ON` is set."""
     global _dropped
     if len(_records) >= MAX_RECORDS:
         _dropped += 1
@@ -177,16 +180,18 @@ def launch(name: str, t0: int, lanes: int, live=None) -> None:
     attrs = {"lanes": lanes}
     if live is not None:
         attrs["live"] = live
+    attrs.update(counts)
     parent = _stack[-1] if _stack else -1
     _records.append([name, t0, now(), parent if parent >= 0 else None,
                      _calls, False, attrs])
 
 
 def live_slot(device) -> tuple[int, _Slot]:
-    """A zeroed int64 slot on ``device`` for one launch's live-lane
-    count: its address, for the kernel, and its handle, for the launch
-    span. The running call zeroes one array of :data:`SLOTS` slots, when
-    it first asks, and another each time it has used them all."""
+    """A zeroed int64 slot on ``device`` for one of a launch's counts
+    (its live lanes, B4's records visited or triangles tested): its
+    address, for the kernel, and its handle, for the launch span. The
+    running call zeroes one array of :data:`SLOTS` slots, when it first
+    asks, and another each time it has used them all."""
     global _slots
     device = torch.device(device)
     if _slots is None or _slots[1] == SLOTS or _slots[0].device != device:
